@@ -2,9 +2,12 @@
 
 The same renderer as ``rtow_tpu`` (its JAX/Pallas counterpart, kept as
 the reference), written in PyTorch for one NVIDIA Hopper GPU: scenes
-and cameras are dataclasses of tensors, plain functions take an
-explicit ``device``, and the persistent megakernel is hand-written
-CUDA (``csrc/megakernel.cu``) with a plain PyTorch version beside it.
+and cameras are dataclasses of tensors on the card unless the caller
+asks for the CPU, and every kernel is hand-written CUDA with a plain
+PyTorch version beside it: the persistent render megakernel
+(``csrc/megakernel.cu``, ops/megakernel.py) and the gradient path's
+forward and backward bounces (``csrc/grad_fwd.cu``, ``csrc/grad_bwd.cu``,
+ops/grad.py, driven by diff.py's train step).
 
 This package never imports ``jax`` or ``rtow_tpu``; only the tests
 import both.

@@ -49,17 +49,8 @@ class Config:
         return int(self.image_width / self.aspect_ratio)
 
     def torch_device(self):
-        """``device`` as a ``torch.device``; raises when CUDA is asked
-        for and this process has no usable card (never falls back)."""
-        import torch
-
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {self.device!r} requested but "
-                "torch.cuda.is_available() is False; pass --device cpu "
-                "to render with the plain PyTorch version")
-        return dev
+        """``device`` as a ``torch.device`` (see :func:`resolve_device`)."""
+        return resolve_device(self.device)
 
     def __str__(self) -> str:  # --dry-run output, reference render.cpp:193
         return (
@@ -75,3 +66,17 @@ class Config:
             f"backend: {self.backend}\n"
             "}\n"
         )
+
+
+def resolve_device(device):
+    """``device`` as a ``torch.device``; raises when CUDA is asked for and
+    this process has no usable card (never falls back to the CPU)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but "
+            "torch.cuda.is_available() is False; pass --device cpu "
+            "(or device=\"cpu\") to run the plain PyTorch version")
+    return dev

@@ -12,14 +12,17 @@ from typing import Tuple
 
 import numpy as np
 
-from ..config import Config
+from ..config import Config, resolve_device
 from ..utils.dtypes import REAL
 from .camera import Camera, make_camera
 from .scene import Scene, SceneBuilder
 
 
-def cover_scene(cfg: Config, dtype=REAL, device="cpu") -> Tuple[Scene, Camera]:
-    """The book-cover ball field (reference src/main.cpp:23-83)."""
+def cover_scene(cfg: Config, dtype=REAL,
+                device=None) -> Tuple[Scene, Camera]:
+    """The book-cover ball field (reference src/main.cpp:23-83), on
+    ``device`` or, when it is None, on ``cfg.device``."""
+    device = cfg.torch_device() if device is None else resolve_device(device)
     if cfg.checker_ground:
         raise NotImplementedError(
             "--checker needs the checker texture in the megakernel "
@@ -78,7 +81,7 @@ def cover_scene(cfg: Config, dtype=REAL, device="cpu") -> Tuple[Scene, Camera]:
 
 
 def one_sphere_scene(aspect_ratio: float = 16.0 / 9.0, dtype=REAL,
-                     device="cpu") -> Tuple[Scene, Camera]:
+                     device="cuda") -> Tuple[Scene, Camera]:
     """BASELINE config (a): one Lambertian sphere + ground."""
     cam = make_camera(
         lookfrom=(0.0, 0.0, 0.0),
@@ -99,7 +102,7 @@ def one_sphere_scene(aspect_ratio: float = 16.0 / 9.0, dtype=REAL,
 
 
 def three_sphere_scene(aspect_ratio: float = 16.0 / 9.0, dtype=REAL,
-                       device="cpu") -> Tuple[Scene, Camera]:
+                       device="cuda") -> Tuple[Scene, Camera]:
     """BASELINE config (b): lambertian/metal/dielectric trio with a
     defocus-blur camera."""
     cam = make_camera(
@@ -149,4 +152,4 @@ def scene_for_config(cfg: Config, dtype=REAL) -> Tuple[Scene, Camera]:
     for field, flag, needs in _NOT_PORTED:
         if getattr(cfg, field):
             raise NotImplementedError(f"{flag} needs {needs}")
-    return cover_scene(cfg, dtype, device=cfg.torch_device())
+    return cover_scene(cfg, dtype)

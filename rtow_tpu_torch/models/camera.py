@@ -5,19 +5,30 @@ Same optical model as the reference Camera (reference
 src/common-model.cpp:136-167): look-from/look-at/up basis, vertical
 field of view in degrees, focus plane spanned by ``horizontal`` /
 ``vertical``, aperture jitter in the lens disk, and a ray time in the
-shutter interval [t0, t1].  Camera rays themselves are generated inside
-the megakernel (ops/megakernel.py).
+shutter interval [t0, t1].  The megakernel generates its camera rays
+itself (ops/megakernel.py); :func:`camera_rays` and :func:`pixel_coords`
+build them on the host side for the gradient path (ops/grad.py), from a
+``torch.Generator`` in place of a JAX key.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Optional
+from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..config import resolve_device
+from ..utils import rng
 from ..utils.dtypes import REAL
+
+
+class Rays(NamedTuple):
+    origin: torch.Tensor  # (L, 3)
+    direction: torch.Tensor  # (L, 3), not normalised (the reference's)
+    time: torch.Tensor  # (L,)
+
 
 _FIELDS = ("origin", "u", "v", "w", "horizontal", "vertical", "lower_left",
            "lens_radius", "t0", "t1")
@@ -59,10 +70,11 @@ def make_camera(
     t0: float = 0.0,
     t1: float = 0.0,
     dtype=REAL,
-    device="cpu",
+    device="cuda",
 ) -> Camera:
     """Construct the camera basis (reference src/common-model.cpp:136-154)
-    in numpy float64, cast once to ``dtype``.
+    in numpy float64, cast once to ``dtype``, on ``device`` (raises where
+    CUDA is asked for and there is no card).
 
     ``focus_dist=None`` defaults to the look distance, as in the
     reference."""
@@ -85,6 +97,7 @@ def make_camera(
     horizontal = fd * viewport_width * u
     vertical = fd * viewport_height * v
     lower_left = lookfrom - horizontal / 2.0 - vertical / 2.0 - fd * w
+    device = resolve_device(device)
 
     def real(x):
         return torch.as_tensor(np.asarray(x, np.float64)).to(device=device,
@@ -102,3 +115,37 @@ def make_camera(
         t0=real(t0),
         t1=real(t1),
     )
+
+
+def camera_rays(cam: Camera, gen: torch.Generator, s: torch.Tensor,
+                t: torch.Tensor) -> Rays:
+    """Vectorised ``Camera::get_ray`` (reference src/common-model.cpp:
+    156-167; ``rtow_tpu.models.camera.camera_rays``, :102).
+
+    ``s`` / ``t`` are (L,) viewport coordinates in [0, 1]; each ray gets
+    its own lens-disk offset and shutter time from ``gen``, which lives
+    on the camera's device."""
+    dtype = cam.origin.dtype
+    rd = cam.lens_radius * rng.in_unit_disk(gen, s.shape, dtype=dtype)
+    offset = rd[..., 0:1] * cam.u + rd[..., 1:2] * cam.v
+    origin = cam.origin + offset
+    direction = (cam.lower_left + s[..., None] * cam.horizontal
+                 + t[..., None] * cam.vertical - origin)
+    time = (rng.uniform(gen, s.shape, dtype=dtype) * (cam.t1 - cam.t0)
+            + cam.t0)
+    return Rays(origin=origin, direction=direction, time=time)
+
+
+def pixel_coords(image_width: int, image_height: int, gen: torch.Generator,
+                 pixel_ids: torch.Tensor, dtype=REAL):
+    """Jittered viewport (s, t) of flat pixel ids (row-major, row 0 at the
+    top), the reference's ``u=(j+rand)/(W-1)``, ``v=(from_top+rand)/(H-1)``
+    (src/render.cpp:157-159; ``rtow_tpu.models.camera.pixel_coords``,
+    :127)."""
+    row = pixel_ids // image_width
+    col = pixel_ids % image_width
+    ju = rng.uniform(gen, pixel_ids.shape, dtype=dtype)
+    jv = rng.uniform(gen, pixel_ids.shape, dtype=dtype)
+    s = (col.to(dtype) + ju) / (image_width - 1)
+    t = ((image_height - 1 - row).to(dtype) + jv) / (image_height - 1)
+    return s, t

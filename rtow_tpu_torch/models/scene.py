@@ -14,12 +14,16 @@ package's shape, and is always empty here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Union
+from typing import Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from ..utils.dtypes import INDEX, REAL
+
+#: The scene's parts, in the JAX scene's leaf order.
+_PARTS = ("spheres", "triangles", "materials")
 
 # Material kinds — the codes of rtow_tpu.models.scene (:36-57).  The
 # slice shades these three; codes above DIELECTRIC (emission and the
@@ -63,6 +67,33 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.spheres.radius.device
+
+    def leaves(self) -> Dict[str, Optional[torch.Tensor]]:
+        """Every leaf under its dotted key (``"spheres.center0"``, ...,
+        ``"materials.albedo2"``), the JAX scene's leaf paths."""
+        return {f"{part}.{f.name}": getattr(getattr(self, part), f.name)
+                for part in _PARTS
+                for f in dataclasses.fields(getattr(self, part))}
+
+    def replace_leaves(self, new: Mapping[str, Optional[torch.Tensor]]
+                       ) -> "Scene":
+        """A copy with the leaves under the given dotted keys replaced."""
+        parts = {}
+        for part in _PARTS:
+            obj = getattr(self, part)
+            kw = {f.name: new[f"{part}.{f.name}"]
+                  for f in dataclasses.fields(obj)
+                  if f"{part}.{f.name}" in new}
+            parts[part] = dataclasses.replace(obj, **kw)
+        return dataclasses.replace(self, **parts)
+
+    def to_numpy(self) -> Dict[str, np.ndarray]:
+        """The inverse of :meth:`from_numpy`: every leaf as a numpy array
+        under its dotted key.  Leaves that are None (the integer leaves of
+        a gradient scene, see ``ops/grad.loss_and_grad_kernel``) are left
+        out."""
+        return {k: v.detach().cpu().numpy()
+                for k, v in self.leaves().items() if v is not None}
 
     @classmethod
     def from_numpy(cls, arrays: Mapping[str, np.ndarray], device,
@@ -153,9 +184,10 @@ class SceneBuilder:
                           float(radius), material))
 
     # -- freeze --------------------------------------------------------------
-    def build(self, dtype=REAL, background="sky", device="cpu") -> Scene:
+    def build(self, dtype=REAL, background="sky", device="cuda") -> Scene:
         """``background``: "sky" (reference gradient) or an (r, g, b)
-        tuple."""
+        tuple.  Raises where CUDA is asked for and there is no card."""
+        device = resolve_device(device)
         if not self._mat_kind:
             raise ValueError("scene has no materials")
         if not self._sph:

@@ -3,8 +3,9 @@ shared libraries with a plain C interface, and loads them with ctypes.
 
 A library is built at first use into ``rtow_tpu_torch/_build/`` (listed
 in ``.gitignore``), from the repository's sources only.  Its file name
-carries a hash of the source and the flags, so an edited source is never
-served by a stale build.  Nothing here runs at import time.
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source is never served by a stale build.  Nothing
+here runs at import time.
 """
 from __future__ import annotations
 
@@ -51,30 +52,82 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin")
 
 
-@functools.lru_cache(maxsize=None)
+_BUILT: dict = {}
+
+
+def _target(name: str) -> Path:
+    """The library path of ``csrc/<name>.cu``: named by a hash of the
+    source, every header of ``csrc/`` and the flags."""
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> dict:
+    """Compile ``csrc/<name>.cu`` for every name that has no build of the
+    same sources and flags yet, one nvcc process per source, all started
+    together.  Returns {name: Build}."""
+    started = {}
+    for name in names:
+        if name in _BUILT:
+            continue
+        out = _target(name)
+        if out.exists():
+            _BUILT[name] = Build(out, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        src = CSRC / f"{name}.cu"
+        proc = subprocess.Popen(
+            [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        started[name] = (src, out, tmp, proc, time.perf_counter())
+    failed = []
+    for name, (src, out, tmp, proc, t0) in started.items():
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode:
+            failed.append(f"nvcc failed on {src} (exit {proc.returncode}):\n"
+                          f"{stdout}{stderr}")
+            continue
+        os.replace(tmp, out)
+        _BUILT[name] = Build(out, seconds, stderr)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: _BUILT[name] for name in names}
+
+
 def build(name: str) -> Build:
-    """Compile ``csrc/<name>.cu`` unless a build of the same source and
+    """Compile ``csrc/<name>.cu`` unless a build of the same sources and
     flags exists."""
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
-    if out.exists():
-        return Build(out, 0.0, "")
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    if proc.returncode:
-        raise RuntimeError(
-            f"nvcc failed on {src} (exit {proc.returncode}):\n"
-            f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return Build(out, seconds, proc.stderr)
+    return build_all([name])[name]
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The shared library of ``csrc/<name>.cu``, built if needed."""
-    return ctypes.CDLL(str(build(name).path))
+    """The shared library of ``csrc/<name>.cu``, built if needed, with its
+    ``rtow_cuda_error_string`` declared."""
+    lib = ctypes.CDLL(str(build(name).path))
+    lib.rtow_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.rtow_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def device_args(t) -> tuple:
+    """(device index, current stream handle) of a CUDA tensor: the last
+    two arguments of every launcher."""
+    import torch
+
+    index = (t.device.index if t.device.index is not None
+             else torch.cuda.current_device())
+    return index, torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(lib: ctypes.CDLL, err: int, kernel: str) -> None:
+    """Raise if a launcher of ``lib`` returned a CUDA error."""
+    if err:
+        raise RuntimeError(
+            f"{kernel} launch failed: CUDA error {err} "
+            f"({lib.rtow_cuda_error_string(err).decode()})")

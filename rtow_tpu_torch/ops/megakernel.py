@@ -24,15 +24,23 @@ and a per-lane loop replays the JAX kernel's stream exactly.
 The sphere table keeps the JAX package's Morton order, so the nearest
 hit resolves ties the same way: the winner is the first minimal ``t`` in
 table order.
+
+The plain bounce is shared with the gradient path's plain versions
+(``ops/grad.py``), as ``csrc/bounce.cuh`` is shared by the kernels:
+:func:`lane_hash`, :func:`step_salt`, :func:`draw_scatter`,
+:func:`nearest_sphere`, :func:`winner_rows`, :func:`shade` and
+:func:`background_args`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
+
+from . import _cuda
 
 TILE_ROWS = 8
 LANES = 128
@@ -43,7 +51,7 @@ SPHERE_BLOCK = 128
 # Sphere-table columns.
 (_C0X, _C0Y, _C0Z, _DCX, _DCY, _DCZ, _R, _ALR, _ALG, _ALB, _FUZZ, _IR,
  _KIND) = range(13)
-_TBL_COLS = 16
+TBL_COLS = 16
 
 # float32-exact constants (the JAX kernel's np.float32 values).
 _INV24 = 1.0 / (1 << 24)
@@ -106,8 +114,15 @@ def draw_scatter(lane, salt):
             uniform(lane, salt, 7))
 
 
-def _salt(seed: int, it: int) -> int:
+def step_salt(seed: int, it: int) -> int:
+    """The salt of step ``it``: K1's per-lane step count, the gradient
+    bounce's scan step."""
     return mix((seed + it * _SALT_STRIDE) & _M32)
+
+
+def lane_hash(lane_id):
+    """A lane's hashed id from its integer id (``_lane_u32``)."""
+    return mix(_mul32(lane_id & _M32, _GOLDEN))
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +162,7 @@ def build_sphere_table(scene) -> Tuple[torch.Tensor, torch.Tensor]:
         mats.fuzz[mid], mats.ir[mid], mats.kind[mid].to(_F32),
         mats.albedo2[mid, 0], mats.albedo2[mid, 1], mats.albedo2[mid, 2],
     ], dim=1).to(_F32)
-    pad = torch.zeros((npad - n, _TBL_COLS), dtype=_F32, device=dev)
+    pad = torch.zeros((npad - n, TBL_COLS), dtype=_F32, device=dev)
     pad[:, _C0X] = 1.0e9
     tbl = torch.cat([tbl, pad])
 
@@ -223,7 +238,7 @@ def n_tiles_for(width: int, height: int) -> int:
     return -(-width // LANES) * -(-height // TILE_ROWS)
 
 
-def _background(background) -> Tuple[bool, Tuple[float, float, float]]:
+def background_args(background) -> Tuple[bool, Tuple[float, float, float]]:
     if background == "sky":
         return True, (0.0, 0.0, 0.0)
     r, g, b = (float(np.float32(x)) for x in background)
@@ -241,6 +256,7 @@ def render_blocks_reference(
     n_tiles: int,
     *,
     background: Union[str, tuple] = "sky",
+    steps: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the megakernel, on ``tbl``'s device.
 
@@ -268,17 +284,20 @@ def render_blocks_reference(
     chunk = 1 << 20 if dev.type == "cuda" else 1 << 16
     for start in range(0, lanes.numel(), chunk):
         idx = lanes[start:start + chunk]
-        out[:, idx] = _trace_lanes(
+        out[:, idx], n = _trace_lanes(
             tbl, cam_f, pix[idx], prow[idx], pcol[idx], seed=seed,
             width=width, height=height, spp=spp, max_depth=max_depth,
             background=background)
+        if steps is not None:
+            steps += n
     planes = out.view(3, n_tiles * TILE_ROWS, LANES)
     return planes[0], planes[1], planes[2]
 
 
 def _trace_lanes(tbl, cam, pix, prow, pcol, *, seed, width, height, spp,
                  max_depth, background):
-    """Radiance sums (3, L) of lanes ``pix`` after ``spp`` samples."""
+    """(radiance sums (3, L) of lanes ``pix`` after ``spp`` samples, ray
+    steps taken)."""
     (cox, coy, coz, cux, cuy, cuz, cvx, cvy, cvz, llx, lly, llz,
      chx, chy, chz, cwx, cwy, cwz, lens_r, t0, dt) = cam
     dev = tbl.device
@@ -286,12 +305,11 @@ def _trace_lanes(tbl, cam, pix, prow, pcol, *, seed, width, height, spp,
     out = torch.zeros((3, n), dtype=_F32, device=dev)
     inv_w = float(np.float32(1.0) / np.float32(width - 1))
     inv_h = float(np.float32(1.0) / np.float32(height - 1))
-    use_sky, bg = _background(background)
 
     # Lane state, compacted to the unfinished lanes after every step;
     # ``idx`` maps it back to the lane's slot in ``out``.
     idx = torch.arange(n, device=dev)
-    lane = mix(_mul32(pix, _GOLDEN))
+    lane = lane_hash(pix)
     fcol = pcol.to(_F32)
     frow = (height - 1 - prow).to(_F32)
     zeros = torch.zeros(n, dtype=_F32, device=dev)
@@ -301,9 +319,9 @@ def _trace_lanes(tbl, cam, pix, prow, pcol, *, seed, width, height, spp,
     bounce = torch.zeros(n, dtype=torch.int32, device=dev)
     started = torch.zeros(n, dtype=torch.int32, device=dev)
 
-    it = 0
+    it = steps = 0
     while idx.numel():
-        salt = _salt(seed, it)
+        salt = step_salt(seed, it)
         # ---- regeneration: idle lanes (all have samples left) -------
         need = ~alive
         s = (fcol + uniform(lane, salt, 0)) * inv_w
@@ -329,11 +347,16 @@ def _trace_lanes(tbl, cam, pix, prow, pcol, *, seed, width, height, spp,
         started = started + need.to(torch.int32)
 
         # ---- one bounce for every lane (all are alive now) ----------
-        (ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, rr, rg, rb, alive,
-         bounce) = _bounce(tbl, ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb,
-                           rr, rg, rb, bounce, lane, salt, max_depth,
-                           use_sky, bg)
+        a = dx * dx + dy * dy + dz * dz
+        best_t, best_k = nearest_sphere(tbl, ox, oy, oz, dx, dy, dz, tm, a,
+                                         1.0 / a)
+        state, alive, bounce = shade(
+            (ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb, rr, rg, rb),
+            winner_rows(tbl, best_t, best_k), draw_scatter(lane, salt),
+            best_t, torch.ones_like(need), bounce, max_depth, background)
+        (ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb, rr, rg, rb) = state
         it += 1
+        steps += idx.numel()
 
         done = ~alive & (started == spp)
         if bool(done.any()):
@@ -345,10 +368,10 @@ def _trace_lanes(tbl, cam, pix, prow, pcol, *, seed, width, height, spp,
             tpr, tpg, tpb, rr, rg, rb = (
                 v[keep] for v in (tpr, tpg, tpb, rr, rg, rb))
             alive, bounce, started = alive[keep], bounce[keep], started[keep]
-    return out
+    return out, steps
 
 
-def _nearest_sphere(tbl, ox, oy, oz, dx, dy, dz, tm, a, inv_a):
+def nearest_sphere(tbl, ox, oy, oz, dx, dy, dz, tm, a, inv_a):
     """(best_t, best_k) over the whole table, block by block, with the
     JAX kernel's tie rule (``_sphere_block_sweep``, :558-588): inside a
     block the first minimal t wins, across blocks only a strictly
@@ -384,18 +407,36 @@ def _nearest_sphere(tbl, ox, oy, oz, dx, dy, dz, tm, a, inv_a):
     return best_t, best_k
 
 
-def _bounce(tbl, ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb, rr, rg, rb,
-            bounce, lane, salt, max_depth, use_sky, bg):
-    """One intersect-and-shade step of live lanes (``_bounce_core`` with
-    ``_hit_basics`` and ``_shade_pure``, :891-1222, sphere subset)."""
+def winner_rows(tbl, best_t, best_k) -> torch.Tensor:
+    """(L, 13) table rows of the sweep's winners, 0 where nothing was hit
+    (the JAX sweep's winner fetch)."""
+    return torch.where((best_t < BIG)[:, None], tbl[best_k, :13], 0.0)
+
+
+def shade(state, w, draws, best_t, alive, bounce, max_depth, background):
+    """The differentiable half of a bounce (``_hit_basics`` +
+    ``_shade_pure``, :891-1222, sphere subset): winner rows -> new state.
+
+    ``state`` is the 13-tuple (ox oy oz dx dy dz tm tpr tpg tpb rr rg rb),
+    ``w`` the (L, 13) winner rows from :func:`winner_rows`, ``draws``
+    from :func:`draw_scatter`, ``best_t`` the sweep's t, ``alive`` a bool
+    mask and ``bounce`` the int32 bounce counts.  Returns (new 13-tuple
+    with ``tm`` passed through, ``can``, new ``bounce``).  Dead lanes pass
+    through; a live miss adds throughput * background and retires; a live
+    hit at ``max_depth`` retires; every other live hit scatters.
+
+    The intersection t is re-derived from the winner's parameters, so
+    autograd through this function gives the exact geometry gradient.
+    Every branch that is computed and then not selected is guarded
+    ("safe where"), so it puts no NaN into the gradient."""
+    (ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb, rr, rg, rb) = state
+    (c0x, c0y, c0z, dcx, dcy, dcz, r_, alr, alg, alb, fuzz, ir,
+     kind) = w.unbind(1)
+    uvx, uvy, uvz, choice = draws
+    use_sky, bg = background_args(background)
+    hit = best_t < BIG
     a = dx * dx + dy * dy + dz * dz
     inv_a = 1.0 / a
-    best_t, best_k = _nearest_sphere(tbl, ox, oy, oz, dx, dy, dz, tm, a,
-                                     inv_a)
-    hit = best_t < BIG
-    w = torch.where(hit[:, None], tbl[best_k], 0.0)
-    (c0x, c0y, c0z, dcx, dcy, dcz, r_, alr, alg, alb, fuzz, ir,
-     kind) = w[:, :13].unbind(1)
 
     # ---- hit record: t re-derived from the winner's parameters ------
     ocx = ox - (c0x + tm * dcx)
@@ -420,8 +461,6 @@ def _bounce(tbl, ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb, rr, rg, rb,
     flip = torch.where(front, 1.0, -1.0)
     nx, ny, nz = nx * flip, ny * flip, nz * flip
 
-    uvx, uvy, uvz, choice = draw_scatter(lane, salt)
-
     # Lambertian: n + unit (degenerate -> n).
     lamx, lamy, lamz = nx + uvx, ny + uvy, nz + uvz
     degen = lamx * lamx + lamy * lamy + lamz * lamz < _EPS12
@@ -435,7 +474,9 @@ def _bounce(tbl, ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb, rr, rg, rb,
     mry = dy - ddn2 * ny + fuzz * uvy
     mrz = dz - ddn2 * nz + fuzz * uvz
 
-    # Dielectric: Schlick + total internal reflection, + fuzz.
+    # Dielectric: Schlick + total internal reflection, + fuzz.  sin_t
+    # only feeds the TIR test; its epsilon floor keeps sqrt'(0) out of
+    # the gradient at normal incidence (pallas_megakernel.py:1056-1059).
     inv_dlen = 1.0 / torch.sqrt(a)
     udx, udy, udz = dx * inv_dlen, dy * inv_dlen, dz * inv_dlen
     cos_t = torch.minimum(-(udx * nx + udy * ny + udz * nz),
@@ -471,8 +512,8 @@ def _bounce(tbl, ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb, rr, rg, rb,
     atg = torch.where(is_diel, 1.0, alg)
     atb = torch.where(is_diel, 1.0, alb)
 
-    # ---- background for lanes that missed ---------------------------
-    missed = ~hit
+    # ---- background for live lanes that missed ----------------------
+    missed = alive & ~hit
     if use_sky:  # the reference's sky gradient
         sky_t = 0.5 * (dy * (1.0 / torch.sqrt(a)) + 1.0)
         skyr = 1.0 - sky_t + sky_t * 0.5
@@ -485,7 +526,7 @@ def _bounce(tbl, ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb, rr, rg, rb,
     rb = rb + torch.where(missed, tpb * skyb, 0.0)
 
     # ---- advance (depth is checked after the hit) -------------------
-    can = hit & (bounce < max_depth)
+    can = alive & hit & (bounce < max_depth)
     ox = torch.where(can, px, ox)
     oy = torch.where(can, py, oy)
     oz = torch.where(can, pz, oz)
@@ -496,11 +537,35 @@ def _bounce(tbl, ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb, rr, rg, rb,
     tpg = torch.where(can, tpg * atg, tpg)
     tpb = torch.where(can, tpb * atb, tpb)
     bounce = bounce + can.to(torch.int32)
-    return ox, oy, oz, dx, dy, dz, tpr, tpg, tpb, rr, rg, rb, can, bounce
+    return ((ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb, rr, rg, rb), can,
+            bounce)
 
 
 # ---------------------------------------------------------------------------
 # The wrapper.
+
+
+def check_table(tbl: torch.Tensor, kernel: str, copies: int = 1) -> None:
+    """Raise unless ``tbl`` is a table the kernel ``kernel`` takes: a
+    contiguous (k*128, 16) float32 tensor on the CPU (the plain version)
+    or on a CUDA device, where ``copies`` times its bytes must fit in a
+    block's shared memory and it must be 16-byte aligned."""
+    if tbl.dtype != _F32 or tbl.dim() != 2 or tbl.shape[1] != TBL_COLS \
+            or tbl.shape[0] % SPHERE_BLOCK or not tbl.is_contiguous():
+        raise ValueError(
+            f"sphere table must be a contiguous (k*{SPHERE_BLOCK}, "
+            f"{TBL_COLS}) float32 tensor, got {tuple(tbl.shape)} {tbl.dtype}")
+    if tbl.device.type == "cpu":
+        return
+    if tbl.device.type != "cuda":
+        raise ValueError(f"no {kernel} for device {tbl.device}")
+    nbytes = copies * tbl.numel() * 4
+    if nbytes > MAX_TABLE_BYTES:
+        raise ValueError(
+            f"{tbl.shape[0]} table rows ({nbytes} bytes) exceed the "
+            f"{kernel}'s shared-memory table ({MAX_TABLE_BYTES} bytes)")
+    if tbl.data_ptr() % 16:
+        raise ValueError("sphere table must be 16-byte aligned")
 
 
 def render_blocks(
@@ -510,6 +575,7 @@ def render_blocks(
     n_tiles: int,
     *,
     background: Union[str, tuple] = "sky",
+    steps: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Radiance sums of tiles ``tile0 .. tile0 + n_tiles - 1`` as three
     (n_tiles * 8, 128) float32 planes (``render_blocks_pallas``, :2004).
@@ -519,47 +585,36 @@ def render_blocks(
     scalars from :func:`pack_meta`.  A CUDA ``tbl`` launches the CUDA
     kernel (and counts the launch in ``render_blocks.launches``); a CPU
     ``tbl`` runs :func:`render_blocks_reference`; any other device
-    raises."""
-    if tbl.dtype != _F32 or tbl.dim() != 2 or tbl.shape[1] != _TBL_COLS \
-            or tbl.shape[0] % SPHERE_BLOCK or not tbl.is_contiguous():
-        raise ValueError(
-            f"sphere table must be a contiguous (k*{SPHERE_BLOCK}, "
-            f"{_TBL_COLS}) float32 tensor, got {tuple(tbl.shape)} {tbl.dtype}")
+    raises.  ``steps``, a (1,) int64 tensor on ``tbl``'s device, gets
+    the ray steps (bounces) of the render added to it (a stats
+    counter)."""
+    check_table(tbl, "megakernel")
     if cam.dtype != _F32 or tuple(cam.shape) != (21,) \
             or not cam.is_contiguous() or cam.device != tbl.device:
         raise ValueError("camera must be a contiguous (21,) float32 tensor "
                          "on the table's device")
     if len(meta) != 7 or n_tiles < 1:
         raise ValueError(f"bad meta {meta} / n_tiles {n_tiles}")
+    if steps is not None and (steps.dtype != torch.int64
+                              or tuple(steps.shape) != (1,)
+                              or steps.device != tbl.device):
+        raise ValueError("steps must be a (1,) int64 tensor on the table's "
+                         "device")
     if tbl.device.type == "cpu":
         return render_blocks_reference(tbl, cam, meta, n_tiles,
-                                       background=background)
-    if tbl.device.type != "cuda":
-        raise ValueError(f"no megakernel for device {tbl.device}")
-    nbytes = tbl.numel() * 4
-    if nbytes > MAX_TABLE_BYTES:
-        raise ValueError(
-            f"{tbl.shape[0]} table rows ({nbytes} bytes) exceed the "
-            f"kernel's shared-memory table ({MAX_TABLE_BYTES} bytes)")
-    if tbl.data_ptr() % 16:
-        raise ValueError("sphere table must be 16-byte aligned")
-
+                                       background=background, steps=steps)
     lib = _lib()
     seed, width, height, _n_pixels, tile0, spp, max_depth = meta
-    use_sky, (bgr, bgg, bgb) = _background(background)
+    use_sky, (bgr, bgg, bgb) = background_args(background)
     out = torch.empty((3, n_tiles * TILE_ROWS, LANES), dtype=_F32,
                       device=tbl.device)
     err = lib.rtow_megakernel(
         tbl.data_ptr(), tbl.shape[0], cam.data_ptr(), seed, width, height,
         tile0, spp, max_depth, n_tiles, int(use_sky), bgr, bgg, bgb,
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-        tbl.device.index if tbl.device.index is not None
-        else torch.cuda.current_device(),
-        torch.cuda.current_stream(tbl.device).cuda_stream)
-    if err:
-        raise RuntimeError(
-            f"megakernel launch failed: CUDA error {err} "
-            f"({lib.rtow_cuda_error_string(err).decode()})")
+        None if steps is None else steps.data_ptr(),
+        *_cuda.device_args(tbl))
+    _cuda.check_launch(lib, err, "megakernel")
     render_blocks.launches += 1
     return out[0], out[1], out[2]
 
@@ -600,13 +655,9 @@ def render_spheres(scene, camera, seed: int, *, width: int, height: int,
 def _lib() -> ctypes.CDLL:
     """``csrc/megakernel.cu``, built at first use, with its C entry
     points declared."""
-    from . import _cuda
-
     lib = _cuda.load("megakernel")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rtow_megakernel.argtypes = [p, i, p, i, i, i, i, i, i, i, i, f, f, f,
-                                    p, p, p, i, p]
+                                    p, p, p, p, i, p]
     lib.rtow_megakernel.restype = i
-    lib.rtow_cuda_error_string.argtypes = [i]
-    lib.rtow_cuda_error_string.restype = ctypes.c_char_p
     return lib

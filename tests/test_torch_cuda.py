@@ -1,4 +1,6 @@
-"""The CUDA megakernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card:
+the megakernel K1 (ops/megakernel.py) and the gradient bounces K4 / K5
+(ops/grad.py).
 
 Marked ``cuda``: each test skips (with its reason) where
 ``torch.cuda.is_available()`` is false.  This file imports neither JAX
@@ -10,15 +12,21 @@ Tolerance, as in chip_smoke.py: both versions round every float32
 operation alike (the kernel is built with -fmad=false, IEEE division and
 sqrt) and use the same CUDA math library; at most 1% of pixels may be
 off by more than 1e-4 of mean radiance (a last-bit difference can flip
-a discrete choice), with mean |difference| at most 1e-3.
+a discrete choice), with mean |difference| at most 1e-3.  K4 is
+bit-identical to its plain version.  K5 sums its adjoint in another order
+than autograd and the table gradient with atomics: per cot_in row and per
+g_tbl column, max |d| at most 1e-3 of the largest |plain|.
 """
+import numpy as np
 import pytest
 import torch
 
 from rtow_tpu_torch.config import Config
 from rtow_tpu_torch.models.builders import cover_scene, three_sphere_scene
 from rtow_tpu_torch.models.camera import make_camera
+from rtow_tpu_torch.models.camera import camera_rays, pixel_coords
 from rtow_tpu_torch.models.scene import SceneBuilder
+from rtow_tpu_torch.ops import grad
 from rtow_tpu_torch.ops import megakernel as mk
 
 pytestmark = pytest.mark.cuda
@@ -80,3 +88,59 @@ def test_table_larger_than_shared_memory_raises(dev):
     meta = mk.pack_meta(0, width=8, height=8, spp=1, max_depth=1)
     with pytest.raises(ValueError, match="shared-memory"):
         mk.render_blocks(tbl, cam, meta, 1)
+
+
+def _grad_tape(dev, depth=8):
+    """The cover at 64x64, spp 2: the (depth + 1) input states of one
+    forward through K4, and the table."""
+    scene, cam = cover_scene(Config(image_width=64, aspect_ratio=1.0),
+                             device=dev)
+    tbl, _ = mk.build_sphere_table(scene)
+    gen = torch.Generator(dev).manual_seed(2)
+    pix = torch.arange(64 * 64, device=dev).repeat_interleave(2)
+    s, t = pixel_coords(64, 64, gen, pix)
+    cont, ints = grad.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
+                                 dev)
+    tape = []
+    for it in range(depth + 1):
+        tape.append((cont, ints))
+        cont, ints = grad.bounce_fwd(cont, ints, tbl, it=it, seed=3,
+                                     max_depth=depth)
+    return tbl, tape
+
+
+def test_grad_fwd_kernel_bit_identical_to_plain(dev):
+    tbl, tape = _grad_tape(dev)
+    for it, (cont, ints) in enumerate(tape):
+        kw = dict(it=it, seed=3, max_depth=8)
+        before = grad.bounce_fwd.launches
+        kc, ki = grad.bounce_fwd(cont, ints, tbl, **kw)
+        assert grad.bounce_fwd.launches == before + 1
+        pc, pi = grad.bounce_fwd_reference(cont, ints, tbl, **kw)
+        assert torch.equal(kc, pc) and torch.equal(ki, pi), it
+
+
+def test_grad_bwd_kernel_matches_plain(dev):
+    tbl, tape = _grad_tape(dev)
+    rng = np.random.default_rng(4)
+    for it, (cont, ints) in enumerate(tape):
+        kw = dict(it=it, seed=3, max_depth=8)
+        cot = torch.from_numpy(rng.standard_normal(cont.shape)
+                               .astype(np.float32)).to(dev)
+        before = grad.bounce_bwd.launches
+        kci, kg = grad.bounce_bwd(cont, ints, cot, tbl, **kw)
+        assert grad.bounce_bwd.launches == before + 1
+        pci, pg = grad.bounce_bwd_reference(cont, ints, cot, tbl, **kw)
+        assert bool(torch.isfinite(kci).all() and torch.isfinite(kg).all())
+        for k, p, dim in ((kci, pci, 1), (kg[:, :13], pg[:, :13], 0)):
+            scale = p.abs().amax(dim=dim, keepdim=True)
+            assert bool(((k - p).abs() <= 1e-3 * scale).all()), it
+        assert not kg[:, 13:].any()
+
+
+def test_grad_bwd_table_larger_than_shared_memory_raises(dev):
+    tbl = torch.zeros((2048, 16), dtype=torch.float32, device=dev)
+    cont = torch.zeros((13, mk.TILE), device=dev)
+    ints = torch.zeros((3, mk.TILE), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shared-memory"):
+        grad.bounce_bwd(cont, ints, cont, tbl, it=0, seed=0, max_depth=1)

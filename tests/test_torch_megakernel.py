@@ -84,12 +84,11 @@ def test_salt_and_lane_hash_bit_equal():
     for seed, it in ((0, 0), (7, 3), (123, 50_000), (-5, 2**20)):
         want = jmk._mix((jnp.int32(seed) + it * jnp.int32(40503))
                         .astype(jnp.uint32))
-        assert mk._salt(seed, it) == int(want)
+        assert mk.step_salt(seed, it) == int(want)
     pix = np.arange(0, 3_000_000, 997, dtype=np.int32)
     want = np.asarray(jmk._mix(jnp.asarray(pix).astype(jnp.uint32)
                                * jnp.uint32(0x9E3779B9)))
-    got = mk.mix(mk._mul32(torch.from_numpy(pix.astype(np.int64)),
-                           0x9E3779B9)).numpy()
+    got = mk.lane_hash(torch.from_numpy(pix.astype(np.int64))).numpy()
     np.testing.assert_array_equal(got, want.astype(np.int64))
 
 
@@ -174,7 +173,7 @@ def test_unblock_image_matches_jax():
 def test_three_sphere_matches_pallas():
     kw = dict(width=32, height=32, spp=4, depth=5)
     want = _jax_sums(*jax_builders.three_sphere_scene(1.0), **kw)
-    got = _port_sums(*builders.three_sphere_scene(1.0), **kw)
+    got = _port_sums(*builders.three_sphere_scene(1.0, device="cpu"), **kw)
     assert _pixel_diff(got, want, 4).max() <= 1e-4
 
 
@@ -205,10 +204,10 @@ def const_bg():
     """Empty scene + white background: radiance sums == sample counts."""
     cam = make_camera(lookfrom=(0.0, 0.0, 1.0), lookat=(0.0, 0.0, 0.0),
                       fov_degrees=60.0, aspect_ratio=1.0, aperture=0.0,
-                      focus_dist=1.0)
+                      focus_dist=1.0, device="cpu")
     b = SceneBuilder()
     b.add_sphere((0.0, 0.0, -99999.0), 1.0, b.add_lambertian((0.5,) * 3))
-    return b.build(background=(1.0, 1.0, 1.0)), cam
+    return b.build(background=(1.0, 1.0, 1.0), device="cpu"), cam
 
 
 @pytest.mark.parametrize("spp", [24, 17])

@@ -15,6 +15,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from rtow_tpu.config import Config as JaxConfig
 from rtow_tpu.models import builders as jax_builders
@@ -22,8 +23,8 @@ from rtow_tpu.utils import ppm as jax_ppm
 from rtow_tpu.utils.profiling import RenderStats as JaxRenderStats
 from rtow_tpu_torch.config import Config
 from rtow_tpu_torch.models import builders
-from rtow_tpu_torch.models.camera import Camera
-from rtow_tpu_torch.models.scene import Scene
+from rtow_tpu_torch.models.camera import Camera, make_camera
+from rtow_tpu_torch.models.scene import Scene, SceneBuilder
 from rtow_tpu_torch.utils import ppm
 from rtow_tpu_torch.utils.profiling import RenderStats
 
@@ -65,9 +66,10 @@ CASES = {
     "cover-s0-static": lambda: _cover(0, False),
     "cover-s7-static": lambda: _cover(7, False),
     "one-sphere": lambda: (jax_builders.one_sphere_scene(),
-                           builders.one_sphere_scene()),
+                           builders.one_sphere_scene(device="cpu")),
     "three-sphere": lambda: (jax_builders.three_sphere_scene(1.5),
-                             builders.three_sphere_scene(1.5)),
+                             builders.three_sphere_scene(1.5,
+                                                         device="cpu")),
 }
 
 
@@ -95,6 +97,44 @@ def test_from_numpy_rejects_unported_leaves():
     leaves["triangles.verts"] = np.ones((1, 3, 3), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Scene.from_numpy(leaves, "cpu")
+
+
+def test_cover_scene_follows_the_config_device():
+    scene, cam = builders.cover_scene(Config(device="cpu", image_width=32))
+    for key, leaf in scene.leaves().items():
+        assert leaf.device.type == "cpu", key
+    for name in ("origin", "lower_left", "lens_radius"):
+        assert getattr(cam, name).device.type == "cpu"
+    # An explicit device wins over the config's.
+    scene, _ = builders.cover_scene(Config(image_width=32), device="cpu")
+    assert scene.device.type == "cpu"
+
+
+@pytest.mark.parametrize("build", [
+    lambda: builders.cover_scene(Config(image_width=32)),
+    lambda: builders.one_sphere_scene(),
+    lambda: builders.three_sphere_scene(),
+    lambda: make_camera((0.0, 0.0, 1.0), (0.0, 0.0, 0.0)),
+    lambda: _one_ball().build(),
+], ids=["cover_scene", "one_sphere_scene", "three_sphere_scene",
+        "make_camera", "SceneBuilder.build"])
+def test_builders_default_to_the_card(build):
+    """Called with their defaults, the builders put their tensors on the
+    card, and raise where there is none: never the CPU."""
+    if torch.cuda.is_available():
+        out = build()
+        first = out[0].spheres.radius if isinstance(out, tuple) else (
+            out.origin if hasattr(out, "origin") else out.spheres.radius)
+        assert first.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            build()
+
+
+def _one_ball():
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.0, -1.0), 0.5, b.add_lambertian((0.5,) * 3))
+    return b
 
 
 def test_config_matches_jax():
@@ -153,6 +193,7 @@ def test_port_imports_with_jax_blocked():
         "sys.modules['rtow_tpu'] = None\n"
         "import rtow_tpu_torch, rtow_tpu_torch.cli, rtow_tpu_torch.pipeline\n"
         "import rtow_tpu_torch.ops.megakernel, rtow_tpu_torch.ops._cuda\n"
+        "import rtow_tpu_torch.ops.grad, rtow_tpu_torch.diff\n"
         "assert not any(m.startswith(('jax', 'rtow_tpu.')) for m, v in\n"
         "               sys.modules.items() if v is not None)\n"
         "print('ok')\n")
