@@ -7,12 +7,16 @@ Run from the repository root, with no arguments:
 
 It builds the port's CUDA kernels from ``rtow_tpu_torch/csrc`` with
 nvcc (one process per source, started together), holds each against its
-plain PyTorch version on the card, and drives the port's two paths: the
-render (the cover through ``rtow_tpu_torch.cli.main`` at 1200x675, 128
-samples per pixel, depth 50; kernel K1) and the trainer (three SGD steps
-of the cover's albedos at 400x267, 16 samples per pixel, depth 8, the
-JAX package's bench grad leg; kernels K4 and K5).  Every phase prints
-one line; any failed check raises and the script exits non-zero.  The
+plain PyTorch version on the card, and drives the port's three paths:
+the render (the cover through ``rtow_tpu_torch.cli.main`` at 1200x675,
+128 samples per pixel, depth 50; kernel K1), the trainer (three SGD
+steps of the cover's albedos at 400x267, 16 samples per pixel, depth 8,
+the JAX package's bench grad leg; kernels K4 and K5) and the mesh path
+(``cli.main -l`` on the 65,536-triangle knot at 400x400, 64 samples per
+pixel, depth 20, through the sorted wavefront and K3, and on
+``samples/knot_small.obj`` through K1; then bench.py's two knots timed
+through ``render_wavefront``).  Every phase prints one line; any failed
+check raises and the script exits non-zero.  The
 line before the card line is the kernels' JSON summary; the last line
 of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -67,6 +71,18 @@ GRAD_SHARE = 1e-3
 #: tensor cores, and HBM3.
 PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+#: float32 operations of the triangle sweep (a lower bound, from
+#: csrc/bounce.cuh): a box test (6 subtractions, 6 products, 10 min/max,
+#: the compare: 23) and a triangle test's unconditional part (the normal:
+#: 9, the determinant: 5, the cull: 1); a lane's step adds the ray's three
+#: inverse directions.
+OPS_PER_BOX = 23
+OPS_PER_TRI = 15
+OPS_INV_DIR = 3
+
+#: The mesh path: bench.py's knot legs (bench.py:162-188).
+W_MESH, SPP_MESH, DEPTH_MESH = 400, 64, 20
+KNOTS = {"65k": (256, 128), "360k": (600, 300)}
 #: float32 operations the kernels do per lane-bounce (a lower bound, from
 #: csrc/bounce.cuh): per table row of the sweep, the unconditional part
 #: (the centre at tm: 6, oc: 3, h: 5, cc: 7, disc: 3, the test: 1); per
@@ -147,9 +163,10 @@ def main() -> None:
              f"{torch.version.cuda}, nvcc "
              f"{nvcc_ver.stdout.strip().splitlines()[-1]}")
 
-    # ---- (1) build, all three sources at once ----------------------------
+    # ---- (1) build, all four sources at once -----------------------------
     t0 = time.perf_counter()
-    builds = _cuda.build_all(["megakernel", "grad_fwd", "grad_bwd"])
+    builds = _cuda.build_all(["megakernel", "flat_bounce", "grad_fwd",
+                              "grad_bwd"])
     wall = time.perf_counter() - t0
     for name, build in builds.items():
         ptxas = "; ".join(line.split("ptxas info    : ")[-1]
@@ -157,7 +174,7 @@ def main() -> None:
                           if "Used" in line or "spill" in line)
         say("1", f"nvcc build of csrc/{name}.cu: {build.seconds:.1f} s "
                  f"({ptxas})")
-    say("1", f"three builds in parallel: {wall:.1f} s wall")
+    say("1", f"four builds in parallel: {wall:.1f} s wall")
 
     def frame(scene, cam, width, height, spp, depth, *, plain=False,
               seed=0):
@@ -305,6 +322,7 @@ def main() -> None:
              f"(one whole-frame launch, median of 3)")
 
     grad = grad_phases(torch, dev, card, say)
+    mesh = mesh_phases(torch, dev, card, say, event_ms, agreement)
 
     print(json.dumps({"kernels": [{
         "name": "megakernel",
@@ -318,7 +336,7 @@ def main() -> None:
         "bound_ms": k1_bound,
         "bound_by": "operations",
         "library_ms": None,
-    }] + grad}), flush=True)
+    }, mesh] + grad}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -564,29 +582,348 @@ def grad_phases(torch, dev, card, say):
             "library_ms": None,
         })
     # Where a train step's time goes: torch.profiler over one step.
+    step_ms, dev_ms = profile_ms(torch, lambda: step(
+        start, torch.Generator(dev).manual_seed(7), target))
+    busy_ms = sum(dev_ms.values())
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:6]
+    say("9", f"one train step under torch.profiler on {card}: {step_ms:.2f} "
+             f"ms wall, device kernels {busy_ms:.2f} ms "
+             f"(idle share {1 - busy_ms / step_ms:.1%}); by kernel: "
+             + "; ".join(f"{k[:40]} {ms:.3f} ms" for k, ms in top))
+
+    return rows
+
+
+def profile_ms(torch, fn):
+    """(wall ms, {kernel name: device ms}) of ``fn()`` under
+    torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(start, torch.Generator(dev).manual_seed(7), target)
+        fn()
         torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3
-    dev_us = {}
+        wall = (time.perf_counter() - t0) * 1e3
+    dev_ms = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", 0) or getattr(
             ev, "cuda_time_total", 0)
         if ev.device_type.name == "CUDA" and us:
-            dev_us[ev.key] = us
-    busy_ms = sum(dev_us.values()) / 1e3
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
-    say("9", f"one train step under torch.profiler on {card}: {step_ms:.2f} "
-             f"ms wall, device kernels {busy_ms:.2f} ms "
-             f"(idle share {1 - busy_ms / step_ms:.1%}); by kernel: "
-             + "; ".join(f"{k[:40]} {us / 1e3:.3f} ms" for k, us in top))
+            dev_ms[ev.key] = us / 1e3
+    return wall, dev_ms
 
-    return rows
+
+def split_device_time(dev_ms):
+    """Device ms by part of the sorted wavefront: K3, the sort, the
+    gathers and scatters (index kernels), everything else."""
+    parts = {"K3": 0.0, "sort": 0.0, "gather": 0.0, "other": 0.0}
+    for key, ms in dev_ms.items():
+        low = key.lower()
+        if "flat_bounce" in low:
+            parts["K3"] += ms
+        elif "sort" in low or "radix" in low:
+            parts["sort"] += ms
+        elif "index" in low or "gather" in low or "scatter" in low:
+            parts["gather"] += ms
+        else:
+            parts["other"] += ms
+    return parts
+
+
+def mesh_phases(torch, dev, card, say, event_ms, agreement):
+    """Phases 10-13: K1 with triangles against its plain version on the
+    frame ``cli.main -l samples/knot_small.obj`` renders, the mesh path
+    through ``cli.main -l`` (K3 and K1), bench.py's knots through
+    ``render_wavefront``, and K3 against its plain version, bit for bit
+    with equal counters, at every launch of each knot's centre chunk
+    (262,144 lanes, then the window ladder's narrower launches), timed
+    there.  Returns K3's JSON entry (the 65k knot's times)."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_mesh import make_knot
+
+    from rtow_tpu_torch import cli
+    from rtow_tpu_torch.config import Config
+    from rtow_tpu_torch.models.builders import mesh_scene
+    from rtow_tpu_torch.models.camera import (
+        camera_rays, make_camera, pixel_coords,
+    )
+    from rtow_tpu_torch.models.scene import SceneBuilder
+    from rtow_tpu_torch.ops import flat_bounce as fb
+    from rtow_tpu_torch.ops import megakernel as mk
+    from rtow_tpu_torch.ops import wavefront as wf
+    from rtow_tpu_torch.utils.ppm import read_ppm
+
+    small_obj = os.path.join(ROOT, "samples", "knot_small.obj")
+
+    # ---- (10) K1 with triangles against its plain version ---------------
+    scene, cam = mesh_scene(Config(model=small_obj, image_width=W_MESH,
+                                   aspect_ratio=1.0), device=dev)
+    tbl, tris = mk.scene_k1_tables(scene)
+
+    def k1_args(spp):
+        return (tbl, mk.pack_camera(cam),
+                mk.pack_meta(0, width=W_MESH, height=W_MESH, spp=spp,
+                             max_depth=DEPTH_MESH),
+                mk.n_tiles_for(W_MESH, W_MESH))
+
+    def k1_frame(fn, tests=None):
+        r, g, b = fn(*k1_args(SPP_MESH), tris=tris, tests=tests)
+        torch.cuda.synchronize()
+        return mk.unblock_image(r, g, b, width=W_MESH,
+                                height=W_MESH) / SPP_MESH
+
+    # The frame cli.main -l renders (spp 64), timed and compared whole.
+    k1_runs = [event_ms(torch, lambda: k1_frame(mk.render_blocks))
+               for _ in range(4)][1:]
+    k1_ms = statistics.median(ms for ms, _ in k1_runs)
+    kern = k1_runs[-1][1]
+    pt = torch.zeros(2, dtype=torch.int64, device=dev)
+    k1_plain, plain = event_ms(torch, lambda: k1_frame(
+        mk.render_blocks_reference, pt))
+    mx, mean, flip = agreement(kern, plain)
+    check(flip <= FLIP_SHARE and mean <= MEAN_TOL,
+          f"K1 knot_small: {flip:.4%} of pixels off by > {PIXEL_TOL}, mean "
+          f"|d| {mean}")
+    same = torch.equal(kern, plain)
+    steps = torch.zeros(1, dtype=torch.int64, device=dev)
+    kt = torch.zeros(2, dtype=torch.int64, device=dev)
+    mk.render_blocks(*k1_args(SPP_MESH), tris=tris, steps=steps, tests=kt)
+    check(torch.equal(kt, pt) or not same,
+          f"K1 knot_small: kernel and plain counted {kt.tolist()} / "
+          f"{pt.tolist()} tests for the same frame")
+    n_steps, (n_box, n_tri) = int(steps), kt.tolist()
+    k1_ops = (n_steps * (OPS_PER_STEP + OPS_INV_DIR) + n_box * OPS_PER_BOX
+              + n_tri * OPS_PER_TRI)
+    k1_bound = k1_ops / PEAK_F32 * 1e3
+    say("10", f"K1 on samples/knot_small.obj ({scene.n_triangles} "
+              f"triangles, {tris.n_blocks} blocks) {W_MESH}x{W_MESH} "
+              f"spp{SPP_MESH} depth {DEPTH_MESH} on {card}: kernel vs plain "
+              f"{'bit-identical' if same else 'not bit-identical'}, "
+              f"{flip:.4%} of pixels off by > {PIXEL_TOL}, mean |d| "
+              f"{mean:.3g}, max |d| {mx:.3g}; box/triangle tests kernel "
+              f"{kt.tolist()}, plain {pt.tolist()}; kernel {k1_ms:.2f} ms "
+              f"(median of {', '.join(f'{x:.2f}' for x, _ in k1_runs)}), "
+              f"plain {k1_plain:.1f} ms; {n_steps} ray steps; bound "
+              f"{k1_bound:.3f} ms (operations) = {k1_bound / k1_ms:.1%}")
+
+    bench_cam = make_camera(lookfrom=(0.0, 0.0, 3.0),
+                            lookat=(0.0, 0.0, 0.0), fov_degrees=45.0,
+                            aspect_ratio=1.0, aperture=0.0, focus_dist=3.0,
+                            device=dev)
+    bench_cfg = Config(image_width=W_MESH, aspect_ratio=1.0,
+                       samples_per_pixel=SPP_MESH, max_child_rays=DEPTH_MESH)
+    knots = {}
+    for name, (seg, rings) in KNOTS.items():
+        verts, faces = make_knot(seg, rings)
+        b = SceneBuilder()
+        b.add_mesh(verts[faces], b.add_lambertian((0.6, 0.5, 0.4)))
+        knots[name] = (b.build(device=dev), verts, faces)
+
+    ppc, n_chunks = wf.chunk_plan(bench_cfg)
+    perm = torch.from_numpy(wf._morton_pixel_perm(W_MESH, W_MESH)
+                            .astype("int64")).to(dev)
+    # The chunk that holds the frame's centre pixel: the knot fills it.
+    centre = W_MESH // 2 * W_MESH + W_MESH // 2
+    g_mid = int((perm == centre).nonzero()) // ppc
+    mid_pixels = perm[g_mid * ppc:(g_mid + 1) * ppc]
+    mid_seed = bench_cfg.seed + g_mid * 7919  # render_wavefront's salt
+
+    # ---- (11) the mesh path through cli.main -l --------------------------
+    def refuse(*_a, **_k):
+        raise CheckFailed("the mesh path ran K3's plain version on the card")
+
+    log = io.StringIO()
+    plain_k3 = fb.bounce_step_reference
+    fb.bounce_step_reference = refuse
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            obj = os.path.join(tmp, "knot65k.obj")
+            _, verts, faces = knots["65k"]
+            with open(obj, "w") as f:
+                f.writelines(f"v {a:.6f} {b:.6f} {c:.6f}\n"
+                             for a, b, c in verts)
+                f.writelines(f"f {a} {b} {c}\n" for a, b, c in faces + 1)
+            runs = {}
+            for label, path in (("65k knot", obj), ("knot_small", small_obj)):
+                ppm_path = os.path.join(tmp, "mesh.ppm")
+                mk.render_blocks.launches = fb.bounce_step.launches = 0
+                t0 = time.perf_counter()
+                with contextlib.redirect_stderr(log):
+                    rc = cli.main(["-l", path, "-w", str(W_MESH), "-a", "1",
+                                   "-s", str(SPP_MESH), "-c",
+                                   str(DEPTH_MESH), "-o", ppm_path])
+                wall = time.perf_counter() - t0
+                check(rc == 0, f"cli.main -l {label} returned {rc}")
+                with open(ppm_path) as f:
+                    img = read_ppm(f)
+                check(img.shape == (W_MESH, W_MESH, 3) and img.std() > 10
+                      and img.max() <= 255,
+                      f"{label}: PPM shape {img.shape} or values flat")
+                runs[label] = (wall, mk.render_blocks.launches,
+                               fb.bounce_step.launches)
+    finally:
+        fb.bounce_step_reference = plain_k3
+    k3_launches = runs["65k knot"][2]
+    check(k3_launches > 0 and runs["65k knot"][1] == 0,
+          f"65k knot: K3 launched {k3_launches}, K1 "
+          f"{runs['65k knot'][1]} times")
+    check(runs["knot_small"][1] > 0 and runs["knot_small"][2] == 0,
+          f"knot_small: K1 launched {runs['knot_small'][1]}, K3 "
+          f"{runs['knot_small'][2]} times")
+    lines = log.getvalue().splitlines()
+    tri_lines = [ln for ln in lines if ln.startswith("Scene has")]
+    done = [ln for ln in lines if ln.startswith("Done")]
+    check(tri_lines == [f"Scene has {len(knots['65k'][2])} triangles",
+                        "Scene has 1920 triangles"],
+          f"cli.main printed {tri_lines}")
+    say("11", f"cli.main -l <65k knot OBJ> -w {W_MESH} -a 1 -s {SPP_MESH} "
+              f"-c {DEPTH_MESH}: {k3_launches} K3 launches, 0 of K1, "
+              f"{runs['65k knot'][0]:.2f} s end to end (render: {done[0]}); "
+              f"-l samples/knot_small.obj: {runs['knot_small'][1]} K1 "
+              f"launches, 0 of K3, {runs['knot_small'][0]:.2f} s (render: "
+              f"{done[1]})")
+
+    # ---- (12) bench.py's knots through render_wavefront ------------------
+    for name, (scene, _, _) in knots.items():
+        frame = lambda: wf.render_wavefront(scene, bench_cam, bench_cfg)
+        frame()  # warm-up
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = frame()
+            walls.append(time.perf_counter() - t0)
+        check(img.shape == (W_MESH, W_MESH, 3) and bool(
+            (img >= 0).all()) and img.std() > 0.05, f"{name}: bad image")
+        stats = torch.zeros(3, dtype=torch.int64, device=dev)
+        fb.bounce_step.launches = 0
+        wf.render_wavefront(scene, bench_cam, bench_cfg, stats=stats)
+        per_frame = fb.bounce_step.launches
+        wall = statistics.median(walls)
+        f_wall, f_dev = profile_ms(torch, frame)
+        parts = split_device_time(f_dev)
+        busy = sum(f_dev.values())
+        tables, bmin, inv_ext = wf.scene_tables(scene)
+        c_wall, c_dev = profile_ms(torch, lambda: wf.trace_wavefront_sorted(
+            tables, bench_cam, wf.chunk_generator(dev, bench_cfg.seed, g_mid),
+            mid_pixels, mid_seed, spp=SPP_MESH, max_depth=DEPTH_MESH,
+            width=W_MESH, height=W_MESH, bmin=bmin, inv_ext=inv_ext))
+        c_parts = split_device_time(c_dev)
+        c_busy = sum(c_dev.values())
+        box, tri, live = stats.tolist()
+        say("12", f"the {name} knot {W_MESH}x{W_MESH} spp{SPP_MESH} depth "
+                  f"{DEPTH_MESH} ({n_chunks} chunks of {ppc} pixels) on "
+                  f"{card}: {wall:.3f} s a frame (median of "
+                  f"{', '.join(f'{x:.3f}' for x in walls)}), "
+                  f"{W_MESH * W_MESH * SPP_MESH / wall / 1e6:.2f} Mrays/s; "
+                  f"{per_frame} K3 launches, {live} live lane-bounces, "
+                  f"{box} box and {tri} triangle tests a frame.  One frame "
+                  f"under torch.profiler: {f_wall:.1f} ms wall, device "
+                  f"{busy:.1f} ms: K3 {parts['K3']:.1f}, sort "
+                  f"{parts['sort']:.1f}, gather/scatter "
+                  f"{parts['gather']:.1f}, other {parts['other']:.1f}.  "
+                  f"Chunk {g_mid} (the centre) under torch.profiler: "
+                  f"{c_wall:.1f} ms wall, "
+                  f"device {c_busy:.1f} ms (idle share "
+                  f"{1 - c_busy / c_wall:.1%}): K3 {c_parts['K3']:.2f}, "
+                  f"sort {c_parts['sort']:.2f}, gather/scatter "
+                  f"{c_parts['gather']:.2f}, other {c_parts['other']:.2f}")
+
+    # ---- (13) K3 against its plain version at the main path's shapes ----
+    # Every launch of each knot's centre chunk, as render_wavefront traced
+    # it in phase 12, both versions on the same input states.
+    rows = {}
+    for name, (scene, _, _) in knots.items():
+        tables, bmin, inv_ext = wf.scene_tables(scene)
+        gen = wf.chunk_generator(dev, bench_cfg.seed, g_mid)
+        pix = mid_pixels.repeat_interleave(SPP_MESH)
+        s, t = pixel_coords(W_MESH, W_MESH, gen, pix)
+        tape = []  # each launch's (input state, step), as the chunk ran
+        wf.trace_lanes(wf.lane_state(camera_rays(bench_cam, gen, s, t),
+                                     pix.numel()),
+                       mid_seed, max_depth=DEPTH_MESH, tables=tables,
+                       bmin=bmin, inv_ext=inv_ext, tape=tape)
+
+        def run_all(fn, stats=None):
+            """(ms, outputs) of the tape's launches, issued back to back
+            between one pair of events; ``stats``: a counter per launch."""
+            return event_ms(torch, lambda: [
+                fn(state, it, mid_seed, DEPTH_MESH, tables, stats=st)
+                for (state, it), st in zip(tape, stats or [None] * len(tape))])
+
+        def counters():
+            return [torch.zeros(3, dtype=torch.int64, device=dev)
+                    for _ in tape]
+
+        # Timed runs keep no outputs (the caching allocator reuses the
+        # memory of the run before).  The plain version counts on the host
+        # from sizes it already has, so its counters cost it no time.
+        _, k_outs = run_all(fb.bounce_step)  # warm-up, and the outputs
+        k_runs = [run_all(fb.bounce_step)[0] for _ in range(3)]
+        k_ms = statistics.median(k_runs)
+        p_stats = counters()
+        p_ms, p_outs = run_all(fb.bounce_step_reference, p_stats)
+        err = max(float((k - p).abs().max()) for k, p in zip(k_outs, p_outs))
+        for i, (k, p) in enumerate(zip(k_outs, p_outs)):
+            check(torch.equal(k, p),
+                  f"K3 {name}, launch {i} of chunk {g_mid}: not "
+                  f"bit-identical to the plain version (max |d| over the "
+                  f"chunk {err:.3g})")
+        del k_outs, p_outs
+        bound = 0.0
+        by_ops = by_bytes = 0
+        tt = tables.tris
+        per_launch = []
+        for i, ((state, it), ps) in enumerate(zip(tape, p_stats)):
+            st = torch.zeros(3, dtype=torch.int64, device=dev)
+            ms, _ = event_ms(torch, lambda: fb.bounce_step(
+                state, it, mid_seed, DEPTH_MESH, tables, stats=st))
+            check(torch.equal(st, ps),
+                  f"K3 {name}, launch {i}: counted {st.tolist()}, the plain "
+                  f"version {ps.tolist()} (box tests, triangle tests, live)")
+            box, tri, live = st.tolist()
+            per_launch.append(f"{live}/{tri / max(live, 1):.0f}/{ms:.2f}")
+            ops = (box * OPS_PER_BOX + tri * OPS_PER_TRI
+                   + live * (OPS_PER_STEP + OPS_INV_DIR))
+            # Bytes: 16 state rows in and out per live lane, and at most the
+            # table rows and boxes the launch tested (each read once).
+            nbytes = (32 * 4 * live + min(tri, tt.tbl.shape[0]) * 64
+                      + min(box, tt.n_blocks + tt.supers.shape[0]
+                            + tt.hypers.shape[0]) * 32)
+            ops_s, bytes_s = ops / PEAK_F32, nbytes / PEAK_BYTES
+            bound += max(ops_s, bytes_s) * 1e3
+            by_ops += ops_s >= bytes_s
+            by_bytes += ops_s < bytes_s
+        rows[name] = dict(err=err, ms=k_ms, plain_ms=p_ms, bound=bound,
+                          by="operations" if by_ops >= by_bytes else "bytes")
+        say("13", f"K3 on chunk {g_mid} of the {name} knot ({tt.count} "
+                  f"triangles, {tt.n_blocks} blocks of {tt.block}, "
+                  f"{tt.n_super} supers, {tt.n_hyper} hypers; "
+                  f"{tape[0][0].shape[1]} lanes, {len(tape)} launches) on "
+                  f"{card}: kernel and plain version bit-identical at every "
+                  f"launch, counters equal; kernel {k_ms:.3f} ms (median of "
+                  f"{', '.join(f'{x:.3f}' for x in k_runs)}), plain "
+                  f"{p_ms:.1f} ms, bound {bound:.3f} ms (operations in "
+                  f"{by_ops} launches, bytes in {by_bytes}) = "
+                  f"{bound / k_ms:.1%} of the kernel time; per launch (live "
+                  f"lanes / triangle tests per live lane / ms, each launch "
+                  f"timed alone with its counters): {', '.join(per_launch)}")
+    main_row = rows["65k"]
+    return {
+        "name": "flat_bounce",
+        "route": "cuda",
+        "source": "rtow_tpu_torch/csrc/flat_bounce.cu",
+        "replaces": "rtow_tpu/ops/pallas_megakernel.py:1739",
+        "launches": k3_launches,
+        "max_abs_err": max(r["err"] for r in rows.values()),
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound"],
+        "bound_by": main_row["by"],
+        "library_ms": None,
+    }
 
 
 if __name__ == "__main__":

@@ -4,8 +4,10 @@ The same renderer as ``rtow_tpu`` (its JAX/Pallas counterpart, kept as
 the reference), written in PyTorch for one NVIDIA Hopper GPU: scenes
 and cameras are dataclasses of tensors on the card unless the caller
 asks for the CPU, and every kernel is hand-written CUDA with a plain
-PyTorch version beside it: the persistent render megakernel
-(``csrc/megakernel.cu``, ops/megakernel.py) and the gradient path's
+PyTorch version beside it: the persistent render megakernel for spheres
+and small meshes (``csrc/megakernel.cu``, ops/megakernel.py), the sorted
+wavefront's bounce for large meshes (``csrc/flat_bounce.cu``,
+ops/flat_bounce.py, driven by ops/wavefront.py) and the gradient path's
 forward and backward bounces (``csrc/grad_fwd.cu``, ``csrc/grad_bwd.cu``,
 ops/grad.py, driven by diff.py's train step).
 
@@ -15,6 +17,7 @@ import both.
 from .config import Config
 from .models.builders import (
     cover_scene,
+    mesh_scene,
     one_sphere_scene,
     scene_for_config,
     three_sphere_scene,
@@ -31,6 +34,7 @@ __all__ = [
     "SceneBuilder",
     "cover_scene",
     "make_camera",
+    "mesh_scene",
     "one_sphere_scene",
     "scene_for_config",
     "three_sphere_scene",

@@ -1,7 +1,9 @@
 """Command-line interface: the flags of ``rtow_tpu.cli`` (the reference
 CLI11 app, src/main.cpp:138-170), plus ``--device``.  PPM P3 on stdout
-or to a file, logging on stderr.  Flags whose feature this slice has not
-ported raise ``NotImplementedError`` naming the ROADMAP item.
+or to a file, logging on stderr.  ``-l mesh.obj`` renders an OBJ mesh
+(K1 up to 16,384 triangles, the sorted wavefront and K3 above).  Flags
+whose feature the port has not ported raise ``NotImplementedError``
+naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -46,8 +48,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-v", "--verbose", action="store_true")
     p.add_argument("--profile-dir", type=str, default="")
     p.add_argument("--device", type=str, default=d.device,
-                   help="torch device: cuda (the CUDA megakernel) or cpu "
-                        "(its plain PyTorch version)")
+                   help="torch device: cuda (the CUDA kernels) or cpu "
+                        "(their plain PyTorch versions)")
     return p
 
 
@@ -90,6 +92,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from .utils.ppm import tonemap, write_ppm
 
     scene, camera = scene_for_config(cfg)
+    if cfg.model:
+        print(f"Scene has {scene.n_triangles} triangles", file=sys.stderr)
     image = render_auto(scene, camera, cfg, progress=True)
 
     if args.output == "-":

@@ -1,21 +1,28 @@
-// One bounce of one lane for sphere scenes: device code shared by the port's
-// kernels (megakernel.cu = K1, grad_fwd.cu = K4, grad_bwd.cu = K5).
+// One bounce of one lane: device code shared by the port's kernels
+// (megakernel.cu = K1, flat_bounce.cu = K3, grad_fwd.cu = K4,
+// grad_bwd.cu = K5).
 //
-// The sphere, sky and three-material subset of
+// The sphere, triangle, sky and three-material subset of
 // rtow_tpu/ops/pallas_megakernel.py:_bounce_core (:1329, "K2"): the counter
-// RNG (_mix, _uniform :112-131), the nearest-sphere sweep (_sweep_all :390),
-// the hit record re-derived from the winner's parameters (_hit_basics :891),
+// RNG (_mix, _uniform :112-131), the nearest-sphere sweep and the triangle
+// sweep with its per-block slab cull and hierarchy (_sweep_all :390), the
+// hit record re-derived from the winner's parameters (_hit_basics :891),
 // the Lambertian / metal / dielectric scatter and the sky (_shade_pure :998),
 // and the scatter draws (_draw_scatter :1225).  The plain PyTorch version is
-// nearest_sphere + shade in rtow_tpu_torch/ops/megakernel.py.
+// nearest_sphere + nearest_triangle + shade in
+// rtow_tpu_torch/ops/megakernel.py.  K4 and K5 take spheres only
+// (bounce_lane); K1 and K3 take triangles too (bounce_lane_t<true>).
 //
 // Numbers: float32 throughout; the kernels are built with -fmad=false and
 // IEEE division and square root, so every operation here rounds as in the
 // plain version and both take the same discrete decisions.
 //
-// The table is (npad, 16) float32 rows read as 4 float4:
+// The sphere table is (npad, 16) float32 rows read as 4 float4:
 //   c0x c0y c0z dcx | dcy dcz r alr | alg alb fuzz ir | kind al2r al2g al2b
 // Padding rows have r = 0 and a far-away center, so they are never hit.
+// The triangle table (struct Tris) is (n_blocks * block, 16) float32 rows:
+//   v0x v0y v0z e1x | e1y e1z e2x e2y | e2z alr alg alb | fuzz ir kind 0
+// Winner ids: spheres 0 .. npad - 1, triangles npad + row.
 //
 // Every function is inline host-and-device code: the kernels run it, the
 // launchers call salt_of on the host, and a host build that defines RTOW_HD
@@ -46,6 +53,8 @@ constexpr uint32_t kSaltStride = 40503u;
 
 constexpr float kMetal = 1.0f;
 constexpr float kDielectric = 2.0f;
+constexpr float kDetMin = 1e-6f;  // the backface cull's determinant floor
+constexpr int kSuper = 16;        // children per hierarchy level
 
 RTOW_HD uint32_t mix(uint32_t x) {
   x ^= x >> 16;
@@ -178,16 +187,25 @@ struct Scatter {
   bool must_reflect, k_ok;
 };
 
-RTOW_HD Scatter scatter(const float4* tbl, int k, const Hit& e, const Ray& r,
-                        float a, const Draws& w) {
+// The winner's material: albedo, fuzz, refraction index, kind code.
+struct Material {
+  float alr, alg, alb, fuzz, ir, kind;
+};
+
+RTOW_HD Material sphere_material(const float4* tbl, int k) {
   const float4 q1 = tbl[4 * k + 1];
   const float4 q2 = tbl[4 * k + 2];
-  const float kind = tbl[4 * k + 3].x;
-  const float fuzz = q2.z;
+  return Material{q1.w, q2.x, q2.y, q2.z, q2.w, tbl[4 * k + 3].x};
+}
+
+RTOW_HD Scatter scatter(const Material& m, const Hit& e, const Ray& r,
+                        float a, const Draws& w) {
+  const float kind = m.kind;
+  const float fuzz = m.fuzz;
   Scatter s;
-  s.atr = q1.w;
-  s.atg = q2.x;
-  s.atb = q2.y;
+  s.atr = m.alr;
+  s.atg = m.alg;
+  s.atb = m.alb;
   if (kind == kMetal) {  // reflect(raw d) + fuzz * unit
     const float ddn2 = 2.0f * (r.dx * e.nx + r.dy * e.ny + r.dz * e.nz);
     s.dx = r.dx - ddn2 * e.nx + fuzz * w.uvx;
@@ -202,7 +220,7 @@ RTOW_HD Scatter scatter(const float4* tbl, int k, const Hit& e, const Ray& r,
     s.cos_t = s.cos_raw > 1.0f ? 1.0f : s.cos_raw;
     const float s2 = 1.0f - s.cos_t * s.cos_t;
     const float sin_t = sqrtf(s2 < kEps12 ? kEps12 : s2);
-    const float ir = q2.w;
+    const float ir = m.ir;
     s.ir_safe = ir > 0.0f ? ir : 1.0f;
     s.ratio = e.front ? 1.0f / s.ir_safe : s.ir_safe;
     const bool cannot = s.ratio * sin_t > 1.0f;
@@ -243,6 +261,179 @@ RTOW_HD Scatter scatter(const float4* tbl, int k, const Hit& e, const Ray& r,
   return s;
 }
 
+RTOW_HD Scatter scatter(const float4* tbl, int k, const Hit& e, const Ray& r,
+                        float a, const Draws& w) {
+  return scatter(sphere_material(tbl, k), e, r, a, w);
+}
+
+// ---- triangles -----------------------------------------------------------
+
+// The triangle table and its cull hierarchy: per-level AABBs, 8 floats a
+// box (min xyz, max xyz, 0, 0): blocks of `block` rows, supers of kSuper
+// blocks, hypers of kSuper supers (n_super / n_hyper 0 where a level is
+// absent).  Rows past `count` are padding: zero, never hit, not tested.
+struct Tris {
+  const float4* tbl;
+  const float4* boxes;
+  const float4* supers;
+  const float4* hypers;
+  int n_blocks, n_super, n_hyper, block, count;
+};
+
+// The sweep's work, counted per thread for the kernels' stats.
+struct Tally {
+  unsigned long long boxes = 0, tris = 0;
+};
+
+#ifdef __CUDACC__
+// Adds n, summed over the calling warp, to *to: one atomic per warp.  Every
+// thread of the warp must call it.
+__device__ __forceinline__ void warp_add(unsigned long long n,
+                                         unsigned long long* to) {
+  for (int off = 16; off > 0; off >>= 1)
+    n += __shfl_down_sync(0xFFFFFFFFu, n, off);
+  if ((threadIdx.x & 31) == 0) atomicAdd(to, n);
+}
+#endif
+
+// Slab test of box b (two float4: min xyz + max x, max yz): whether the ray
+// enters it inside [T_MIN, best_t] (pallas_megakernel.py:_box_enter_exit,
+// :444).  fminf / fmaxf ignore a NaN from 0 * inf, as torch.fmin / fmax do
+// in the plain version.
+RTOW_HD bool box_entered(const float4* box, int b, const Ray& r, float idx,
+                         float idy, float idz, float best_t) {
+  const float4 lo = box[2 * b];
+  const float4 hi = box[2 * b + 1];
+  const float tx0 = (lo.x - r.ox) * idx;
+  const float tx1 = (lo.w - r.ox) * idx;
+  const float ty0 = (lo.y - r.oy) * idy;
+  const float ty1 = (hi.x - r.oy) * idy;
+  const float tz0 = (lo.z - r.oz) * idz;
+  const float tz1 = (hi.y - r.oz) * idz;
+  const float enter = fmaxf(fmaxf(fminf(tx0, tx1), fminf(ty0, ty1)),
+                            fmaxf(fminf(tz0, tz1), kTMin));
+  const float exit = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
+                           fminf(fmaxf(tz0, tz1), best_t));
+  return exit > enter;
+}
+
+// Moller-Trumbore in the reference's determinant form with its backface cull
+// (_mt_rows :661-705, src/common-model.cpp:104-125): whether triangle row k
+// is hit at a t in [T_MIN, bt), and that t.
+RTOW_HD bool triangle_t(const float4* tri, int k, const Ray& r, float bt,
+                        float* t) {
+  const float4 p0 = tri[4 * k];
+  const float4 p1 = tri[4 * k + 1];
+  const float4 p2 = tri[4 * k + 2];
+  const float e1x = p0.w, e1y = p1.x, e1z = p1.y;
+  const float e2x = p1.z, e2y = p1.w, e2z = p2.x;
+  const float nxb = e1y * e2z - e1z * e2y;
+  const float nyb = e1z * e2x - e1x * e2z;
+  const float nzb = e1x * e2y - e1y * e2x;
+  const float det = -(r.dx * nxb + r.dy * nyb + r.dz * nzb);
+  if (!(det >= kDetMin)) return false;
+  const float invdet = 1.0f / det;
+  const float aox = r.ox - p0.x;
+  const float aoy = r.oy - p0.y;
+  const float aoz = r.oz - p0.z;
+  const float daox = aoy * r.dz - aoz * r.dy;
+  const float daoy = aoz * r.dx - aox * r.dz;
+  const float daoz = aox * r.dy - aoy * r.dx;
+  const float u = (e2x * daox + e2y * daoy + e2z * daoz) * invdet;
+  const float v = -(e1x * daox + e1y * daoy + e1z * daoz) * invdet;
+  const float tt = (aox * nxb + aoy * nyb + aoz * nzb) * invdet;
+  *t = tt;
+  return tt >= kTMin && tt < bt && u >= 0.0f && v >= 0.0f && u + v <= 1.0f;
+}
+
+RTOW_HD void sweep_triangle_block(const Tris& T, int b, const Ray& r, int base,
+                                  float* bt, int* bk, Tally* tally) {
+  const int k0 = b * T.block;
+  const int k1 = k0 + T.block < T.count ? k0 + T.block : T.count;
+  for (int k = k0; k < k1; ++k) {
+    float t;
+    if (triangle_t(T.tbl, k, r, *bt, &t)) {
+      *bt = t;
+      *bk = base + k;
+    }
+  }
+  if (k1 > k0) tally->tris += static_cast<unsigned long long>(k1 - k0);
+}
+
+// Goes on with a sweep's (bt, bk) over the triangle table.  The ray descends
+// hypers -> supers -> blocks in table order, slab-testing each box with its
+// current bt and skipping every box it does not enter (fixed-order nested
+// loops, no stack).  Rows are tested in table order with a strict `<`, so
+// the first minimal t wins: the JAX sweep's tie rule.
+RTOW_HD void nearest_triangle(const Tris& T, const Ray& r, int base,
+                              float* bt, int* bk, Tally* tally) {
+  const float idx = 1.0f / r.dx;
+  const float idy = 1.0f / r.dy;
+  const float idz = 1.0f / r.dz;
+  if (T.n_super == 0) {
+    for (int b = 0; b < T.n_blocks; ++b) {
+      ++tally->boxes;
+      if (box_entered(T.boxes, b, r, idx, idy, idz, *bt))
+        sweep_triangle_block(T, b, r, base, bt, bk, tally);
+    }
+    return;
+  }
+  const int n_top = T.n_hyper > 0 ? T.n_hyper : 1;
+  for (int h = 0; h < n_top; ++h) {
+    int s0 = 0, s1 = T.n_super;
+    if (T.n_hyper > 0) {
+      ++tally->boxes;
+      if (!box_entered(T.hypers, h, r, idx, idy, idz, *bt)) continue;
+      s0 = h * kSuper;
+      s1 = s0 + kSuper;
+    }
+    for (int s = s0; s < s1; ++s) {
+      ++tally->boxes;
+      if (!box_entered(T.supers, s, r, idx, idy, idz, *bt)) continue;
+      for (int b = s * kSuper; b < (s + 1) * kSuper; ++b) {
+        ++tally->boxes;
+        if (box_entered(T.boxes, b, r, idx, idy, idz, *bt))
+          sweep_triangle_block(T, b, r, base, bt, bk, tally);
+      }
+    }
+  }
+}
+
+// A triangle's hit record (_hit_basics :922-972): t re-derived as
+// (ao . n) / det, the unit normal cross(e1, e2) (1 / sqrt, not rsqrtf, which
+// is not IEEE), always front-facing (src/common-model.cpp:122).
+RTOW_HD Hit triangle_hit_record(const float4* tri, int k, const Ray& r) {
+  const float4 p0 = tri[4 * k];
+  const float4 p1 = tri[4 * k + 1];
+  const float4 p2 = tri[4 * k + 2];
+  const float e1x = p0.w, e1y = p1.x, e1z = p1.y;
+  const float e2x = p1.z, e2y = p1.w, e2z = p2.x;
+  const float nxb = e1y * e2z - e1z * e2y;
+  const float nyb = e1z * e2x - e1x * e2z;
+  const float nzb = e1x * e2y - e1y * e2x;
+  const float det = -(r.dx * nxb + r.dy * nyb + r.dz * nzb);
+  const float det_safe = fabsf(det) > kEps12 ? det : 1.0f;
+  Hit e;
+  e.t = ((r.ox - p0.x) * nxb + (r.oy - p0.y) * nyb + (r.oz - p0.z) * nzb) /
+        det_safe;
+  e.px = r.ox + e.t * r.dx;
+  e.py = r.oy + e.t * r.dy;
+  e.pz = r.oz + e.t * r.dz;
+  const float l2 = nxb * nxb + nyb * nyb + nzb * nzb;
+  const float inv = l2 > 0.0f ? 1.0f / sqrtf(l2) : 0.0f;
+  e.nx = nxb * inv;
+  e.ny = nyb * inv;
+  e.nz = nzb * inv;
+  e.front = true;
+  return e;
+}
+
+RTOW_HD Material triangle_material(const float4* tri, int k) {
+  const float4 p2 = tri[4 * k + 2];
+  const float4 p3 = tri[4 * k + 3];
+  return Material{p2.y, p2.z, p2.w, p3.x, p3.y, p3.z};
+}
+
 // The reference's sky gradient seen along d (blue is 1).
 RTOW_HD void sky_color(float dy, float a, float* skyr, float* skyg) {
   const float sky_t = 0.5f * (dy * (1.0f / sqrtf(a)) + 1.0f);
@@ -256,20 +447,40 @@ struct Background {
   float r, g, b;
 };
 
+// A scattering hit's new state: origin at the hit point, the scattered
+// direction, throughput times the attenuation, one more bounce.
+RTOW_HD void advance(float* s, int* bounce, const Hit& e, const Scatter& sc) {
+  s[0] = e.px;
+  s[1] = e.py;
+  s[2] = e.pz;
+  s[3] = sc.dx;
+  s[4] = sc.dy;
+  s[5] = sc.dz;
+  s[7] = s[7] * sc.atr;
+  s[8] = s[8] * sc.atg;
+  s[9] = s[9] * sc.atb;
+  ++*bounce;
+}
+
 // One intersect-and-shade step of a live lane.  s holds the 13 floats
 // (ox oy oz dx dy dz tm tpr tpg tpb rr rg rb) and is updated in place: a
 // miss adds throughput * background to the radiance and retires the lane,
 // a hit at depth retires it (depth is checked after the hit), any other hit
 // scatters.  Returns whether the lane goes on (the JAX kernels' `can`).
-RTOW_HD bool bounce_lane(const float4* tbl, int npad, float* s, int* bounce,
-                         uint32_t lane, uint32_t salt, int max_depth,
-                         const Background& bg) {
+// kTris adds the triangle sweep of `tris` after the spheres; `tally` gets
+// its work.
+template <bool kTris>
+RTOW_HD bool bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
+                           float* s, int* bounce, uint32_t lane, uint32_t salt,
+                           int max_depth, const Background& bg,
+                           Tally* tally) {
   const Ray r{s[0], s[1], s[2], s[3], s[4], s[5], s[6]};
   const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
   const float inv_a = 1.0f / a;
   float best_t;
   int best_k;
   nearest_sphere(tbl, npad, r, a, inv_a, &best_t, &best_k);
+  if constexpr (kTris) nearest_triangle(tris, r, npad, &best_t, &best_k, tally);
   if (!(best_t < kBig)) {
     float skyr = bg.r, skyg = bg.g, skyb = bg.b;
     if (bg.use_sky) {
@@ -282,19 +493,26 @@ RTOW_HD bool bounce_lane(const float4* tbl, int npad, float* s, int* bounce,
     return false;
   }
   if (*bounce >= max_depth) return false;
+  if constexpr (kTris) {
+    if (best_k >= npad) {
+      const Hit e = triangle_hit_record(tris.tbl, best_k - npad, r);
+      advance(s, bounce, e,
+              scatter(triangle_material(tris.tbl, best_k - npad), e, r, a,
+                      draw_scatter(lane, salt)));
+      return true;
+    }
+  }
   const Hit e = hit_record(tbl, best_k, best_t, r, a, inv_a);
-  const Scatter sc = scatter(tbl, best_k, e, r, a, draw_scatter(lane, salt));
-  s[0] = e.px;
-  s[1] = e.py;
-  s[2] = e.pz;
-  s[3] = sc.dx;
-  s[4] = sc.dy;
-  s[5] = sc.dz;
-  s[7] = s[7] * sc.atr;
-  s[8] = s[8] * sc.atg;
-  s[9] = s[9] * sc.atb;
-  ++*bounce;
+  advance(s, bounce, e, scatter(tbl, best_k, e, r, a, draw_scatter(lane, salt)));
   return true;
+}
+
+// The sphere-only bounce of K4 and K5.
+RTOW_HD bool bounce_lane(const float4* tbl, int npad, float* s, int* bounce,
+                         uint32_t lane, uint32_t salt, int max_depth,
+                         const Background& bg) {
+  return bounce_lane_t<false>(tbl, npad, Tris{}, s, bounce, lane, salt,
+                              max_depth, bg, nullptr);
 }
 
 }  // namespace rtow

@@ -1,9 +1,10 @@
-// Persistent whole-frame path tracer for sphere scenes, one thread per lane.
+// Persistent whole-frame path tracer for sphere scenes and meshes of up to
+// 16,384 triangles, one thread per lane.
 //
-// Replaces rtow_tpu/ops/pallas_megakernel.py:_kernel (sphere scenes, classic
-// scheduler, RTOW_POOL=0) with the sphere subset of its shared bounce code
-// (_bounce_core, ported once in bounce.cuh for K1, K4 and K5).  The plain
-// PyTorch version is render_blocks_reference in
+// Replaces rtow_tpu/ops/pallas_megakernel.py:_kernel (classic scheduler,
+// RTOW_POOL=0) with the sphere and flat-triangle subset of its shared bounce
+// code (_bounce_core, ported once in bounce.cuh for K1, K3, K4 and K5).  The
+// plain PyTorch version is render_blocks_reference in
 // rtow_tpu_torch/ops/megakernel.py; the wrapper is render_blocks.
 //
 // What bounds it on Hopper: float32 ALU work and warp divergence, not bytes.
@@ -12,15 +13,21 @@
 // operations per sphere per ray, and lanes of a warp run paths of different
 // lengths.  The design answers that with lane-private state in registers, a
 // per-thread loop (a warp retires when its slowest pixel is done, as a TPU
-// tile does), and the table served from shared memory as broadcast 16-byte
-// loads (every thread of a warp reads the same sphere).
+// tile does), and the sphere table served from shared memory as broadcast
+// 16-byte loads (every thread of a warp reads the same sphere).  The
+// triangle table (up to 16,384 rows x 64 B = 1 MB) does not fit shared
+// memory: it stays in global memory, read through the read-only path and
+// held in L2, and each thread slab-tests every 128-row block's box and
+// sweeps only the blocks its ray enters.  Scenes without triangles run the
+// sphere-only instance of the kernel, unchanged.
 //
 // Lane ids, tiles and the counter RNG are the JAX kernel's bit for bit
 // (pallas_megakernel.py:1477-1482, :1560-1561, :112-131): lane
 // pix = tile * 1024 + row * 128 + col over 8x128-pixel tiles, salt
 // mix(seed + it * 40503) with `it` the lane's own step count.  The sweep
 // tests every sphere (no block cull; culling never changes the winner) and
-// keeps the JAX tie rule: the first minimal t in table order wins.
+// keeps the JAX tie rule: the first minimal t in table order wins.  Stats:
+// ray steps, and the triangle sweep's box and triangle tests.
 //
 // Numbers: float32 throughout with IEEE division and square root, built with
 // -fmad=false, so every operation rounds as in the plain version.
@@ -42,13 +49,15 @@ struct Cam {
   float hx, hy, hz, wx, wy, wz, lens_r, t0, dt;
 };
 
+template <bool kTris>
 __global__ void __launch_bounds__(kThreads)
-    megakernel(const float4* __restrict__ table, int npad,
+    megakernel(const float4* __restrict__ table, int npad, rtow::Tris tris,
                const float* __restrict__ cam_vec, int seed, int width,
                int height, int tile0, int spp, int max_depth,
                rtow::Background bg, float* __restrict__ out_r,
                float* __restrict__ out_g, float* __restrict__ out_b,
-               unsigned long long* __restrict__ steps) {
+               unsigned long long* __restrict__ steps,
+               unsigned long long* __restrict__ tests) {
   using rtow::uniform;
   extern __shared__ float4 tbl[];  // npad rows x 4 float4
   for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) tbl[i] = table[i];
@@ -67,6 +76,7 @@ __global__ void __launch_bounds__(kThreads)
   float s[rtow::kCont] = {0.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.0f,
                           0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   uint32_t it = 0;
+  rtow::Tally tally;
   if (prow < height && pcol < width) {
     Cam c;
     c.ox = cam_vec[0]; c.oy = cam_vec[1]; c.oz = cam_vec[2];
@@ -109,19 +119,36 @@ __global__ void __launch_bounds__(kThreads)
         ++started;
       }
       // ---- one bounce (bounce.cuh) -----------------------------------
-      alive = rtow::bounce_lane(tbl, npad, s, &bounce, lane, salt, max_depth,
-                                bg);
+      alive = rtow::bounce_lane_t<kTris>(tbl, npad, tris, s, &bounce, lane,
+                                         salt, max_depth, bg, &tally);
     }
   }
   out_r[g] = s[10];
   out_g[g] = s[11];
   out_b[g] = s[12];
-  if (steps != nullptr) {  // stats: ray steps (bounces) of this launch
-    unsigned long long n = it;
-    for (int off = 16; off > 0; off >>= 1)
-      n += __shfl_down_sync(0xFFFFFFFFu, n, off);
-    if ((threadIdx.x & 31) == 0) atomicAdd(steps, n);
+  if (steps != nullptr) rtow::warp_add(it, steps);  // stats: ray steps
+  if (kTris && tests != nullptr) {  // stats: the sweep's box and row tests
+    rtow::warp_add(tally.boxes, tests);
+    rtow::warp_add(tally.tris, tests + 1);
   }
+}
+
+template <bool kTris>
+int launch(const float* table, int npad, const rtow::Tris& tris,
+           const float* cam, int seed, int width, int height, int tile0,
+           int spp, int max_depth, int n_tiles, const rtow::Background& bg,
+           float* out_r, float* out_g, float* out_b,
+           unsigned long long* steps, unsigned long long* tests,
+           cudaStream_t stream) {
+  const int smem = npad * rtow::kCols * static_cast<int>(sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(
+      megakernel<kTris>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = n_tiles * (kTile / kThreads);
+  megakernel<kTris><<<blocks, kThreads, smem, stream>>>(
+      reinterpret_cast<const float4*>(table), npad, tris, cam, seed, width,
+      height, tile0, spp, max_depth, bg, out_r, out_g, out_b, steps, tests);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -129,26 +156,35 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" {
 
 // Launches the kernel over tiles tile0 .. tile0 + n_tiles - 1 on `stream`.
-// table: (npad, 16) float32, 16-byte aligned; cam: (21,) float32; outputs:
-// (n_tiles * 8, 128) float32 each; steps: null, or one uint64 that the
-// launch adds its ray steps to.  Returns the cudaError_t of the launch.
-int rtow_megakernel(const float* table, int npad, const float* cam, int seed,
-                    int width, int height, int tile0, int spp, int max_depth,
-                    int n_tiles, int use_sky, float bgr, float bgg, float bgb,
-                    float* out_r, float* out_g, float* out_b,
-                    unsigned long long* steps, int device, void* stream) {
+// table: (npad, 16) float32, 16-byte aligned (npad may be 0); tri: null, or
+// (tri_blocks * tri_block, 16) float32 rows with (tri_blocks, 8) block boxes
+// tri_boxes, of which the first tri_count rows are triangles; cam: (21,)
+// float32; outputs: (n_tiles * 8, 128) float32 each; steps: null, or one
+// uint64 that the launch adds its ray steps to; tests: null, or two uint64
+// that it adds its box and triangle tests to.  Returns the cudaError_t of
+// the launch.
+int rtow_megakernel(const float* table, int npad, const float* tri,
+                    const float* tri_boxes, int tri_blocks, int tri_block,
+                    int tri_count, const float* cam, int seed, int width,
+                    int height, int tile0, int spp, int max_depth, int n_tiles,
+                    int use_sky, float bgr, float bgg, float bgb, float* out_r,
+                    float* out_g, float* out_b, unsigned long long* steps,
+                    unsigned long long* tests, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int smem = npad * rtow::kCols * static_cast<int>(sizeof(float));
-  err = cudaFuncSetAttribute(megakernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = n_tiles * (kTile / kThreads);
-  megakernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      reinterpret_cast<const float4*>(table), npad, cam, seed, width, height,
-      tile0, spp, max_depth, rtow::Background{use_sky, bgr, bgg, bgb}, out_r,
-      out_g, out_b, steps);
-  return static_cast<int>(cudaGetLastError());
+  const rtow::Tris tris{reinterpret_cast<const float4*>(tri),
+                        reinterpret_cast<const float4*>(tri_boxes),
+                        nullptr, nullptr, tri_blocks, 0, 0, tri_block,
+                        tri_count};
+  const rtow::Background bg{use_sky, bgr, bgg, bgb};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (tri_blocks > 0)
+    return launch<true>(table, npad, tris, cam, seed, width, height, tile0,
+                        spp, max_depth, n_tiles, bg, out_r, out_g, out_b,
+                        steps, tests, st);
+  return launch<false>(table, npad, tris, cam, seed, width, height, tile0,
+                       spp, max_depth, n_tiles, bg, out_r, out_g, out_b,
+                       steps, tests, st);
 }
 
 const char* rtow_cuda_error_string(int err) {

@@ -1,5 +1,6 @@
 """Scene builders (the port of ``rtow_tpu.models.builders``): the
-procedural cover scene and the small config-ladder scenes.
+procedural cover scene, the OBJ mesh scene and the small config-ladder
+scenes.
 
 ``cover_scene`` replicates the distribution of the reference's
 ``lots_of_balls`` (reference src/main.cpp:23-83) from an explicit numpy
@@ -14,6 +15,7 @@ import numpy as np
 
 from ..config import Config, resolve_device
 from ..utils.dtypes import REAL
+from ..utils.obj import load_obj
 from .camera import Camera, make_camera
 from .scene import Scene, SceneBuilder
 
@@ -80,6 +82,33 @@ def cover_scene(cfg: Config, dtype=REAL,
     return b.build(dtype, device=device), cam
 
 
+def mesh_scene(cfg: Config, dtype=REAL,
+               device=None) -> Tuple[Scene, Camera]:
+    """The OBJ mesh ``cfg.model`` under one gray Lambertian (reference
+    ``foo``, src/main.cpp:85-136), on ``device`` or, when it is None, on
+    ``cfg.device``."""
+    if not cfg.model:
+        raise ValueError("mesh_scene requires cfg.model (OBJ path)")
+    device = cfg.torch_device() if device is None else resolve_device(device)
+    cam = make_camera(
+        lookfrom=(1.0, 0.0, -1.0),
+        lookat=(0.0, 0.0, 0.0),
+        vup=(0.0, 1.0, 0.0),
+        fov_degrees=35.0,
+        aspect_ratio=cfg.aspect_ratio,
+        aperture=0.01,
+        focus_dist=None,
+        t0=0.0,
+        t1=1.0,
+        dtype=dtype,
+        device=device,
+    )
+    b = SceneBuilder()
+    gray = b.add_lambertian((0.5, 0.5, 0.5))
+    b.add_mesh(load_obj(cfg.model), gray)
+    return b.build(dtype, device=device), cam
+
+
 def one_sphere_scene(aspect_ratio: float = 16.0 / 9.0, dtype=REAL,
                      device="cuda") -> Tuple[Scene, Camera]:
     """BASELINE config (a): one Lambertian sphere + ground."""
@@ -140,8 +169,6 @@ _NOT_PORTED = (
      "constant-density media (ROADMAP Queue 1 item 7)"),
     ("globe_demo", "--globe",
      "image textures on the reference integrator (ROADMAP Queue 1 item 5)"),
-    ("model", "-l/--load",
-     "OBJ meshes, the BVH and the mesh kernels (ROADMAP Queue 1 items 2, 7-9)"),
 )
 
 
@@ -152,4 +179,6 @@ def scene_for_config(cfg: Config, dtype=REAL) -> Tuple[Scene, Camera]:
     for field, flag, needs in _NOT_PORTED:
         if getattr(cfg, field):
             raise NotImplementedError(f"{flag} needs {needs}")
+    if cfg.model:
+        return mesh_scene(cfg, dtype)
     return cover_scene(cfg, dtype)

@@ -7,9 +7,9 @@ spheres and moving spheres share one array family:
 spheres (the reference's lerp over the shutter interval,
 src/oo-primitives.h:63-66).
 
-The slice ported so far covers spheres and the Lambertian / metal /
-dielectric materials; ``Triangles`` exists so the scene has the JAX
-package's shape, and is always empty here.
+The port covers spheres, triangles (single triangles and whole meshes,
+with the book's scale / rotate_y / translate instancing baked into the
+vertices) and the Lambertian / metal / dielectric materials.
 """
 from __future__ import annotations
 
@@ -26,11 +26,14 @@ from ..utils.dtypes import INDEX, REAL
 _PARTS = ("spheres", "triangles", "materials")
 
 # Material kinds — the codes of rtow_tpu.models.scene (:36-57).  The
-# slice shades these three; codes above DIELECTRIC (emission and the
+# port shades the first three; codes above DIELECTRIC (emission and the
 # textures) are not ported yet.
 LAMBERTIAN = 0
 METAL = 1
 DIELECTRIC = 2
+#: The textured kinds (checker, noise, image), which the JAX package
+#: allows on spheres only.
+_TEXTURED = (4, 5, 6)
 
 
 @dataclasses.dataclass
@@ -68,6 +71,18 @@ class Scene:
     def device(self) -> torch.device:
         return self.spheres.radius.device
 
+    @property
+    def n_spheres(self) -> int:
+        return self.spheres.radius.shape[0]
+
+    @property
+    def n_triangles(self) -> int:
+        return self.triangles.material.shape[0]
+
+    @property
+    def n_primitives(self) -> int:
+        return self.n_spheres + self.n_triangles
+
     def leaves(self) -> Dict[str, Optional[torch.Tensor]]:
         """Every leaf under its dotted key (``"spheres.center0"``, ...,
         ``"materials.albedo2"``), the JAX scene's leaf paths."""
@@ -102,15 +117,16 @@ class Scene:
         arrays keyed ``"spheres.center0"``, ..., ``"materials.kind"``.
 
         Values are copied bit for bit (floats as float32, ids as
-        int32).  Keys of parts this slice does not cover (triangles,
-        volumes, textures) must be absent or empty."""
+        int32).  Triangle keys may be absent (no triangles); keys of
+        parts the port does not cover (volumes, textures) must be
+        absent or empty."""
         def take(key, dtype):
             return torch.tensor(np.asarray(arrays[key]), dtype=dtype,
                                 device=device)
 
         for key, val in arrays.items():
             part = key.split(".", 1)[0]
-            if part not in ("spheres", "materials") and np.size(val):
+            if part not in _PARTS and np.size(val):
                 raise NotImplementedError(
                     f"scene leaf {key!r} is not ported yet (ROADMAP Queue 1)")
         return cls(
@@ -120,7 +136,10 @@ class Scene:
                 radius=take("spheres.radius", REAL),
                 material=take("spheres.material", INDEX),
             ),
-            triangles=_empty_triangles(device),
+            triangles=(Triangles(verts=take("triangles.verts", REAL),
+                                 material=take("triangles.material", INDEX))
+                       if "triangles.verts" in arrays
+                       else _empty_triangles(device)),
             materials=Materials(
                 kind=take("materials.kind", INDEX),
                 albedo=take("materials.albedo", REAL),
@@ -135,6 +154,21 @@ class Scene:
 def _empty_triangles(device) -> Triangles:
     return Triangles(verts=torch.zeros((0, 3, 3), dtype=REAL, device=device),
                      material=torch.zeros((0,), dtype=INDEX, device=device))
+
+
+def _instance_transform(verts: np.ndarray, rotate_y: float,
+                        translate) -> np.ndarray:
+    """Rotate (P, 3) points about the world y-axis by ``rotate_y``
+    degrees, then translate: the book's instance transforms (RTW book 2
+    ch. 8) baked into the geometry (``rtow_tpu.models.scene``, :170)."""
+    if rotate_y != 0.0:
+        th = np.radians(float(rotate_y))
+        c, s = np.cos(th), np.sin(th)
+        # Book convention: +angle takes +z toward +x.
+        verts = verts @ np.array(
+            [[c, 0.0, -s], [0.0, 1.0, 0.0], [s, 0.0, c]], np.float64)
+    return verts + np.asarray(tuple(float(t) for t in translate),
+                              np.float64)
 
 
 class SceneBuilder:
@@ -152,6 +186,8 @@ class SceneBuilder:
         self._mat_fuzz: list[float] = []
         self._mat_ir: list[float] = []
         self._sph: list[tuple] = []  # (c0, c1, radius, mat)
+        self._tri: list[tuple] = []  # (a, b, c, mat)
+        self._tri_blocks: list[tuple] = []  # ((M, 3, 3) array, mat)
 
     # -- materials (the "boutique") ---------------------------------------
     def add_lambertian(self, albedo) -> int:
@@ -183,6 +219,27 @@ class SceneBuilder:
                           tuple(float(x) for x in center1),
                           float(radius), material))
 
+    def add_triangle(self, a, b, c, material: int) -> None:
+        self._tri.append((tuple(float(x) for x in a),
+                          tuple(float(x) for x in b),
+                          tuple(float(x) for x in c), material))
+
+    def add_mesh(self, tri_verts: np.ndarray, material: int, *,
+                 scale=1.0, rotate_y: float = 0.0,
+                 translate=(0.0, 0.0, 0.0)) -> None:
+        """Bulk-append (M, 3, 3) triangle vertices (the OBJ path), with
+        the instance transforms scale -> rotate_y -> translate baked into
+        the vertices.  Stored as one array block."""
+        block = np.ascontiguousarray(tri_verts, dtype=np.float64)
+        if block.ndim != 3 or block.shape[1:] != (3, 3):
+            raise ValueError(f"expected (M, 3, 3) vertices, got {block.shape}")
+        if (np.any(np.asarray(scale) != 1.0) or rotate_y != 0.0
+                or any(float(t) != 0.0 for t in translate)):
+            flat = block.reshape(-1, 3) * np.asarray(scale, np.float64)
+            block = _instance_transform(flat, rotate_y,
+                                        translate).reshape(-1, 3, 3)
+        self._tri_blocks.append((block, int(material)))
+
     # -- freeze --------------------------------------------------------------
     def build(self, dtype=REAL, background="sky", device="cuda") -> Scene:
         """``background``: "sky" (reference gradient) or an (r, g, b)
@@ -190,17 +247,28 @@ class SceneBuilder:
         device = resolve_device(device)
         if not self._mat_kind:
             raise ValueError("scene has no materials")
-        if not self._sph:
+        if not self._sph and not self._tri and not self._tri_blocks:
             raise ValueError("scene has no primitives")
         if background != "sky":
             background = tuple(float(x) for x in background)
             if len(background) != 3:
                 raise ValueError("background must be 'sky' or (r, g, b)")
 
-        c0 = np.array([s[0] for s in self._sph], dtype=np.float64)
-        c1 = np.array([s[1] for s in self._sph], dtype=np.float64)
+        c0 = np.array([s[0] for s in self._sph], np.float64).reshape(-1, 3)
+        c1 = np.array([s[1] for s in self._sph], np.float64).reshape(-1, 3)
         rad = np.array([s[2] for s in self._sph], dtype=np.float64)
         smat = np.array([s[3] for s in self._sph], dtype=np.int32)
+        tvs = [np.array([t[:3] for t in self._tri], np.float64)
+               .reshape(-1, 3, 3)]
+        tmats = [np.array([t[3] for t in self._tri], np.int32)]
+        for block, mat in self._tri_blocks:
+            tvs.append(block)
+            tmats.append(np.full((block.shape[0],), mat, np.int32))
+        tv, tmat = np.concatenate(tvs), np.concatenate(tmats)
+        if any(self._mat_kind[m] in _TEXTURED for m in np.unique(tmat)):
+            raise ValueError(
+                "textured materials are sphere-only: the kernel's triangle"
+                " table has no spare columns for the second color")
         albedo = np.array(self._mat_albedo, np.float64)
 
         def real(x):
@@ -212,7 +280,7 @@ class SceneBuilder:
         return Scene(
             spheres=Spheres(center0=real(c0), dcenter=real(c1 - c0),
                             radius=real(rad), material=index(smat)),
-            triangles=_empty_triangles(device),
+            triangles=Triangles(verts=real(tv), material=index(tmat)),
             materials=Materials(
                 kind=index(np.array(self._mat_kind, np.int32)),
                 albedo=real(albedo),

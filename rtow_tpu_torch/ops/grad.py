@@ -40,8 +40,9 @@ from ..models.camera import Camera, Rays, camera_rays, pixel_coords
 from ..models.scene import DIELECTRIC, Scene
 from . import _cuda
 from .megakernel import (
-    BIG, TBL_COLS, TILE, background_args, build_sphere_table, check_table,
-    draw_scatter, lane_hash, nearest_sphere, shade, step_salt, winner_rows,
+    BIG, TBL_COLS, background_args, build_sphere_table, check_table,
+    draw_scatter, lane_hash, lane_state, nearest_sphere, shade, step_salt,
+    winner_rows,
 )
 
 #: Continuous (cotangent-bearing) state rows.
@@ -280,42 +281,6 @@ def _check_scene(scene: Scene) -> None:
         raise NotImplementedError(
             "emissive, checker, noise and image-texture materials in the "
             "gradient kernels are not ported yet (ROADMAP Queue 1 item 10)")
-
-
-def lane_state(rays: Rays, n_lanes: int,
-               device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The first bounce's (cont, ints) for ``n_lanes`` camera rays
-    (``render_pixels_kernel``'s lane set-up, pallas_grad.py:931-950):
-    lanes padded to a multiple of 1,024, padding lanes dead with
-    direction (0, 0, 1), throughput 1, radiance 0, lane id = index.
-    ``rays`` may hold tensors or numpy arrays."""
-    n = -(-n_lanes // TILE) * TILE
-
-    def lanes(x, width):
-        x = torch.as_tensor(x, dtype=_F32, device=device)
-        if tuple(x.shape) != ((n_lanes, width) if width else (n_lanes,)):
-            raise ValueError(f"rays must hold {n_lanes} lanes, got "
-                             f"{tuple(x.shape)}")
-        return x
-
-    def pad(x, fill=0.0):
-        return torch.cat([x, torch.full((n - n_lanes,), fill, dtype=_F32,
-                                        device=device)])
-
-    origin = lanes(rays.origin, 3)
-    direction = lanes(rays.direction, 3)
-    one = torch.ones(n, dtype=_F32, device=device)
-    zero = torch.zeros(n, dtype=_F32, device=device)
-    cont = torch.stack([
-        pad(origin[:, 0]), pad(origin[:, 1]), pad(origin[:, 2]),
-        pad(direction[:, 0]), pad(direction[:, 1]),
-        pad(direction[:, 2], fill=1.0), pad(lanes(rays.time, 0)),
-        one, one, one, zero, zero, zero,
-    ])
-    lane_id = torch.arange(n, dtype=_I32, device=device)
-    ints = torch.stack([(lane_id < n_lanes).to(_I32),
-                        torch.zeros_like(lane_id), lane_id])
-    return cont, ints
 
 
 def render_rays_kernel(scene: Scene, rays: Rays, *, n_pixels: int, spp: int,

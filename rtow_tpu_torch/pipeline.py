@@ -1,9 +1,13 @@
 """Render dispatch (the port of ``rtow_tpu.pipeline``).
 
-The slice has one backend: the megakernel (ops/megakernel.py) on the
-scene's device — the CUDA kernel for CUDA tensors, its plain PyTorch
-version for CPU tensors.  Everything else the JAX package can render
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+Two backends, each on the scene's device (the CUDA kernel for CUDA
+tensors, its plain PyTorch version for CPU tensors), picked as the JAX
+package picks them (``pipeline.py:39-71``): sphere scenes and meshes of
+up to 16,384 triangles go through the persistent megakernel K1
+(ops/megakernel.py), larger meshes through the sorted-wavefront loop
+and its bounce kernel K3 (ops/wavefront.py, ops/flat_bounce.py).
+Everything else the JAX package can render raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -18,9 +22,10 @@ from .config import Config
 from .models.camera import Camera
 from .models.scene import DIELECTRIC, Scene
 from .ops.megakernel import (
-    LANES, TILE_ROWS, build_sphere_table, n_tiles_for, pack_camera, pack_meta,
-    render_blocks, unblock_image,
+    LANES, TILE_ROWS, n_tiles_for, pack_camera, pack_meta, render_blocks,
+    scene_k1_tables, unblock_image,
 )
+from .ops.wavefront import WAVEFRONT_MIN_TRIS, render_wavefront
 from .utils.profiling import RenderStats
 
 
@@ -53,7 +58,7 @@ def render_megakernel(
 
     _sync(device)
     t0 = _time.perf_counter()
-    tbl, _boxes = build_sphere_table(scene)
+    tbl, tris = scene_k1_tables(scene)
     cam = pack_camera(camera)
     if progress and tiles_total >= 20:
         n_bands = 10
@@ -64,7 +69,8 @@ def render_megakernel(
                              max_depth=cfg.max_child_rays,
                              tile0=band * band_tiles)
             parts.append(render_blocks(tbl, cam, meta, band_tiles,
-                                       background=scene.background))
+                                       background=scene.background,
+                                       tris=tris))
             _sync(device)
             rows_done = min((band + 1) * band_tiles * TILE_ROWS // tiles_x,
                             height)
@@ -77,7 +83,7 @@ def render_megakernel(
         meta = pack_meta(seed, width=width, height=height, spp=spp,
                          max_depth=cfg.max_child_rays)
         r, g, b = render_blocks(tbl, cam, meta, tiles_total,
-                                background=scene.background)
+                                background=scene.background, tris=tris)
     rad = unblock_image(r, g, b, width=width, height=height)
     _sync(device)
     elapsed = _time.perf_counter() - t0
@@ -86,6 +92,18 @@ def render_megakernel(
                             backend=device.type)
         print(stats.summary(), file=sys.stderr)
     return rad.cpu().numpy().astype(np.float64).reshape(height, width, 3) / spp
+
+
+def megakernel_supported(scene: Scene) -> bool:
+    """K1 renders sphere scenes and meshes of up to 16,384 triangles
+    (``pallas_supported``, :39)."""
+    return 0 < scene.n_primitives and scene.n_triangles <= WAVEFRONT_MIN_TRIS
+
+
+def wavefront_supported(scene: Scene) -> bool:
+    """Larger meshes take the sorted-wavefront loop and K3
+    (``wavefront_supported``, :56)."""
+    return scene.n_triangles > WAVEFRONT_MIN_TRIS
 
 
 def render_auto(
@@ -97,8 +115,9 @@ def render_auto(
     """Render with the backend the config and scene call for, on the
     scene's device (``rtow_tpu.pipeline.render_auto``, :194).
 
-    Only single-device sphere scenes with Lambertian, metal and
-    dielectric materials are ported; every other case raises."""
+    Only single-device scenes of spheres and triangles with Lambertian,
+    metal and dielectric materials are ported; every other case
+    raises."""
     if cfg.n_devices != 1:
         raise NotImplementedError(
             "--devices > 1 needs multi-device rendering "
@@ -119,4 +138,8 @@ def render_auto(
         raise NotImplementedError(
             "emissive and textured materials need the megakernel's "
             "remaining features (ROADMAP Queue 1 item 7)")
-    return render_megakernel(scene, camera, cfg, progress=progress)
+    if wavefront_supported(scene):
+        return render_wavefront(scene, camera, cfg, progress=progress)
+    if megakernel_supported(scene):
+        return render_megakernel(scene, camera, cfg, progress=progress)
+    raise ValueError("scene has no primitives")

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the megakernel K1 (ops/megakernel.py) and the gradient bounces K4 / K5
-(ops/grad.py).
+the megakernel K1 (ops/megakernel.py, spheres and triangles), the sorted
+wavefront's bounce K3 (ops/flat_bounce.py) and the gradient bounces
+K4 / K5 (ops/grad.py).
 
 Marked ``cuda``: each test skips (with its reason) where
 ``torch.cuda.is_available()`` is false.  This file imports neither JAX
@@ -12,24 +13,35 @@ Tolerance, as in chip_smoke.py: both versions round every float32
 operation alike (the kernel is built with -fmad=false, IEEE division and
 sqrt) and use the same CUDA math library; at most 1% of pixels may be
 off by more than 1e-4 of mean radiance (a last-bit difference can flip
-a discrete choice), with mean |difference| at most 1e-3.  K4 is
-bit-identical to its plain version.  K5 sums its adjoint in another order
-than autograd and the table gradient with atomics: per cot_in row and per
-g_tbl column, max |d| at most 1e-3 of the largest |plain|.
+a discrete choice), with mean |difference| at most 1e-3.  K3, bounce by
+bounce from the same input state, and K4 are bit-identical to their plain
+versions, K3's box tests, triangle tests and live lanes counted alike.
+K5 sums its adjoint in another order than autograd and the table
+gradient with atomics: per cot_in row and per g_tbl column, max |d| at
+most 1e-3 of the largest |plain|.
 """
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from rtow_tpu_torch.config import Config
-from rtow_tpu_torch.models.builders import cover_scene, three_sphere_scene
+from rtow_tpu_torch.models.builders import (
+    cover_scene, mesh_scene, three_sphere_scene,
+)
 from rtow_tpu_torch.models.camera import make_camera
 from rtow_tpu_torch.models.camera import camera_rays, pixel_coords
 from rtow_tpu_torch.models.scene import SceneBuilder
+from rtow_tpu_torch.ops import flat_bounce as fb
 from rtow_tpu_torch.ops import grad
 from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import wavefront as wf
 
 pytestmark = pytest.mark.cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -40,26 +52,32 @@ def dev():
 
 
 def _frames(scene, cam, width, height, spp, depth):
-    tbl, _ = mk.build_sphere_table(scene)
+    tbl, tris = mk.scene_k1_tables(scene)
     args = (tbl, mk.pack_camera(cam),
             mk.pack_meta(1, width=width, height=height, spp=spp,
                          max_depth=depth),
             mk.n_tiles_for(width, height))
+    kw = dict(background=scene.background, tris=tris)
     before = mk.render_blocks.launches
-    kern = mk.render_blocks(*args, background=scene.background)
+    kern = mk.render_blocks(*args, **kw)
     assert mk.render_blocks.launches == before + 1
-    plain = mk.render_blocks_reference(*args, background=scene.background)
+    plain = mk.render_blocks_reference(*args, **kw)
     assert mk.render_blocks.launches == before + 1
     torch.cuda.synchronize()
     return (mk.unblock_image(*kern, width=width, height=height) / spp,
             mk.unblock_image(*plain, width=width, height=height) / spp)
 
 
-@pytest.mark.parametrize("name", ["three_sphere", "cover"])
+@pytest.mark.parametrize("name", ["three_sphere", "cover", "knot_small"])
 def test_kernel_matches_plain_on_card(dev, name):
     if name == "cover":
         scene, cam = cover_scene(Config(image_width=200,
                                         aspect_ratio=16 / 9), device=dev)
+    elif name == "knot_small":  # 1,920 triangles: K1's triangle sweep
+        scene, cam = mesh_scene(Config(
+            image_width=200, aspect_ratio=16 / 9,
+            model=os.path.join(ROOT, "samples", "knot_small.obj")),
+            device=dev)
     else:
         scene, cam = three_sphere_scene(16 / 9, device=dev)
     kern, plain = _frames(scene, cam, 200, 112, 4, 50)
@@ -90,6 +108,60 @@ def test_table_larger_than_shared_memory_raises(dev):
         mk.render_blocks(tbl, cam, meta, 1)
 
 
+def _knot(dev, segments, rings):
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_mesh import make_knot
+
+    verts, faces = make_knot(segments, rings)
+    b = SceneBuilder()
+    b.add_mesh(verts[faces], b.add_lambertian((0.6, 0.5, 0.4)))
+    b.add_sphere((0.0, -101.0, 0.0), 100.0, b.add_metal((0.5,) * 3, 0.1))
+    return b.build(device=dev)
+
+
+@pytest.mark.parametrize("segments,rings", [(16, 12), (64, 64)])
+def test_flat_bounce_matches_plain_on_card(dev, segments, rings):
+    """K3 against its plain version at every bounce of a sorted loop:
+    the 384- and 8,192-triangle knots over a ground sphere, 64x64 spp4."""
+    scene = _knot(dev, segments, rings)
+    tables, bmin, inv_ext = wf.scene_tables(scene)
+    cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=45.0, aspect_ratio=1.0, aperture=0.0,
+                      focus_dist=3.0, device=dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    pix = torch.arange(64 * 64, device=dev).repeat_interleave(4)
+    s, t = pixel_coords(64, 64, gen, pix)
+    tape = []
+    before = fb.bounce_step.launches
+    wf.trace_lanes(wf.lane_state(camera_rays(cam, gen, s, t), pix.numel()),
+                   9, max_depth=20, tables=tables, bmin=bmin,
+                   inv_ext=inv_ext, tape=tape)
+    assert fb.bounce_step.launches == before + len(tape) > 3
+    for state, it in tape:
+        ks, ps = (torch.zeros(3, dtype=torch.int64, device=dev)
+                  for _ in range(2))
+        kern = fb.bounce_step(state, it, 9, 20, tables, stats=ks)
+        plain = fb.bounce_step_reference(state, it, 9, 20, tables, stats=ps)
+        torch.cuda.synchronize()
+        assert torch.equal(kern, plain), it
+        assert torch.equal(ks, ps), it
+
+
+def test_render_auto_launches_k3_for_large_meshes(dev):
+    scene = _knot(dev, 128, 72)  # 18,432 triangles
+    cfg = Config(image_width=32, aspect_ratio=1.0, samples_per_pixel=4,
+                 max_child_rays=6)
+    cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=45.0, aspect_ratio=1.0, device=dev)
+    from rtow_tpu_torch.pipeline import render_auto
+
+    k1, k3 = mk.render_blocks.launches, fb.bounce_step.launches
+    img = render_auto(scene, cam, cfg)
+    assert mk.render_blocks.launches == k1
+    assert fb.bounce_step.launches > k3
+    assert np.isfinite(img).all() and img.shape == (32, 32, 3)
+
+
 def _grad_tape(dev, depth=8):
     """The cover at 64x64, spp 2: the (depth + 1) input states of one
     forward through K4, and the table."""
@@ -99,8 +171,8 @@ def _grad_tape(dev, depth=8):
     gen = torch.Generator(dev).manual_seed(2)
     pix = torch.arange(64 * 64, device=dev).repeat_interleave(2)
     s, t = pixel_coords(64, 64, gen, pix)
-    cont, ints = grad.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
-                                 dev)
+    cont, ints = mk.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
+                               dev)
     tape = []
     for it in range(depth + 1):
         tape.append((cont, ints))

@@ -93,17 +93,42 @@ def test_salt_and_lane_hash_bit_equal():
 
 
 def test_draw_scatter_matches(lanes_u32):
-    """Same uniforms bit for bit; the unit vector goes through sin/cos,
-    whose float32 implementations differ by an ulp (tolerance 1e-6)."""
+    """Each side against a float64 oracle: the same float32 uniforms
+    (bit-equal on both sides), float32 uz and uph = float32(2 pi) * uu,
+    then sqrt(1 - uz^2) * (cos, sin)(uph) in float64.  Each side's float32
+    unit vector is within 1e-6 of the oracle (a float32 sin/cos is within
+    an ulp); uz and the choice are bit-equal.  A failure names the side
+    that moved, with the JAX platform and torch's thread count."""
+    import jax
+
     salt = 0x12345678
-    want = jmk._draw_scatter(jnp.asarray(lanes_u32), jnp.uint32(salt))
-    got = mk.draw_scatter(torch.from_numpy(lanes_u32.astype(np.int64)),
-                          salt)
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
-                                   atol=1e-6)
-    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
-    np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+    lanes = torch.from_numpy(lanes_u32.astype(np.int64))
+    uz = (1.0 - 2.0 * mk.uniform(lanes, salt, 5)).numpy()
+    uph = (np.float32(mk._TWO_PI) * mk.uniform(lanes, salt, 6).numpy())
+    assert uz.dtype == uph.dtype == np.float32
+    uxy = np.sqrt(np.maximum(1.0 - uz.astype(np.float64) ** 2, 0.0))
+    oracle = (uxy * np.cos(uph.astype(np.float64)),
+              uxy * np.sin(uph.astype(np.float64)))
+    sides = {
+        "JAX (XLA's float32 cos/sin)": [np.asarray(w) for w in
+                                        jmk._draw_scatter(
+                                            jnp.asarray(lanes_u32),
+                                            jnp.uint32(salt))],
+        "port (torch's float32 cos/sin)": [g.numpy() for g in
+                                           mk.draw_scatter(lanes, salt)],
+    }
+    where = (f"jax platform {jax.devices()[0].platform}, "
+             f"torch.get_num_threads() {torch.get_num_threads()}")
+    for side, got in sides.items():
+        for name, g, o in zip(("uvx", "uvy"), got, oracle):
+            err = np.abs(g.astype(np.float64) - o)
+            assert err.max() <= 1e-6, (
+                f"{side} moved: {name} off the float64 oracle by up to "
+                f"{err.max():.3g} on {np.mean(err > 1e-6):.2%} of lanes "
+                f"({where})")
+        np.testing.assert_array_equal(got[2], uz, err_msg=f"{side} uz")
+    np.testing.assert_array_equal(sides["port (torch's float32 cos/sin)"][3],
+                                  sides["JAX (XLA's float32 cos/sin)"][3])
 
 
 # ---------------------------------------------------------------------------

@@ -86,9 +86,26 @@ def test_cli_writes_ppm_on_cpu(tmp_path):
     assert mk.render_blocks.launches == 0
 
 
+def test_cli_renders_a_mesh_on_cpu(tmp_path, capsys):
+    """``-l`` through K1's plain version (1,920 triangles), with the JAX
+    CLI's triangle count on stderr."""
+    path = tmp_path / "k.ppm"
+    argv = ["--device", "cpu", "-l", os.path.join(ROOT, "samples",
+                                                   "knot_small.obj"),
+            "-w", "24", "-a", "1", "-s", "2", "-c", "3", "-o", str(path)]
+    assert cli.main(argv) == 0
+    assert "Scene has 1920 triangles" in capsys.readouterr().err
+    img = read_ppm(open(path))
+    assert img.shape == (24, 24, 3) and img.std() > 5
+    cfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+    np.testing.assert_array_equal(
+        img, tonemap(render_auto(*scene_for_config(cfg), cfg)))
+
+
 @pytest.mark.parametrize("flags", [
     ["--lights"], ["--cornell"], ["--checker"], ["--textures"], ["--smoke"],
-    ["--globe"], ["-l", "model.obj"], ["--russian-roulette"], ["-t", "2"],
+    ["--globe"], ["-l", os.path.join(ROOT, "samples", "knot_small.obj"),
+                  "--backend", "jnp"], ["--russian-roulette"], ["-t", "2"],
     ["--backend", "jnp"], ["--profile-dir", "trace"],
 ])
 def test_unported_flags_fail_loudly(flags):

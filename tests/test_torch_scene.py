@@ -94,7 +94,7 @@ def test_from_numpy_round_trips(case):
 def test_from_numpy_rejects_unported_leaves():
     (jscene, _), _ = CASES["one-sphere"]()
     leaves = scene_leaves(jscene)
-    leaves["triangles.verts"] = np.ones((1, 3, 3), np.float32)
+    leaves["volumes.p0"] = np.ones((1, 3), np.float32)  # a fog volume
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Scene.from_numpy(leaves, "cpu")
 
@@ -194,6 +194,8 @@ def test_port_imports_with_jax_blocked():
         "import rtow_tpu_torch, rtow_tpu_torch.cli, rtow_tpu_torch.pipeline\n"
         "import rtow_tpu_torch.ops.megakernel, rtow_tpu_torch.ops._cuda\n"
         "import rtow_tpu_torch.ops.grad, rtow_tpu_torch.diff\n"
+        "import rtow_tpu_torch.utils.obj, rtow_tpu_torch.ops.wavefront\n"
+        "import rtow_tpu_torch.ops.flat_bounce\n"
         "assert not any(m.startswith(('jax', 'rtow_tpu.')) for m, v in\n"
         "               sys.modules.items() if v is not None)\n"
         "print('ok')\n")
