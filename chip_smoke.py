@@ -15,8 +15,15 @@ the JAX package's bench grad leg; kernels K4 and K5) and the mesh path
 (``cli.main -l`` on the 65,536-triangle knot at 400x400, 64 samples per
 pixel, depth 20, through the sorted wavefront and K3, and on
 ``samples/knot_small.obj`` through K1; then bench.py's two knots timed
-through ``render_wavefront``).  Every phase prints one line; any failed
-check raises and the script exits non-zero.  The
+through ``render_wavefront``) and the light-driven path (K1's lit
+instances against their plain version on the five lit scenes, then
+``cli.main --cornell``, ``--smoke``, ``--lights`` and ``--textures`` at
+400x400, 512 samples per pixel, depth 8, and ``--checker`` and
+``--russian-roulette`` on the cover at the render's size, the latter
+held against the unbiased render; the middle band of each of these
+renders is launched again as ``cli.main`` launched it and held bit for
+bit against the plain version).  Every phase prints one line; any
+failed check raises and the script exits non-zero.  The
 line before the card line is the kernels' JSON summary; the last line
 of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -80,6 +87,21 @@ OPS_PER_BOX = 23
 OPS_PER_TRI = 15
 OPS_INV_DIR = 3
 
+#: The light-driven path: the Cornell box as BASELINE.md:336-343 measured
+#: it (400 px, depth 8, NEE at 512 spp), the smoke box alike.
+W_LIT, SPP_LIT, DEPTH_LIT = 400, 512, 8
+#: Lower bounds of the float32 operations of the lit bounce, counted from
+#: csrc/bounce.cuh: a light sample with its MIS weight (the sphere light's
+#: cone sample, the cheaper of the two kinds: 60) and the contribution
+#: (10) per shadow ray; per volume and step, a boundary interval and the
+#: free flight (the sphere's, the cheaper kind: 25), and again per
+#: shadow ray for the transmittance.  Textures are not counted.
+OPS_NEE = 70
+OPS_PER_VOL = 25
+#: Roulette against the unbiased render: frame means within this many
+#: standard errors of their difference.
+RR_SIGMAS = 4.0
+
 #: The mesh path: bench.py's knot legs (bench.py:162-188).
 W_MESH, SPP_MESH, DEPTH_MESH = 400, 64, 20
 KNOTS = {"65k": (256, 128), "360k": (600, 300)}
@@ -115,6 +137,25 @@ def event_ms(torch, fn):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end), out
+
+
+@contextlib.contextmanager
+def kept_radiance():
+    """Keeps the float radiance image that ``cli.main`` hands to the PPM
+    writer: yields a list that the image is appended to."""
+    from rtow_tpu_torch.utils import ppm
+
+    kept, write = [], ppm.write_ppm
+
+    def keep(f, image, *a, **k):
+        kept.append(image)
+        return write(f, image, *a, **k)
+
+    ppm.write_ppm = keep
+    try:
+        yield kept
+    finally:
+        ppm.write_ppm = write
 
 
 def card_line() -> str:
@@ -169,11 +210,16 @@ def main() -> None:
                               "grad_bwd"])
     wall = time.perf_counter() - t0
     for name, build in builds.items():
-        ptxas = "; ".join(line.split("ptxas info    : ")[-1]
-                          for line in build.log.splitlines()
-                          if "Used" in line or "spill" in line)
+        regs = [int(w) for line in build.log.splitlines() if "Used" in line
+                for w in [line.split("Used ")[1].split()[0]]]
+        spills = [int(line.split("bytes spill stores")[0].split(",")[-1])
+                  for line in build.log.splitlines()
+                  if "bytes spill stores" in line]
+        report = (f"ptxas: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+                  f"registers, spill stores {min(spills)}-{max(spills)} B"
+                  if regs and spills else "an existing build")
         say("1", f"nvcc build of csrc/{name}.cu: {build.seconds:.1f} s "
-                 f"({ptxas})")
+                 f"({report})")
     say("1", f"four builds in parallel: {wall:.1f} s wall")
 
     def frame(scene, cam, width, height, spp, depth, *, plain=False,
@@ -241,10 +287,11 @@ def main() -> None:
         ppm_path = os.path.join(tmp, "cover.ppm")
         mk.render_blocks.launches = 0
         t0 = time.perf_counter()
-        with contextlib.redirect_stderr(log):
+        with contextlib.redirect_stderr(log), kept_radiance() as kept:
             rc = cli.main(["-w", str(W_MAIN), "-a", repr(ASPECT), "-s",
                            str(spp_main), "-c", "50", "-o", ppm_path])
         wall = time.perf_counter() - t0
+        cover_radiance = kept[0]
         launches = mk.render_blocks.launches
         check(rc == 0, f"cli.main returned {rc}")
         check(launches > 0, "the main path launched no megakernel")
@@ -290,8 +337,9 @@ def main() -> None:
              f"by > {PIXEL_TOL}, mean |d| {mean6:.3g}, max |d| {mx6:.3g}")
 
     # Ray steps (a stats launch each, not timed) -> K1's bound: the
-    # sweep's and the step's float32 operations over the card's peak.
-    npad = tbl.shape[0]
+    # sweep's and the step's float32 operations over the card's peak.  The
+    # sweep is counted over the scene's spheres, not the table's padding.
+    n_sph = big[0].n_spheres
 
     def k1_steps(spp):
         steps = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -302,7 +350,7 @@ def main() -> None:
         return int(steps)
 
     def k1_bound_ms(steps):
-        return steps * (OPS_PER_STEP + OPS_PER_ROW * npad) / PEAK_F32 * 1e3
+        return steps * (OPS_PER_STEP + OPS_PER_ROW * n_sph) / PEAK_F32 * 1e3
 
     steps16 = k1_steps(16)
     k1_bound = k1_bound_ms(steps16)
@@ -314,7 +362,7 @@ def main() -> None:
         for _ in range(3))
     steps128 = k1_steps(spp_main)
     say("6", f"K1 ray steps: spp16 {steps16}, spp{spp_main} {steps128}; "
-             f"bound (float32 ops {OPS_PER_STEP} + {OPS_PER_ROW} x {npad} "
+             f"bound (float32 ops {OPS_PER_STEP} + {OPS_PER_ROW} x {n_sph} "
              f"per step / 67 TFLOP/s): spp16 {k1_bound:.2f} ms = "
              f"{k1_bound / kernel_ms:.1%} of {kernel_ms:.2f} ms; "
              f"spp{spp_main} {k1_bound_ms(steps128):.2f} ms = "
@@ -323,6 +371,7 @@ def main() -> None:
 
     grad = grad_phases(torch, dev, card, say)
     mesh = mesh_phases(torch, dev, card, say, event_ms, agreement)
+    lit = lit_phases(torch, dev, card, say, event_ms, cover_radiance)
 
     print(json.dumps({"kernels": [{
         "name": "megakernel",
@@ -336,7 +385,7 @@ def main() -> None:
         "bound_ms": k1_bound,
         "bound_by": "operations",
         "library_ms": None,
-    }, mesh] + grad}), flush=True)
+    }, mesh, lit] + grad}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -550,11 +599,12 @@ def grad_phases(torch, dev, card, say):
                       f"K4 vs plain at {W_GRAD}x{H_GRAD}, bounce {it}: not "
                       f"bit-identical")
             err = 0.0
-        npad = tbl.shape[0]
-        ops = OPS_PER_STEP + OPS_PER_ROW * npad + (OPS_BWD_EXTRA if bwd
-                                                   else 0)
+        # The sweep over the scene's spheres (not the table's padding).
+        n_sph = scene.n_spheres
+        ops = OPS_PER_STEP + OPS_PER_ROW * n_sph + (OPS_BWD_EXTRA if bwd
+                                                    else 0)
         # Bytes: each input read once, each output written once.
-        nbytes = (29 + 13 if bwd else 16 + 16) * 4 * n + npad * 64 * (
+        nbytes = (29 + 13 if bwd else 16 + 16) * 4 * n + n_sph * 64 * (
             2 if bwd else 1)
         bound = sum(max(nbytes / PEAK_BYTES, lv * ops / PEAK_F32) * 1e3
                     for lv in live)
@@ -918,6 +968,299 @@ def mesh_phases(torch, dev, card, say, event_ms, agreement):
         "replaces": "rtow_tpu/ops/pallas_megakernel.py:1739",
         "launches": k3_launches,
         "max_abs_err": max(r["err"] for r in rows.values()),
+        "ms": main_row["ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound"],
+        "bound_by": main_row["by"],
+        "library_ms": None,
+    }
+
+
+def k1_pair(torch, mk, dev, args, kw):
+    """One launch of K1 and one of its plain version on the same inputs:
+    ((kernel planes, kernel counters), (plain planes, plain counters)),
+    the three radiance planes stacked and the counters as [steps, box
+    tests, triangle tests, shadow rays]."""
+    out = []
+    for fn in (mk.render_blocks, mk.render_blocks_reference):
+        steps, tests, shadows = (torch.zeros(n, dtype=torch.int64,
+                                             device=dev) for n in (1, 2, 1))
+        planes = torch.stack(fn(*args, **kw, steps=steps, tests=tests,
+                                shadows=shadows))
+        torch.cuda.synchronize()
+        out.append((planes, steps.tolist() + tests.tolist()
+                    + shadows.tolist()))
+    return out
+
+
+def moved(obj, device):
+    """``obj`` with every tensor in it (in tuples, NamedTuples and dicts)
+    moved to ``device``."""
+    if hasattr(obj, "to") and hasattr(obj, "dtype"):
+        return obj.to(device)
+    if isinstance(obj, dict):
+        return {k: moved(v, device) for k, v in obj.items()}
+    if isinstance(obj, tuple):
+        items = [moved(v, device) for v in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
+    return obj
+
+
+def band_check(payload):
+    """A worker process's check of one recorded K1 launch (``payload``:
+    its (args, kwargs) with the tensors on the CPU): the kernel and its
+    plain version on the card.  Returns (finite, bit-identical, max |d|,
+    kernel counters, plain counters, seconds)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from rtow_tpu_torch.ops import megakernel as mk
+
+    torch.set_num_threads(1)
+    dev = torch.device("cuda", 0)
+    args, kw = moved(payload, dev)
+    t0 = time.perf_counter()
+    (k, kc), (p, pc) = k1_pair(torch, mk, dev, args, kw)
+    return (bool(torch.isfinite(k).all()), torch.equal(k, p),
+            float((k - p).abs().max()), kc, pc, time.perf_counter() - t0)
+
+
+def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
+    """Phases 14-18: K1's lit instances against their plain version on the
+    five lit scenes (and the checkered cover), the light-driven path
+    through ``cli.main`` for each lit flag at full size, roulette on the
+    cover against phase 5's unbiased render, the middle band of each of
+    those renders held against the plain version, and the lit instance's
+    times and bound on the Cornell and smoke boxes.  Returns the lit
+    instance's JSON entry (the Cornell box's times)."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import numpy as np
+
+    from rtow_tpu_torch import cli, pipeline
+    from rtow_tpu_torch.config import Config
+    from rtow_tpu_torch.models import builders as B
+    from rtow_tpu_torch.ops import megakernel as mk
+    from rtow_tpu_torch.utils.ppm import read_ppm
+
+    def prepared(scene, cam, spp, depth, roulette, width=W_LIT):
+        tbl, tris = mk.scene_k1_tables(scene)
+        args = (tbl, mk.pack_camera(cam),
+                mk.pack_meta(0, width=width, height=width, spp=spp,
+                             max_depth=depth),
+                mk.n_tiles_for(width, width))
+        kw = dict(background=scene.background, tris=tris,
+                  lit=mk.scene_lit(scene, roulette))
+        return args, kw
+
+    def held(name, finite, same, err, kc, pc):
+        """The kernel against its plain version on one launch: finite,
+        bit-identical, with equal counters.  max |d| goes to ``errs``."""
+        errs.append(err)
+        check(finite, f"lit K1 {name}: kernel output not finite")
+        check(same, f"lit K1 {name}: not bit-identical to the plain version "
+                    f"(max |d| {err:.3g})")
+        check(kc == pc,
+              f"lit K1 {name}: kernel counted {kc}, plain {pc} (steps, box "
+              f"tests, triangle tests, shadow rays) for the same launch")
+
+    def compared(name, args, kw):
+        """held() on one launch of each here.  Returns the counters."""
+        (k, kc), (p, pc) = k1_pair(torch, mk, dev, args, kw)
+        held(name, bool(torch.isfinite(k).all()), torch.equal(k, p),
+             float((k - p).abs().max()), kc, pc)
+        return kc
+
+    # ---- (14) the lit instances against their plain version, spp 2 ------
+    errs = []
+    scenes = {
+        "lights": (B.light_scene(1.0, device=dev), False, DEPTH_LIT),
+        "cornell": (B.cornell_scene(1.0, device=dev), False, DEPTH_LIT),
+        "textures": (B.textures_scene(1.0, device=dev), False, DEPTH_LIT),
+        "smoke": (B.smoke_scene(1.0, device=dev), False, DEPTH_LIT),
+        "checker cover": (B.cover_scene(Config(
+            image_width=W_LIT, aspect_ratio=1.0, checker_ground=True),
+            device=dev), False, 50),
+        "roulette cover": (B.cover_scene(Config(
+            image_width=W_LIT, aspect_ratio=1.0), device=dev), True, 50),
+    }
+    lines = []
+    for name, ((scene, cam), roulette, depth) in scenes.items():
+        counts = compared(name, *prepared(scene, cam, 2, depth, roulette))
+        lines.append(f"{name} {counts}")
+    say("14", f"lit K1 vs plain at {W_LIT}x{W_LIT} spp2 (depth {DEPTH_LIT}, "
+              f"the covers 50) on {card}: bit-identical with equal counters "
+              f"(steps, box tests, triangle tests, shadow rays): "
+              + "; ".join(lines))
+
+    # ---- (15) the light-driven path through cli.main at full size --------
+    def refuse(*_a, **_k):
+        raise CheckFailed("the light-driven path ran K1's plain version on "
+                          "the card")
+
+    def run_cli(flags, label):
+        """cli.main with ``flags``: (PPM image, radiance, wall s, lit
+        launches, its "Done" line, the (args, kwargs) of every launch)."""
+        plain_k1, kernel = mk.render_blocks_reference, pipeline.render_blocks
+        launched = []
+
+        def record(*a, **k):
+            launched.append((a, k))
+            return kernel(*a, **k)
+
+        mk.render_blocks_reference, pipeline.render_blocks = refuse, record
+        log = io.StringIO()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                ppm_path = os.path.join(tmp, "lit.ppm")
+                mk.render_blocks.launches = mk.render_blocks.lit_launches = 0
+                t0 = time.perf_counter()
+                with contextlib.redirect_stderr(log), kept_radiance() as kept:
+                    rc = cli.main(flags + ["-o", ppm_path])
+                wall = time.perf_counter() - t0
+                launches = (mk.render_blocks.launches,
+                            mk.render_blocks.lit_launches)
+                check(rc == 0, f"cli.main {label} returned {rc}")
+                with open(ppm_path) as f:
+                    img = read_ppm(f)
+        finally:
+            mk.render_blocks_reference, pipeline.render_blocks = (plain_k1,
+                                                                  kernel)
+        check(launches[1] > 0 and launches[0] == launches[1],
+              f"cli.main {label}: {launches[1]} of {launches[0]} K1 launches "
+              f"ran a lit instance")
+        done = [ln for ln in log.getvalue().splitlines()
+                if ln.startswith("Done")]
+        return img, kept[0], wall, launches[1], done[-1], launched
+
+    # The middle band of each render, as cli.main launched it: (its index,
+    # the number of bands, the launch's (args, kwargs)).
+    bands = {}
+
+    def middle(launched):
+        return len(launched) // 2, len(launched), launched[len(launched) // 2]
+
+    box_flags = ["-w", str(W_LIT), "-a", "1", "-s", str(SPP_LIT), "-c",
+                 str(DEPTH_LIT)]
+    cover_flags = ["-w", str(W_MAIN), "-a", repr(ASPECT), "-s", "128", "-c",
+                   "50"]
+    lit_launches = {}
+    for flag, flags in (("--cornell", box_flags), ("--smoke", box_flags),
+                        ("--lights", box_flags), ("--textures", box_flags),
+                        ("--checker", cover_flags)):
+        img, rad, wall, n, done, launched = run_cli([flag] + flags, flag)
+        check(img.shape[2] == 3 and img.std() > 10
+              and bool(np.isfinite(rad).all()),
+              f"{flag}: PPM shape {img.shape}, flat, or radiance not finite")
+        what = ""
+        if flag in ("--cornell", "--smoke"):
+            inner = img[100:300, 100:300].mean()
+            # The camera sees past the box's open front on every side: a
+            # 5-pixel ring of rays that miss everything (black background).
+            ring = np.concatenate([img[:5].ravel(), img[-5:].ravel(),
+                                   img[:, :5].ravel(), img[:, -5:].ravel()])
+            check(img.shape == (W_LIT, W_LIT, 3) and inner > 40
+                  and ring.max() == 0,
+                  f"{flag}: interior mean {inner:.1f} (want > 40), border "
+                  f"ring max {ring.max()} (want 0)")
+            what = f"; interior mean {inner:.1f} / 255, border ring black"
+        lit_launches[flag] = n
+        bands[flag] = middle(launched)
+        say("15", f"cli.main {flag} {' '.join(flags)}: {n} lit K1 launches, "
+                  f"{wall:.2f} s end to end (render: {done}); radiance mean "
+                  f"{rad.mean():.4f}{what}")
+
+    # ---- (16) roulette on the cover against the unbiased render ----------
+    img, rad, wall, n, done, launched = run_cli(
+        ["--russian-roulette"] + cover_flags, "--russian-roulette")
+    check(rad.shape == cover_radiance.shape and bool(np.isfinite(rad).all()),
+          "--russian-roulette: radiance shape or values")
+    diff = (rad - cover_radiance).mean(axis=2).ravel()
+    se = diff.std() / np.sqrt(diff.size)
+    check(abs(diff.mean()) <= RR_SIGMAS * se,
+          f"--russian-roulette: frame mean {rad.mean():.6f} vs unbiased "
+          f"{cover_radiance.mean():.6f}: difference {diff.mean():.3g} > "
+          f"{RR_SIGMAS} x its standard error {se:.3g}")
+    say("16", f"cli.main --russian-roulette {' '.join(cover_flags)}: {n} lit "
+              f"K1 launches, {wall:.2f} s end to end (render: {done}); frame "
+              f"mean {rad.mean():.6f} vs phase 5's unbiased "
+              f"{cover_radiance.mean():.6f}: difference {diff.mean():.3g} = "
+              f"{diff.mean() / se:.2f} standard errors ({se:.3g}; allowed "
+              f"{RR_SIGMAS})")
+    bands["--russian-roulette"] = middle(launched)
+
+    # ---- (17) each render's middle band against the plain version --------
+    # The plain version at the renders' spp takes one to two minutes a
+    # band, bound by the host's dispatch of its small ops: one worker
+    # process per band, all at once (nothing is timed meanwhile).
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=len(bands),
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = {flag: pool.submit(band_check, moved(launch, "cpu"))
+                   for flag, (_, _, launch) in bands.items()}
+        results = {flag: f.result() for flag, f in futures.items()}
+    lines = []
+    for flag, (i, n, ((_, _, meta, n_tiles), _)) in bands.items():
+        finite, same, err, kc, pc, seconds = results[flag]
+        held(f"{flag}, band {i}", finite, same, err, kc, pc)
+        lines.append(f"{flag} band {i} of {n} (tile0 {meta[4]}, {n_tiles} "
+                     f"tiles, spp {meta[5]}, depth {meta[6]}): counters {kc}"
+                     f", {seconds:.1f} s")
+    say("17", f"the middle band of each render above, launched again as "
+              f"cli.main launched it, kernel vs plain on {card} "
+              f"({len(bands)} worker processes, "
+              f"{time.perf_counter() - t0:.1f} s wall): bit-identical with "
+              f"equal counters (steps, box tests, triangle tests, shadow "
+              f"rays): " + "; ".join(lines))
+
+    # ---- (18) the lit instance's times and bound, spp 16 -----------------
+    rows = {}
+    for name in ("cornell", "smoke"):
+        (scene, cam), _, _ = scenes[name]
+        args, kw = prepared(scene, cam, 16, DEPTH_LIT, False)
+        timed = lambda: mk.render_blocks(*args, **kw)  # noqa: E731
+        event_ms(torch, timed)  # warm-up
+        k_runs = [event_ms(torch, timed)[0] for _ in range(3)]
+        k_ms = statistics.median(k_runs)
+        p_ms, _ = event_ms(torch, lambda: mk.render_blocks_reference(
+            *args, **kw))
+        steps, n_box, n_tri, n_shadow = compared(f"{name} spp16", args, kw)
+        # The work this frame needs: the sphere sweep over the scene's
+        # spheres (not the table's padding), once per step and once per
+        # shadow ray; the counted box and triangle tests; NEE per shadow
+        # ray; each volume per step and per shadow ray.  Bytes: the scene's
+        # rows and boxes read once, the three planes written once.
+        tris, lit = kw["tris"], kw["lit"]
+        n_sph, n_vol = scene.n_spheres, len(lit.vol_kinds)
+        ops = (steps * (OPS_PER_STEP + OPS_PER_ROW * n_sph + OPS_INV_DIR)
+               + n_box * OPS_PER_BOX + n_tri * OPS_PER_TRI
+               + n_shadow * (OPS_NEE + OPS_PER_ROW * n_sph + OPS_INV_DIR)
+               + n_vol * OPS_PER_VOL * (steps + n_shadow))
+        nbytes = (n_sph * 64 + tris.count * 64 + tris.n_blocks * 32
+                  + lit.rows.numel() * 4 + 3 * 4 * args[3] * 1024)
+        ops_ms, bytes_ms = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(ops_ms, bytes_ms)
+        by = "operations" if ops_ms >= bytes_ms else "bytes"
+        rows[name] = dict(ms=k_ms, plain_ms=p_ms, bound=bound, by=by)
+        say("18", f"lit K1, {name} {W_LIT}x{W_LIT} spp16 depth {DEPTH_LIT} "
+                  f"on {card}: kernel {k_ms:.3f} ms (median of "
+                  f"{', '.join(f'{x:.3f}' for x in k_runs)}), plain "
+                  f"{p_ms:.1f} ms; kernel vs plain bit-identical, counters "
+                  f"equal; {steps} ray steps, {n_shadow} shadow rays, "
+                  f"{n_box} box and {n_tri} triangle tests, {n_sph} spheres; "
+                  f"bound {bound:.4f} ms ({by}: {ops:.4g} float32 "
+                  f"operations, {nbytes} bytes) = {bound / k_ms:.1%} of the "
+                  f"kernel time")
+    main_row = rows["cornell"]
+    return {
+        "name": "megakernel_lit",
+        "route": "cuda",
+        "source": "rtow_tpu_torch/csrc/megakernel.cu",
+        "replaces": "rtow_tpu/ops/pallas_megakernel.py:1433",
+        "launches": lit_launches["--cornell"],
+        "max_abs_err": max(errs),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound"],

@@ -1,9 +1,12 @@
 """Command-line interface: the flags of ``rtow_tpu.cli`` (the reference
 CLI11 app, src/main.cpp:138-170), plus ``--device``.  PPM P3 on stdout
 or to a file, logging on stderr.  ``-l mesh.obj`` renders an OBJ mesh
-(K1 up to 16,384 triangles, the sorted wavefront and K3 above).  Flags
-whose feature the port has not ported raise ``NotImplementedError``
-naming the ROADMAP item.
+(K1 up to 16,384 triangles, the sorted wavefront and K3 above);
+``--lights``, ``--cornell``, ``--textures``, ``--smoke``, ``--checker``
+and ``--russian-roulette`` run K1's lit instances.  Flags whose feature
+the port has not ported (``--globe``, ``--backend jnp``, ``--devices``
+above 1, ``--profile-dir``) raise ``NotImplementedError`` naming the
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -32,14 +35,28 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--static-spheres", dest="moving_spheres", action="store_false")
     p.add_argument("--dry-run", action="store_true")
     p.add_argument("-l", "--load", type=str, default=None, help="OBJ model to load")
-    p.add_argument("--lights", action="store_true")
-    p.add_argument("--cornell", action="store_true")
-    p.add_argument("--checker", action="store_true", dest="checker_ground")
-    p.add_argument("--textures", action="store_true", dest="textures_demo")
-    p.add_argument("--smoke", action="store_true", dest="smoke_demo")
-    p.add_argument("--globe", action="store_true", dest="globe_demo")
+    p.add_argument("--lights", action="store_true",
+                   help="Emissive-material demo scene (area lights, "
+                        "black background; no reference counterpart)")
+    p.add_argument("--cornell", action="store_true",
+                   help="Cornell box demo (emissive triangle ceiling "
+                        "light; no reference counterpart)")
+    p.add_argument("--checker", action="store_true", dest="checker_ground",
+                   help="Checkered ground on the cover scene (book 2's "
+                        "first texture; no reference counterpart)")
+    p.add_argument("--textures", action="store_true", dest="textures_demo",
+                   help="Procedural-texture demo scene: checker ground + "
+                        "marble sphere (book 2; no reference counterpart)")
+    p.add_argument("--smoke", action="store_true", dest="smoke_demo",
+                   help="Cornell-smoke demo: constant-density media "
+                        "(book 2 ch. 9; no reference counterpart)")
+    p.add_argument("--globe", action="store_true", dest="globe_demo",
+                   help="Earth-globe image-texture demo (book 2 ch. 4.3; "
+                        "procedural texture, jnp path)")
     p.add_argument("--russian-roulette", action="store_true",
-                   dest="russian_roulette")
+                   dest="russian_roulette",
+                   help="Probabilistic path termination after 3 scatters "
+                        "(unbiased; off by default for reference fidelity)")
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--backend", choices=["auto", "jnp", "pallas"], default=d.backend)
     p.add_argument("--no-bvh", dest="use_bvh", action="store_false", default=d.use_bvh)

@@ -12,6 +12,12 @@
 // nearest_sphere + nearest_triangle + shade in
 // rtow_tpu_torch/ops/megakernel.py.  K4 and K5 take spheres only
 // (bounce_lane); K1 and K3 take triangles too (bounce_lane_t<true>).
+// K1's lit instances (bounce_lane_t<kTris, true>) add the rest of _bounce_core
+// (:1329-1430): emission with its MIS weight, next-event estimation with
+// the shadow sweep (_nee_contrib :1244, ops/lights.py), constant-density
+// media (ops/volumes.py), checker and noise textures
+// (models/materials.py) and Russian roulette; their plain version is
+// bounce_lanes in ops/megakernel.py.
 //
 // Numbers: float32 throughout; the kernels are built with -fmad=false and
 // IEEE division and square root, so every operation here rounds as in the
@@ -82,12 +88,14 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz, tm;
 };
 
-// Nearest hit over every table row.  Rows are tested in table order with a
-// strict `<`, so the first minimal t wins: the JAX sweep's tie rule
-// (first minimum inside a 128-row block, strictly smaller across blocks).
+// Nearest hit over every table row, at a t below t_init (kBig, or the
+// shadow sweep's threshold).  Rows are tested in table order with a strict
+// `<`, so the first minimal t wins: the JAX sweep's tie rule (first minimum
+// inside a 128-row block, strictly smaller across blocks).
 RTOW_HD void nearest_sphere(const float4* tbl, int npad, const Ray& r,
-                            float a, float inv_a, float* best_t, int* best_k) {
-  float bt = kBig;
+                            float a, float inv_a, float t_init, float* best_t,
+                            int* best_k) {
+  float bt = t_init;
   int bk = 0;
   for (int k = 0; k < npad; ++k) {
     const float4 p0 = tbl[4 * k];
@@ -110,6 +118,11 @@ RTOW_HD void nearest_sphere(const float4* tbl, int npad, const Ray& r,
   }
   *best_t = bt;
   *best_k = bk;
+}
+
+RTOW_HD void nearest_sphere(const float4* tbl, int npad, const Ray& r,
+                            float a, float inv_a, float* best_t, int* best_k) {
+  nearest_sphere(tbl, npad, r, a, inv_a, kBig, best_t, best_k);
 }
 
 // The hit record, with t re-derived from the winner's parameters (the root
@@ -282,7 +295,7 @@ struct Tris {
 
 // The sweep's work, counted per thread for the kernels' stats.
 struct Tally {
-  unsigned long long boxes = 0, tris = 0;
+  unsigned long long boxes = 0, tris = 0, shadows = 0;
 };
 
 #ifdef __CUDACC__
@@ -462,18 +475,424 @@ RTOW_HD void advance(float* s, int* bounce, const Hit& e, const Scatter& sc) {
   ++*bounce;
 }
 
+// ---- the lit features (K1) -----------------------------------------------
+
+constexpr int kLitCols = 14;  // floats per light or volume row
+constexpr float kEmissive = 3.0f;
+constexpr float kChecker = 4.0f;
+constexpr float kNoise = 5.0f;
+constexpr double kPiD = 3.14159265358979323846;
+// The JAX kernel's float64 constants rounded to float32.
+constexpr float kPi = static_cast<float>(kPiD);
+constexpr float kInvPi = static_cast<float>(1.0 / kPiD);
+constexpr float kHalfInvPi = static_cast<float>(0.5 / kPiD);
+constexpr float kQuarterInvPi = static_cast<float>(0.25 / kPiD);
+constexpr float kShadowFrac = static_cast<float>(1.0 - 1e-3);
+constexpr float kLightFar = 1e30f;
+constexpr int kRRStart = 3;      // rtow_tpu/ops/integrator.py:55-57
+constexpr float kRRPMin = 0.05f;
+
+// The lit features of a render.  rows: the (n_lights + n_vol) x 14 light
+// rows then volume rows (the volumes from vol_row0); light_kinds and
+// vol_kinds: 2 bits per row, light 0 sphere / 1 triangle, volume 0 sphere /
+// 1 box / 2 rotated box.
+struct Lit {
+  const float* rows;
+  int emissive, n_lights, checker, n_vol, vol_row0, roulette;
+  uint32_t light_kinds, vol_kinds;
+};
+
+// max(x, lo) as torch.clamp(x, min=lo) takes it (a NaN stays NaN).
+RTOW_HD float at_least(float x, float lo) { return x < lo ? lo : x; }
+
+// sqrt(x) where x > floor, else 0 (the JAX code's double-where guard).
+RTOW_HD float sqrt_pos(float x, float floor_v) {
+  return x <= floor_v ? 0.0f : sqrtf(x);
+}
+
+// -- textures (models/materials.py) --
+
+RTOW_HD float hash01(int xi, int yi, int zi) {
+  uint32_t h = static_cast<uint32_t>(xi) * 0x9E3779B1u ^
+               static_cast<uint32_t>(yi) * 0x85EBCA77u ^
+               static_cast<uint32_t>(zi) * 0xC2B2AE3Du;
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  return static_cast<float>(static_cast<int>(h >> 8)) * kInv24;
+}
+
+RTOW_HD float lerp(float a, float b, float t) { return a + (b - a) * t; }
+
+RTOW_HD float value_noise(float px, float py, float pz) {
+  const float ix = floorf(px), iy = floorf(py), iz = floorf(pz);
+  const float fx = px - ix, fy = py - iy, fz = pz - iz;
+  const float ux = fx * fx * (3.0f - 2.0f * fx);
+  const float uy = fy * fy * (3.0f - 2.0f * fy);
+  const float uz = fz * fz * (3.0f - 2.0f * fz);
+  const int xi = static_cast<int>(ix), yi = static_cast<int>(iy);
+  const int zi = static_cast<int>(iz);
+  const float c00 = lerp(hash01(xi, yi, zi), hash01(xi + 1, yi, zi), ux);
+  const float c10 =
+      lerp(hash01(xi, yi + 1, zi), hash01(xi + 1, yi + 1, zi), ux);
+  const float c01 =
+      lerp(hash01(xi, yi, zi + 1), hash01(xi + 1, yi, zi + 1), ux);
+  const float c11 =
+      lerp(hash01(xi, yi + 1, zi + 1), hash01(xi + 1, yi + 1, zi + 1), ux);
+  return lerp(lerp(c00, c10, uy), lerp(c01, c11, uy), uz);
+}
+
+RTOW_HD float marble_t(float px, float py, float pz, float scale) {
+  float turb = value_noise(px * scale, py * scale, pz * scale) +
+               0.5f * value_noise(px * scale * 2.0f + 17.0f, py * scale * 2.0f,
+                                  pz * scale * 2.0f) +
+               0.25f * value_noise(px * scale * 4.0f,
+                                   py * scale * 4.0f + 31.0f,
+                                   pz * scale * 4.0f);
+  turb = turb / 1.75f;
+  return 0.5f * (1.0f + sinf(scale * pz + 10.0f * turb));
+}
+
+// The winner sphere's material with its texture applied at the hit point.
+RTOW_HD Material textured(const float4* tbl, int k, Material m, float px,
+                          float py, float pz) {
+  const float4 q3 = tbl[4 * k + 3];
+  if (m.kind == kChecker) {
+    const float sp = sinf(m.ir * px) * sinf(m.ir * py) * sinf(m.ir * pz);
+    if (sp < 0.0f) {
+      m.alr = q3.y;
+      m.alg = q3.z;
+      m.alb = q3.w;
+    }
+  } else if (m.kind == kNoise) {
+    const float t = marble_t(px, py, pz, m.ir);
+    m.alr = m.alr + (q3.y - m.alr) * t;
+    m.alg = m.alg + (q3.z - m.alg) * t;
+    m.alb = m.alb + (q3.w - m.alb) * t;
+  }
+  return m;
+}
+
+RTOW_HD bool is_diffuse(float kind) {
+  return kind == 0.0f || kind == kChecker || kind == kNoise;
+}
+
+// -- lights (ops/lights.py) --
+
+struct LightSample {
+  float dx, dy, dz, t, w0, w1, w2, pdf;
+};
+
+// Light `k` sampled from p (sample_light_dirs, for the picked light).
+RTOW_HD LightSample sample_light(const Lit& L, int k, float u1, float u2,
+                                 float px, float py, float pz, float tm) {
+  const float* q = L.rows + kLitCols * k;
+  const float n = static_cast<float>(L.n_lights);
+  LightSample ls;
+  if (((L.light_kinds >> (2 * k)) & 3u) == 0u) {  // sphere
+    const float cx = q[1] + tm * q[4];
+    const float cy = q[2] + tm * q[5];
+    const float cz = q[3] + tm * q[6];
+    const float r2 = q[7] * q[7];
+    const float tox = cx - px, toy = cy - py, toz = cz - pz;
+    const float d2 = tox * tox + toy * toy + toz * toz;
+    const float d = sqrtf(at_least(d2, 1e-12f));
+    const float inv_d = 1.0f / d;
+    const float wx = tox * inv_d, wy = toy * inv_d, wz = toz * inv_d;
+    const float cos_max = sqrt_pos(1.0f - r2 / at_least(d2, 1e-12f), 0.0f);
+    const float cos_t = 1.0f - u1 * (1.0f - cos_max);
+    const float sin_t = sqrt_pos(1.0f - cos_t * cos_t, 1e-12f);
+    const float phi = kTwoPi * u2;
+    // Branchless orthonormal basis around w (Frisvad / Duff).
+    const float sign = wz >= 0.0f ? 1.0f : -1.0f;
+    const float a = -1.0f / (sign + wz);
+    const float b = wx * wy * a;
+    const float ux = 1.0f + sign * wx * wx * a, uy = sign * b, uz = -sign * wx;
+    const float vx = b, vy = sign + wy * wy * a, vz = -wy;
+    const float cp = cosf(phi), sp = sinf(phi);
+    ls.dx = cp * sin_t * ux + sp * sin_t * vx + cos_t * wx;
+    ls.dy = cp * sin_t * uy + sp * sin_t * vy + cos_t * wy;
+    ls.dz = cp * sin_t * uz + sp * sin_t * vz + cos_t * wz;
+    const float oc_d = -(tox * ls.dx + toy * ls.dy + toz * ls.dz);
+    const float disc = oc_d * oc_d - (d2 - r2);
+    const float t_k = -oc_d - sqrt_pos(disc, 0.0f);
+    const bool ok = d2 > r2 && disc > 0.0f;
+    const float geo = ok ? 2.0f * (1.0f - cos_max) * n : 0.0f;
+    ls.pdf = ok ? 1.0f / at_least(kTwoPi * (1.0f - cos_max) * n, 1e-12f)
+                : 0.0f;
+    ls.t = at_least(t_k, 1e-4f);
+    ls.w0 = q[11] * geo;
+    ls.w1 = q[12] * geo;
+    ls.w2 = q[13] * geo;
+  } else {  // triangle: a uniform point on it
+    const float e1x = q[4], e1y = q[5], e1z = q[6];
+    const float e2x = q[7], e2y = q[8], e2z = q[9];
+    const float area = q[10];
+    const float su = sqrtf(at_least(u1, 1e-12f));
+    const float bu = 1.0f - su;
+    const float bv = u2 * su;
+    const float qx = q[1] + bu * e1x + bv * e2x;
+    const float qy = q[2] + bu * e1y + bv * e2y;
+    const float qz = q[3] + bu * e1z + bv * e2z;
+    const float tox = qx - px, toy = qy - py, toz = qz - pz;
+    const float d2 = tox * tox + toy * toy + toz * toz;
+    const float d = sqrtf(at_least(d2, 1e-12f));
+    const float inv_d = 1.0f / d;
+    ls.dx = tox * inv_d;
+    ls.dy = toy * inv_d;
+    ls.dz = toz * inv_d;
+    const float nx = e1y * e2z - e1z * e2y;
+    const float ny = e1z * e2x - e1x * e2z;
+    const float nz = e1x * e2y - e1y * e2x;
+    const float nlen = sqrtf(at_least(nx * nx + ny * ny + nz * nz, 1e-24f));
+    const float cos_a = -(ls.dx * nx + ls.dy * ny + ls.dz * nz) / nlen;
+    const bool ok = cos_a > 1e-6f;
+    const float geo =
+        ok ? cos_a * area * n / (kPi * at_least(d2, 1e-12f)) : 0.0f;
+    ls.pdf = ok ? d2 / at_least(cos_a * area * n, 1e-12f) : 0.0f;
+    ls.t = at_least(d, 1e-4f);
+    ls.w0 = q[11] * geo;
+    ls.w1 = q[12] * geo;
+    ls.w2 = q[13] * geo;
+  }
+  return ls;
+}
+
+// The light strategy's pdf of direction d from o when the path's nearest
+// hit is at t_hit (light_pdf_toward): each matching light's, summed in
+// light order.
+RTOW_HD float light_pdf_toward(const Lit& L, const Ray& r, float t_hit) {
+  const float n = static_cast<float>(L.n_lights);
+  const float dlen =
+      sqrtf(at_least(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-24f));
+  const float inv_l = 1.0f / dlen;
+  const float ux = r.dx * inv_l, uy = r.dy * inv_l, uz = r.dz * inv_l;
+  const float th = t_hit * dlen;
+  float pdf = 0.0f;
+  for (int k = 0; k < L.n_lights; ++k) {
+    const float* q = L.rows + kLitCols * k;
+    bool ok;
+    float t_k, pdf_k;
+    if (((L.light_kinds >> (2 * k)) & 3u) == 0u) {
+      const float cx = q[1] + r.tm * q[4];
+      const float cy = q[2] + r.tm * q[5];
+      const float cz = q[3] + r.tm * q[6];
+      const float r2 = q[7] * q[7];
+      const float tox = cx - r.ox, toy = cy - r.oy, toz = cz - r.oz;
+      const float d2 = tox * tox + toy * toy + toz * toz;
+      const float oc_d = -(tox * ux + toy * uy + toz * uz);
+      const float disc = oc_d * oc_d - (d2 - r2);
+      t_k = -oc_d - sqrt_pos(disc, 0.0f);
+      const float cos_max = sqrt_pos(1.0f - r2 / at_least(d2, 1e-12f), 0.0f);
+      ok = d2 > r2 && disc > 0.0f && t_k > 0.0f;
+      pdf_k = 1.0f / at_least(kTwoPi * (1.0f - cos_max) * n, 1e-12f);
+    } else {  // Moller-Trumbore, front side only
+      const float e1x = q[4], e1y = q[5], e1z = q[6];
+      const float e2x = q[7], e2y = q[8], e2z = q[9];
+      const float px_ = uy * e2z - uz * e2y;
+      const float py_ = uz * e2x - ux * e2z;
+      const float pz_ = ux * e2y - uy * e2x;
+      const float det = e1x * px_ + e1y * py_ + e1z * pz_;
+      const float inv = 1.0f / (fabsf(det) < 1e-12f ? 1.0f : det);
+      const float sx = r.ox - q[1], sy = r.oy - q[2], sz = r.oz - q[3];
+      const float u = (sx * px_ + sy * py_ + sz * pz_) * inv;
+      const float qx = sy * e1z - sz * e1y;
+      const float qy = sz * e1x - sx * e1z;
+      const float qz = sx * e1y - sy * e1x;
+      const float v = (ux * qx + uy * qy + uz * qz) * inv;
+      t_k = (e2x * qx + e2y * qy + e2z * qz) * inv;
+      ok = det >= 1e-6f && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
+           t_k > 0.0f;
+      const float nx = e1y * e2z - e1z * e2y;
+      const float ny = e1z * e2x - e1x * e2z;
+      const float nz = e1x * e2y - e1y * e2x;
+      const float nlen = sqrtf(at_least(nx * nx + ny * ny + nz * nz, 1e-24f));
+      const float cos_a = -(ux * nx + uy * ny + uz * nz) / nlen;
+      pdf_k = (t_k * t_k) / at_least(cos_a * q[10] * n, 1e-12f);
+    }
+    if (ok && fabsf(t_k - th) <= 1e-3f * at_least(th, 1.0f)) pdf = pdf + pdf_k;
+  }
+  return pdf;
+}
+
+// -- media (ops/volumes.py) --
+
+// The boundary interval [t0, t1] of volume k along the ray; false where the
+// ray misses it.
+RTOW_HD bool vol_interval(const Lit& L, int k, float ox, float oy, float oz,
+                          float dx, float dy, float dz, float* t0, float* t1) {
+  const float* q = L.rows + kLitCols * (L.vol_row0 + k);
+  const uint32_t kind = (L.vol_kinds >> (2 * k)) & 3u;
+  if (kind == 0u) {  // sphere
+    const float ocx = ox - q[0], ocy = oy - q[1], ocz = oz - q[2];
+    const float a = dx * dx + dy * dy + dz * dz;
+    const float h = ocx * dx + ocy * dy + ocz * dz;
+    const float c = ocx * ocx + ocy * ocy + ocz * ocz - q[3] * q[3];
+    const float disc = h * h - a * c;
+    const float sq = disc <= 0.0f ? 0.0f : sqrtf(disc);
+    const float inv_a = 1.0f / at_least(a, 1e-24f);
+    *t0 = (-h - sq) * inv_a;
+    *t1 = (-h + sq) * inv_a;
+    return disc > 0.0f;
+  }
+  if (kind == 2u) {  // rotated box: the ray into the box's local frame
+    const float c = cosf(q[7]), sn = sinf(q[7]);
+    const float wx = ox - q[11], wy = oy - q[12], wz = oz - q[13];
+    ox = c * wx - sn * wz;
+    oz = sn * wx + c * wz;
+    oy = wy;
+    const float ldx = c * dx - sn * dz;
+    dz = sn * dx + c * dz;
+    dx = ldx;
+  }
+  float lo[3], hi[3];
+  const float o[3] = {ox, oy, oz}, d[3] = {dx, dy, dz};
+  for (int i = 0; i < 3; ++i) {
+    const float di = fabsf(d[i]) < 1e-24f ? (d[i] < 0.0f ? -1e-24f : 1e-24f)
+                                          : d[i];
+    const float inv = 1.0f / di;
+    const float ta = (q[i] - o[i]) * inv, tb = (q[3 + i] - o[i]) * inv;
+    lo[i] = ta < tb ? ta : tb;
+    hi[i] = ta > tb ? ta : tb;
+  }
+  const float m01 = lo[0] > lo[1] ? lo[0] : lo[1];
+  const float n01 = hi[0] < hi[1] ? hi[0] : hi[1];
+  *t0 = m01 > lo[2] ? m01 : lo[2];
+  *t1 = n01 < hi[2] ? n01 : hi[2];
+  return *t0 < *t1;
+}
+
+// exp(-sum sigma * overlap) along [0, t_max] of the ray (the shadow ray's
+// medium attenuation).
+RTOW_HD float transmittance(const Lit& L, const Ray& r, float t_max) {
+  const float dlen =
+      sqrtf(at_least(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-24f));
+  float tau = 0.0f;
+  for (int k = 0; k < L.n_vol; ++k) {
+    float t0, t1;
+    if (vol_interval(L, k, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, &t0, &t1)) {
+      const float t_in = at_least(t0, 0.0f);
+      const float t_out = t1 < t_max ? t1 : t_max;
+      const float overlap = at_least(t_out - t_in, 0.0f);
+      tau = tau + L.rows[kLitCols * (L.vol_row0 + k) + 6] * overlap * dlen;
+    }
+  }
+  return expf(-tau);
+}
+
+// The free-flight volume event before t_surf (sample_volume_event): whether
+// one lands, at t_v, with the medium's albedo.
+RTOW_HD bool volume_event(const Lit& L, const Ray& r, uint32_t lane,
+                          uint32_t salt, float t_surf, float* t_v,
+                          float* alb) {
+  const float dlen =
+      sqrtf(at_least(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-24f));
+  float tv = kLightFar;
+  for (int k = 0; k < L.n_vol; ++k) {
+    float t0, t1;
+    const bool valid =
+        vol_interval(L, k, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, &t0, &t1);
+    const float* q = L.rows + kLitCols * (L.vol_row0 + k);
+    const float t_in = at_least(t0, 1e-3f);
+    const float t_out = t1 < t_surf ? t1 : t_surf;
+    const float sigma = q[6] < 1e-12f ? 1e-12f : q[6];
+    const float u = uniform(lane, salt, 16 + k);
+    const float t_k = t_in + -logf(at_least(u, 1e-12f)) / sigma / dlen;
+    if (valid && t_in < t_out && t_k < t_out && t_k < tv) {
+      tv = t_k;
+      alb[0] = q[8];
+      alb[1] = q[9];
+      alb[2] = q[10];
+    }
+  }
+  *t_v = tv;
+  return tv < kLightFar;
+}
+
+// Next-event estimation from p (_nee_contrib): a light sample, its MIS
+// balance weight against the scatter strategy (the cosine pdf at a
+// surface, the isotropic phase 1 / (4 pi) at a volume event), the shadow
+// ray's medium transmittance, and the shadow sweep from t_init = the
+// light's distance less 0.1%.  Adds the contribution to s[10..12] where
+// the shadow ray gets through; tally counts the shadow ray.
+template <bool kTris>
+RTOW_HD void next_event(const float4* tbl, int npad, const Tris& tris,
+                        const Lit& L, float* s, float px, float py, float pz,
+                        float nx, float ny, float nz, float nar, float nag,
+                        float nab, bool volume, uint32_t lane, uint32_t salt,
+                        Tally* tally) {
+  const float pick = uniform(lane, salt, 8);
+  const float u1 = uniform(lane, salt, 9);
+  const float u2 = uniform(lane, salt, 10);
+  int k = static_cast<int>(pick * static_cast<float>(L.n_lights));
+  if (k > L.n_lights - 1) k = L.n_lights - 1;
+  const LightSample ls = sample_light(L, k, u1, u2, px, py, pz, s[6]);
+  const float thresh = ls.t * kShadowFrac;
+  const float cos_t = at_least(nx * ls.dx + ny * ls.dy + nz * ls.dz, 0.0f);
+  const float phase = volume ? kQuarterInvPi : cos_t * kInvPi;
+  float factor = volume ? 0.25f : cos_t;
+  const float w_l = ls.pdf / at_least(ls.pdf + phase, kEps12);
+  const Ray sr{px, py, pz, ls.dx, ls.dy, ls.dz, s[6]};
+  if (L.n_vol > 0) factor = factor * transmittance(L, sr, ls.t);
+  const float cw = factor * w_l;
+  const float cr = s[7] * nar * ls.w0 * cw;
+  const float cg = s[8] * nag * ls.w1 * cw;
+  const float cb = s[9] * nab * ls.w2 * cw;
+  const float la = sr.dx * sr.dx + sr.dy * sr.dy + sr.dz * sr.dz;
+  ++tally->shadows;
+  float st;
+  int sk;
+  nearest_sphere(tbl, npad, sr, la, 1.0f / la, thresh, &st, &sk);
+  if constexpr (kTris) nearest_triangle(tris, sr, npad, &st, &sk, tally);
+  if (st >= thresh) {
+    s[10] = s[10] + cr;
+    s[11] = s[11] + cg;
+    s[12] = s[12] + cb;
+  }
+}
+
+// Russian roulette on a scattered lane's post-increment bounce count (from
+// RR_START on): survive with p = clamp(max throughput channel, RR_PMIN, 1),
+// boosted by 1 / p.  Returns whether the lane survives.
+RTOW_HD bool roulette(const Lit& L, float* s, int bounce, uint32_t lane,
+                      uint32_t salt) {
+  if (!L.roulette || bounce <= kRRStart) return true;
+  float p = s[7] > s[8] ? s[7] : s[8];
+  p = p > s[9] ? p : s[9];
+  p = p < kRRPMin ? kRRPMin : (p > 1.0f ? 1.0f : p);
+  if (uniform(lane, salt, 11) >= p) return false;
+  const float boost = 1.0f / p;
+  s[7] = s[7] * boost;
+  s[8] = s[8] * boost;
+  s[9] = s[9] * boost;
+  return true;
+}
+
+// ---- one bounce ----------------------------------------------------------
+
 // One intersect-and-shade step of a live lane.  s holds the 13 floats
 // (ox oy oz dx dy dz tm tpr tpg tpb rr rg rb) and is updated in place: a
 // miss adds throughput * background to the radiance and retires the lane,
 // a hit at depth retires it (depth is checked after the hit), any other hit
-// scatters.  Returns whether the lane goes on (the JAX kernels' `can`).
-// kTris adds the triangle sweep of `tris` after the spheres; `tally` gets
-// its work.
-template <bool kTris>
-RTOW_HD bool bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
-                           float* s, int* bounce, uint32_t lane, uint32_t salt,
-                           int max_depth, const Background& bg,
-                           Tally* tally) {
+// scatters.  Returns the alive code: 0 dead, else alive (the JAX kernels'
+// `can`).  kTris adds the triangle sweep of `tris` after the spheres;
+// `tally` gets its work.
+//
+// kLit adds the rest of _bounce_core (K1's lit instances), each feature
+// acting where the runtime L says the scene has it: the volume event, which
+// overrides the surface and the sky (at depth it absorbs); textures;
+// emission, which lands before the depth test and retires the lane, its
+// MIS weight from the light pdf toward the hit when the previous bounce
+// scattered diffusely (from_diffuse); NEE at diffuse hits and volume
+// events; roulette.  The alive code is then 2 after a diffuse or volume
+// scatter under NEE.  Without kLit the code is the plain bounce's.
+template <bool kTris, bool kLit = false>
+RTOW_HD int bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
+                          float* s, int* bounce, uint32_t lane, uint32_t salt,
+                          int max_depth, const Background& bg, Tally* tally,
+                          const Lit& L = Lit{}, bool from_diffuse = false) {
   const Ray r{s[0], s[1], s[2], s[3], s[4], s[5], s[6]};
   const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
   const float inv_a = 1.0f / a;
@@ -481,6 +900,32 @@ RTOW_HD bool bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
   int best_k;
   nearest_sphere(tbl, npad, r, a, inv_a, &best_t, &best_k);
   if constexpr (kTris) nearest_triangle(tris, r, npad, &best_t, &best_k, tally);
+  const bool nee = kLit && L.n_lights > 0;
+  if constexpr (kLit) {
+    float v_t, v_alb[3];
+    if (L.n_vol > 0 && volume_event(L, r, lane, salt, best_t, &v_t, v_alb)) {
+      if (*bounce >= max_depth) return 0;
+      const float vpx = r.ox + v_t * r.dx;
+      const float vpy = r.oy + v_t * r.dy;
+      const float vpz = r.oz + v_t * r.dz;
+      if (nee)
+        next_event<kTris>(tbl, npad, tris, L, s, vpx, vpy, vpz, 0.0f, 0.0f,
+                          0.0f, v_alb[0], v_alb[1], v_alb[2], true, lane,
+                          salt, tally);
+      const Draws w = draw_scatter(lane, salt);
+      s[0] = vpx;
+      s[1] = vpy;
+      s[2] = vpz;
+      s[3] = w.uvx * 0.5f;  // isotropic: |d| / (2 pi) is then 1 / (4 pi)
+      s[4] = w.uvy * 0.5f;
+      s[5] = w.uvz * 0.5f;
+      s[7] = s[7] * v_alb[0];
+      s[8] = s[8] * v_alb[1];
+      s[9] = s[9] * v_alb[2];
+      ++*bounce;
+      return roulette(L, s, *bounce, lane, salt) ? (nee ? 2 : 1) : 0;
+    }
+  }
   if (!(best_t < kBig)) {
     float skyr = bg.r, skyg = bg.g, skyb = bg.b;
     if (bg.use_sky) {
@@ -490,21 +935,48 @@ RTOW_HD bool bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
     s[10] = s[10] + s[7] * skyr;
     s[11] = s[11] + s[8] * skyg;
     s[12] = s[12] + s[9] * skyb;
-    return false;
+    return 0;
   }
-  if (*bounce >= max_depth) return false;
-  if constexpr (kTris) {
-    if (best_k >= npad) {
-      const Hit e = triangle_hit_record(tris.tbl, best_k - npad, r);
-      advance(s, bounce, e,
-              scatter(triangle_material(tris.tbl, best_k - npad), e, r, a,
-                      draw_scatter(lane, salt)));
-      return true;
+  if constexpr (!kLit) {
+    if (*bounce >= max_depth) return 0;
+  }
+  Hit e;
+  Material m;
+  if (kTris && best_k >= npad) {
+    e = triangle_hit_record(tris.tbl, best_k - npad, r);
+    m = triangle_material(tris.tbl, best_k - npad);
+  } else {
+    e = hit_record(tbl, best_k, best_t, r, a, inv_a);
+    m = sphere_material(tbl, best_k);
+    if (kLit && L.checker) m = textured(tbl, best_k, m, e.px, e.py, e.pz);
+  }
+  bool diffuse = false;
+  if constexpr (kLit) {
+    if (L.emissive && m.kind == kEmissive) {
+      // Emission lands at any depth; a diffuse-scattered ray's is
+      // weighted against the light sample (balance heuristic).
+      float w_emit = 1.0f;
+      if (nee && from_diffuse) {
+        const float p_l = light_pdf_toward(L, r, e.t);
+        const float p_b = sqrtf(a) * kHalfInvPi;
+        w_emit = p_b / at_least(p_b + p_l, kEps12);
+      }
+      s[10] = s[10] + s[7] * m.alr * w_emit;
+      s[11] = s[11] + s[8] * m.alg * w_emit;
+      s[12] = s[12] + s[9] * m.alb * w_emit;
+      return 0;
     }
+    if (*bounce >= max_depth) return 0;
+    diffuse = is_diffuse(m.kind);
+    if (nee && diffuse)
+      next_event<kTris>(tbl, npad, tris, L, s, e.px, e.py, e.pz, e.nx, e.ny,
+                        e.nz, m.alr, m.alg, m.alb, false, lane, salt, tally);
   }
-  const Hit e = hit_record(tbl, best_k, best_t, r, a, inv_a);
-  advance(s, bounce, e, scatter(tbl, best_k, e, r, a, draw_scatter(lane, salt)));
-  return true;
+  advance(s, bounce, e, scatter(m, e, r, a, draw_scatter(lane, salt)));
+  if constexpr (kLit) {
+    if (!roulette(L, s, *bounce, lane, salt)) return 0;
+  }
+  return nee && diffuse ? 2 : 1;
 }
 
 // The sphere-only bounce of K4 and K5.
@@ -512,7 +984,7 @@ RTOW_HD bool bounce_lane(const float4* tbl, int npad, float* s, int* bounce,
                          uint32_t lane, uint32_t salt, int max_depth,
                          const Background& bg) {
   return bounce_lane_t<false>(tbl, npad, Tris{}, s, bounce, lane, salt,
-                              max_depth, bg, nullptr);
+                              max_depth, bg, nullptr) != 0;
 }
 
 }  // namespace rtow

@@ -1,11 +1,12 @@
 // Persistent whole-frame path tracer for sphere scenes and meshes of up to
-// 16,384 triangles, one thread per lane.
+// 16,384 triangles, with their lights, media and textures, one thread per
+// lane.
 //
 // Replaces rtow_tpu/ops/pallas_megakernel.py:_kernel (classic scheduler,
-// RTOW_POOL=0) with the sphere and flat-triangle subset of its shared bounce
-// code (_bounce_core, ported once in bounce.cuh for K1, K3, K4 and K5).  The
-// plain PyTorch version is render_blocks_reference in
-// rtow_tpu_torch/ops/megakernel.py; the wrapper is render_blocks.
+// RTOW_POOL=0) with its shared bounce code (_bounce_core, ported in
+// bounce.cuh for K1, K3, K4 and K5).  The plain PyTorch version is
+// render_blocks_reference in rtow_tpu_torch/ops/megakernel.py; the wrapper
+// is render_blocks.
 //
 // What bounds it on Hopper: float32 ALU work and warp divergence, not bytes.
 // The cover's table is 512 rows x 64 B = 32 KB, read once per block, and a
@@ -20,6 +21,22 @@
 // held in L2, and each thread slab-tests every 128-row block's box and
 // sweeps only the blocks its ray enters.  Scenes without triangles run the
 // sphere-only instance of the kernel, unchanged.
+//
+// Scenes with lights, textures, media or roulette run the lit instances
+// (kLit, bounce_lane_t<kTris, true>): the same loop, the alive code 2
+// after a diffuse scatter for the emission's MIS weight, and the light and
+// volume rows staged in shared memory behind the sphere table (each lane
+// reads the row it picked, so __constant__ would serialise the reads).
+// Each lit feature is gated at run time by the scene's Lit; kLit is the
+// one template flag, so the sphere-only and triangle instances compile to
+// the plain bounce.  The NEE shadow sweep adds a second sphere and triangle
+// sweep per diffuse hit, counted in `tests` as the main sweep is, and in
+// `shadows`.  What bounds
+// the lit instances is again ALU work and divergence: a lane that takes a
+// light sample, a volume event or a texture runs a long branch its warp's
+// other lanes wait for, and every shadow ray sweeps the tables once more.
+// The light and volume rows are read by all lanes, so they sit in shared
+// memory; the branches stay per thread (a simple kernel first).
 //
 // Lane ids, tiles and the counter RNG are the JAX kernel's bit for bit
 // (pallas_megakernel.py:1477-1482, :1560-1561, :112-131): lane
@@ -49,7 +66,9 @@ struct Cam {
   float hx, hy, hz, wx, wy, wz, lens_r, t0, dt;
 };
 
-template <bool kTris>
+// kLit: the lit bounce; lit.rows points at global memory here and is
+// staged into shared memory.
+template <bool kTris, bool kLit>
 __global__ void __launch_bounds__(kThreads)
     megakernel(const float4* __restrict__ table, int npad, rtow::Tris tris,
                const float* __restrict__ cam_vec, int seed, int width,
@@ -57,10 +76,18 @@ __global__ void __launch_bounds__(kThreads)
                rtow::Background bg, float* __restrict__ out_r,
                float* __restrict__ out_g, float* __restrict__ out_b,
                unsigned long long* __restrict__ steps,
-               unsigned long long* __restrict__ tests) {
+               unsigned long long* __restrict__ tests,
+               unsigned long long* __restrict__ shadows, rtow::Lit lit,
+               int lit_rows) {
   using rtow::uniform;
-  extern __shared__ float4 tbl[];  // npad rows x 4 float4
+  extern __shared__ float4 tbl[];  // npad rows x 4 float4, then lit rows
   for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) tbl[i] = table[i];
+  if constexpr (kLit) {
+    float* rows = reinterpret_cast<float*>(tbl + npad * 4);
+    for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x)
+      rows[i] = lit.rows[i];
+    lit.rows = rows;
+  }
   __syncthreads();
 
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
@@ -94,13 +121,14 @@ __global__ void __launch_bounds__(kThreads)
     const float frow = static_cast<float>(height - 1 - prow);
     const float fcol = static_cast<float>(pcol);
 
-    bool alive = false;
+    int code = 0;  // the alive code
     int bounce = 0, started = 0;
-    for (; alive || started < spp; ++it) {
+    for (; code != 0 || started < spp; ++it) {
       const uint32_t salt = rtow::salt_of(seed, it);
+      const bool from_diffuse = code > 1;
 
       // ---- regeneration: a thin-lens, time-jittered camera ray -------
-      if (!alive) {
+      if (code == 0) {
         const float su = (fcol + uniform(lane, salt, 0)) * inv_w;
         const float tv = (frow + uniform(lane, salt, 1)) * inv_h;
         const float rad_l = c.lens_r * sqrtf(uniform(lane, salt, 2));
@@ -119,8 +147,9 @@ __global__ void __launch_bounds__(kThreads)
         ++started;
       }
       // ---- one bounce (bounce.cuh) -----------------------------------
-      alive = rtow::bounce_lane_t<kTris>(tbl, npad, tris, s, &bounce, lane,
-                                         salt, max_depth, bg, &tally);
+      code = rtow::bounce_lane_t<kTris, kLit>(tbl, npad, tris, s, &bounce,
+                                              lane, salt, max_depth, bg,
+                                              &tally, lit, from_diffuse);
     }
   }
   out_r[g] = s[10];
@@ -131,24 +160,47 @@ __global__ void __launch_bounds__(kThreads)
     rtow::warp_add(tally.boxes, tests);
     rtow::warp_add(tally.tris, tests + 1);
   }
+  if (kLit && shadows != nullptr)  // stats: NEE shadow rays
+    rtow::warp_add(tally.shadows, shadows);
 }
 
-template <bool kTris>
+template <bool kTris, bool kLit>
 int launch(const float* table, int npad, const rtow::Tris& tris,
            const float* cam, int seed, int width, int height, int tile0,
            int spp, int max_depth, int n_tiles, const rtow::Background& bg,
            float* out_r, float* out_g, float* out_b,
            unsigned long long* steps, unsigned long long* tests,
+           unsigned long long* shadows, const rtow::Lit& lit, int lit_rows,
            cudaStream_t stream) {
-  const int smem = npad * rtow::kCols * static_cast<int>(sizeof(float));
+  auto kernel = megakernel<kTris, kLit>;
+  const int smem = (npad * rtow::kCols + (kLit ? lit_rows * rtow::kLitCols
+                                               : 0)) *
+                   static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
-      megakernel<kTris>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = n_tiles * (kTile / kThreads);
-  megakernel<kTris><<<blocks, kThreads, smem, stream>>>(
+  kernel<<<blocks, kThreads, smem, stream>>>(
       reinterpret_cast<const float4*>(table), npad, tris, cam, seed, width,
-      height, tile0, spp, max_depth, bg, out_r, out_g, out_b, steps, tests);
+      height, tile0, spp, max_depth, bg, out_r, out_g, out_b, steps, tests,
+      shadows, lit, lit_rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The instance for the scene: with or without triangles, lit where the
+// scene has any lit feature.
+template <bool kTris>
+int dispatch(bool any_lit, const float* table, int npad,
+             const rtow::Tris& tris, const float* cam, int seed, int width,
+             int height, int tile0, int spp, int max_depth, int n_tiles,
+             const rtow::Background& bg, float* out_r, float* out_g,
+             float* out_b, unsigned long long* steps,
+             unsigned long long* tests, unsigned long long* shadows,
+             const rtow::Lit& lit, int lit_rows, cudaStream_t stream) {
+  auto run = any_lit ? launch<kTris, true> : launch<kTris, false>;
+  return run(table, npad, tris, cam, seed, width, height, tile0, spp,
+             max_depth, n_tiles, bg, out_r, out_g, out_b, steps, tests,
+             shadows, lit, lit_rows, stream);
 }
 
 }  // namespace
@@ -161,15 +213,23 @@ extern "C" {
 // tri_boxes, of which the first tri_count rows are triangles; cam: (21,)
 // float32; outputs: (n_tiles * 8, 128) float32 each; steps: null, or one
 // uint64 that the launch adds its ray steps to; tests: null, or two uint64
-// that it adds its box and triangle tests to.  Returns the cudaError_t of
-// the launch.
+// that it adds its box and triangle tests to; shadows: null, or one uint64
+// that it adds its NEE shadow rays to.  The lit features: lit_rows,
+// the (vol_row0 + n_vol or n_lights) x 14 float32 light then volume rows;
+// emissive, checker, roulette flags; n_lights lights of kinds light_kinds
+// and n_vol volumes of kinds vol_kinds (2 bits each, row 0 lowest).
+// Returns the cudaError_t of the launch.
 int rtow_megakernel(const float* table, int npad, const float* tri,
                     const float* tri_boxes, int tri_blocks, int tri_block,
                     int tri_count, const float* cam, int seed, int width,
                     int height, int tile0, int spp, int max_depth, int n_tiles,
                     int use_sky, float bgr, float bgg, float bgb, float* out_r,
                     float* out_g, float* out_b, unsigned long long* steps,
-                    unsigned long long* tests, int device, void* stream) {
+                    unsigned long long* tests, unsigned long long* shadows,
+                    const float* lit_rows,
+                    int emissive, int n_lights, int light_kinds, int checker,
+                    int n_vol, int vol_kinds, int vol_row0, int roulette,
+                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const rtow::Tris tris{reinterpret_cast<const float4*>(tri),
@@ -177,14 +237,21 @@ int rtow_megakernel(const float* table, int npad, const float* tri,
                         nullptr, nullptr, tri_blocks, 0, 0, tri_block,
                         tri_count};
   const rtow::Background bg{use_sky, bgr, bgg, bgb};
+  const rtow::Lit lit{lit_rows, emissive, n_lights, checker, n_vol,
+                      vol_row0, roulette,
+                      static_cast<uint32_t>(light_kinds),
+                      static_cast<uint32_t>(vol_kinds)};
+  const int rows = n_vol > 0 ? vol_row0 + n_vol : n_lights;
+  const bool any_lit =
+      emissive || n_lights > 0 || n_vol > 0 || checker || roulette;
   const auto st = static_cast<cudaStream_t>(stream);
   if (tri_blocks > 0)
-    return launch<true>(table, npad, tris, cam, seed, width, height, tile0,
-                        spp, max_depth, n_tiles, bg, out_r, out_g, out_b,
-                        steps, tests, st);
-  return launch<false>(table, npad, tris, cam, seed, width, height, tile0,
-                       spp, max_depth, n_tiles, bg, out_r, out_g, out_b,
-                       steps, tests, st);
+    return dispatch<true>(any_lit, table, npad, tris, cam, seed, width,
+                          height, tile0, spp, max_depth, n_tiles, bg, out_r,
+                          out_g, out_b, steps, tests, shadows, lit, rows, st);
+  return dispatch<false>(any_lit, table, npad, tris, cam, seed, width, height,
+                         tile0, spp, max_depth, n_tiles, bg, out_r, out_g,
+                         out_b, steps, tests, shadows, lit, rows, st);
 }
 
 const char* rtow_cuda_error_string(int err) {

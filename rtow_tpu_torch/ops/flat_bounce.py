@@ -18,6 +18,10 @@ where the sort put it.
 hand-written kernel ``csrc/flat_bounce.cu`` (counting the launch in
 ``bounce_step.launches``), on a CPU tensor it runs
 :func:`bounce_step_reference`, and on anything else it raises.
+
+K3 has the sphere, triangle, sky and three-material bounce only: lights,
+textures, media and roulette on a large mesh raise (:func:`check_scene`)
+until its lit features are ported.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
+from ..models.scene import EMISSIVE
 from . import _cuda
 from .megakernel import (
     TriTable, background_args, check_counter, check_table, check_tris,
@@ -46,6 +51,22 @@ class Tables(NamedTuple):
     may be 0) and the triangle table with its hierarchy."""
     sph: torch.Tensor
     tris: TriTable
+
+
+def check_scene(scene, roulette: bool = False) -> None:
+    """Raise ``NotImplementedError`` if ``scene`` (or ``roulette``) needs
+    a feature K3 does not have: emission and NEE, textures, media,
+    Russian roulette."""
+    kinds = scene.materials.kind
+    needs = [name for name, on in (
+        ("lights", scene.has_emissive or bool((kinds == EMISSIVE).any())),
+        ("textures", scene.has_checker or bool((kinds > EMISSIVE).any())),
+        ("media", bool(scene.volume_kinds)),
+        ("Russian roulette", roulette)) if on]
+    if needs:
+        raise NotImplementedError(
+            f"{', '.join(needs)} on meshes of over 16,384 triangles need "
+            f"K3's lit features (ROADMAP Queue 1 item 9)")
 
 
 def _check(state: torch.Tensor, tables: Tables, stats) -> None:

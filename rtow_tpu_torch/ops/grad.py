@@ -277,10 +277,15 @@ def _check_scene(scene: Scene) -> None:
         raise NotImplementedError(
             "triangles in the gradient kernels are not ported yet "
             "(ROADMAP Queue 1 item 10)")
-    if bool((scene.materials.kind > DIELECTRIC).any()):
+    if (bool((scene.materials.kind > DIELECTRIC).any())
+            or scene.has_emissive or scene.has_checker):
         raise NotImplementedError(
             "emissive, checker, noise and image-texture materials in the "
             "gradient kernels are not ported yet (ROADMAP Queue 1 item 10)")
+    if scene.volume_kinds:
+        raise NotImplementedError(
+            "constant-density media in the gradient kernels are not ported "
+            "yet (ROADMAP Queue 1 item 10)")
 
 
 def render_rays_kernel(scene: Scene, rays: Rays, *, n_pixels: int, spp: int,

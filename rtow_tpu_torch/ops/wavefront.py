@@ -36,7 +36,7 @@ from ..config import Config
 from ..models.camera import Camera, camera_rays, pixel_coords
 from ..models.scene import Scene
 from ..utils.profiling import RenderStats
-from .flat_bounce import Tables, bounce_step
+from .flat_bounce import Tables, bounce_step, check_scene
 from .megakernel import (
     TILE, build_sphere_table, build_tri_table, pick_tri_block,
 )
@@ -238,6 +238,7 @@ def render_wavefront(scene: Scene, camera: Camera, cfg: Config,
     Chunks of ``ppc`` pixels in Morton order, chunk ``g`` salted with
     ``cfg.seed + g * 7919``.  With ``progress`` a scanline ticker is
     printed after each chunk.  ``stats``: see ``bounce_step``."""
+    check_scene(scene, cfg.russian_roulette)
     width, height = cfg.image_width, cfg.image_height
     spp = cfg.samples_per_pixel
     n_pixels = width * height

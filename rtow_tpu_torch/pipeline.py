@@ -4,10 +4,12 @@ Two backends, each on the scene's device (the CUDA kernel for CUDA
 tensors, its plain PyTorch version for CPU tensors), picked as the JAX
 package picks them (``pipeline.py:39-71``): sphere scenes and meshes of
 up to 16,384 triangles go through the persistent megakernel K1
-(ops/megakernel.py), larger meshes through the sorted-wavefront loop
-and its bounce kernel K3 (ops/wavefront.py, ops/flat_bounce.py).
-Everything else the JAX package can render raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+(ops/megakernel.py), with emission, next-event estimation, textures,
+media and Russian roulette; larger meshes go through the
+sorted-wavefront loop and its bounce kernel K3 (ops/wavefront.py,
+ops/flat_bounce.py), which has none of those yet.  Everything else the
+JAX package can render raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 
@@ -20,10 +22,10 @@ import torch
 
 from .config import Config
 from .models.camera import Camera
-from .models.scene import DIELECTRIC, Scene
+from .models.scene import IMAGE, Scene
 from .ops.megakernel import (
     LANES, TILE_ROWS, n_tiles_for, pack_camera, pack_meta, render_blocks,
-    scene_k1_tables, unblock_image,
+    scene_k1_tables, scene_lit, unblock_image,
 )
 from .ops.wavefront import WAVEFRONT_MIN_TRIS, render_wavefront
 from .utils.profiling import RenderStats
@@ -59,6 +61,7 @@ def render_megakernel(
     _sync(device)
     t0 = _time.perf_counter()
     tbl, tris = scene_k1_tables(scene)
+    lit = scene_lit(scene, cfg.russian_roulette)
     cam = pack_camera(camera)
     if progress and tiles_total >= 20:
         n_bands = 10
@@ -70,7 +73,7 @@ def render_megakernel(
                              tile0=band * band_tiles)
             parts.append(render_blocks(tbl, cam, meta, band_tiles,
                                        background=scene.background,
-                                       tris=tris))
+                                       tris=tris, lit=lit))
             _sync(device)
             rows_done = min((band + 1) * band_tiles * TILE_ROWS // tiles_x,
                             height)
@@ -83,7 +86,8 @@ def render_megakernel(
         meta = pack_meta(seed, width=width, height=height, spp=spp,
                          max_depth=cfg.max_child_rays)
         r, g, b = render_blocks(tbl, cam, meta, tiles_total,
-                                background=scene.background, tris=tris)
+                                background=scene.background, tris=tris,
+                                lit=lit)
     rad = unblock_image(r, g, b, width=width, height=height)
     _sync(device)
     elapsed = _time.perf_counter() - t0
@@ -115,9 +119,9 @@ def render_auto(
     """Render with the backend the config and scene call for, on the
     scene's device (``rtow_tpu.pipeline.render_auto``, :194).
 
-    Only single-device scenes of spheres and triangles with Lambertian,
-    metal and dielectric materials are ported; every other case
-    raises."""
+    Only single-device renders through the kernels are ported; the
+    sorted wavefront (meshes over 16,384 triangles) has no lit features
+    yet, and every other case raises."""
     if cfg.n_devices != 1:
         raise NotImplementedError(
             "--devices > 1 needs multi-device rendering "
@@ -126,18 +130,14 @@ def render_auto(
         raise NotImplementedError(
             "--backend jnp needs the reference integrator "
             "(ROADMAP Queue 1 item 5)")
-    if cfg.russian_roulette:
-        raise NotImplementedError(
-            "--russian-roulette needs roulette in the megakernel "
-            "(ROADMAP Queue 1 item 7)")
     if cfg.profile_dir:
         raise NotImplementedError(
             "--profile-dir needs the port's profiler traces "
             "(ROADMAP Queue 1 item 12)")
-    if bool((scene.materials.kind > DIELECTRIC).any()):
+    if bool((scene.materials.kind == IMAGE).any()):
         raise NotImplementedError(
-            "emissive and textured materials need the megakernel's "
-            "remaining features (ROADMAP Queue 1 item 7)")
+            "image textures need the reference integrator "
+            "(ROADMAP Queue 1 item 5)")
     if wavefront_supported(scene):
         return render_wavefront(scene, camera, cfg, progress=progress)
     if megakernel_supported(scene):

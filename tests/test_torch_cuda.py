@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-the megakernel K1 (ops/megakernel.py, spheres and triangles), the sorted
+the megakernel K1 (ops/megakernel.py, spheres and triangles, and its lit
+instances: emission, NEE, media, textures, roulette), the sorted
 wavefront's bounce K3 (ops/flat_bounce.py) and the gradient bounces
 K4 / K5 (ops/grad.py).
 
@@ -13,9 +14,10 @@ Tolerance, as in chip_smoke.py: both versions round every float32
 operation alike (the kernel is built with -fmad=false, IEEE division and
 sqrt) and use the same CUDA math library; at most 1% of pixels may be
 off by more than 1e-4 of mean radiance (a last-bit difference can flip
-a discrete choice), with mean |difference| at most 1e-3.  K3, bounce by
-bounce from the same input state, and K4 are bit-identical to their plain
-versions, K3's box tests, triangle tests and live lanes counted alike.
+a discrete choice), with mean |difference| at most 1e-3.  K1's lit
+instances, K3 (bounce by bounce from the same input state) and K4 are
+bit-identical to their plain versions, with the same counts of steps, box
+tests, triangle tests, shadow rays and live lanes.
 K5 sums its adjoint in another order than autograd and the table
 gradient with atomics: per cot_in row and per g_tbl column, max |d| at
 most 1e-3 of the largest |plain|.
@@ -29,7 +31,8 @@ import torch
 
 from rtow_tpu_torch.config import Config
 from rtow_tpu_torch.models.builders import (
-    cover_scene, mesh_scene, three_sphere_scene,
+    cornell_scene, cover_scene, light_scene, mesh_scene, smoke_scene,
+    textures_scene, three_sphere_scene,
 )
 from rtow_tpu_torch.models.camera import make_camera
 from rtow_tpu_torch.models.camera import camera_rays, pixel_coords
@@ -85,6 +88,44 @@ def test_kernel_matches_plain_on_card(dev, name):
     d = (kern - plain).abs().amax(dim=1)
     assert float((d > 1e-4).float().mean()) <= 0.01
     assert float((kern - plain).abs().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["lights", "cornell", "textures", "smoke",
+                                  "checker", "roulette"])
+def test_lit_kernel_matches_plain_on_card(dev, name):
+    """K1's lit instances: bit-identical to the plain version, with equal
+    counters (steps, box and triangle tests, shadow rays); each launch
+    counted as a lit launch."""
+    builders = {"lights": light_scene, "cornell": cornell_scene,
+                "textures": textures_scene, "smoke": smoke_scene}
+    if name in builders:
+        scene, cam = builders[name](1.0, device=dev)
+        depth = 8
+    else:
+        scene, cam = cover_scene(Config(image_width=128, aspect_ratio=1.0,
+                                        checker_ground=name == "checker"),
+                                 device=dev)
+        depth = 50
+    tbl, tris = mk.scene_k1_tables(scene)
+    args = (tbl, mk.pack_camera(cam),
+            mk.pack_meta(3, width=128, height=128, spp=2, max_depth=depth),
+            mk.n_tiles_for(128, 128))
+    kw = dict(background=scene.background, tris=tris,
+              lit=mk.scene_lit(scene, name == "roulette"))
+    out, counts = [], []
+    before = mk.render_blocks.lit_launches
+    for fn in (mk.render_blocks, mk.render_blocks_reference):
+        c = [torch.zeros(n, dtype=torch.int64, device=dev) for n in (1, 2, 1)]
+        planes = fn(*args, **kw, steps=c[0], tests=c[1], shadows=c[2])
+        out.append(mk.unblock_image(*planes, width=128, height=128) / 2)
+        counts.append(torch.cat(c).tolist())
+    assert mk.render_blocks.lit_launches == before + 1
+    kern, plain = out
+    assert bool(torch.isfinite(kern).all()) and float(kern.mean()) > 0
+    assert torch.equal(kern, plain)
+    assert counts[0] == counts[1]
+    if name in ("lights", "cornell", "smoke"):
+        assert counts[0][3] > 0  # NEE cast shadow rays
 
 
 @pytest.mark.parametrize("spp", [24, 17])

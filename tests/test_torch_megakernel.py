@@ -98,7 +98,8 @@ def test_draw_scatter_matches(lanes_u32):
     then sqrt(1 - uz^2) * (cos, sin)(uph) in float64.  Each side's float32
     unit vector is within 1e-6 of the oracle (a float32 sin/cos is within
     an ulp); uz and the choice are bit-equal.  A failure names the side
-    that moved, with the JAX platform and torch's thread count."""
+    that moved, with the JAX platform and torch's thread count, the lanes
+    and angles that moved, and whether a second computation moves too."""
     import jax
 
     salt = 0x12345678
@@ -119,12 +120,27 @@ def test_draw_scatter_matches(lanes_u32):
     }
     where = (f"jax platform {jax.devices()[0].platform}, "
              f"torch.get_num_threads() {torch.get_num_threads()}")
+
+    def _again(side, name, o):
+        """A failing side's error when computed once more: whether the
+        fault stays (ROADMAP Queue 3 P2)."""
+        k = ("uvx", "uvy").index(name)
+        if side.startswith("JAX"):
+            v = np.asarray(jmk._draw_scatter(jnp.asarray(lanes_u32),
+                                             jnp.uint32(salt))[k])
+        else:
+            v = mk.draw_scatter(lanes, salt)[k].numpy()
+        return np.abs(v.astype(np.float64) - o).max()
     for side, got in sides.items():
         for name, g, o in zip(("uvx", "uvy"), got, oracle):
             err = np.abs(g.astype(np.float64) - o)
+            bad = np.nonzero(err > 1e-6)[0]
             assert err.max() <= 1e-6, (
                 f"{side} moved: {name} off the float64 oracle by up to "
-                f"{err.max():.3g} on {np.mean(err > 1e-6):.2%} of lanes "
+                f"{err.max():.3g} on {np.mean(err > 1e-6):.2%} of lanes, "
+                f"lanes {bad.min()}..{bad.max()} with uph in "
+                f"[{uph[bad].min():.4g}, {uph[bad].max():.4g}]; computed "
+                f"again now, off by up to {_again(side, name, o):.3g} "
                 f"({where})")
         np.testing.assert_array_equal(got[2], uz, err_msg=f"{side} uz")
     np.testing.assert_array_equal(sides["port (torch's float32 cos/sin)"][3],

@@ -103,9 +103,8 @@ def test_cli_renders_a_mesh_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--lights"], ["--cornell"], ["--checker"], ["--textures"], ["--smoke"],
     ["--globe"], ["-l", os.path.join(ROOT, "samples", "knot_small.obj"),
-                  "--backend", "jnp"], ["--russian-roulette"], ["-t", "2"],
+                  "--backend", "jnp"], ["-t", "2"],
     ["--backend", "jnp"], ["--profile-dir", "trace"],
 ])
 def test_unported_flags_fail_loudly(flags):
@@ -117,7 +116,7 @@ def test_unported_flags_fail_loudly(flags):
 def test_unported_materials_fail_loudly():
     cfg = Config(device="cpu", image_width=8)
     scene, cam = scene_for_config(cfg)
-    scene.materials.kind[0] = 3  # EMISSIVE
+    scene.materials.kind[0] = 6  # IMAGE: the reference integrator's
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         render_auto(scene, cam, cfg)
 

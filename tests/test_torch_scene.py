@@ -94,7 +94,7 @@ def test_from_numpy_round_trips(case):
 def test_from_numpy_rejects_unported_leaves():
     (jscene, _), _ = CASES["one-sphere"]()
     leaves = scene_leaves(jscene)
-    leaves["volumes.p0"] = np.ones((1, 3), np.float32)  # a fog volume
+    leaves["texture"] = np.ones((2, 4, 3), np.float32)  # an image texture
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Scene.from_numpy(leaves, "cpu")
 
@@ -195,7 +195,8 @@ def test_port_imports_with_jax_blocked():
         "import rtow_tpu_torch.ops.megakernel, rtow_tpu_torch.ops._cuda\n"
         "import rtow_tpu_torch.ops.grad, rtow_tpu_torch.diff\n"
         "import rtow_tpu_torch.utils.obj, rtow_tpu_torch.ops.wavefront\n"
-        "import rtow_tpu_torch.ops.flat_bounce\n"
+        "import rtow_tpu_torch.ops.flat_bounce, rtow_tpu_torch.ops.lights\n"
+        "import rtow_tpu_torch.ops.volumes, rtow_tpu_torch.models.materials\n"
         "assert not any(m.startswith(('jax', 'rtow_tpu.')) for m, v in\n"
         "               sys.modules.items() if v is not None)\n"
         "print('ok')\n")
