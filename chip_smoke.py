@@ -22,7 +22,13 @@ instances against their plain version on the five lit scenes, then
 ``--russian-roulette`` on the cover at the render's size, the latter
 held against the unbiased render; the middle band of each of these
 renders is launched again as ``cli.main`` launched it and held bit for
-bit against the plain version).  Every phase prints one line; any
+bit against the plain version) and mesh inverse rendering (K4's and K5's
+triangle instances against their plain versions on the 4,096- and
+65,536-triangle knots, flat and down the hierarchy; three
+``diff.build_train_step`` steps on the 65k knot at 256x256, 16 samples
+per pixel, depth 8, with the lanes sorted; the forward and
+forward+backward times of both bench knots).  Every phase prints one
+line; any
 failed check raises and the script exits non-zero.  The
 line before the card line is the kernels' JSON summary; the last line
 of standard output is one JSON object:
@@ -86,6 +92,12 @@ PEAK_BYTES = 3.35e12
 OPS_PER_BOX = 23
 OPS_PER_TRI = 15
 OPS_INV_DIR = 3
+
+#: Mesh inverse rendering: the JAX package's mesh-gradient leg
+#: (README.md:311-324: 256x256, spp 16, depth 8; the knots of KNOTS), its
+#: learning rate for the knot's one material.
+W_MESH_GRAD = 256
+LR_MESH = 3.0
 
 #: The light-driven path: the Cornell box as BASELINE.md:336-343 measured
 #: it (400 px, depth 8, NEE at 512 spp), the smoke box alike.
@@ -372,6 +384,7 @@ def main() -> None:
     grad = grad_phases(torch, dev, card, say)
     mesh = mesh_phases(torch, dev, card, say, event_ms, agreement)
     lit = lit_phases(torch, dev, card, say, event_ms, cover_radiance)
+    mesh_grad = mesh_grad_phases(torch, dev, card, say, event_ms)
 
     print(json.dumps({"kernels": [{
         "name": "megakernel",
@@ -385,7 +398,7 @@ def main() -> None:
         "bound_ms": k1_bound,
         "bound_by": "operations",
         "library_ms": None,
-    }, mesh, lit] + grad}), flush=True)
+    }, mesh, lit] + grad + mesh_grad}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -423,31 +436,6 @@ def grad_phases(torch, dev, card, say):
                             max_depth=depth)
         return tape, (cont, ints)
 
-    def grad_agreement(kern, plain, dim):
-        """(max |d|, worst max |d| / max |plain| per row or column, share
-        of entries off by more than 1e-4 |plain| + 1e-6 max |plain|)."""
-        d = (kern - plain).abs()
-        scale = plain.abs().amax(dim=dim, keepdim=True)
-        worst = float((d.amax(dim=dim, keepdim=True)
-                       / scale.clamp_min(1e-30)).max())
-        share = float((d > 1e-4 * plain.abs() + 1e-6 * scale).float().mean())
-        return float(d.max()), worst, share
-
-    def check_bwd(kern, plain, what):
-        (ci, gt), (pci, pgt) = kern, plain
-        check(bool(torch.isfinite(ci).all() and torch.isfinite(gt).all()),
-              f"{what}: K5 output not finite")
-        out = []
-        for name, k, p, dim in (("cot_in", ci, pci, 1),
-                                ("g_tbl", gt[:, :13], pgt[:, :13], 0)):
-            mx, worst, share = grad_agreement(k, p, dim)
-            check(worst <= GRAD_TOL and share <= GRAD_SHARE,
-                  f"{what}: K5 {name} vs plain: max |d| / max |plain| "
-                  f"{worst:.3g} (allowed {GRAD_TOL}), share off "
-                  f"{share:.3g} (allowed {GRAD_SHARE})")
-            out.append((mx, worst, share))
-        return out
-
     # ---- (7) K4 and K5 against their plain versions, a reduced forward ---
     small = cover_scene(Config(image_width=64, aspect_ratio=1.0), device=dev)
     tbl_s, _ = mk.build_sphere_table(small[0])
@@ -466,18 +454,20 @@ def grad_phases(torch, dev, card, say):
         cot = torch.from_numpy(rng.standard_normal(
             (13, cont.shape[1])).astype(np.float32)).to(dev)
         kw = dict(it=it, seed=5, max_depth=DEPTH_GRAD)
-        res = check_bwd(G.bounce_bwd(cont, ints, cot, tbl_s, **kw),
-                        G.bounce_bwd_reference(cont, ints, cot, tbl_s, **kw),
-                        f"cover 64x64 spp4, bounce {it}")
+        res = check_k5(torch, G.bounce_bwd(cont, ints, cot, tbl_s, **kw),
+                       G.bounce_bwd_reference(cont, ints, cot, tbl_s, **kw),
+                       f"cover 64x64 spp4, bounce {it}")
         worst7.append(res)
     say("7", f"cover 64x64 spp4 depth {DEPTH_GRAD} ({c0.shape[1]} lanes): "
              f"K4 and its plain version bit-identical at all "
              f"{DEPTH_GRAD + 1} bounces; K5 vs plain, worst over the "
-             f"bounces: cot_in max |d| {max(w[0][0] for w in worst7):.3g} "
-             f"({max(w[0][1] for w in worst7):.3g} of its row's max), "
-             f"g_tbl max |d| {max(w[1][0] for w in worst7):.3g} "
-             f"({max(w[1][1] for w in worst7):.3g} of its column's max); "
-             f"shares off {max(max(w[0][2], w[1][2]) for w in worst7):.3g} "
+             f"bounces: cot_in max |d| "
+             f"{max(w['cot_in'][0] for w in worst7):.3g} "
+             f"({max(w['cot_in'][1] for w in worst7):.3g} of its row's max), "
+             f"g_tbl max |d| {max(w['g_tbl'][0] for w in worst7):.3g} "
+             f"({max(w['g_tbl'][1] for w in worst7):.3g} of its column's "
+             f"max); shares off "
+             f"{max(v[2] for w in worst7 for v in w.values()):.3g} "
              f"(allowed {GRAD_TOL} of max, share {GRAD_SHARE})")
 
     # ---- (8) the trainer at full size: the cover at 400x267 spp16 d8 -----
@@ -590,9 +580,10 @@ def grad_phases(torch, dev, card, say):
         k_ms = statistics.median(k_runs)
         p_ms, p_outs = run_all(plain, bwd)
         if bwd:
-            res = [check_bwd(k, p, f"cover {W_GRAD}x{H_GRAD}, bounce {it}")
+            res = [check_k5(torch, k, p,
+                            f"cover {W_GRAD}x{H_GRAD}, bounce {it}")
                    for it, (k, p) in enumerate(zip(k_outs, p_outs))]
-            err = max(max(r[0][0], r[1][0]) for r in res)
+            err = max(v[0] for r in res for v in r.values())
         else:
             for it, (k, p) in enumerate(zip(k_outs, p_outs)):
                 check(torch.equal(k[0], p[0]) and torch.equal(k[1], p[1]),
@@ -644,6 +635,61 @@ def grad_phases(torch, dev, card, say):
     return rows
 
 
+def grad_agreement(kern, plain, dim, scale=None):
+    """(max |d|, worst max |d| / scale per row or column, share of entries
+    off by more than 1e-4 |plain| + 1e-6 scale); the scale is the row's /
+    column's max |plain| unless given."""
+    d = (kern - plain).abs()
+    if scale is None:
+        scale = plain.abs().amax(dim=dim, keepdim=True)
+    worst = float((d.amax(dim=dim, keepdim=True)
+                   / scale.clamp_min(1e-30)).max())
+    share = float((d > 1e-4 * plain.abs() + 1e-6 * scale).float().mean())
+    return float(d.max()), worst, share
+
+
+def check_k5(torch, kern, plain, what, sums=None):
+    """K5's (cot_in, g_tbl, g_tri) against the plain version's, by the 1e-3
+    rule (GRAD_TOL, GRAD_SHARE) per cot_in row and per table column ->
+    {name: (max |d|, worst share of the scale, share off[, kernel's and
+    plain's worst distance from the float64 sum, as shares of the
+    scale])} for cot_in, g_tbl (where the scene has spheres) and g_tri
+    (where it has triangles).  The kind columns must be 0.
+
+    The scale is the row's / column's max |plain|, or, for a table part
+    in ``sums`` ({part: (float64 sum, float64 sum of |terms|)} of the
+    plain version's per-lane row cotangents), the column's largest sum
+    of |terms|: two float32 sums of the same terms in other orders differ
+    by rounding that scales with it, not with the sum, which mixed-sign
+    cotangents can cancel far below its terms."""
+    (ci, gt, gr), (pci, pgt, pgr) = kern, plain
+    parts = [("cot_in", ci, pci, 1), ("g_tbl", gt[:, :13], pgt[:, :13], 0)]
+    if gr is not None:
+        parts.append(("g_tri", gr[:, :14], pgr[:, :14], 0))
+        check(not gr[:, 14:].any(), f"{what}: K5 g_tri kind column not 0")
+    out = {}
+    for name, k, p, dim in parts:
+        check(bool(torch.isfinite(k).all()), f"{what}: K5 {name} not finite")
+        if not p.numel():
+            continue
+        scale = exact = None
+        if sums and name in sums:
+            exact, mags = (s[:, :k.shape[1]] for s in sums[name])
+            scale = mags.amax(dim=0, keepdim=True).float()
+        mx, worst, share = grad_agreement(k, p, dim, scale)
+        check(worst <= GRAD_TOL and share <= GRAD_SHARE,
+              f"{what}: K5 {name} vs plain: max |d| / scale "
+              f"{worst:.3g} (allowed {GRAD_TOL}), share off "
+              f"{share:.3g} (allowed {GRAD_SHARE})")
+        out[name] = (mx, worst, share)
+        if exact is not None:
+            out[name] += tuple(
+                float(((x.double() - exact).abs().amax(dim=0)
+                       / mags.amax(dim=0).clamp_min(1e-300)).max())
+                for x in (k, p))
+    return out
+
+
 def profile_ms(torch, fn):
     """(wall ms, {kernel name: device ms}) of ``fn()`` under
     torch.profiler."""
@@ -665,14 +711,17 @@ def profile_ms(torch, fn):
     return wall, dev_ms
 
 
-def split_device_time(dev_ms):
-    """Device ms by part of the sorted wavefront: K3, the sort, the
-    gathers and scatters (index kernels), everything else."""
-    parts = {"K3": 0.0, "sort": 0.0, "gather": 0.0, "other": 0.0}
+def split_device_time(dev_ms, kernels=(("K3", "flat_bounce"),)):
+    """Device ms by part of a sorted path: each of ``kernels`` ((label, a
+    word of its kernel's name) pairs; K3 for the sorted wavefront), the
+    sort, the gathers and scatters (index kernels), everything else."""
+    parts = {label: 0.0 for label, _ in kernels}
+    parts.update(sort=0.0, gather=0.0, other=0.0)
     for key, ms in dev_ms.items():
         low = key.lower()
-        if "flat_bounce" in low:
-            parts["K3"] += ms
+        label = next((lb for lb, word in kernels if word in low), None)
+        if label is not None:
+            parts[label] += ms
         elif "sort" in low or "radix" in low:
             parts["sort"] += ms
         elif "index" in low or "gather" in low or "scatter" in low:
@@ -1267,6 +1316,339 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
         "bound_by": main_row["by"],
         "library_ms": None,
     }
+
+
+def mesh_grad_phases(torch, dev, card, say, event_ms):
+    """Phases 19-20: K4's and K5's triangle instances against their plain
+    versions at every launch of one sorted forward at the trainer's
+    1,048,576 lanes (the 4,096-triangle knot over a ground sphere and the
+    65,536-triangle knot, both through the hierarchy and the flat sweep),
+    then mesh inverse rendering at full
+    size: three ``diff.build_train_step`` steps on the 65k knot at
+    256x256 spp16 depth 8 with the lanes sorted (the plain versions made
+    to raise), the forward and forward+backward times on both bench
+    knots, K4 and K5 timed by CUDA events with their bounds, and a
+    profiled step.  Returns the triangle instances' JSON entries."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_mesh import make_knot
+    import numpy as np
+
+    from rtow_tpu_torch import diff
+    from rtow_tpu_torch.models.camera import (
+        camera_rays, make_camera, pixel_coords,
+    )
+    from rtow_tpu_torch.models.scene import SceneBuilder
+    from rtow_tpu_torch.ops import grad as G
+    from rtow_tpu_torch.ops import megakernel as mk
+
+    rng = np.random.default_rng(1)
+    cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=45.0, aspect_ratio=1.0, aperture=0.0,
+                      focus_dist=3.0, device=dev)
+    size = W_MESH_GRAD
+    n_pix = size * size
+    kw = dict(width=size, height=size, spp=SPP_GRAD, max_depth=DEPTH_GRAD)
+
+    def knot(seg, rings, ground=False):
+        verts, faces = make_knot(seg, rings)
+        b = SceneBuilder()
+        b.add_mesh(verts[faces], b.add_lambertian((0.6, 0.5, 0.4)))
+        if ground:
+            b.add_sphere((0.0, -101.0, 0.0), 100.0,
+                         b.add_metal((0.5, 0.5, 0.5), 0.1))
+        return b.build(device=dev)
+
+    def tape_of(scene, flat, seed=7):
+        """The sorted input states of one forward at the trainer's size
+        through K4, as render_rays_kernel hands them to each bounce, and
+        the tables."""
+        gen = torch.Generator(dev).manual_seed(seed)
+        pix = torch.arange(n_pix, device=dev).repeat_interleave(SPP_GRAD)
+        s, t = pixel_coords(size, size, gen, pix)
+        tape, bounce = [], G.bounce_grad
+
+        def recorded(cont, ints, *a, **k):
+            tape.append((cont, ints))
+            return bounce(cont, ints, *a, **k)
+
+        G.bounce_grad = recorded
+        try:
+            with torch.no_grad():
+                G.render_rays_kernel(scene, camera_rays(cam, gen, s, t),
+                                     n_pixels=pix.numel(), spp=1,
+                                     max_depth=DEPTH_GRAD, seed=0,
+                                     sort_lanes=True, force_flat=flat)
+        finally:
+            G.bounce_grad = bounce
+        tbl, _ = mk.build_sphere_table(scene)
+        return tbl, G.grad_tri_table(scene, flat), tape
+
+    def counters():
+        return torch.zeros(3, dtype=torch.int64, device=dev)
+
+    # ---- (19) the triangle instances against their plain versions -------
+    # Every launch of one sorted forward at the trainer's 1,048,576 lanes,
+    # on the 65k knot (its hierarchy is what the trainer launches) and on
+    # the 4,096-triangle knot over a ground sphere, flat and hierarchy.
+    knots = {"4k": knot(64, 32, ground=True),
+             "65k": knot(*KNOTS["65k"]), "360k": knot(*KNOTS["360k"])}
+    lines, errs = [], []
+    for name in ("4k", "65k"):
+        for flat in (False, True):
+            tbl, tris, tape = tape_of(knots[name], flat)
+            npad, mpad = tbl.shape[0], tris.tbl.shape[0]
+            worst, f64, tests, p_ms = {}, {}, [], [0.0, 0.0]
+            for it, (cont, ints) in enumerate(tape):
+                a = dict(it=it, seed=0, max_depth=DEPTH_GRAD, flat=flat)
+                ks, ps = counters(), counters()
+                kc, ki = G.bounce_fwd(cont, ints, tbl, tris, stats=ks, **a)
+                ms, (pc, pi) = event_ms(torch, lambda: G.bounce_fwd_reference(
+                    cont, ints, tbl, tris, stats=ps, **a))
+                p_ms[0] += ms
+                check(torch.equal(kc, pc) and torch.equal(ki, pi),
+                      f"K4 {name} knot, flat={flat}, bounce {it}: not "
+                      f"bit-identical (max |d| {float((kc - pc).abs().max())})")
+                check(torch.equal(ks, ps),
+                      f"K4 {name} knot, flat={flat}, bounce {it}: counted "
+                      f"{ks.tolist()}, plain {ps.tolist()}")
+                # Zero-mean cotangents, of mixed sign as the loss's
+                # 2 (img - target) / N are; K5 is held to the sums of
+                # |terms| (check_k5).
+                cot = torch.from_numpy(rng.standard_normal(
+                    tuple(cont.shape)).astype(np.float32)).to(dev)
+                kb, pb = counters(), counters()
+                kern = G.bounce_bwd(cont, ints, cot, tbl, tris, stats=kb, **a)
+
+                def plain_bwd():  # bounce_bwd_reference, keeping its terms
+                    ci, s_t, t_t = G.bounce_bwd_terms(
+                        cont, ints, cot, tbl, tris, stats=pb, **a)
+                    return ((ci, G.table_sums(s_t, npad),
+                             G.table_sums(t_t, mpad)), (s_t, t_t))
+
+                ms, (plain, terms) = event_ms(torch, plain_bwd)
+                p_ms[1] += ms
+                sums = {part: (G.table_sums(t, rows, torch.float64),
+                               G.table_sums((t[0], t[1].abs()), rows,
+                                            torch.float64))
+                        for part, t, rows in zip(("g_tbl", "g_tri"), terms,
+                                                 (npad, mpad))}
+                res = check_k5(torch, kern, plain,
+                               f"{name} knot, flat={flat}, bounce {it}",
+                               sums=sums)
+                check(torch.equal(kb, ks) and torch.equal(pb, ps),
+                      f"K5 {name} knot, bounce {it}: its replay counted "
+                      f"{kb.tolist()} / {pb.tolist()}, K4 {ks.tolist()}")
+                for part, r in res.items():
+                    worst[part] = max(worst.get(part, 0.0), r[1])
+                    errs.append(r[0])
+                    if len(r) > 3:
+                        f64[part] = [max(x, y) for x, y in
+                                     zip(f64.get(part, (0.0, 0.0)), r[3:])]
+                tests.append(ks.tolist())
+            if name == "65k" and not flat:  # phase 20 times the kernels here
+                timed = (tbl, tris, tape, tests, p_ms)
+            box = sum(t[0] for t in tests)
+            tri = sum(t[1] for t in tests)
+            live = sum(t[2] for t in tests)
+            lines.append(
+                f"{name} {'flat' if flat else 'hierarchy'} "
+                f"({tris.n_blocks} blocks, {tris.n_super if not flat else 0} "
+                f"supers, {tris.n_hyper if not flat else 0} hypers; "
+                f"{tape[0][0].shape[1]} lanes): {live} live lane-bounces, "
+                f"{box / max(live, 1):.1f} box and {tri / max(live, 1):.1f} "
+                f"triangle tests per live lane-bounce; plain K4 "
+                f"{p_ms[0]:.1f} ms, K5 {p_ms[1]:.1f} ms; K5 worst share of "
+                f"scale " + ", ".join(f"{k} {v:.2g}" for k, v in worst.items())
+                + "; from the float64 sum, kernel / plain: " + ", ".join(
+                    f"{k} {v[0]:.2g} / {v[1]:.2g}" for k, v in f64.items()))
+    say("19", f"K4 / K5 triangle instances vs plain on {card}, all 9 "
+              f"bounces of one forward at {size}x{size} spp{SPP_GRAD} depth "
+              f"{DEPTH_GRAD} (sorted lanes): K4 bit-identical with equal "
+              f"counters (box tests, triangle tests, live lanes), K5's "
+              f"replay counting the same, K5 within {GRAD_TOL} of the scale "
+              f"(cot_in: its row's max |plain|; g_tbl, g_tri: the column's "
+              f"largest sum of |terms|); " + "; ".join(lines))
+
+    # ---- (20) mesh inverse rendering at full size ------------------------
+    scene = knots["65k"]
+    pix = torch.arange(n_pix, device=dev)
+    with torch.no_grad():
+        target = G.render_pixels_kernel(
+            scene, cam, torch.Generator(dev).manual_seed(123), pix, **kw)
+    albedo = scene.materials.albedo
+    noise = torch.from_numpy(rng.uniform(-PERTURB, PERTURB, albedo.shape)
+                             .astype(np.float32)).to(dev)
+    start = scene.replace_leaves(
+        {"materials.albedo": (albedo + noise).clamp(0.0, 1.0)})
+    step = diff.build_train_step(cam, lr=LR_MESH,
+                                 keep=lambda p: p.endswith("albedo"), **kw)
+
+    def refuse(*_a, **_k):
+        raise CheckFailed("the mesh trainer ran a plain version on the card")
+
+    plain = (G.bounce_fwd_reference, G.bounce_bwd_reference, G.sort_keys)
+    sorts = [0]
+
+    def counted_keys(*a, **k):
+        sorts[0] += 1
+        return plain[2](*a, **k)
+
+    G.bounce_fwd_reference = G.bounce_bwd_reference = refuse
+    G.sort_keys = counted_keys
+    try:
+        losses, cur, per_step = [], start, []
+        G.bounce_fwd.launches = G.bounce_bwd.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(3):
+            cur, loss = step(cur, torch.Generator(dev).manual_seed(7), target)
+            losses.append(float(loss))
+            per_step.append((G.bounce_fwd.launches, G.bounce_bwd.launches,
+                             sorts[0]))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        main_launches = per_step[-1][:2]
+        _, grads = G.loss_and_grad_kernel(
+            start, cam, torch.Generator(dev).manual_seed(7), target, pix,
+            **kw)
+    finally:
+        G.bounce_fwd_reference, G.bounce_bwd_reference, G.sort_keys = plain
+    want = [(k * (DEPTH_GRAD + 1),) * 3 for k in (1, 2, 3)]
+    check(per_step == want,
+          f"K4 / K5 launches and sorts after each mesh train step "
+          f"{per_step}, not {want}")
+    check(all(np.isfinite(losses)) and losses[0] > losses[1] > losses[2],
+          f"mesh trainer: loss did not fall over the steps: {losses}")
+    gv = grads.triangles.verts
+    check(bool(torch.isfinite(gv).all()) and float(gv.abs().max()) > 0,
+          "mesh trainer: the vertex gradient is not finite and non-zero")
+    err0 = float((start.materials.albedo - albedo).abs().mean())
+    err3 = float((cur.materials.albedo - albedo).abs().mean())
+    say("20", f"3 train steps of the 65k knot ({scene.n_triangles} "
+              f"triangles) {size}x{size} spp{SPP_GRAD} depth {DEPTH_GRAD}, "
+              f"lanes sorted (lr {LR_MESH}, albedo mask): loss "
+              f"{', '.join(f'{x:.6g}' for x in losses)}; albedo mean |error| "
+              f"{err0:.6g} -> {err3:.6g}; K4 {main_launches[0]} and K5 "
+              f"{main_launches[1]} launches, {per_step[-1][2]} sorts, no "
+              f"plain version; {train_s:.2f} s; vertex gradient max |g| "
+              f"{float(gv.abs().max()):.3g}")
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    for name in ("65k", "360k"):
+        sc = knots[name]
+        tgt = target if name == "65k" else torch.zeros_like(target)
+
+        def fwd_call():
+            with torch.no_grad():
+                return G.render_pixels_kernel(
+                    sc, cam, torch.Generator(dev).manual_seed(7), pix, **kw)
+
+        def fwdbwd_call():
+            return G.loss_and_grad_kernel(
+                sc, cam, torch.Generator(dev).manual_seed(7), tgt, pix, **kw)
+
+        fwd_call()  # warm-up
+        loss, grads = fwdbwd_call()
+        check(bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads.leaves().values()
+            if g is not None), f"{name} knot: loss_and_grad not finite")
+        fwd_runs = [wall_ms(fwd_call) for _ in range(3)]
+        fb_runs = [wall_ms(fwdbwd_call) for _ in range(3)]
+        fwd_ms, fb_ms = statistics.median(fwd_runs), statistics.median(fb_runs)
+        say("20", f"the {name} knot ({sc.n_triangles} triangles) {size}x"
+                  f"{size} spp{SPP_GRAD} depth {DEPTH_GRAD} on {card}: "
+                  f"forward {fwd_ms:.2f} ms (median of "
+                  f"{', '.join(f'{x:.2f}' for x in fwd_runs)}), "
+                  f"{n_pix * SPP_GRAD / fwd_ms / 1e3:.3f} Mrays/s "
+                  f"(mesh_grad_fwd_mrays); forward+backward {fb_ms:.2f} ms "
+                  f"(median of {', '.join(f'{x:.2f}' for x in fb_runs)}); "
+                  f"ratio {fb_ms / fwd_ms:.3f} (mesh_grad_ratio)")
+
+    # K4 and K5 alone: one forward's and one backward's 9 launches on
+    # phase 19's tape of the 65k knot, by CUDA events, beside the plain
+    # versions' times on the same launches there, and the bound from the
+    # counts of those launches.
+    tbl, tris, tape, tests, plain_ms = timed
+    n = tape[0][0].shape[1]
+    cots = [torch.from_numpy(rng.standard_normal((13, n)).astype(np.float32))
+            .to(dev) for _ in tape]
+
+    def run_all(fn, bwd):
+        return event_ms(torch, lambda: [
+            fn(c, i, ct, tbl, tris, **a) if bwd else fn(c, i, tbl, tris, **a)
+            for (c, i), ct, a in zip(
+                tape, cots, [dict(it=it, seed=0, max_depth=DEPTH_GRAD)
+                             for it in range(len(tape))])])
+
+    rows = []
+    for kname, kern, p_ms, bwd in (
+            ("grad_fwd", G.bounce_fwd, plain_ms[0], False),
+            ("grad_bwd", G.bounce_bwd, plain_ms[1], True)):
+        run_all(kern, bwd)  # warm-up
+        k_runs = [run_all(kern, bwd)[0] for _ in range(3)]
+        k_ms = statistics.median(k_runs)
+        bound = 0.0
+        by_ops = by_bytes = 0
+        for box, tri, live in tests:
+            ops = (live * (OPS_PER_STEP + OPS_INV_DIR
+                           + (OPS_BWD_EXTRA if bwd else 0))
+                   + box * OPS_PER_BOX + tri * OPS_PER_TRI)
+            # Bytes: the lane arrays in and out once (K5: the state and
+            # the output cotangents in, the input cotangents out), at most
+            # the triangle rows and boxes the launch tested, and K5's g_tri
+            # written once.
+            nbytes = ((16 + 13 + 13 if bwd else 16 + 16) * 4 * n
+                      + min(tri, tris.count) * 64
+                      + min(box, tris.n_blocks + tris.supers.shape[0]
+                            + tris.hypers.shape[0]) * 32
+                      + (tris.tbl.numel() * 4 if bwd else 0))
+            ops_s, bytes_s = ops / PEAK_F32, nbytes / PEAK_BYTES
+            bound += max(ops_s, bytes_s) * 1e3
+            by_ops += ops_s >= bytes_s
+            by_bytes += ops_s < bytes_s
+        by = "operations" if by_ops >= by_bytes else "bytes"
+        say("20", f"{kname} triangle instance on the 65k knot: "
+                  f"{len(tape)} launches of {n} lanes on {card}: kernel "
+                  f"{k_ms:.3f} ms (median of "
+                  f"{', '.join(f'{x:.3f}' for x in k_runs)}); plain "
+                  f"{p_ms:.1f} ms (phase 19); bound {bound:.3f} ms (operations in "
+                  f"{by_ops} launches, bytes in {by_bytes}) = "
+                  f"{bound / k_ms:.1%} of the kernel time; per launch (box "
+                  f"tests, triangle tests, live lanes): {tests}")
+        rows.append({
+            "name": f"{kname}_tris",
+            "route": "cuda",
+            "source": f"rtow_tpu_torch/csrc/{kname}.cu",
+            "replaces": ("rtow_tpu/ops/pallas_grad.py:224" if bwd
+                         else "rtow_tpu/ops/pallas_grad.py:101"),
+            "launches": main_launches[1] if bwd else main_launches[0],
+            "max_abs_err": max(errs) if bwd else 0.0,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": None,
+        })
+
+    # Where a mesh train step's time goes: torch.profiler over one step.
+    step_ms, dev_ms = profile_ms(torch, lambda: step(
+        start, torch.Generator(dev).manual_seed(7), target))
+    busy_ms = sum(dev_ms.values())
+    parts = split_device_time(dev_ms, (("K4", "grad_fwd"),
+                                       ("K5", "grad_bwd")))
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:6]
+    say("20", f"one mesh train step under torch.profiler on {card}: "
+              f"{step_ms:.2f} ms wall, device kernels {busy_ms:.2f} ms (busy "
+              f"share {busy_ms / step_ms:.1%}): K4 {parts['K4']:.2f}, K5 "
+              f"{parts['K5']:.2f}, sort {parts['sort']:.2f}, gather/scatter "
+              f"{parts['gather']:.2f}, other {parts['other']:.2f} ms; by "
+              f"kernel: " + "; ".join(f"{k[:40]} {ms:.3f} ms" for k, ms in top))
+    return rows
 
 
 if __name__ == "__main__":

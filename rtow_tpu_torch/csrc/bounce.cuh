@@ -10,8 +10,9 @@
 // the Lambertian / metal / dielectric scatter and the sky (_shade_pure :998),
 // and the scatter draws (_draw_scatter :1225).  The plain PyTorch version is
 // nearest_sphere + nearest_triangle + shade in
-// rtow_tpu_torch/ops/megakernel.py.  K4 and K5 take spheres only
-// (bounce_lane); K1 and K3 take triangles too (bounce_lane_t<true>).
+// rtow_tpu_torch/ops/megakernel.py.  Each of K1, K3, K4 and K5 has an
+// instance for spheres only (bounce_lane_t<false>) and one that sweeps
+// triangles after them (bounce_lane_t<true>; K3 has this one only).
 // K1's lit instances (bounce_lane_t<kTris, true>) add the rest of _bounce_core
 // (:1329-1430): emission with its MIS weight, next-event estimation with
 // the shadow sweep (_nee_contrib :1244, ops/lights.py), constant-density
@@ -272,11 +273,6 @@ RTOW_HD Scatter scatter(const Material& m, const Hit& e, const Ray& r,
     }
   }
   return s;
-}
-
-RTOW_HD Scatter scatter(const float4* tbl, int k, const Hit& e, const Ray& r,
-                        float a, const Draws& w) {
-  return scatter(sphere_material(tbl, k), e, r, a, w);
 }
 
 // ---- triangles -----------------------------------------------------------
@@ -977,14 +973,6 @@ RTOW_HD int bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
     if (!roulette(L, s, *bounce, lane, salt)) return 0;
   }
   return nee && diffuse ? 2 : 1;
-}
-
-// The sphere-only bounce of K4 and K5.
-RTOW_HD bool bounce_lane(const float4* tbl, int npad, float* s, int* bounce,
-                         uint32_t lane, uint32_t salt, int max_depth,
-                         const Background& bg) {
-  return bounce_lane_t<false>(tbl, npad, Tris{}, s, bounce, lane, salt,
-                              max_depth, bg, nullptr) != 0;
 }
 
 }  // namespace rtow

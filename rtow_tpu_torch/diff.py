@@ -29,7 +29,8 @@ from .ops.grad import render_pixels_kernel, scene_value_and_grad
 def image_mse(scene: Scene, camera: Camera, gen: torch.Generator, target,
               pixel_ids, **render_kw) -> torch.Tensor:
     """Scalar MSE between the pixels :func:`render_pixels_kernel` renders
-    and target rows (``image_mse``, rtow_tpu/diff.py:129)."""
+    and target rows (``image_mse``, rtow_tpu/diff.py:129); ``render_kw``
+    goes to the renderer (``sort_lanes``, ``_force_flat``, ...)."""
     img = render_pixels_kernel(scene, camera, gen, pixel_ids, **render_kw)
     target = torch.as_tensor(target, dtype=img.dtype, device=img.device)
     return torch.mean((img - target) ** 2)
@@ -63,19 +64,22 @@ def mask_grads(grads: Scene, keep: Callable[[str], bool]) -> Scene:
 def build_train_step(camera: Camera, *, width: int, height: int, spp: int,
                      max_depth: int, lr: float = 1e-2,
                      keep: Optional[Callable[[str], bool]] = None,
-                     seed: int = 0):
+                     seed: int = 0, **render_kw):
     """The training step on one device (``build_train_step``, :192,
     without the mesh): render every pixel -> MSE -> reverse-mode
     gradients -> SGD.  Returns ``step(scene, gen, target) -> (new scene,
     loss)``; ``target`` is (width * height, 3).  ``keep`` masks the
-    gradients first (:func:`mask_grads`); ``seed`` salts the kernels'
-    counter RNG, ``gen`` draws the camera rays."""
+    gradients first (:func:`mask_grads`), e.g. the materials only, or the
+    mesh's ``triangles.verts``; ``seed`` salts the kernels' counter RNG,
+    ``gen`` draws the camera rays; ``render_kw`` goes to
+    ``render_pixels_kernel`` (``sort_lanes``, ``_force_flat``)."""
 
     def step(scene: Scene, gen: torch.Generator, target):
         pixel_ids = torch.arange(width * height, device=scene.device)
         loss, grads = loss_and_grad(
             scene, camera, gen, target, pixel_ids, width=width,
-            height=height, spp=spp, max_depth=max_depth, seed=seed)
+            height=height, spp=spp, max_depth=max_depth, seed=seed,
+            **render_kw)
         if keep is not None:
             grads = mask_grads(grads, keep)
         return sgd_update(scene, grads, lr), loss

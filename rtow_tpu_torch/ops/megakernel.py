@@ -317,14 +317,22 @@ def _median_split_order(cent: np.ndarray, tri_block: int) -> np.ndarray:
     return np.concatenate(rec(np.arange(cent.shape[0])))
 
 
-def build_tri_table(scene, tri_block: int) -> TriTable:
+def build_tri_table(scene, tri_block: int, order: str = "median") -> TriTable:
     """The triangle table of ``scene`` in ``tri_block``-row blocks, on the
     scene's device (``build_tri_table``, :281-387): rows in median-split
     order, padded to whole super-blocks when there are at least 2*SUPER
     blocks and to whole hyper-blocks when there are at least 2*SUPER
     supers; padding rows are zero (degenerate, never hit) and their
     boxes inverted.  Block boxes are padded by 1e-4 + 1e-4 * extent, so a
-    flat block still has volume."""
+    flat block still has volume.
+
+    ``order="morton"`` orders the rows by the Morton code of their
+    centroids instead, as the JAX table does when the vertices are traced
+    (:314-318, the gradient path under ``jit`` and ``grad``).  The order
+    and the boxes are taken from detached vertices, so the boxes carry no
+    gradient (pallas_grad.py:716-718); the rows are gathers of the
+    vertices and materials, through which autograd carries the table's
+    cotangent back to ``triangles.verts`` and the material leaves."""
     tr = scene.triangles
     mats = scene.materials
     m = tr.material.shape[0]
@@ -339,14 +347,19 @@ def build_tri_table(scene, tri_block: int) -> TriTable:
                 * tri_block * SUPER * SUPER)
 
     verts = tr.verts.to(_F32)
-    tmin = verts.amin(dim=1)
-    tmax = verts.amax(dim=1)
+    tmin = verts.detach().amin(dim=1)
+    tmax = verts.detach().amax(dim=1)
     cent = 0.5 * (tmin + tmax)
-    order = torch.from_numpy(_median_split_order(
-        cent.cpu().numpy(), tri_block)).to(dev)
-    verts = verts[order]
-    mid = tr.material[order].long()
-    tmin, tmax = tmin[order], tmax[order]
+    if order == "morton":
+        perm = morton_order(tmin.amin(dim=0), tmax.amax(dim=0), cent)
+    elif order == "median":
+        perm = torch.from_numpy(_median_split_order(
+            cent.cpu().numpy(), tri_block)).to(dev)
+    else:
+        raise ValueError(f"order must be 'median' or 'morton', not {order!r}")
+    verts = verts[perm]
+    mid = tr.material[perm].long()
+    tmin, tmax = tmin[perm], tmax[perm]
     v0 = verts[:, 0]
     e1 = verts[:, 1] - v0
     e2 = verts[:, 2] - v0

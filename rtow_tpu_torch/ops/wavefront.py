@@ -63,18 +63,21 @@ def _spread3(x: torch.Tensor) -> torch.Tensor:
     return (x | (x << 2)) & 0x09249249
 
 
-def sort_keys(state: torch.Tensor, bmin: torch.Tensor,
+def sort_keys(ray, alive: torch.Tensor, bmin: torch.Tensor,
               inv_ext: torch.Tensor) -> torch.Tensor:
-    """Spatial key of every lane of a (16, L) state -> (L,) int64, dead
-    lanes ``DEAD_KEY`` (``sort_keys``, :77).
+    """Spatial key of every lane -> (L,) int64, dead lanes ``DEAD_KEY``
+    (``sort_keys``, :77).  ``ray``: the six (L,) rows ox oy oz dx dy dz
+    (a tensor's first six rows will do); ``alive``: the (L,) alive row,
+    live where > 0.  The sorted wavefront passes its packed state's rows,
+    the gradient path its ``cont`` and ``ints[0]``.
 
     A 30-bit Morton code whose 3-bit groups alternate origin and
     direction, origin first: the origin quantised to 5 bits per axis on
     the fixed scene grid (``bmin``, ``inv_ext``), the unit direction to 5
     bits per axis over the live lanes' range.  1/sqrt where JAX has
     rsqrt (CUDA's rsqrtf is not IEEE)."""
-    ox, oy, oz, dx, dy, dz = state[:6]
-    live = state[13] > 0
+    ox, oy, oz, dx, dy, dz = ray[:6]
+    live = alive > 0
     lim = 31.0
 
     def qorig(o, a):
@@ -84,7 +87,7 @@ def sort_keys(state: torch.Tensor, bmin: torch.Tensor,
              | (_spread3(qorig(oz, 2).long()) << 2))
     inv_len = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
     big = 3.0e38
-    top = torch.tensor(lim + 0.999, dtype=_F32, device=state.device)
+    top = torch.tensor(lim + 0.999, dtype=_F32, device=ox.device)
 
     def qdir(d):
         nd = d * inv_len
@@ -145,7 +148,8 @@ def _morton_pixel_perm(width: int, height: int) -> np.ndarray:
 
 
 def _sorted(state, bmin, inv_ext):
-    perm = torch.sort(sort_keys(state, bmin, inv_ext), stable=True).indices
+    perm = torch.sort(sort_keys(state, state[13], bmin, inv_ext),
+                      stable=True).indices
     return state.index_select(1, perm)
 
 

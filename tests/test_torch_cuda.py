@@ -241,9 +241,10 @@ def test_grad_bwd_kernel_matches_plain(dev):
         cot = torch.from_numpy(rng.standard_normal(cont.shape)
                                .astype(np.float32)).to(dev)
         before = grad.bounce_bwd.launches
-        kci, kg = grad.bounce_bwd(cont, ints, cot, tbl, **kw)
+        kci, kg, kt = grad.bounce_bwd(cont, ints, cot, tbl, **kw)
         assert grad.bounce_bwd.launches == before + 1
-        pci, pg = grad.bounce_bwd_reference(cont, ints, cot, tbl, **kw)
+        pci, pg, pt = grad.bounce_bwd_reference(cont, ints, cot, tbl, **kw)
+        assert kt is None and pt is None
         assert bool(torch.isfinite(kci).all() and torch.isfinite(kg).all())
         for k, p, dim in ((kci, pci, 1), (kg[:, :13], pg[:, :13], 0)):
             scale = p.abs().amax(dim=dim, keepdim=True)
@@ -257,3 +258,92 @@ def test_grad_bwd_table_larger_than_shared_memory_raises(dev):
     ints = torch.zeros((3, mk.TILE), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared-memory"):
         grad.bounce_bwd(cont, ints, cont, tbl, it=0, seed=0, max_depth=1)
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5 on meshes
+
+
+def _mesh_grad_tape(dev, segments, rings, flat, depth=8):
+    """The knot over a ground sphere at 64x64 spp4: the gradient path's
+    tables and the (depth + 1) sorted input states of one forward through
+    K4 (flat sweep or hierarchy), as render_rays_kernel hands them to
+    each bounce."""
+    scene = _knot(dev, segments, rings)
+    cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=45.0, aspect_ratio=1.0, aperture=0.0,
+                      focus_dist=3.0, device=dev)
+    gen = torch.Generator(dev).manual_seed(2)
+    pix = torch.arange(64 * 64, device=dev).repeat_interleave(4)
+    s, t = pixel_coords(64, 64, gen, pix)
+    tape, bounce = [], grad.bounce_grad
+
+    def recorded(cont, ints, *a, **k):
+        tape.append((cont, ints))
+        return bounce(cont, ints, *a, **k)
+
+    grad.bounce_grad = recorded
+    try:
+        with torch.no_grad():
+            grad.render_rays_kernel(scene, camera_rays(cam, gen, s, t),
+                                    n_pixels=pix.numel(), spp=1,
+                                    max_depth=depth, seed=3, sort_lanes=True,
+                                    force_flat=flat)
+    finally:
+        grad.bounce_grad = bounce
+    tbl, _ = mk.build_sphere_table(scene)
+    return tbl, grad.grad_tri_table(scene, flat), tape
+
+
+@pytest.mark.parametrize("segments,rings", [(16, 12), (64, 32)])
+@pytest.mark.parametrize("flat", [False, True])
+def test_grad_mesh_kernels_match_plain(dev, segments, rings, flat):
+    """K4's triangle instance bit-identical to its plain version with equal
+    counters (box tests, triangle tests, live lanes); K5's within 1e-3 of
+    the largest |plain| per cot_in row and per g_tbl / g_tri column."""
+    tbl, tris, tape = _mesh_grad_tape(dev, segments, rings, flat)
+    rng = np.random.default_rng(4)
+    for it, (cont, ints) in enumerate(tape):
+        kw = dict(it=it, seed=3, max_depth=8, flat=flat)
+        ks, ps = (torch.zeros(3, dtype=torch.int64, device=dev)
+                  for _ in range(2))
+        kc, ki = grad.bounce_fwd(cont, ints, tbl, tris, stats=ks, **kw)
+        pc, pi = grad.bounce_fwd_reference(cont, ints, tbl, tris, stats=ps,
+                                           **kw)
+        assert torch.equal(kc, pc) and torch.equal(ki, pi), it
+        assert torch.equal(ks, ps), (it, ks.tolist(), ps.tolist())
+        cot = torch.from_numpy(rng.standard_normal(cont.shape)
+                               .astype(np.float32)).to(dev)
+        kci, kg, kt = grad.bounce_bwd(cont, ints, cot, tbl, tris, **kw)
+        pci, pg, pt = grad.bounce_bwd_reference(cont, ints, cot, tbl, tris,
+                                                **kw)
+        for k, p, dim in ((kci, pci, 1), (kg[:, :13], pg[:, :13], 0),
+                          (kt[:, :14], pt[:, :14], 0)):
+            assert bool(torch.isfinite(k).all())
+            scale = p.abs().amax(dim=dim, keepdim=True)
+            assert bool(((k - p).abs() <= 1e-3 * scale).all()), it
+        assert not kt[:, 14:].any() and not kg[:, 13:].any()
+
+
+def test_mesh_gradient_launches_kernels_only(dev, monkeypatch):
+    """render_pixels_kernel on a mesh over 16,384 triangles (sorted lanes
+    by default) launches K4 and K5 once per bounce, never their plain
+    versions; the vertex gradient is finite and non-zero."""
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(grad, "bounce_fwd_reference", refuse)
+    monkeypatch.setattr(grad, "bounce_bwd_reference", refuse)
+    scene = _knot(dev, 128, 136)  # 17,408 triangles
+    cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=45.0, aspect_ratio=1.0, device=dev)
+    before = (grad.bounce_fwd.launches, grad.bounce_bwd.launches)
+    loss, grads = grad.loss_and_grad_kernel(
+        scene, cam, torch.Generator(dev).manual_seed(0),
+        torch.zeros((32 * 32, 3), device=dev), torch.arange(32 * 32),
+        width=32, height=32, spp=4, max_depth=4)
+    assert (grad.bounce_fwd.launches - before[0],
+            grad.bounce_bwd.launches - before[1]) == (5, 5)
+    g = grads.triangles.verts
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+    assert bool(torch.isfinite(loss))

@@ -177,8 +177,7 @@ def test_unported_arguments_raise(view):
     scene = _two_lambertians()
     kw = dict(width=W, height=H, spp=1, max_depth=1)
     gen = torch.Generator().manual_seed(0)
-    for extra in (dict(sort_lanes=True), dict(nee=True),
-                  dict(grad_reduce_axes=("spp",))):
+    for extra in (dict(nee=True), dict(grad_reduce_axes=("spp",))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             grad.render_pixels_kernel(scene, cam, gen, pix, **kw, **extra)
     for kind in (3, 4, 5, 6):  # emissive, checker, noise, image
@@ -188,11 +187,33 @@ def test_unported_arguments_raise(view):
             grad.render_pixels_kernel(
                 scene.replace_leaves({"materials.kind": mats}), cam, gen,
                 pix, **kw)
+    # A mesh is in the kernels; an emissive one is not.
+    kinds = scene.materials.kind.clone()
+    kinds[1] = 3
     tris = scene.replace_leaves({
         "triangles.verts": torch.ones((1, 3, 3)),
-        "triangles.material": torch.zeros((1,), dtype=torch.int32)})
+        "triangles.material": torch.ones((1,), dtype=torch.int32),
+        "materials.kind": kinds})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         grad.render_pixels_kernel(tris, cam, gen, pix, **kw)
+
+
+def test_sorted_lanes_on_spheres_match_unsorted(view):
+    """Sphere scenes take ``sort_lanes=True`` too (as in
+    tests/test_pallas_grad.py:377): the same loss within rel 1e-6 and
+    gradients within rtol 2e-4, atol 1e-6 (sums in another lane order)."""
+    cam, pix, target = view
+    out = {s: grad.loss_and_grad_kernel(
+        _two_lambertians(), cam, torch.Generator().manual_seed(0), target,
+        pix, width=W, height=H, spp=4, max_depth=DEPTH, sort_lanes=s)
+        for s in (False, True)}
+    assert float(out[True][0]) == pytest.approx(float(out[False][0]),
+                                                 rel=1e-6)
+    for key, g in out[False][1].leaves().items():
+        if g is not None:
+            np.testing.assert_allclose(g.numpy(),
+                                       out[True][1].leaves()[key].numpy(),
+                                       rtol=2e-4, atol=1e-6, err_msg=key)
 
 
 def test_wrappers_on_cpu_count_no_launch(view):

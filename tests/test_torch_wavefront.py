@@ -127,12 +127,33 @@ def test_sort_keys_match_jax():
     want = np.asarray(jwf.sort_keys(*map(jnp.asarray, st[:6]),
                                     jnp.asarray(st[13].astype(np.int32)),
                                     jnp.asarray(bmin), jnp.asarray(inv_ext)))
-    got = wf.sort_keys(torch.from_numpy(st), torch.from_numpy(bmin),
-                       torch.from_numpy(inv_ext)).numpy()
+    got = wf.sort_keys(torch.from_numpy(st), torch.from_numpy(st[13]),
+                       torch.from_numpy(bmin), torch.from_numpy(inv_ext)).numpy()
     dead = st[13] == 0
     assert (got[dead] == wf.DEAD_KEY).all() and (want[dead] == wf.DEAD_KEY).all()
     assert np.mean(got == want) >= 0.999
     assert len(np.unique(got[~dead])) > 1000
+
+
+def test_sort_keys_give_k3_keys_bit_for_bit():
+    """The keys from a packed state's rows (K3's loop) and from the
+    gradient path's (cont, int32 alive) rows are equal bit for bit
+    (test_sort_keys_match_jax holds their values against JAX)."""
+    rng = np.random.default_rng(9)
+    n = 20_000
+    st = np.zeros((16, n), np.float32)
+    st[0:3] = rng.uniform(-1.2, 1.2, (3, n))
+    st[3:6] = rng.normal(size=(3, n))
+    st[13] = (rng.random(n) < 0.8) * rng.integers(1, 3, n)
+    state = torch.from_numpy(st)
+    bmin = torch.tensor([-1.0, -0.9, -0.5])
+    inv_ext = 1.0 / torch.tensor([2.0, 1.8, 1.0])
+    k3 = wf.sort_keys(state, state[13], bmin, inv_ext)
+    grad_path = wf.sort_keys(state[:13].clone(), state[13].to(torch.int32),
+                             bmin, inv_ext)
+    assert torch.equal(k3, grad_path)
+    assert (k3 == wf.DEAD_KEY).sum() == (st[13] == 0).sum()
+    assert len(torch.unique(k3)) > 1000
 
 
 @pytest.mark.parametrize("n", [1024, 5120, 262144, 10_240_000])
