@@ -27,9 +27,13 @@ triangle instances against their plain versions on the 4,096- and
 65,536-triangle knots, flat and down the hierarchy; three
 ``diff.build_train_step`` steps on the 65k knot at 256x256, 16 samples
 per pixel, depth 8, with the lanes sorted; the forward and
-forward+backward times of both bench knots).  Every phase prints one
-line; any
-failed check raises and the script exits non-zero.  The
+forward+backward times of both bench knots) and lit inverse rendering
+(K4's and K5's lit instances against their plain versions on the Cornell
+box and ``light_scene`` with NEE, ``textures_scene`` and the checker
+cover; three ``diff.build_train_step(nee=True)`` steps on the Cornell box
+at 400x400, 16 samples per pixel, depth 8, the lamp's emission and the
+walls' albedo; the forward and forward+backward times).  Every phase
+prints one line; any failed check raises and the script exits non-zero.  The
 line before the card line is the kernels' JSON summary; the last line
 of standard output is one JSON object:
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -79,6 +83,12 @@ PERTURB = 0.15
 #: the entries off by more than 1e-4 |plain| + 1e-6 max |plain|.
 GRAD_TOL = 1e-3
 GRAD_SHARE = 1e-3
+#: The light rows' cotangent (R x 14 entries, each summed over every lane;
+#: see check_rows): an entry's scale is its float64 sum |E| where that is
+#: at least ROWS_CANCEL of its sum of |terms| S, else ROWS_CANCEL S, and at
+#: least ROWS_FLOOR of the largest S.
+ROWS_CANCEL = 0.1
+ROWS_FLOOR = 1e-3
 
 #: Roofline of one H100 SXM (NVIDIA's data sheet): float32 outside the
 #: tensor cores, and HBM3.
@@ -98,6 +108,9 @@ OPS_INV_DIR = 3
 #: learning rate for the knot's one material.
 W_MESH_GRAD = 256
 LR_MESH = 3.0
+#: Lit inverse rendering: the JAX package's Cornell demo's step for the
+#: walls' albedo (tools/inverse_demo.py:165-169), for every albedo row.
+LR_LIT = 30.0
 
 #: The light-driven path: the Cornell box as BASELINE.md:336-343 measured
 #: it (400 px, depth 8, NEE at 512 spp), the smoke box alike.
@@ -149,6 +162,16 @@ def event_ms(torch, fn):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end), out
+
+
+def wall_ms(torch, fn):
+    """Host milliseconds around ``fn()``, the card synchronised before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 @contextlib.contextmanager
@@ -385,6 +408,7 @@ def main() -> None:
     mesh = mesh_phases(torch, dev, card, say, event_ms, agreement)
     lit = lit_phases(torch, dev, card, say, event_ms, cover_radiance)
     mesh_grad = mesh_grad_phases(torch, dev, card, say, event_ms)
+    lit_grad = lit_grad_phases(torch, dev, card, say, event_ms)
 
     print(json.dumps({"kernels": [{
         "name": "megakernel",
@@ -398,7 +422,7 @@ def main() -> None:
         "bound_ms": k1_bound,
         "bound_by": "operations",
         "library_ms": None,
-    }, mesh, lit] + grad + mesh_grad}), flush=True)
+    }, mesh, lit] + grad + mesh_grad + lit_grad}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -528,20 +552,13 @@ def grad_phases(torch, dev, card, say):
             scene, cam, torch.Generator(dev).manual_seed(7), target, pix,
             **kw)
 
-    def wall_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
     fwd_call()  # warm-up
     loss, grads = fwdbwd_call()
     check(bool(torch.isfinite(loss)) and all(
         bool(torch.isfinite(g).all()) for g in grads.leaves().values()
         if g is not None), "loss_and_grad_kernel: not finite")
-    fwd_runs = [wall_ms(fwd_call) for _ in range(3)]
-    fb_runs = [wall_ms(fwdbwd_call) for _ in range(3)]
+    fwd_runs = [wall_ms(torch, fwd_call) for _ in range(3)]
+    fb_runs = [wall_ms(torch, fwdbwd_call) for _ in range(3)]
     fwd_ms, fb_ms = statistics.median(fwd_runs), statistics.median(fb_runs)
     say("8", f"on {card}: forward {fwd_ms:.2f} ms (median of "
              f"{', '.join(f'{x:.2f}' for x in fwd_runs)}), "
@@ -648,22 +665,78 @@ def grad_agreement(kern, plain, dim, scale=None):
     return float(d.max()), worst, share
 
 
+def rows_agreement(torch, k, p, exact, mags):
+    """K5's light-row cotangent ``k`` (R, 14) against the plain version's
+    ``p``, given the float64 sum ``exact`` and sum of |terms| ``mags`` of
+    its per-lane terms -> (max |d|, worst max |d| / scale, share of the
+    coherent entries off, coherent entries, kernel's and plain's worst
+    distance from the float64 sum as shares of the scale).
+
+    Each entry sums a term from every lane, so it is held to its own sum
+    (check_rows): max |d| at most GRAD_TOL of the scale max(|exact|,
+    ROWS_CANCEL mags, ROWS_FLOOR max mags).  Where the terms do not cancel
+    below ROWS_CANCEL of their sum of |terms| (a coherent entry: the
+    emission columns under same-sign cotangents), that is 1e-3 of the
+    value itself, and the share rule holds too (no more than GRAD_SHARE of
+    the coherent entries off by more than 1e-4 |plain| + 1e-6 scale).  An
+    entry whose terms cancel (a horizontal lamp's x and z) is held to 1e-3
+    of ROWS_CANCEL of its terms, the size of the float32 rounding of the
+    sum."""
+    big = float(mags.max())
+    scale = torch.maximum(exact.abs(), ROWS_CANCEL * mags).clamp_min(
+        ROWS_FLOOR * big).clamp_min(1e-300)
+    coherent = (exact.abs() >= ROWS_CANCEL * mags) & (mags >= ROWS_FLOOR * big)
+    d = (k.double() - p.double()).abs()
+    off = d > 1e-4 * p.double().abs() + 1e-6 * scale
+    share = float(off[coherent].double().mean()) if coherent.any() else 0.0
+    return (float(d.max()), float((d / scale).max()), share,
+            int(coherent.sum())) + tuple(
+        float(((x.double() - exact).abs() / scale).max()) for x in (k, p))
+
+
+def check_rows(torch, k, p, exact, mags, what):
+    """rows_agreement, raising CheckFailed past its rule."""
+    r = rows_agreement(torch, k, p, exact, mags)
+    check(r[1] <= GRAD_TOL and r[2] <= GRAD_SHARE,
+          f"{what}: K5 g_rows vs plain: max |d| / scale {r[1]:.3g} "
+          f"(allowed {GRAD_TOL}), share of coherent entries off {r[2]:.3g} "
+          f"(allowed {GRAD_SHARE})")
+    return r
+
+
+def plant_faults(torch, k, p, sums, what) -> str:
+    """check_rows's rule on K5's light-row cotangent ``k`` made wrong on
+    purpose, every entry scaled by 1.01 and the whole of it 0 -> what the
+    rule read on each; raises CheckFailed if it would pass either."""
+    seen = []
+    for fault, bad in (("x1.01", k * 1.01), ("0", torch.zeros_like(k))):
+        r = rows_agreement(torch, bad, p, *sums)
+        check(r[1] > GRAD_TOL or r[2] > GRAD_SHARE,
+              f"{what}: check_rows passed K5's g_rows {fault}")
+        seen.append(f"{fault} max |d| / scale {r[1]:.3g}, coherent entries "
+                    f"off {r[2]:.3g}")
+    return f"{what} (" + "; ".join(seen) + ")"
+
+
 def check_k5(torch, kern, plain, what, sums=None):
-    """K5's (cot_in, g_tbl, g_tri) against the plain version's, by the 1e-3
-    rule (GRAD_TOL, GRAD_SHARE) per cot_in row and per table column ->
-    {name: (max |d|, worst share of the scale, share off[, kernel's and
-    plain's worst distance from the float64 sum, as shares of the
-    scale])} for cot_in, g_tbl (where the scene has spheres) and g_tri
-    (where it has triangles).  The kind columns must be 0.
+    """K5's (cot_in, g_tbl, g_tri, g_rows) against the plain version's, by
+    the 1e-3 rule (GRAD_TOL, GRAD_SHARE) per cot_in row and per table
+    column -> {name: (max |d|, worst share of the scale, share off[,
+    kernel's and plain's worst distance from the float64 sum, as shares of
+    the scale])} for cot_in, g_tbl (where the scene has spheres), g_tri
+    (where it has triangles) and g_rows (where it has light rows; the
+    tuple of check_rows).  The kind columns must be 0.
 
     The scale is the row's / column's max |plain|, or, for a table part
     in ``sums`` ({part: (float64 sum, float64 sum of |terms|)} of the
     plain version's per-lane row cotangents), the column's largest sum
     of |terms|: two float32 sums of the same terms in other orders differ
     by rounding that scales with it, not with the sum, which mixed-sign
-    cotangents can cancel far below its terms."""
-    (ci, gt, gr), (pci, pgt, pgr) = kern, plain
-    parts = [("cot_in", ci, pci, 1), ("g_tbl", gt[:, :13], pgt[:, :13], 0)]
+    cotangents can cancel far below its terms.  The light rows' R x 14
+    entries, which ``sums`` must hold, follow check_rows."""
+    (ci, gt, gr, gl), (pci, pgt, pgr, pgl) = kern, plain
+    parts = [("cot_in", ci, pci, 1), ("g_tbl", gt[:, :16], pgt[:, :16], 0)]
+    check(not gt[:, 12].any(), f"{what}: K5 g_tbl kind column not 0")
     if gr is not None:
         parts.append(("g_tri", gr[:, :14], pgr[:, :14], 0))
         check(not gr[:, 14:].any(), f"{what}: K5 g_tri kind column not 0")
@@ -674,7 +747,7 @@ def check_k5(torch, kern, plain, what, sums=None):
             continue
         scale = exact = None
         if sums and name in sums:
-            exact, mags = (s[:, :k.shape[1]] for s in sums[name])
+            exact, mags = (s_[:, :k.shape[1]] for s_ in sums[name])
             scale = mags.amax(dim=0, keepdim=True).float()
         mx, worst, share = grad_agreement(k, p, dim, scale)
         check(worst <= GRAD_TOL and share <= GRAD_SHARE,
@@ -685,8 +758,11 @@ def check_k5(torch, kern, plain, what, sums=None):
         if exact is not None:
             out[name] += tuple(
                 float(((x.double() - exact).abs().amax(dim=0)
-                       / mags.amax(dim=0).clamp_min(1e-300)).max())
+                       / scale[0].double().clamp_min(1e-300)).max())
                 for x in (k, p))
+    if gl is not None:
+        check(bool(torch.isfinite(gl).all()), f"{what}: K5 g_rows not finite")
+        out["g_rows"] = check_rows(torch, gl, pgl, *sums["g_rows"], what)
     return out
 
 
@@ -1384,7 +1460,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
         return tbl, G.grad_tri_table(scene, flat), tape
 
     def counters():
-        return torch.zeros(3, dtype=torch.int64, device=dev)
+        return torch.zeros(4, dtype=torch.int64, device=dev)
 
     # ---- (19) the triangle instances against their plain versions -------
     # Every launch of one sorted forward at the trainer's 1,048,576 lanes,
@@ -1420,10 +1496,10 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
                 kern = G.bounce_bwd(cont, ints, cot, tbl, tris, stats=kb, **a)
 
                 def plain_bwd():  # bounce_bwd_reference, keeping its terms
-                    ci, s_t, t_t = G.bounce_bwd_terms(
+                    ci, s_t, t_t, _ = G.bounce_bwd_terms(
                         cont, ints, cot, tbl, tris, stats=pb, **a)
                     return ((ci, G.table_sums(s_t, npad),
-                             G.table_sums(t_t, mpad)), (s_t, t_t))
+                             G.table_sums(t_t, mpad), None), (s_t, t_t))
 
                 ms, (plain, terms) = event_ms(torch, plain_bwd)
                 p_ms[1] += ms
@@ -1444,7 +1520,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
                     if len(r) > 3:
                         f64[part] = [max(x, y) for x, y in
                                      zip(f64.get(part, (0.0, 0.0)), r[3:])]
-                tests.append(ks.tolist())
+                tests.append(ks.tolist()[:3])
             if name == "65k" and not flat:  # phase 20 times the kernels here
                 timed = (tbl, tris, tape, tests, p_ms)
             box = sum(t[0] for t in tests)
@@ -1532,13 +1608,6 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
               f"plain version; {train_s:.2f} s; vertex gradient max |g| "
               f"{float(gv.abs().max()):.3g}")
 
-    def wall_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
     for name in ("65k", "360k"):
         sc = knots[name]
         tgt = target if name == "65k" else torch.zeros_like(target)
@@ -1557,8 +1626,8 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
         check(bool(torch.isfinite(loss)) and all(
             bool(torch.isfinite(g).all()) for g in grads.leaves().values()
             if g is not None), f"{name} knot: loss_and_grad not finite")
-        fwd_runs = [wall_ms(fwd_call) for _ in range(3)]
-        fb_runs = [wall_ms(fwdbwd_call) for _ in range(3)]
+        fwd_runs = [wall_ms(torch, fwd_call) for _ in range(3)]
+        fb_runs = [wall_ms(torch, fwdbwd_call) for _ in range(3)]
         fwd_ms, fb_ms = statistics.median(fwd_runs), statistics.median(fb_runs)
         say("20", f"the {name} knot ({sc.n_triangles} triangles) {size}x"
                   f"{size} spp{SPP_GRAD} depth {DEPTH_GRAD} on {card}: "
@@ -1648,6 +1717,339 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
               f"{parts['K5']:.2f}, sort {parts['sort']:.2f}, gather/scatter "
               f"{parts['gather']:.2f}, other {parts['other']:.2f} ms; by "
               f"kernel: " + "; ".join(f"{k[:40]} {ms:.3f} ms" for k, ms in top))
+    return rows
+
+
+def lit_grad_phases(torch, dev, card, say, event_ms):
+    """Phases 21-22: K4's and K5's lit instances against their plain
+    versions at every bounce of one forward (the Cornell box and
+    ``light_scene`` with NEE at 400x400, ``textures_scene`` and the
+    checker cover at 400x267, all spp16 depth 8), then lit inverse
+    rendering at full size: three ``diff.build_train_step(nee=True)``
+    steps on the Cornell box at 400x400 spp16 depth 8 from the lamp at 5
+    and the red wall at 0.4 (tools/inverse_demo.py:154-160), with the
+    plain versions made to raise; the forward and forward+backward
+    medians, K4 and K5 by CUDA events with their bounds, and a profiled
+    step.  Returns the lit instances' JSON entries."""
+    import numpy as np
+
+    from rtow_tpu_torch import diff
+    from rtow_tpu_torch.config import Config
+    from rtow_tpu_torch.models.builders import (
+        cornell_scene, cover_scene, light_scene, textures_scene,
+    )
+    from rtow_tpu_torch.models.camera import camera_rays, pixel_coords
+    from rtow_tpu_torch.ops import grad as G
+    from rtow_tpu_torch.ops import megakernel as mk
+
+    rng = np.random.default_rng(2)
+
+    def checker_cover(aspect, device):
+        return cover_scene(Config(image_width=W_LIT, aspect_ratio=aspect,
+                                  checker_ground=True), device=device)
+
+    # name -> (builder, aspect, nee)
+    scenes = {"cornell": (cornell_scene, 1.0, True),
+              "light": (light_scene, 1.0, True),
+              "textures": (textures_scene, 1.5, False),
+              "checker_cover": (checker_cover, 1.5, False)}
+
+    def setup(name):
+        build, aspect, nee = scenes[name]
+        scene, cam = build(aspect, device=dev)
+        width, height = W_LIT, int(round(W_LIT / aspect))
+        lit = G.grad_lit(scene, nee)
+        tbl, _ = mk.build_sphere_table(scene)
+        tris = G.grad_tri_table(scene) if scene.n_triangles else None
+        return scene, cam, width, height, lit, tbl, tris
+
+    def tape_of(scene, cam, width, height, lit, tbl, tris, seed=7):
+        """The (depth + 1) input states of one forward through K4 from
+        the camera, as render_rays_kernel hands them to each bounce."""
+        gen = torch.Generator(dev).manual_seed(seed)
+        pix = torch.arange(width * height,
+                           device=dev).repeat_interleave(SPP_GRAD)
+        s, t = pixel_coords(width, height, gen, pix)
+        cont, ints = G.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
+                                  dev)
+        tape = []
+        for it in range(DEPTH_GRAD + 1):
+            tape.append((cont, ints))
+            cont, ints = G.bounce_fwd(cont, ints, tbl, tris, it=it, seed=0,
+                                      max_depth=DEPTH_GRAD, lit=lit,
+                                      background=scene.background)
+        return tape
+
+    def counters():
+        return torch.zeros(4, dtype=torch.int64, device=dev)
+
+    # ---- (21) the lit instances against their plain versions -----------
+    lines, errs, timed, planted = [], [], {}, []
+    for name in scenes:
+        scene, cam, width, height, lit, tbl, tris = setup(name)
+        tape = tape_of(scene, cam, width, height, lit, tbl, tris)
+        npad = tbl.shape[0]
+        worst, f64, counts, p_ms, coherent = {}, {}, [], [0.0, 0.0], 0
+        for it, (cont, ints) in enumerate(tape):
+            a = dict(it=it, seed=0, max_depth=DEPTH_GRAD, lit=lit,
+                     background=scene.background)
+            ks, ps = counters(), counters()
+            kc, ki = G.bounce_fwd(cont, ints, tbl, tris, stats=ks, **a)
+            ms, (pc, pi) = event_ms(torch, lambda: G.bounce_fwd_reference(
+                cont, ints, tbl, tris, stats=ps, **a))
+            p_ms[0] += ms
+            check(torch.equal(kc, pc) and torch.equal(ki, pi),
+                  f"K4 lit {name}, bounce {it}: not bit-identical (max |d| "
+                  f"{float((kc - pc).abs().max())})")
+            check(torch.equal(ks, ps),
+                  f"K4 lit {name}, bounce {it}: counted {ks.tolist()}, "
+                  f"plain {ps.tolist()}")
+            # Same-sign cotangents: a light row's entry then sums its lanes'
+            # terms without random cancellation (the emission columns' terms
+            # all share one sign), so check_rows holds it to its own value.
+            cot = torch.from_numpy(np.abs(rng.standard_normal(
+                tuple(cont.shape))).astype(np.float32)).to(dev)
+            kb, pb = counters(), counters()
+            kern = G.bounce_bwd(cont, ints, cot, tbl, tris, stats=kb, **a)
+
+            def plain_bwd():  # bounce_bwd_reference, keeping its terms
+                ci, s_t, t_t, l_t = G.bounce_bwd_terms(
+                    cont, ints, cot, tbl, tris, stats=pb, **a)
+                return ((ci, G.table_sums(s_t, npad),
+                         None if t_t is None
+                         else G.table_sums(t_t, tris.tbl.shape[0]),
+                         None if l_t is None else l_t.sum(dim=0)),
+                        (s_t, t_t, l_t))
+
+            ms, (plain, (s_t, t_t, l_t)) = event_ms(torch, plain_bwd)
+            p_ms[1] += ms
+            sums = {"g_tbl": (G.table_sums(s_t, npad, torch.float64),
+                              G.table_sums((s_t[0], s_t[1].abs()), npad,
+                                           torch.float64))}
+            if t_t is not None:
+                rows = tris.tbl.shape[0]
+                sums["g_tri"] = (G.table_sums(t_t, rows, torch.float64),
+                                 G.table_sums((t_t[0], t_t[1].abs()), rows,
+                                              torch.float64))
+            if l_t is not None:
+                sums["g_rows"] = (l_t.double().sum(dim=0),
+                                  l_t.double().abs().sum(dim=0))
+            res = check_k5(torch, kern, plain, f"lit {name}, bounce {it}",
+                           sums=sums)
+            check(torch.equal(kb, ks) and torch.equal(pb, ps),
+                  f"K5 lit {name}, bounce {it}: its replay counted "
+                  f"{kb.tolist()} / {pb.tolist()}, K4 {ks.tolist()}")
+            if "g_rows" in res:
+                coherent += res["g_rows"][3]
+                res["g_rows"] = res["g_rows"][:3] + res["g_rows"][4:]
+                if it == 0:  # the rule must refuse a wrong sum
+                    planted.append(plant_faults(torch, kern[3], plain[3],
+                                                sums["g_rows"], name))
+            for part, r in res.items():
+                worst[part] = max(worst.get(part, 0.0), r[1])
+                errs.append(r[0])
+                if len(r) > 3:
+                    f64[part] = [max(x, y) for x, y in
+                                 zip(f64.get(part, (0.0, 0.0)), r[3:])]
+            counts.append(ks.tolist())
+        if name == "cornell":  # phase 22 times the kernels here
+            timed = (scene, tbl, tris, lit, tape, counts, p_ms)
+        live = sum(c[2] for c in counts)
+        shadows = sum(c[3] for c in counts)
+        lines.append(
+            f"{name} ({tape[0][0].shape[1]} lanes, {len(lit.nee_kinds)} "
+            f"lights, checker {lit.checker}): {live} live lane-bounces, "
+            f"{shadows} shadow rays, {sum(c[1] for c in counts)} triangle "
+            f"tests; {coherent} coherent light-row entries; plain K4 "
+            f"{p_ms[0]:.1f} ms, K5 {p_ms[1]:.1f} ms; K5 "
+            f"worst share of scale " + ", ".join(
+                f"{k} {v:.2g}" for k, v in worst.items())
+            + "; from the float64 sum, kernel / plain: " + ", ".join(
+                f"{k} {v[0]:.2g} / {v[1]:.2g}" for k, v in f64.items()))
+    say("21", f"K4 / K5 lit instances vs plain on {card}, all "
+              f"{DEPTH_GRAD + 1} bounces of one forward at spp{SPP_GRAD} "
+              f"depth {DEPTH_GRAD}: K4 bit-identical with equal counters "
+              f"(box tests, triangle tests, live lanes, shadow rays), K5's "
+              f"replay counting the same, K5 within {GRAD_TOL} of the scale "
+              f"(cot_in: its row's max |plain|; g_tbl, g_tri: the column's "
+              f"largest sum of |terms|; g_rows: each entry's own float64 "
+              f"sum, or {ROWS_CANCEL} of its sum of |terms| where that "
+              f"cancels), same-sign cotangents; " + "; ".join(lines)
+              + "; g_rows x1.01 and g_rows = 0 planted at bounce 0, both "
+              "refused: " + ", ".join(planted))
+
+    # ---- (22) lit inverse rendering at full size --------------------------
+    scene, cam, width, height, lit, tbl, tris = setup("cornell")
+    n_pix = width * height
+    pix = torch.arange(n_pix, device=dev)
+    kw = dict(width=width, height=height, spp=SPP_GRAD,
+              max_depth=DEPTH_GRAD, nee=True)
+    with torch.no_grad():
+        target = G.render_pixels_kernel(
+            scene, cam, torch.Generator(dev).manual_seed(123), pix, **kw)
+    # cornell_scene's materials: 0 white, 1 red, 2 green, 3 the lamp, 4
+    # the mirror.
+    albedo = scene.materials.albedo.clone()
+    albedo[3] = 5.0
+    albedo[1] = 0.4
+    start = scene.replace_leaves({"materials.albedo": albedo})
+    step = diff.build_train_step(cam, lr=LR_LIT,
+                                 keep=lambda p: p.endswith("albedo"), **kw)
+
+    def refuse(*_a, **_k):
+        raise CheckFailed("the lit trainer ran a plain version on the card")
+
+    plain = (G.bounce_fwd_reference, G.bounce_bwd_reference)
+    G.bounce_fwd_reference = G.bounce_bwd_reference = refuse
+    try:
+        losses, cur, per_step = [], start, []
+        G.bounce_fwd.launches = G.bounce_bwd.launches = 0
+        G.bounce_fwd.lit_launches = G.bounce_bwd.lit_launches = 0
+        t0 = time.perf_counter()
+        for _ in range(3):
+            cur, loss = step(cur, torch.Generator(dev).manual_seed(7), target)
+            losses.append(float(loss))
+            per_step.append((G.bounce_fwd.launches, G.bounce_bwd.launches,
+                             G.bounce_fwd.lit_launches,
+                             G.bounce_bwd.lit_launches))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        main_launches = per_step[-1][:2]
+
+        def fwd_call():
+            with torch.no_grad():
+                return G.render_pixels_kernel(
+                    scene, cam, torch.Generator(dev).manual_seed(7), pix,
+                    **kw)
+
+        def fwdbwd_call():
+            return G.loss_and_grad_kernel(
+                start, cam, torch.Generator(dev).manual_seed(7), target, pix,
+                **kw)
+
+        fwd_call()  # warm-up
+        loss, grads = fwdbwd_call()
+        fwd_runs = [wall_ms(torch, fwd_call) for _ in range(3)]
+        fb_runs = [wall_ms(torch, fwdbwd_call) for _ in range(3)]
+        step_ms, dev_ms = profile_ms(torch, lambda: step(
+            start, torch.Generator(dev).manual_seed(7), target))
+    finally:
+        G.bounce_fwd_reference, G.bounce_bwd_reference = plain
+    want = [(k * (DEPTH_GRAD + 1),) * 4 for k in (1, 2, 3)]
+    check(per_step == want,
+          f"K4 / K5 launches and lit launches after each lit train step "
+          f"{per_step}, not {want}")
+    check(all(np.isfinite(losses)) and losses[0] > losses[1] > losses[2],
+          f"lit trainer: loss did not fall over the steps: {losses}")
+    ga = grads.materials.albedo
+    check(bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in grads.leaves().values()
+        if g is not None) and float(ga[3].abs().max()) > 0,
+        "lit trainer: loss_and_grad not finite, or no lamp gradient")
+    lamp0 = float(start.materials.albedo[3].mean())
+    lamp3 = float(cur.materials.albedo[3].mean())
+    red3 = cur.materials.albedo[1].tolist()
+    fwd_ms, fb_ms = statistics.median(fwd_runs), statistics.median(fb_runs)
+    say("22", f"3 train steps of the Cornell box {width}x{height} "
+              f"spp{SPP_GRAD} depth {DEPTH_GRAD}, nee=True (lr {LR_LIT}, "
+              f"albedo mask, the lamp from 5 toward 15, the red wall from "
+              f"0.4): loss {', '.join(f'{x:.6g}' for x in losses)}; lamp "
+              f"{lamp0:.4g} -> {lamp3:.4g}, red wall -> "
+              f"{', '.join(f'{x:.4g}' for x in red3)}; K4 {main_launches[0]} "
+              f"and K5 {main_launches[1]} launches, all lit, no plain "
+              f"version; {train_s:.2f} s")
+    say("22", f"on {card}: forward {fwd_ms:.2f} ms (median of "
+              f"{', '.join(f'{x:.2f}' for x in fwd_runs)}), "
+              f"{n_pix * SPP_GRAD / fwd_ms / 1e3:.3f} Mrays/s; "
+              f"forward+backward {fb_ms:.2f} ms (median of "
+              f"{', '.join(f'{x:.2f}' for x in fb_runs)}); grad_ratio "
+              f"{fb_ms / fwd_ms:.3f}")
+    busy_ms = sum(dev_ms.values())
+    parts = split_device_time(dev_ms, (("K4", "grad_fwd"),
+                                       ("K5", "grad_bwd")))
+    top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:6]
+    say("22", f"one lit train step under torch.profiler on {card}: "
+              f"{step_ms:.2f} ms wall, device kernels {busy_ms:.2f} ms "
+              f"(idle share {1 - busy_ms / step_ms:.1%}): K4 "
+              f"{parts['K4']:.2f}, K5 {parts['K5']:.2f}, other "
+              f"{parts['other'] + parts['sort'] + parts['gather']:.2f} ms; "
+              f"by kernel: " + "; ".join(f"{k[:40]} {ms:.3f} ms"
+                                        for k, ms in top))
+
+    # K4 and K5 alone: one forward's and one backward's 9 launches on
+    # phase 21's tape of the Cornell box, by CUDA events, beside the plain
+    # versions' times on the same launches there, and the bound from the
+    # counts of those launches.
+    scene, tbl, tris, lit, tape, counts, plain_ms = timed
+    n = tape[0][0].shape[1]
+    n_sph = scene.n_spheres
+    cots = [torch.from_numpy(rng.standard_normal((13, n)).astype(np.float32))
+            .to(dev) for _ in tape]
+
+    def run_all(fn, bwd):
+        return event_ms(torch, lambda: [
+            fn(c, i, ct, tbl, tris, **a) if bwd else fn(c, i, tbl, tris, **a)
+            for (c, i), ct, a in zip(
+                tape, cots, [dict(it=it, seed=0, max_depth=DEPTH_GRAD,
+                                  lit=lit, background=scene.background)
+                             for it in range(len(tape))])])
+
+    rows = []
+    for kname, kern, p_ms, bwd in (
+            ("grad_fwd", G.bounce_fwd, plain_ms[0], False),
+            ("grad_bwd", G.bounce_bwd, plain_ms[1], True)):
+        run_all(kern, bwd)  # warm-up
+        k_runs = [run_all(kern, bwd)[0] for _ in range(3)]
+        k_ms = statistics.median(k_runs)
+        bound = 0.0
+        by_ops = by_bytes = 0
+        for box, tri, live, shadows in counts:
+            # Per live lane-bounce the step and the sphere sweep, and the
+            # ray's inverse directions for the triangle sweep; per box and
+            # triangle test (both sweeps) their unconditional part; per
+            # shadow ray its light sample, MIS weight and contribution and
+            # its sphere sweep; K5 adds the shade's cheapest adjoint per
+            # lane, and per shadow ray the sample's replay and an adjoint
+            # at least as long.
+            ops = (live * (OPS_PER_STEP + OPS_INV_DIR + OPS_PER_ROW * n_sph
+                           + (OPS_BWD_EXTRA if bwd else 0))
+                   + box * OPS_PER_BOX + tri * OPS_PER_TRI
+                   + shadows * (OPS_NEE * (2 if bwd else 1)
+                                + OPS_PER_ROW * n_sph))
+            # Bytes: the lane arrays in and out once (K5: the state and the
+            # output cotangents in, the input cotangents out), the tables
+            # and light rows in once, K5's table gradients out once.
+            tables = (tbl.numel() + tris.tbl.numel() + tris.boxes.numel()
+                      + lit.rows.numel()) * 4
+            nbytes = ((16 + 13 + 13 if bwd else 16 + 16) * 4 * n
+                      + tables * (2 if bwd else 1))
+            ops_s, bytes_s = ops / PEAK_F32, nbytes / PEAK_BYTES
+            bound += max(ops_s, bytes_s) * 1e3
+            by_ops += ops_s >= bytes_s
+            by_bytes += ops_s < bytes_s
+        by = "operations" if by_ops >= by_bytes else "bytes"
+        say("22", f"{kname} lit instance on the Cornell box: {len(tape)} "
+                  f"launches of {n} lanes on {card}: kernel {k_ms:.3f} ms "
+                  f"(median of {', '.join(f'{x:.3f}' for x in k_runs)}); "
+                  f"plain {p_ms:.1f} ms (phase 21); bound {bound:.3f} ms "
+                  f"(operations in {by_ops} launches, bytes in {by_bytes}) "
+                  f"= {bound / k_ms:.1%} of the kernel time; per launch "
+                  f"(box tests, triangle tests, live lanes, shadow rays): "
+                  f"{counts}")
+        rows.append({
+            "name": f"{kname}_lit",
+            "route": "cuda",
+            "source": f"rtow_tpu_torch/csrc/{kname}.cu",
+            "replaces": ("rtow_tpu/ops/pallas_grad.py:224" if bwd
+                         else "rtow_tpu/ops/pallas_grad.py:101"),
+            "launches": main_launches[1] if bwd else main_launches[0],
+            "max_abs_err": max(errs) if bwd else 0.0,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": None,
+        })
     return rows
 
 

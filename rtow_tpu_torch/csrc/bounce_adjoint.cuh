@@ -2,22 +2,27 @@
 // the body of K5, rtow_tpu/ops/pallas_grad.py:_grad_bwd_kernel (:224).
 //
 // The JAX kernel replays the bounce from its saved input state and calls
-// jax.vjp on _shade_pure inside the kernel.  CUDA has no vjp, so the shade's
-// adjoint is written out here step by step, in reverse order of the forward
-// in bounce.cuh, in three parts: the shade (from the output cotangents to
-// those of the hit point, the normal, the input direction and the material),
+// jax.vjp on _nee_contrib + _shade_pure inside the kernel (:376-438).  CUDA
+// has no vjp, so the adjoint is written out here step by step, in reverse
+// order of the forward in bounce.cuh: the shade (from the output cotangents
+// to those of the hit point, the normal, the input direction and the
+// material), the lit features where the bounce has them (emission and its
+// MIS weight, next-event estimation with the light sample, the textures),
 // then the hit record of the winner's kind, a sphere's or a triangle's (to
 // the input state and the winner's table row).  The replay calls the
 // forward's own functions -- nearest_sphere, then nearest_triangle where the
-// scene has triangles -- so every discrete decision (the winner, hit or
-// miss, which root, the face, TIR and Schlick's choice, k > 0, the material)
+// scene has triangles, sample_light, the shadow sweep, light_pdf_toward --
+// so every discrete decision (the winner, hit or miss, which root, the face,
+// TIR and Schlick's choice, k > 0, the material, the picked light, the
+// shadow ray's visibility, which lights match the hit, the checker's cell)
 // is the forward's, bit for bit.  Discrete decisions carry no cotangent.
 // Tie rules are autograd's on the plain version
-// (rtow_tpu_torch/ops/megakernel.py:shade), which are JAX's: min(cos_raw, 1)
-// passes half the cotangent at cos_raw == 1; |r| passes sign(r), 0 at r = 0;
-// a select passes nothing to the branch it drops, so the guarded square
-// roots and divisions of the forward take no part.
-
+// (rtow_tpu_torch/ops/megakernel.py:shade, ops/lights.py), which are JAX's
+// but at a max / clamp tie: min(cos_raw, 1) passes half the cotangent at
+// cos_raw == 1; |r| passes sign(r), 0 at r = 0; at_least(x, lo) passes all
+// of it where x >= lo (torch.clamp's rule); a select passes nothing to the
+// branch it drops, so the guarded square roots and divisions of the forward
+// take no part.
 #pragma once
 
 #include "bounce.cuh"
@@ -25,8 +30,10 @@
 namespace rtow {
 
 // Cotangents of a sphere's winner row: c0 (3), dc (3), r, albedo (3), fuzz,
-// ir -- table columns 0..11 (the kind column's is 0).
+// ir -- table columns 0..11 (the kind column's is 0); with textures also
+// the second colour, columns 13..15.
 constexpr int kParamGrads = 12;
+constexpr int kTexParamGrads = kCols;
 // Cotangents of a triangle's winner row: v0 (3), e1 (3), e2 (3), albedo (3),
 // fuzz, ir -- table columns 0..13 (the kind column's and column 15's are 0).
 constexpr int kTriParamGrads = 14;
@@ -258,12 +265,16 @@ RTOW_HD void triangle_hit_adjoint(const float4* tri, int k, const Hit& e,
   float gdx = g.dx + g.px * e.t;
   float gdy = g.dy + g.py * e.t;
   float gdz = g.dz + g.pz * e.t;
-  const float gt = g.px * r.dx + g.py * r.dy + g.pz * r.dz;
+  // Summed, and below divided, in the order and form autograd takes on
+  // the plain version: the edge columns' cotangent is the difference of
+  // g_num ao and g_det d, which cancel (|ao| ~ 60 |p - v0| on a 4k-triangle
+  // knot), so a last-bit difference here moves it by ~60 ulp (ROADMAP P4).
+  const float gt = g.pz * r.dz + g.py * r.dy + g.px * r.dx;
 
   // ---- t = num / det_safe, num = ao . nb ---------------------------------
   const float g_num = gt / det_safe;
   // det_safe passes its cotangent to det only where |det| > 1e-12
-  const float g_det = det_ok ? -g_num * e.t : 0.0f;
+  const float g_det = det_ok ? -gt * (e.t / det_safe) : 0.0f;
   // det = -(d . nb)
   gdx -= g_det * nxb;
   gdy -= g_det * nyb;
@@ -303,21 +314,565 @@ RTOW_HD void triangle_hit_adjoint(const float4* tri, int k, const Hit& e,
   gin[5] = gdz + 2.0f * r.dz * g.a;
 }
 
-// Replays bounce_lane_t<kTris> for a live lane from its saved input state s
-// (13 floats, bounce) and maps the output cotangents G (13, in the order of
-// s) to the input cotangents gin (13) and the winner row's cotangents gw
-// (kParamGrads for a sphere, kTriParamGrads for a triangle, in its table's
-// column order).  Returns the winner's id (spheres 0 .. npad - 1, triangles
-// npad + row), or -1 where the bounce read no row (a miss, a hit at depth);
-// gw is written only for a winner.  kTris sweeps `tris` after the spheres,
-// counting its work in `tally`, as the forward does.
+// ---- the lit features' adjoints -------------------------------------------
+
+// Adds v to a light-row cotangent: the block's shared accumulator on the
+// card (atomically: every lane of the block adds to it), the lane's own
+// rows in a host build.
+RTOW_HD void add_row(float* g, float v) {
+#ifdef __CUDA_ARCH__
+  if (v != 0.0f) atomicAdd(g, v);
+#else
+  *g += v;
+#endif
+}
+
+// Adds a row's 14 local cotangents q to its accumulator g.
+RTOW_HD void add_rows(float* g, const float* q) {
+  for (int c = 0; c < kLitCols; ++c) add_row(g + c, q[c]);
+}
+
+// c = a x b: ga += b x gc, gb += gc x a.
+RTOW_HD void cross_adjoint(const float* a, const float* b, const float* gc,
+                           float* ga, float* gb) {
+  ga[0] += b[1] * gc[2] - b[2] * gc[1];
+  ga[1] += b[2] * gc[0] - b[0] * gc[2];
+  ga[2] += b[0] * gc[1] - b[1] * gc[0];
+  gb[0] += gc[1] * a[2] - gc[2] * a[1];
+  gb[1] += gc[2] * a[0] - gc[0] * a[2];
+  gb[2] += gc[0] * a[1] - gc[1] * a[0];
+}
+
+RTOW_HD float dot3(const float* a, const float* b) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+// d2 = |to|^2: adds d2's cotangent g_d2 to to's, g_to += 2 to g_d2.
+RTOW_HD void d2_adjoint(const float* to, float g_d2, float* g_to) {
+  for (int i = 0; i < 3; ++i) g_to[i] += 2.0f * to[i] * g_d2;
+}
+
+// The adjoint of w = to / sqrt(at_least(d2, 1e-12)) (the unit vector toward
+// a light point): from g_w to g_to (added) and the cotangent of d2
+// (returned).
+RTOW_HD float unit_adjoint(const float* to, float d2, const float* g_w,
+                           float* g_to) {
+  const float d = sqrtf(at_least(d2, 1e-12f));
+  const float inv_d = 1.0f / d;
+  for (int i = 0; i < 3; ++i) g_to[i] += g_w[i] * inv_d;
+  const float g_inv = dot3(g_w, to);
+  const float g_dd = -g_inv * inv_d * inv_d;
+  return d2 >= 1e-12f ? g_dd * 0.5f / d : 0.0f;
+}
+
+// The adjoint of sample_light for the picked light k from p at time tm:
+// from the cotangents of the sampled direction gdir, of the pdf g_pdf and of
+// the weights g_w (3) to the point's gp (added), the time's *g_tm (added)
+// and the row's gq (14, added).  The distance ls.t feeds the shadow sweep
+// only, a discrete decision.  Sphere: the cone sample (cos_max through
+// sqrt_pos, the Frisvad basis with its sign a constant); triangle: the area
+// sample (the point from v0, e1, e2; cos_a; area; d2).
+RTOW_HD void sample_light_adjoint(const Lit& L, int k, float u1, float u2,
+                                  const float* p, float tm, const float* gdir,
+                                  float g_pdf, const float* g_w, float* gp,
+                                  float* g_tm, float* gq) {
+  const float* q = L.rows + kLitCols * k;
+  const float n = static_cast<float>(L.n_lights);
+  float g_to[3] = {0.0f, 0.0f, 0.0f};
+  float g_d2 = 0.0f;
+  if (((L.light_kinds >> (2 * k)) & 3u) == 0u) {  // sphere
+    const float c[3] = {q[1] + tm * q[4], q[2] + tm * q[5], q[3] + tm * q[6]};
+    const float r2 = q[7] * q[7];
+    const float to[3] = {c[0] - p[0], c[1] - p[1], c[2] - p[2]};
+    const float d2 = dot3(to, to);
+    const float dd = at_least(d2, 1e-12f);
+    const float inv_d = 1.0f / sqrtf(dd);
+    const float w[3] = {to[0] * inv_d, to[1] * inv_d, to[2] * inv_d};
+    const float cm_arg = 1.0f - r2 / dd;
+    const float cos_max = sqrt_pos(cm_arg, 0.0f);
+    const float cos_t = 1.0f - u1 * (1.0f - cos_max);
+    const float st_arg = 1.0f - cos_t * cos_t;
+    const float sin_t = sqrt_pos(st_arg, 1e-12f);
+    const float phi = kTwoPi * u2;
+    const float sign = w[2] >= 0.0f ? 1.0f : -1.0f;
+    const float a = -1.0f / (sign + w[2]);
+    const float b = w[0] * w[1] * a;
+    const float u[3] = {1.0f + sign * w[0] * w[0] * a, sign * b,
+                        -sign * w[0]};
+    const float v[3] = {b, sign + w[1] * w[1] * a, -w[1]};
+    const float cp = cosf(phi), sp = sinf(phi);
+    float dir[3];
+    for (int i = 0; i < 3; ++i)
+      dir[i] = cp * sin_t * u[i] + sp * sin_t * v[i] + cos_t * w[i];
+    const float oc_d = -dot3(to, dir);
+    const float disc = oc_d * oc_d - (d2 - r2);
+    const bool ok = d2 > r2 && disc > 0.0f;
+    const float geo = ok ? 2.0f * (1.0f - cos_max) * n : 0.0f;
+    // w_c = emit_c * geo
+    float g_geo = 0.0f;
+    for (int c = 0; c < 3; ++c) {
+      gq[11 + c] += g_w[c] * geo;
+      g_geo += g_w[c] * q[11 + c];
+    }
+    float g_cm = 0.0f;
+    if (ok) {
+      g_cm -= 2.0f * n * g_geo;
+      const float x = kTwoPi * (1.0f - cos_max) * n;  // pdf = 1 / x
+      if (x >= 1e-12f) g_cm += kTwoPi * n * g_pdf / (x * x);
+    }
+    // dir = cp sin_t u + sp sin_t v + cos_t w
+    float g_u[3], g_v[3], g_w3[3];
+    float g_sin = 0.0f, g_cos = 0.0f;
+    for (int i = 0; i < 3; ++i) {
+      g_sin += gdir[i] * (cp * u[i] + sp * v[i]);
+      g_u[i] = gdir[i] * cp * sin_t;
+      g_v[i] = gdir[i] * sp * sin_t;
+      g_cos += gdir[i] * w[i];
+      g_w3[i] = gdir[i] * cos_t;
+    }
+    // the basis: b = wx wy a, a = -1 / (sign + wz), da / dwz = a^2
+    const float g_b = g_u[1] * sign + g_v[0];
+    const float g_a =
+        g_u[0] * sign * w[0] * w[0] + g_v[1] * w[1] * w[1] + g_b * w[0] * w[1];
+    g_w3[0] += g_u[0] * sign * 2.0f * w[0] * a + g_b * w[1] * a - g_u[2] * sign;
+    g_w3[1] += g_v[1] * 2.0f * w[1] * a + g_b * w[0] * a - g_v[2];
+    g_w3[2] += g_a * a * a;
+    // sin_t = sqrt_pos(1 - cos_t^2), cos_t = 1 - u1 (1 - cos_max)
+    if (st_arg > 1e-12f) g_cos -= 2.0f * cos_t * (g_sin * 0.5f / sin_t);
+    g_cm += u1 * g_cos;
+    // cos_max = sqrt_pos(1 - r2 / dd), dd = at_least(d2, 1e-12)
+    float g_dd = 0.0f, g_r2 = 0.0f;
+    if (cm_arg > 0.0f) {
+      const float g_arg = g_cm * 0.5f / cos_max;
+      g_r2 = -g_arg / dd;
+      g_dd = g_arg * r2 / (dd * dd);
+    }
+    if (d2 >= 1e-12f) g_d2 += g_dd;
+    g_d2 += unit_adjoint(to, d2, g_w3, g_to);
+    d2_adjoint(to, g_d2, g_to);
+    // to = c - p, c = c0 + tm dc, r2 = r^2
+    for (int i = 0; i < 3; ++i) {
+      gp[i] -= g_to[i];
+      gq[1 + i] += g_to[i];
+      gq[4 + i] += tm * g_to[i];
+      *g_tm += g_to[i] * q[4 + i];
+    }
+    gq[7] += 2.0f * q[7] * g_r2;
+  } else {  // triangle: a uniform point on it
+    const float e1[3] = {q[4], q[5], q[6]}, e2[3] = {q[7], q[8], q[9]};
+    const float area = q[10];
+    const float su = sqrtf(at_least(u1, 1e-12f));
+    const float bu = 1.0f - su;
+    const float bv = u2 * su;
+    float to[3];
+    for (int i = 0; i < 3; ++i)
+      to[i] = q[1 + i] + bu * e1[i] + bv * e2[i] - p[i];
+    const float d2 = dot3(to, to);
+    const float dd = at_least(d2, 1e-12f);
+    const float inv_d = 1.0f / sqrtf(dd);
+    const float dir[3] = {to[0] * inv_d, to[1] * inv_d, to[2] * inv_d};
+    const float nb[3] = {e1[1] * e2[2] - e1[2] * e2[1],
+                         e1[2] * e2[0] - e1[0] * e2[2],
+                         e1[0] * e2[1] - e1[1] * e2[0]};
+    const float l2 = dot3(nb, nb);
+    const float nlen = sqrtf(at_least(l2, 1e-24f));
+    const float dn = dot3(dir, nb);
+    const float cos_a = -dn / nlen;
+    const bool ok = cos_a > 1e-6f;
+    const float nn = cos_a * area * n;
+    // geo = nn / (pi dd), pdf = d2 / at_least(nn, 1e-12)
+    const float geo = ok ? nn / (kPi * dd) : 0.0f;
+    float g_geo = 0.0f;
+    for (int c = 0; c < 3; ++c) {
+      gq[11 + c] += g_w[c] * geo;
+      g_geo += g_w[c] * q[11 + c];
+    }
+    float g_nn = 0.0f, g_dd = 0.0f;
+    if (ok) {
+      const float den = kPi * dd;
+      g_nn += g_geo / den;
+      g_dd -= g_geo * nn / (den * den) * kPi;
+      const float m = at_least(nn, 1e-12f);
+      g_d2 += g_pdf / m;
+      if (nn >= 1e-12f) g_nn -= g_pdf * d2 / (m * m);
+    }
+    const float g_cos_a = g_nn * area * n;
+    gq[10] += g_nn * cos_a * n;
+    // cos_a = -(dir . nb) / nlen, nlen = sqrt(at_least(|nb|^2, 1e-24))
+    float g_dir[3], g_nb[3];
+    const float g_nlen = g_cos_a * dn / (nlen * nlen);
+    for (int i = 0; i < 3; ++i) {
+      g_dir[i] = gdir[i] - g_cos_a * nb[i] / nlen;
+      g_nb[i] = -g_cos_a * dir[i] / nlen;
+      if (l2 >= 1e-24f) g_nb[i] += nb[i] * (g_nlen / nlen);
+    }
+    float g_e1[3] = {0.0f, 0.0f, 0.0f}, g_e2[3] = {0.0f, 0.0f, 0.0f};
+    cross_adjoint(e1, e2, g_nb, g_e1, g_e2);
+    if (d2 >= 1e-12f) g_d2 += g_dd;
+    g_d2 += unit_adjoint(to, d2, g_dir, g_to);
+    d2_adjoint(to, g_d2, g_to);
+    // to = v0 + bu e1 + bv e2 - p
+    for (int i = 0; i < 3; ++i) {
+      gp[i] -= g_to[i];
+      gq[1 + i] += g_to[i];
+      gq[4 + i] += g_e1[i] + bu * g_to[i];
+      gq[7 + i] += g_e2[i] + bv * g_to[i];
+    }
+  }
+}
+
+// The adjoint of light_pdf_toward(L, r, t_hit): from the pdf's cotangent
+// g_pdf to the ray's origin g_o, direction g_d and time *g_tm (all added)
+// and the matching lights' rows (g_lrows, (n_lights, 14)).  t_hit enters
+// only the matching test, which is discrete.
+RTOW_HD void light_pdf_adjoint(const Lit& L, const Ray& r, float t_hit,
+                               float g_pdf, float* g_o, float* g_d,
+                               float* g_tm, float* g_lrows) {
+  const float n = static_cast<float>(L.n_lights);
+  const float d[3] = {r.dx, r.dy, r.dz};
+  const float o[3] = {r.ox, r.oy, r.oz};
+  const float a2 = dot3(d, d);
+  const float dlen = sqrtf(at_least(a2, 1e-24f));
+  const float inv_l = 1.0f / dlen;
+  const float u[3] = {d[0] * inv_l, d[1] * inv_l, d[2] * inv_l};
+  const float th = t_hit * dlen;
+  float g_u[3] = {0.0f, 0.0f, 0.0f};
+  for (int k = 0; k < L.n_lights; ++k) {
+    const float* q = L.rows + kLitCols * k;
+    float gq[kLitCols] = {};
+    if (((L.light_kinds >> (2 * k)) & 3u) == 0u) {
+      const float c[3] = {q[1] + r.tm * q[4], q[2] + r.tm * q[5],
+                          q[3] + r.tm * q[6]};
+      const float r2 = q[7] * q[7];
+      const float to[3] = {c[0] - o[0], c[1] - o[1], c[2] - o[2]};
+      const float d2 = dot3(to, to);
+      const float oc_d = -dot3(to, u);
+      const float disc = oc_d * oc_d - (d2 - r2);
+      const float t_k = -oc_d - sqrt_pos(disc, 0.0f);
+      const bool ok = d2 > r2 && disc > 0.0f && t_k > 0.0f;
+      if (!(ok && fabsf(t_k - th) <= 1e-3f * at_least(th, 1.0f))) continue;
+      const float dd = at_least(d2, 1e-12f);
+      const float cm_arg = 1.0f - r2 / dd;
+      const float cos_max = sqrt_pos(cm_arg, 0.0f);
+      const float x = kTwoPi * (1.0f - cos_max) * n;  // pdf_k = 1 / x
+      const float g_cm = x >= 1e-12f ? kTwoPi * n * g_pdf / (x * x) : 0.0f;
+      float g_r2 = 0.0f, g_d2 = 0.0f;
+      if (cm_arg > 0.0f) {
+        const float g_arg = g_cm * 0.5f / cos_max;
+        g_r2 = -g_arg / dd;
+        if (d2 >= 1e-12f) g_d2 = g_arg * r2 / (dd * dd);
+      }
+      float g_to[3] = {0.0f, 0.0f, 0.0f};
+      d2_adjoint(to, g_d2, g_to);
+      for (int i = 0; i < 3; ++i) {
+        g_o[i] -= g_to[i];
+        gq[1 + i] += g_to[i];
+        gq[4 + i] += r.tm * g_to[i];
+        *g_tm += g_to[i] * q[4 + i];
+      }
+      gq[7] += 2.0f * q[7] * g_r2;
+    } else {  // Moller-Trumbore, front side only
+      const float v0[3] = {q[1], q[2], q[3]};
+      const float e1[3] = {q[4], q[5], q[6]}, e2[3] = {q[7], q[8], q[9]};
+      const float pv[3] = {u[1] * e2[2] - u[2] * e2[1],
+                           u[2] * e2[0] - u[0] * e2[2],
+                           u[0] * e2[1] - u[1] * e2[0]};
+      const float det = dot3(e1, pv);
+      const bool det_ok = !(fabsf(det) < 1e-12f);
+      const float inv = 1.0f / (det_ok ? det : 1.0f);
+      const float sv[3] = {o[0] - v0[0], o[1] - v0[1], o[2] - v0[2]};
+      const float bu = dot3(sv, pv) * inv;
+      const float qv[3] = {sv[1] * e1[2] - sv[2] * e1[1],
+                           sv[2] * e1[0] - sv[0] * e1[2],
+                           sv[0] * e1[1] - sv[1] * e1[0]};
+      const float bv = dot3(u, qv) * inv;
+      const float e2q = dot3(e2, qv);
+      const float t_k = e2q * inv;
+      const bool ok = det >= 1e-6f && bu >= 0.0f && bv >= 0.0f &&
+                      bu + bv <= 1.0f && t_k > 0.0f;
+      if (!(ok && fabsf(t_k - th) <= 1e-3f * at_least(th, 1.0f))) continue;
+      const float nb[3] = {e1[1] * e2[2] - e1[2] * e2[1],
+                           e1[2] * e2[0] - e1[0] * e2[2],
+                           e1[0] * e2[1] - e1[1] * e2[0]};
+      const float l2 = dot3(nb, nb);
+      const float nlen = sqrtf(at_least(l2, 1e-24f));
+      const float un = dot3(u, nb);
+      const float cos_a = -un / nlen;
+      const float nn = cos_a * q[10] * n;
+      const float m = at_least(nn, 1e-12f);  // pdf_k = t_k^2 / m
+      const float g_tk = g_pdf * 2.0f * t_k / m;
+      const float g_nn = nn >= 1e-12f ? -g_pdf * t_k * t_k / (m * m) : 0.0f;
+      const float g_cos_a = g_nn * q[10] * n;
+      gq[10] += g_nn * cos_a * n;
+      const float g_nlen = g_cos_a * un / (nlen * nlen);
+      float g_nb[3], g_e1[3] = {0.0f, 0.0f, 0.0f}, g_e2[3] = {0.0f, 0.0f, 0.0f};
+      for (int i = 0; i < 3; ++i) {
+        g_u[i] -= g_cos_a * nb[i] / nlen;
+        g_nb[i] = -g_cos_a * u[i] / nlen;
+        if (l2 >= 1e-24f) g_nb[i] += nb[i] * (g_nlen / nlen);
+      }
+      cross_adjoint(e1, e2, g_nb, g_e1, g_e2);
+      // t_k = (e2 . qv) inv, inv = 1 / det where |det| >= 1e-12
+      float g_qv[3], g_pv[3], g_sv[3] = {0.0f, 0.0f, 0.0f};
+      for (int i = 0; i < 3; ++i) {
+        g_e2[i] += qv[i] * (g_tk * inv);
+        g_qv[i] = e2[i] * (g_tk * inv);
+      }
+      const float g_det = det_ok ? -(g_tk * e2q) * inv * inv : 0.0f;
+      for (int i = 0; i < 3; ++i) {
+        g_e1[i] += pv[i] * g_det;
+        g_pv[i] = e1[i] * g_det;
+      }
+      cross_adjoint(u, e2, g_pv, g_u, g_e2);   // pv = u x e2
+      cross_adjoint(sv, e1, g_qv, g_sv, g_e1);  // qv = sv x e1
+      for (int i = 0; i < 3; ++i) {
+        g_o[i] += g_sv[i];
+        gq[1 + i] -= g_sv[i];
+        gq[4 + i] += g_e1[i];
+        gq[7 + i] += g_e2[i];
+      }
+    }
+    add_rows(g_lrows + kLitCols * k, gq);
+  }
+  // u = d / sqrt(at_least(|d|^2, 1e-24))
+  const float g_inv = dot3(g_u, d);
+  const float g_dlen = -g_inv * inv_l * inv_l;
+  const float g_a2 = a2 >= 1e-24f ? g_dlen * 0.5f / dlen : 0.0f;
+  for (int i = 0; i < 3; ++i) g_d[i] += g_u[i] * inv_l + 2.0f * d[i] * g_a2;
+}
+
+// The value and gradient (gx, gy, gz) of value_noise at a point: the
+// trilinear blend of the lattice hashes with the smoothstep fade u(f) =
+// f^2 (3 - 2f), du/df = 6 f (1 - f); floor is flat.
+RTOW_HD float value_noise_grad(float px, float py, float pz, float* g) {
+  const float ix = floorf(px), iy = floorf(py), iz = floorf(pz);
+  const float fx = px - ix, fy = py - iy, fz = pz - iz;
+  const float ux = fx * fx * (3.0f - 2.0f * fx);
+  const float uy = fy * fy * (3.0f - 2.0f * fy);
+  const float uz = fz * fz * (3.0f - 2.0f * fz);
+  const int xi = static_cast<int>(ix), yi = static_cast<int>(iy);
+  const int zi = static_cast<int>(iz);
+  float h[2][2][2];
+  for (int a = 0; a < 2; ++a)
+    for (int b = 0; b < 2; ++b)
+      for (int c = 0; c < 2; ++c) h[a][b][c] = hash01(xi + a, yi + b, zi + c);
+  const float c00 = lerp(h[0][0][0], h[1][0][0], ux);
+  const float c10 = lerp(h[0][1][0], h[1][1][0], ux);
+  const float c01 = lerp(h[0][0][1], h[1][0][1], ux);
+  const float c11 = lerp(h[0][1][1], h[1][1][1], ux);
+  const float y0 = lerp(c00, c10, uy), y1 = lerp(c01, c11, uy);
+  const float dvx =
+      (1.0f - uz) * ((1.0f - uy) * (h[1][0][0] - h[0][0][0]) +
+                     uy * (h[1][1][0] - h[0][1][0])) +
+      uz * ((1.0f - uy) * (h[1][0][1] - h[0][0][1]) +
+            uy * (h[1][1][1] - h[0][1][1]));
+  const float dvy = (1.0f - uz) * (c10 - c00) + uz * (c11 - c01);
+  const float dvz = y1 - y0;
+  g[0] = dvx * 6.0f * fx * (1.0f - fx);
+  g[1] = dvy * 6.0f * fy * (1.0f - fy);
+  g[2] = dvz * 6.0f * fz * (1.0f - fz);
+  return lerp(y0, y1, uz);
+}
+
+// The adjoint of marble_t(p, scale): g_t to the point's gp and the scale's
+// *g_s (both added).  Octave j reads the point p * scale * 2^j (plus its
+// offset), so its gradient reaches p times scale 2^j and scale through
+// p 2^j.
+RTOW_HD void marble_t_adjoint(const float* p, float scale, float g_t,
+                              float* gp, float* g_s) {
+  float g1[3], g2[3], g3[3];
+  const float v1 = value_noise_grad(p[0] * scale, p[1] * scale, p[2] * scale,
+                                    g1);
+  const float v2 = value_noise_grad(p[0] * scale * 2.0f + 17.0f,
+                                    p[1] * scale * 2.0f, p[2] * scale * 2.0f,
+                                    g2);
+  const float v3 = value_noise_grad(p[0] * scale * 4.0f,
+                                    p[1] * scale * 4.0f + 31.0f,
+                                    p[2] * scale * 4.0f, g3);
+  const float turb = (v1 + 0.5f * v2 + 0.25f * v3) / 1.75f;
+  const float g_arg = g_t * 0.5f * cosf(scale * p[2] + 10.0f * turb);
+  *g_s += g_arg * p[2];
+  gp[2] += g_arg * scale;
+  const float g_sum = g_arg * 10.0f / 1.75f;
+  for (int i = 0; i < 3; ++i) {
+    const float g_i = g_sum * (g1[i] + g2[i] + g3[i]);  // 1, 0.5 x 2, 0.25 x 4
+    gp[i] += g_i * scale;
+    *g_s += g_i * p[i];
+  }
+}
+
+// The adjoint of textured() for winner sphere k at hit point e: from the
+// textured albedo's cotangent (g.al*) to the row's albedo (left in g.al*),
+// its second colour (gw[13..15]), and for noise its scale (g.ir) and the
+// hit point (g.p*).  m0 is the untextured material.  The checker's cell is
+// a select: its albedo's cotangent goes to columns 7-9 or 13-15, none to
+// the point.
+RTOW_HD void texture_adjoint(const float4* tbl, int k, const Material& m0,
+                             const Hit& e, ShadeGrad* g, float* gw) {
+  const float4 q3 = tbl[4 * k + 3];
+  if (m0.kind == kChecker) {
+    const float sp =
+        sinf(m0.ir * e.px) * sinf(m0.ir * e.py) * sinf(m0.ir * e.pz);
+    if (sp < 0.0f) {
+      gw[13] = g->alr;
+      gw[14] = g->alg;
+      gw[15] = g->alb;
+      g->alr = g->alg = g->alb = 0.0f;
+    }
+  } else if (m0.kind == kNoise) {  // al + (al2 - al) t, t = marble_t(p, ir)
+    const float p[3] = {e.px, e.py, e.pz};
+    const float t = marble_t(e.px, e.py, e.pz, m0.ir);
+    const float g_t = g->alr * (q3.y - m0.alr) + g->alg * (q3.z - m0.alg) +
+                      g->alb * (q3.w - m0.alb);
+    gw[13] = g->alr * t;
+    gw[14] = g->alg * t;
+    gw[15] = g->alb * t;
+    g->alr -= g->alr * t;
+    g->alg -= g->alg * t;
+    g->alb -= g->alb * t;
+    float gp[3] = {g->px, g->py, g->pz};
+    marble_t_adjoint(p, m0.ir, g_t, gp, &g->ir);
+    g->px = gp[0];
+    g->py = gp[1];
+    g->pz = gp[2];
+  }
+}
+
+// The adjoint of next_event at surface hit e with the textured material m
+// (the gradient path has no media): replays the light sample and the
+// shadow sweep (counting it in tally as the forward does); where the
+// shadow ray got through, maps the radiance cotangents G[10..12] to the
+// throughput's gin[7..9], the hit point's, the normal's and the albedo's
+// (g), the time's (*g_tm) and the picked light's row (g_lrows), all added.
 template <bool kTris>
+RTOW_HD void next_event_adjoint(const float4* tbl, int npad, const Tris& tris,
+                                const Lit& L, const float* s, const Hit& e,
+                                const Material& m, uint32_t lane,
+                                uint32_t salt, const float* G, float* gin,
+                                ShadeGrad* g, float* g_tm, float* g_lrows,
+                                Tally* tally) {
+  const float pick = uniform(lane, salt, 8);
+  const float u1 = uniform(lane, salt, 9);
+  const float u2 = uniform(lane, salt, 10);
+  int k = static_cast<int>(pick * static_cast<float>(L.n_lights));
+  if (k > L.n_lights - 1) k = L.n_lights - 1;
+  const LightSample ls = sample_light(L, k, u1, u2, e.px, e.py, e.pz, s[6]);
+  const float thresh = ls.t * kShadowFrac;
+  const float dot = e.nx * ls.dx + e.ny * ls.dy + e.nz * ls.dz;
+  const float cos_t = at_least(dot, 0.0f);
+  const float phase = cos_t * kInvPi;
+  const float sum = ls.pdf + phase;
+  const float den = at_least(sum, kEps12);
+  const float w_l = ls.pdf / den;
+  const float cw = cos_t * w_l;
+  const Ray sr{e.px, e.py, e.pz, ls.dx, ls.dy, ls.dz, s[6]};
+  const float la = sr.dx * sr.dx + sr.dy * sr.dy + sr.dz * sr.dz;
+  ++tally->shadows;
+  float st;
+  int sk;
+  nearest_sphere(tbl, npad, sr, la, 1.0f / la, thresh, &st, &sk);
+  if constexpr (kTris) nearest_triangle(tris, sr, npad, &st, &sk, tally);
+  if (!(st >= thresh)) return;  // blocked: nothing was added
+
+  // c_c = tp_c al_c w_c cw
+  const float al[3] = {m.alr, m.alg, m.alb};
+  const float lw[3] = {ls.w0, ls.w1, ls.w2};
+  float g_w[3], g_al[3], g_cw = 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    const float gc = G[10 + c];
+    gin[7 + c] += gc * al[c] * lw[c] * cw;
+    g_al[c] = gc * s[7 + c] * lw[c] * cw;
+    g_w[c] = gc * s[7 + c] * al[c] * cw;
+    g_cw += gc * s[7 + c] * al[c] * lw[c];
+  }
+  g->alr += g_al[0];
+  g->alg += g_al[1];
+  g->alb += g_al[2];
+  // cw = cos_t w_l, w_l = pdf / at_least(pdf + cos_t / pi, 1e-12)
+  const float g_wl = g_cw * cos_t;
+  float g_pdf = g_wl / den, g_cos = g_cw * w_l;
+  if (sum >= kEps12) {
+    const float g_den = -g_wl * ls.pdf / (den * den);
+    g_pdf += g_den;
+    g_cos += g_den * kInvPi;
+  }
+  const float g_dot = dot >= 0.0f ? g_cos : 0.0f;
+  g->nx += g_dot * ls.dx;
+  g->ny += g_dot * ls.dy;
+  g->nz += g_dot * ls.dz;
+  const float g_dir[3] = {g_dot * e.nx, g_dot * e.ny, g_dot * e.nz};
+  const float p[3] = {e.px, e.py, e.pz};
+  float gp[3] = {0.0f, 0.0f, 0.0f};
+  float gq[kLitCols] = {};
+  sample_light_adjoint(L, k, u1, u2, p, s[6], g_dir, g_pdf, g_w, gp, g_tm,
+                       gq);
+  g->px += gp[0];
+  g->py += gp[1];
+  g->pz += gp[2];
+  add_rows(g_lrows + kLitCols * k, gq);
+}
+
+// The adjoint of an emissive hit's radiance, rad' = rad + tp al w_emit
+// (bounce.cuh, the emission branch of bounce_lane_t): gin[7..9] and the
+// winner's albedo cotangent g_al (3) from G[10..12]; under NEE after a
+// diffuse scatter, w_emit = p_b / at_least(p_b + p_l, 1e-12), with
+// p_b = |d| / (2 pi) and p_l = light_pdf_toward(L, r, t_hit), adds to the
+// direction's gin[3..5], the origin's gin[0..2], the time's *g_tm and the
+// light rows' g_lrows.
+RTOW_HD void emission_adjoint(const Lit& L, const Ray& r, float a,
+                              float t_hit, const Material& m, bool mis,
+                              const float* s, const float* G, float* gin,
+                              float* g_al, float* g_tm, float* g_lrows) {
+  float w_emit = 1.0f, p_b = 0.0f, sum = 0.0f, den = 1.0f;
+  if (mis) {
+    const float p_l = light_pdf_toward(L, r, t_hit);
+    p_b = sqrtf(a) * kHalfInvPi;
+    sum = p_b + p_l;
+    den = at_least(sum, kEps12);
+    w_emit = p_b / den;
+  }
+  const float al[3] = {m.alr, m.alg, m.alb};
+  float g_w = 0.0f;
+  for (int c = 0; c < 3; ++c) {
+    gin[7 + c] += G[10 + c] * al[c] * w_emit;
+    g_al[c] = G[10 + c] * s[7 + c] * w_emit;
+    g_w += G[10 + c] * s[7 + c] * al[c];
+  }
+  if (!mis) return;
+  float g_pb = g_w / den, g_pl = 0.0f;
+  if (sum >= kEps12) {
+    const float g_den = -g_w * p_b / (den * den);
+    g_pb += g_den;
+    g_pl = g_den;
+  }
+  const float g_a = g_pb * kHalfInvPi * 0.5f / sqrtf(a);  // p_b = sqrt(a) c
+  gin[3] += 2.0f * r.dx * g_a;
+  gin[4] += 2.0f * r.dy * g_a;
+  gin[5] += 2.0f * r.dz * g_a;
+  light_pdf_adjoint(L, r, t_hit, g_pl, gin, gin + 3, g_tm, g_lrows);
+}
+
+// Replays bounce_lane_t<kTris, kLit> for a live lane from its saved input
+// state s (13 floats, bounce) and maps the output cotangents G (13, in the
+// order of s) to the input cotangents gin (13) and the winner row's
+// cotangents gw (kParamGrads for a sphere, or kTexParamGrads with
+// textures; kTriParamGrads for a triangle; in its table's column order;
+// the caller zeroes it).  Returns the winner's id (spheres 0 .. npad - 1,
+// triangles npad + row), or -1 where the bounce read no row (a miss, a
+// non-emissive hit at depth).  kTris sweeps `tris` after the spheres,
+// counting its work in `tally`, as the forward does.  kLit replays the lit
+// bounce with the features L has (emission, NEE toward L.n_lights lights,
+// the textures; from_diffuse is the input alive code 2) and adds the light
+// rows' cotangent to g_lrows (n_lights x 14).
+template <bool kTris, bool kLit = false>
 RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
                                   const Tris& tris, const float* s,
                                   int bounce, uint32_t lane, uint32_t salt,
                                   int max_depth, const Background& bg,
                                   const float* G, float* gin, float* gw,
-                                  Tally* tally) {
+                                  Tally* tally, const Lit& L = Lit{},
+                                  bool from_diffuse = false,
+                                  float* g_lrows = nullptr) {
   for (int j = 0; j < kCont; ++j) gin[j] = G[j];
   const Ray r{s[0], s[1], s[2], s[3], s[4], s[5], s[6]};
   const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
@@ -352,25 +907,48 @@ RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
     }
     return -1;
   }
-  if (bounce >= max_depth) return -1;  // retired: the identity
+  if constexpr (!kLit) {
+    if (bounce >= max_depth) return -1;  // retired: the identity
+  }
 
   const bool is_tri = kTris && best_k >= npad;
   Hit e;
-  Material m;
+  Material m0;
   if (is_tri) {
     e = triangle_hit_record(tris.tbl, best_k - npad, r);
-    m = triangle_material(tris.tbl, best_k - npad);
+    m0 = triangle_material(tris.tbl, best_k - npad);
   } else {
     e = hit_record(tbl, best_k, best_t, r, a, inv_a);
-    m = sphere_material(tbl, best_k);
+    m0 = sphere_material(tbl, best_k);
+  }
+  const bool tex = kLit && L.checker && !is_tri;
+  const Material m = tex ? textured(tbl, best_k, m0, e.px, e.py, e.pz) : m0;
+  const bool nee = kLit && L.n_lights > 0;
+  float g_tm = 0.0f;
+  if constexpr (kLit) {
+    if (L.emissive && m.kind == kEmissive) {  // at any depth; no scatter
+      float g_al[3];
+      emission_adjoint(L, r, a, e.t, m, nee && from_diffuse, s, G, gin, g_al,
+                       &g_tm, g_lrows);
+      gin[6] += g_tm;
+      const int c0 = is_tri ? 9 : 7;  // the albedo columns
+      for (int c = 0; c < 3; ++c) gw[c0 + c] = g_al[c];
+      return best_k;
+    }
+    if (bounce >= max_depth) return -1;
   }
   const Draws w = draw_scatter(lane, salt);
   const Scatter sc = scatter(m, e, r, a, w);
-  const ShadeGrad g = shade_adjoint(e, m, sc, w, r, s, G, gin);
+  ShadeGrad g = shade_adjoint(e, m, sc, w, r, s, G, gin);
+  if (nee && is_diffuse(m.kind))
+    next_event_adjoint<kTris>(tbl, npad, tris, L, s, e, m, lane, salt, G, gin,
+                              &g, &g_tm, g_lrows, tally);
+  if (tex) texture_adjoint(tbl, best_k, m0, e, &g, gw);
   if (is_tri)
     triangle_hit_adjoint(tris.tbl, best_k - npad, e, r, g, gin, gw);
   else
     sphere_hit_adjoint(tbl, best_k, e, r, a, inv_a, g, G, gin, gw);
+  gin[6] += g_tm;
   return best_k;
 }
 

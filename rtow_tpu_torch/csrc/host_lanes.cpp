@@ -1,0 +1,171 @@
+// A host build of the gradient kernels' per-lane code: K4's bounce
+// (rtow::bounce_lane_t) and K5's adjoint (rtow::bounce_lane_adjoint_t) in
+// plain loops over lanes, for the CPU.
+//
+// The lane code in bounce.cuh and bounce_adjoint.cuh is plain C++ inside
+// RTOW_HD functions; defining RTOW_HD as `inline` and a float4 of four
+// floats before including the headers compiles the same arithmetic for the
+// host.  Built with g++ -O2 -std=c++17 -ffp-contract=off (no multiply-add
+// contraction, as the kernels' -fmad=false), every operation rounds as on
+// the card, apart from libm's sinf / cosf against the card's.  The test
+// tests/test_torch_lanes_host.py builds it and holds its lanes against the
+// plain PyTorch versions in rtow_tpu_torch/ops/grad.py: K4's outputs lane
+// by lane, and K5's input cotangents and row cotangents (sphere, triangle,
+// light) lane by lane, where the card's K5 sums the row cotangents with
+// atomics before anything can compare them.
+//
+//   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o lanes.so host_lanes.cpp
+
+#include <stdint.h>
+
+#define RTOW_HD inline
+struct float4 {
+  float x, y, z, w;
+};
+
+#include "bounce.cuh"
+#include "bounce_adjoint.cuh"
+
+namespace {
+
+rtow::Tris tris_of(const float* tri, const float* boxes, const float* supers,
+                   const float* hypers, int n_blocks, int n_super,
+                   int n_hyper, int tri_block, int tri_count) {
+  return rtow::Tris{reinterpret_cast<const float4*>(tri),
+                    reinterpret_cast<const float4*>(boxes),
+                    reinterpret_cast<const float4*>(supers),
+                    reinterpret_cast<const float4*>(hypers),
+                    n_blocks, n_super, n_hyper, tri_block, tri_count};
+}
+
+template <bool kTris, bool kLit>
+void fwd_lanes(const float4* tbl, int npad, const rtow::Tris& tris,
+               const float* cont, const int* ints, int n, uint32_t salt,
+               int max_depth, const rtow::Background& bg, const rtow::Lit& L,
+               float* cont_out, int* ints_out, unsigned long long* stats) {
+  rtow::Tally tally;
+  unsigned long long live = 0;
+  for (int g = 0; g < n; ++g) {
+    float s[rtow::kCont];
+    for (int j = 0; j < rtow::kCont; ++j) s[j] = cont[j * n + g];
+    int alive = ints[g];
+    int bounce = ints[n + g];
+    const int lid = ints[2 * n + g];
+    if (alive > 0) {
+      ++live;
+      alive = rtow::bounce_lane_t<kTris, kLit>(
+          tbl, npad, tris, s, &bounce,
+          rtow::lane_hash(static_cast<uint32_t>(lid)), salt, max_depth, bg,
+          &tally, L, alive > 1);
+    }
+    for (int j = 0; j < rtow::kCont; ++j) cont_out[j * n + g] = s[j];
+    ints_out[g] = alive;
+    ints_out[n + g] = bounce;
+    ints_out[2 * n + g] = lid;
+  }
+  stats[0] += tally.boxes;
+  stats[1] += tally.tris;
+  stats[2] += live;
+  stats[3] += tally.shadows;
+}
+
+template <bool kTris, bool kLit>
+void bwd_lanes(const float4* tbl, int npad, const rtow::Tris& tris,
+               const float* cont, const int* ints, const float* cot_out,
+               int n, uint32_t salt, int max_depth, const rtow::Background& bg,
+               const rtow::Lit& L, int n_rows, float* cot_in, int* winner,
+               float* gw, float* g_rows, unsigned long long* stats) {
+  rtow::Tally tally;
+  unsigned long long live = 0;
+  for (int g = 0; g < n; ++g) {
+    float s[rtow::kCont], G[rtow::kCont], gin[rtow::kCont];
+    float* w = gw + static_cast<size_t>(g) * rtow::kCols;
+    for (int c = 0; c < rtow::kCols; ++c) w[c] = 0.0f;
+    for (int j = 0; j < rtow::kCont; ++j) {
+      s[j] = cont[j * n + g];
+      G[j] = cot_out[j * n + g];
+      gin[j] = G[j];
+    }
+    int k = -1;
+    if (ints[g] > 0) {
+      ++live;
+      k = rtow::bounce_lane_adjoint_t<kTris, kLit>(
+          tbl, npad, tris, s, ints[n + g],
+          rtow::lane_hash(static_cast<uint32_t>(ints[2 * n + g])), salt,
+          max_depth, bg, G, gin, w, &tally, L, ints[g] > 1,
+          g_rows + static_cast<size_t>(g) * n_rows * rtow::kLitCols);
+    }
+    for (int j = 0; j < rtow::kCont; ++j) cot_in[j * n + g] = gin[j];
+    winner[g] = k;
+  }
+  stats[0] += tally.boxes;
+  stats[1] += tally.tris;
+  stats[2] += live;
+  stats[3] += tally.shadows;
+}
+
+}  // namespace
+
+extern "C" {
+
+// One forward bounce of n lanes, as rtow_grad_fwd launches it (the same
+// arguments, stats (4,): box tests, triangle tests, live lanes, shadow
+// rays, each added to).
+void rtow_host_fwd(const float* table, int npad, const float* tri,
+                   const float* boxes, const float* supers,
+                   const float* hypers, int n_blocks, int n_super,
+                   int n_hyper, int tri_block, int tri_count,
+                   const float* cont, const int* ints, int n, int it,
+                   int seed, int max_depth, int use_sky, float bgr, float bgg,
+                   float bgb, float* cont_out, int* ints_out,
+                   unsigned long long* stats, const float* lit_rows,
+                   int emissive, int n_lights, int light_kinds, int checker) {
+  const rtow::Tris tris = tris_of(tri, boxes, supers, hypers, n_blocks,
+                                  n_super, n_hyper, tri_block, tri_count);
+  const rtow::Background bg{use_sky, bgr, bgg, bgb};
+  const rtow::Lit L{lit_rows, emissive, n_lights, checker, 0, 0, 0,
+                    static_cast<uint32_t>(light_kinds), 0u};
+  const bool lit = emissive || n_lights > 0 || checker;
+  const auto* tbl = reinterpret_cast<const float4*>(table);
+  const uint32_t salt = rtow::salt_of(seed, static_cast<uint32_t>(it));
+  auto run = tri == nullptr ? (lit ? fwd_lanes<false, true>
+                                   : fwd_lanes<false, false>)
+                            : (lit ? fwd_lanes<true, true>
+                                   : fwd_lanes<true, false>);
+  run(tbl, npad, tris, cont, ints, n, salt, max_depth, bg, L, cont_out,
+      ints_out, stats);
+}
+
+// One backward bounce of n lanes, each lane's parts kept apart: cot_in
+// (13, n); winner (n,): the winner id whose row the lane's cotangent gw
+// (n, 16) belongs to (spheres 0 .. npad - 1, triangles npad + row), or -1;
+// g_rows (n, n_rows, 14): the lane's light-row cotangent, zeroed by the
+// caller.  The other arguments as for rtow_host_fwd.
+void rtow_host_bwd(const float* table, int npad, const float* tri,
+                   const float* boxes, const float* supers,
+                   const float* hypers, int n_blocks, int n_super,
+                   int n_hyper, int tri_block, int tri_count,
+                   const float* cont, const int* ints, const float* cot_out,
+                   int n, int it, int seed, int max_depth, int use_sky,
+                   float bgr, float bgg, float bgb, float* cot_in,
+                   int* winner, float* gw, float* g_rows,
+                   unsigned long long* stats, const float* lit_rows,
+                   int n_rows, int emissive, int n_lights, int light_kinds,
+                   int checker) {
+  const rtow::Tris tris = tris_of(tri, boxes, supers, hypers, n_blocks,
+                                  n_super, n_hyper, tri_block, tri_count);
+  const rtow::Background bg{use_sky, bgr, bgg, bgb};
+  const rtow::Lit L{lit_rows, emissive, n_lights, checker, 0, 0, 0,
+                    static_cast<uint32_t>(light_kinds), 0u};
+  const bool lit = emissive || n_lights > 0 || checker;
+  const auto* tbl = reinterpret_cast<const float4*>(table);
+  const uint32_t salt = rtow::salt_of(seed, static_cast<uint32_t>(it));
+  auto run = tri == nullptr ? (lit ? bwd_lanes<false, true>
+                                   : bwd_lanes<false, false>)
+                            : (lit ? bwd_lanes<true, true>
+                                   : bwd_lanes<true, false>);
+  run(tbl, npad, tris, cont, ints, cot_out, n, salt, max_depth, bg, L, n_rows,
+      cot_in, winner, gw, g_rows, stats);
+}
+
+}  // extern "C"

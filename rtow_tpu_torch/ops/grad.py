@@ -1,11 +1,12 @@
-"""Kernel-speed gradients for sphere and mesh scenes (the port of
-``rtow_tpu/ops/pallas_grad.py`` short of its lit features).
+"""Kernel-speed gradients for sphere and mesh scenes, lit or not (the port
+of ``rtow_tpu/ops/pallas_grad.py`` short of its media).
 
 One differentiable bounce is :class:`BounceGrad`, the counterpart of the
 ``bounce_grad`` custom_vjp (:573): its forward is the bounce kernel K4,
 its backward the kernel K5, which replays the bounce from the saved input
-state (the counter RNG makes the sweep, the draws and every discrete
-decision reproduce exactly) and runs the adjoint of the shade and of the
+state (the counter RNG makes the sweep, the draws, the light sample, the
+shadow ray's visibility and every discrete decision reproduce exactly)
+and runs the adjoint of the shade, of next-event estimation and of the
 winner's hit record.
 
 * :func:`bounce_fwd` is K4's wrapper: on a CUDA table it launches
@@ -23,6 +24,15 @@ more) unless ``flat`` asks for the flat sweep (JAX's ``_force_flat``, the
 parity switch).  Winner ids are spheres ``0 .. npad - 1``, triangles
 ``npad + row``.
 
+The lit features come in a :class:`~.megakernel.Lit` (:func:`grad_lit`
+derives it from the scene, as ``render_pixels_kernel`` derives its
+statics, :887-913): emission with its MIS weight, next-event estimation
+toward the (K, 14) light rows with ``nee=True`` (the shadow ray swept from
+``t_init`` = the light's distance less 0.1%; the alive code {0, 1, 2}
+marks a diffuse scatter), and checker and noise albedo.  The light rows
+are a differentiable input of :class:`BounceGrad`; their cotangent
+flows back into the Scene through ``build_light_table``.
+
 :func:`render_rays_kernel` chains ``max_depth + 1`` bounces over
 (pixel x sample) lanes; autograd's tape of the bounces' saved inputs
 plays the role of the ``lax.scan`` carries.  With ``sort_lanes`` (by
@@ -38,10 +48,8 @@ rr rg rb, ``ints`` (3, L) int32 = alive, bounce, lane id.  L is a
 multiple of 1,024; padding lanes are dead.  The RNG salt is the bounce's
 scan step ``it`` (0..max_depth), the same for every lane.
 
-Covered: spheres and triangles, the sky or a flat background, Lambertian
-/ metal / dielectric.  NEE, media, emission, checker and image textures
-and the sharded step raise ``NotImplementedError`` naming their ROADMAP
-item.
+Media, image textures and the sharded step raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -52,13 +60,15 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 
 from ..models.camera import Camera, Rays, camera_rays, pixel_coords
-from ..models.scene import DIELECTRIC, Scene
+from ..models.scene import IMAGE, Scene
 from . import _cuda
+from .lights import LIGHT_COLS, build_light_table
 from .megakernel import (
-    BIG, TBL_COLS, TRI_PARAMS, TriTable, background_args,
-    build_sphere_table, build_tri_table, check_counter, check_table,
-    check_tris, draw_scatter, lane_hash, lane_state, nearest_sphere,
-    nearest_triangle, shade, step_salt, winners,
+    BIG, TBL_COLS, TRI_PARAMS, Lit, TriTable, _kind_bits, background_args,
+    build_sphere_table, build_tri_table, check_counter, check_lit,
+    check_table, check_tris, draw_scatter, hit_basics, lane_hash,
+    lane_state, lit_rows, nearest_sphere, nearest_triangle, nee_contrib,
+    shade, step_salt, uniform, winners,
 )
 from .wavefront import WAVEFRONT_MIN_TRIS, sort_keys
 
@@ -87,56 +97,110 @@ _I32 = torch.int32
 # The plain versions.
 
 
-def _sweep_live(tbl, tris, cont, alive, flat,
-                tally) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(best_t, best_k) of the live lanes over the sphere table, then the
-    triangle table where there is one; dead lanes get (BIG, 0).  The
-    (chunk, 128) pair temporaries bound the chunk.  ``tally`` ([box
-    tests, triangle tests]) gets the triangle sweep's work."""
-    n = cont.shape[1]
-    best_t = torch.full((n,), BIG, dtype=_F32, device=cont.device)
-    best_k = torch.zeros((n,), dtype=torch.int64, device=cont.device)
-    live = torch.nonzero(alive).flatten()
-    chunk = 1 << 18 if cont.device.type == "cuda" else 1 << 14
-    for start in range(0, live.numel(), chunk):
-        idx = live[start:start + chunk]
-        ox, oy, oz, dx, dy, dz, tm = cont[:7, idx]
+def _sweep(tbl, tris, o, d, tm, idx, flat, tally, t_init=None):
+    """(best_t, best_k) of lanes ``idx`` of the rays (o, d, tm) over the
+    sphere table, then the triangle table where there is one, from
+    ``t_init`` (BIG, or the shadow rays' thresholds, per lane of ``idx``);
+    the other lanes get (BIG or their t_init, 0).  The (chunk, 128) pair
+    temporaries bound the chunk.  ``tally`` ([box tests, triangle tests,
+    ...]) gets the triangle sweep's work."""
+    n = tm.shape[0]
+    best_t = torch.full((n,), BIG, dtype=_F32, device=tm.device)
+    best_k = torch.zeros((n,), dtype=torch.int64, device=tm.device)
+    chunk = 1 << 18 if tm.device.type == "cuda" else 1 << 14
+    for start in range(0, idx.numel(), chunk):
+        i = idx[start:start + chunk]
+        ox, oy, oz = (v[i] for v in o)
+        dx, dy, dz = (v[i] for v in d)
         a = dx * dx + dy * dy + dz * dz
-        bt, bk = nearest_sphere(tbl, ox, oy, oz, dx, dy, dz, tm, a, 1.0 / a)
+        bt, bk = nearest_sphere(
+            tbl, ox, oy, oz, dx, dy, dz, tm[i], a, 1.0 / a,
+            t_init=None if t_init is None else t_init[start:start + chunk])
         if tris is not None:
             bt, bk = nearest_triangle(tris, ox, oy, oz, dx, dy, dz, bt, bk,
                                       tbl.shape[0], flat=flat, tally=tally)
-        best_t[idx], best_k[idx] = bt, bk
+        best_t[i], best_k[i] = bt, bk
     return best_t, best_k
 
 
-def _replay(cont, ints, tbl, tris, it, seed, flat, stats):
-    """The bounce's discrete half: (alive, best_t, best_k, draws).
-    ``stats`` (or None) gets the box tests, triangle tests and live
-    lanes added to it, as the kernels count them."""
+def _replay(cont, ints, tbl, tris, it, seed, flat, tally):
+    """The bounce's main sweep: (alive, best_t, best_k, lane hashes,
+    salt); ``tally`` ([box tests, triangle tests, shadow rays]) gets its
+    work."""
     alive = ints[0] > 0
-    tally = [0, 0]
     with torch.no_grad():
-        best_t, best_k = _sweep_live(tbl, tris, cont, alive, flat, tally)
-        if stats is not None:
-            stats += torch.tensor(tally + [int(alive.sum())],
-                                  device=stats.device)
-    lane = lane_hash(ints[2].long())
-    return alive, best_t, best_k, draw_scatter(lane, step_salt(seed, it))
+        best_t, best_k = _sweep(tbl, tris, cont[0:3], cont[3:6], cont[6],
+                                torch.nonzero(alive).flatten(), flat, tally)
+    return alive, best_t, best_k, lane_hash(ints[2].long()), step_salt(seed,
+                                                                         it)
+
+
+def _shadow_open(tbl, tris, p, l, tm, thresh, nee_act, flat, tally):
+    """Whether each NEE lane's shadow ray (from ``p`` along ``l``) reaches
+    ``thresh`` unblocked: the shadow sweep from ``t_init = thresh``
+    (``_nee_contrib``'s caller, pallas_grad.py:193-204), a constant for
+    autograd.  ``tally[2]`` counts the shadow rays, its first two entries
+    their sweep's box and triangle tests."""
+    with torch.no_grad():
+        sub = torch.nonzero(nee_act).flatten()
+        tally[2] += sub.numel()
+        s_t, _ = _sweep(tbl, tris, [v.detach() for v in p],
+                        [v.detach() for v in l], tm.detach(), sub, flat,
+                        tally, t_init=thresh.detach()[sub])
+        return nee_act & (s_t >= thresh.detach())
+
+
+def _lit_shade(state, ints, w, tri, best_t, alive, lane, salt, *, tbl, tris,
+               lit, max_depth, background, flat, tally):
+    """The differentiable half of a bounce with the lit features
+    (``_grad_fwd_kernel``'s live tile, :179-215): next-event estimation
+    where ``lit`` has lights, its contribution added where the shadow ray
+    gets through, then :func:`~.megakernel.shade` with emission, the MIS
+    weight (the previous bounce's diffuse flag is the alive code 2) and
+    the textures.  Returns shade's (13-tuple, can, bounce)."""
+    bounce = ints[1]
+    basics = hit_basics(state, w, best_t, tri=tri, checker=lit.checker)
+    from_diffuse = None
+    if lit.nee_kinds:
+        from_diffuse = ints[0] > 1
+        nee_us = (uniform(lane, salt, 8), uniform(lane, salt, 9),
+                  uniform(lane, salt, 10))
+        p, l, thresh, contrib, nee_act = nee_contrib(
+            state, basics, alive, bounce, max_depth, nee_us, lit)
+        add = _shadow_open(tbl, tris, p, l, state[6], thresh, nee_act, flat,
+                           tally)
+        state = state[:10] + tuple(ch + torch.where(add, c, 0.0)
+                                   for ch, c in zip(state[10:], contrib))
+    return shade(state, w, draw_scatter(lane, salt), best_t, alive, bounce,
+                 max_depth, background, tri=tri, basics=basics, lit=lit,
+                 from_diffuse=from_diffuse)
+
+
+def _count(tally, alive, stats) -> None:
+    """Adds the box tests, triangle tests, live lanes and shadow rays to
+    ``stats`` (or None), as the kernels count them."""
+    if stats is not None:
+        stats += torch.tensor(tally[:2] + [int(alive.sum()), tally[2]],
+                              device=stats.device)
 
 
 def bounce_fwd_reference(cont, ints, tbl, tris: Optional[TriTable] = None,
                          *, it: int, seed: int, max_depth: int,
                          background="sky", flat: bool = False,
-                         stats: Optional[torch.Tensor] = None):
+                         stats: Optional[torch.Tensor] = None,
+                         lit: Lit = Lit()):
     """Plain PyTorch version of K4: one bounce of every lane ->
     (cont, ints).  Same inputs and outputs as :func:`bounce_fwd`."""
-    alive, best_t, best_k, draws = _replay(cont, ints, tbl, tris, it, seed,
-                                           flat, stats)
-    w, tri = winners(tbl, tris, best_t, best_k)
-    state, can, bounce = shade(
-        tuple(cont.unbind(0)), w, draws, best_t, alive, ints[1], max_depth,
-        background, tri=tri)
+    tally = [0, 0, 0]
+    alive, best_t, best_k, lane, salt = _replay(cont, ints, tbl, tris, it,
+                                                seed, flat, tally)
+    w, tri = winners(tbl, tris, best_t, best_k,
+                     cols=TBL_COLS if lit.checker else _N_PARAMS)
+    state, can, bounce = _lit_shade(
+        tuple(cont.unbind(0)), ints, w, tri, best_t, alive, lane, salt,
+        tbl=tbl, tris=tris, lit=lit, max_depth=max_depth,
+        background=background, flat=flat, tally=tally)
+    _count(tally, alive, stats)
     return torch.stack(state), torch.stack([can.to(_I32), bounce, ints[2]])
 
 
@@ -144,17 +208,22 @@ def bounce_bwd_reference(cont, ints, cot_out, tbl,
                          tris: Optional[TriTable] = None, *, it: int,
                          seed: int, max_depth: int, background="sky",
                          flat: bool = False,
-                         stats: Optional[torch.Tensor] = None):
+                         stats: Optional[torch.Tensor] = None,
+                         lit: Lit = Lit()):
     """Plain PyTorch version of K5 -> (cot_in (13, L), g_tbl (Npad, 16),
-    g_tri (Mpad, 16), or None without ``tris``): each hit lane's row
-    cotangent from :func:`bounce_bwd_terms` added to its winner's row of
-    ``g_tbl`` or, for a triangle, of ``g_tri`` (``pallas_grad.py:444-539``;
-    the kind column and column 15 get 0)."""
-    cot_in, sph, tri = bounce_bwd_terms(
+    g_tri (Mpad, 16) or None without ``tris``, g_rows (R, 14) or None
+    without light rows): each hit lane's row cotangent from
+    :func:`bounce_bwd_terms` added to its winner's row of ``g_tbl`` or,
+    for a triangle, of ``g_tri`` (``pallas_grad.py:444-539``; the kind
+    column and column 15 get 0), and the lanes' light-row cotangents
+    summed (``glgt``, :448-462)."""
+    cot_in, sph, tri, rows = bounce_bwd_terms(
         cont, ints, cot_out, tbl, tris, it=it, seed=seed,
-        max_depth=max_depth, background=background, flat=flat, stats=stats)
+        max_depth=max_depth, background=background, flat=flat, stats=stats,
+        lit=lit)
     return (cot_in, table_sums(sph, tbl.shape[0]),
-            None if tri is None else table_sums(tri, tris.tbl.shape[0]))
+            None if tri is None else table_sums(tri, tris.tbl.shape[0]),
+            None if rows is None else rows.sum(dim=0))
 
 
 def table_sums(terms, rows: int, dtype=_F32) -> torch.Tensor:
@@ -170,28 +239,33 @@ def table_sums(terms, rows: int, dtype=_F32) -> torch.Tensor:
 def bounce_bwd_terms(cont, ints, cot_out, tbl,
                      tris: Optional[TriTable] = None, *, it: int, seed: int,
                      max_depth: int, background="sky", flat: bool = False,
-                     stats: Optional[torch.Tensor] = None):
+                     stats: Optional[torch.Tensor] = None, lit: Lit = Lit()):
     """K5's plain version before its table sums -> (cot_in (13, L), the
-    sphere-hit lanes' (winner rows, row cotangents (H, 13)), the
-    triangle-hit lanes' (winner rows, row cotangents (T, 14)) or None
-    without ``tris``).
+    sphere-hit lanes' (winner rows, row cotangents (H, 13), or (H, 16)
+    with textures), the triangle-hit lanes' (winner rows, row cotangents
+    (T, 14)) or None without ``tris``, each lane's light-row cotangent
+    (L, R, 14) or None without light rows).
 
-    Replays the sweeps and the draws, then takes ``torch.autograd.grad``
-    of the plain shade w.r.t. the input state and the winner rows of each
-    kind (the rows :func:`winners` gives the forward).  ``tm`` passes
-    through the bounce, so its cotangent gets the downstream one added
-    (:433-436): the stacked output below holds that identity."""
-    alive, best_t, best_k, draws = _replay(cont, ints, tbl, tris, it, seed,
-                                           flat, stats)
+    Replays the sweeps, the draws and the shadow rays, then takes
+    ``torch.autograd.grad`` of the plain lit shade (:func:`_lit_shade`)
+    w.r.t. the input state, the winner rows of each kind (the rows
+    :func:`winners` gives the forward) and a per-lane copy of the light
+    rows.  ``tm`` passes through the bounce, so its cotangent gets the
+    downstream one added (:433-436): the stacked output below holds that
+    identity."""
+    tally = [0, 0, 0]
+    alive, best_t, best_k, lane, salt = _replay(cont, ints, tbl, tris, it,
+                                                seed, flat, tally)
     npad, n = tbl.shape[0], best_k.numel()
     hit = best_t < BIG
     is_tri = (best_k >= npad if tris is not None
               else torch.zeros_like(hit))
     sph_hit, tri_hit = hit & ~is_tri, hit & is_tri
+    cols = TBL_COLS if lit.checker else _N_PARAMS
     with torch.enable_grad():
         state = cont.detach().requires_grad_(True)
-        rows = (tbl.detach()[best_k.clamp(max=npad - 1), :_N_PARAMS] if npad
-                else torch.zeros((n, _N_PARAMS), dtype=_F32,
+        rows = (tbl.detach()[best_k.clamp(max=npad - 1), :cols] if npad
+                else torch.zeros((n, cols), dtype=_F32,
                                  device=tbl.device)).requires_grad_(True)
         inputs, tri = [state, rows], None
         if tris is not None:
@@ -199,15 +273,30 @@ def bounce_bwd_terms(cont, ints, cot_out, tbl,
                                       :TRI_PARAMS].requires_grad_(True)
             inputs.append(trows)
             tri = (torch.where(tri_hit[:, None], trows, 0.0), is_tri)
-        out, _can, _bounce = shade(
-            tuple(state.unbind(0)), torch.where(sph_hit[:, None], rows, 0.0),
-            draws, best_t, alive, ints[1], max_depth, background, tri=tri)
-        grads = torch.autograd.grad(torch.stack(out), inputs, cot_out)
+        lane_lit = lit
+        if lit.rows is not None:
+            lrows = lit.rows.detach()[None].expand(
+                n, *lit.rows.shape).contiguous().requires_grad_(True)
+            inputs.append(lrows)
+            lane_lit = lit._replace(rows=lrows)
+        out, _can, _bounce = _lit_shade(
+            tuple(state.unbind(0)), ints, torch.where(sph_hit[:, None], rows,
+                                                      0.0),
+            tri, best_t, alive, lane, salt, tbl=tbl, tris=tris, lit=lane_lit,
+            max_depth=max_depth, background=background, flat=flat,
+            tally=tally)
+        grads = torch.autograd.grad(torch.stack(out), inputs, cot_out,
+                                    allow_unused=True)
+    _count(tally, alive, stats)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(inputs, grads)]
     sph = (best_k[sph_hit], grads[1][sph_hit])
-    if tris is None:
-        return grads[0], sph, None
-    return grads[0], sph, (best_k[tri_hit] - npad,
-                           grads[2][tri_hit, :_N_TRI_PARAMS])
+    tri_terms = None
+    if tris is not None:
+        tri_terms = (best_k[tri_hit] - npad,
+                     grads[2][tri_hit, :_N_TRI_PARAMS])
+    return (grads[0], sph, tri_terms,
+            grads[-1] if lit.rows is not None else None)
 
 
 # ---------------------------------------------------------------------------
@@ -238,16 +327,30 @@ def _scalars(it, seed, max_depth):
     return int(it), int(seed), int(max_depth)
 
 
-def _check(kernel, tbl, tris, cont, ints, cot, stats, **scalars):
+def _check_grad_lit(lit: Lit, tbl: torch.Tensor) -> None:
+    """Raise unless ``lit`` holds only what the gradient kernels take:
+    emission, NEE and textures (JAX's gradient statics have no roulette;
+    media are ROADMAP Queue 1 item 10b)."""
+    if lit.vol_kinds:
+        raise NotImplementedError(
+            "constant-density media in the gradient kernels are not ported "
+            "yet (ROADMAP Queue 1 item 10b)")
+    if lit.roulette:
+        raise ValueError("the gradient kernels have no Russian roulette "
+                         "(pallas_grad.py:910-913)")
+    check_lit(lit, tbl)
+
+
+def _check(kernel, tbl, tris, cont, ints, cot, stats, lit, **scalars):
     """The wrappers' checks -> (it, seed, max_depth)."""
-    check_table(tbl, kernel, copies=2 if cot is not None else 1)
+    _check_grad_lit(lit, tbl)
+    copies = 2 if cot is not None else 1
+    check_table(tbl, kernel, copies=copies,
+                staged=copies * lit_rows(lit) * LIGHT_COLS * 4)
     if tris is not None:
         check_tris(tris, tbl, kernel)
-    elif stats is not None:
-        raise ValueError("stats count the triangle sweep: they need a "
-                         "triangle table")
     _check_state(tbl, cont, ints, cot)
-    check_counter(stats, 3, tbl, "stats")
+    check_counter(stats, 4, tbl, "stats")
     return _scalars(**scalars)
 
 
@@ -263,26 +366,37 @@ def _tri_args(tris: Optional[TriTable], flat: bool) -> tuple:
             tris.block, tris.count)
 
 
+def _lit_args(lit: Lit) -> tuple:
+    """The launchers' lit arguments: the light rows (or a null pointer),
+    their count, and the emissive, NEE and texture features."""
+    return (None if lit.rows is None else lit.rows.data_ptr(), lit_rows(lit),
+            int(lit.emissive), len(lit.nee_kinds),
+            _kind_bits(lit.nee_kinds, "st"), int(lit.checker))
+
+
 def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
                tris: Optional[TriTable] = None, *, it: int, seed: int,
                max_depth: int, background: Union[str, tuple] = "sky",
-               flat: bool = False, stats: Optional[torch.Tensor] = None):
+               flat: bool = False, stats: Optional[torch.Tensor] = None,
+               lit: Lit = Lit()):
     """One forward bounce (``_bounce_fwd_impl``, :592) -> (cont, ints).
 
     ``tris``: the scene's triangle table, or None; ``flat`` sweeps its
-    block boxes without the hierarchy; ``stats``, a (3,) int64 tensor on
-    the table's device (with ``tris`` only), gets the box tests, triangle
-    tests and live lanes added to it.  A CUDA ``tbl`` launches
-    ``csrc/grad_fwd.cu`` (counted in ``bounce_fwd.launches``); a CPU
-    ``tbl`` runs :func:`bounce_fwd_reference`; any other device raises."""
+    block boxes without the hierarchy; ``lit``: the lit features and the
+    light rows (:func:`grad_lit`); ``stats``, a (4,) int64 tensor on the
+    table's device, gets the box tests, triangle tests (the shadow
+    sweep's included), live lanes and NEE shadow rays added to it.  A CUDA ``tbl`` launches ``csrc/grad_fwd.cu``
+    (counted in ``bounce_fwd.launches``, and in ``lit_launches`` where
+    ``lit`` has a feature); a CPU ``tbl`` runs
+    :func:`bounce_fwd_reference`; any other device raises."""
     it, seed, max_depth = _check("grad_fwd kernel", tbl, tris, cont, ints,
-                                 None, stats, it=it, seed=seed,
+                                 None, stats, lit, it=it, seed=seed,
                                  max_depth=max_depth)
     if tbl.device.type == "cpu":
         return bounce_fwd_reference(cont, ints, tbl, tris, it=it, seed=seed,
                                     max_depth=max_depth,
                                     background=background, flat=flat,
-                                    stats=stats)
+                                    stats=stats, lit=lit)
     lib = _lib("grad_fwd")
     use_sky, (bgr, bgg, bgb) = background_args(background)
     cont_out = torch.empty_like(cont)
@@ -291,55 +405,67 @@ def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
         tbl.data_ptr(), tbl.shape[0], *_tri_args(tris, flat),
         cont.data_ptr(), ints.data_ptr(), cont.shape[1], it, seed, max_depth,
         int(use_sky), bgr, bgg, bgb, cont_out.data_ptr(), ints_out.data_ptr(),
-        None if stats is None else stats.data_ptr(), *_cuda.device_args(tbl))
+        None if stats is None else stats.data_ptr(), *_lit_args(lit),
+        *_cuda.device_args(tbl))
     _cuda.check_launch(lib, err, "grad_fwd")
     bounce_fwd.launches += 1
+    bounce_fwd.lit_launches += lit.any
     return cont_out, ints_out
 
 
-#: Kernel launches made by :func:`bounce_fwd` in this process.
+#: Kernel launches made by :func:`bounce_fwd` in this process, and those
+#: of them that ran a lit instance.
 bounce_fwd.launches = 0
+bounce_fwd.lit_launches = 0
 
 
 def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
                tbl: torch.Tensor, tris: Optional[TriTable] = None, *,
                it: int, seed: int, max_depth: int,
                background: Union[str, tuple] = "sky", flat: bool = False,
-               stats: Optional[torch.Tensor] = None):
+               stats: Optional[torch.Tensor] = None, lit: Lit = Lit()):
     """One backward bounce (``_bounce_grad_bwd``, :639) from the bounce's
     saved input state -> (cot_in (13, L), g_tbl (Npad, 16), g_tri (Mpad,
-    16), or None without ``tris``).  ``tris``, ``flat`` and ``stats`` as
-    for :func:`bounce_fwd`.
+    16) or None without ``tris``, g_rows (R, 14) or None without light
+    rows).  ``tris``, ``flat``, ``lit`` and ``stats`` as for
+    :func:`bounce_fwd`.
 
     A CUDA ``tbl`` launches ``csrc/grad_bwd.cu`` (counted in
-    ``bounce_bwd.launches``); a CPU ``tbl`` runs
+    ``bounce_bwd.launches`` and ``lit_launches``, as for
+    :func:`bounce_fwd`); a CPU ``tbl`` runs
     :func:`bounce_bwd_reference`; any other device raises."""
     it, seed, max_depth = _check("grad_bwd kernel", tbl, tris, cont, ints,
-                                 cot_out, stats, it=it, seed=seed,
+                                 cot_out, stats, lit, it=it, seed=seed,
                                  max_depth=max_depth)
     if tbl.device.type == "cpu":
         return bounce_bwd_reference(cont, ints, cot_out, tbl, tris, it=it,
                                     seed=seed, max_depth=max_depth,
                                     background=background, flat=flat,
-                                    stats=stats)
+                                    stats=stats, lit=lit)
     lib = _lib("grad_bwd")
     use_sky, (bgr, bgg, bgb) = background_args(background)
     cot_in = torch.empty_like(cot_out)
     g_tbl = torch.zeros_like(tbl)
     g_tri = None if tris is None else torch.zeros_like(tris.tbl)
+    g_rows = None if lit.rows is None else torch.zeros_like(lit.rows)
     err = lib.rtow_grad_bwd(
         tbl.data_ptr(), tbl.shape[0], *_tri_args(tris, flat),
         cont.data_ptr(), ints.data_ptr(), cot_out.data_ptr(), cont.shape[1],
         it, seed, max_depth, int(use_sky), bgr, bgg, bgb, cot_in.data_ptr(),
         g_tbl.data_ptr(), None if g_tri is None else g_tri.data_ptr(),
-        None if stats is None else stats.data_ptr(), *_cuda.device_args(tbl))
+        None if g_rows is None else g_rows.data_ptr(),
+        None if stats is None else stats.data_ptr(), *_lit_args(lit),
+        *_cuda.device_args(tbl))
     _cuda.check_launch(lib, err, "grad_bwd")
     bounce_bwd.launches += 1
-    return cot_in, g_tbl, g_tri
+    bounce_bwd.lit_launches += lit.any
+    return cot_in, g_tbl, g_tri, g_rows
 
 
-#: Kernel launches made by :func:`bounce_bwd` in this process.
+#: Kernel launches made by :func:`bounce_bwd` in this process, and those
+#: of them that ran a lit instance.
 bounce_bwd.launches = 0
+bounce_bwd.lit_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -349,36 +475,39 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = _cuda.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tri = [p, p, p, p, i, i, i, i, i]
+    lit = [p, i, i, i, i, i]
     if name == "grad_fwd":
         lib.rtow_grad_fwd.argtypes = [p, i, *tri, p, p, i, i, i, i, i, f, f,
-                                      f, p, p, p, i, p]
+                                      f, p, p, p, *lit, i, p]
         lib.rtow_grad_fwd.restype = i
     else:
         lib.rtow_grad_bwd.argtypes = [p, i, *tri, p, p, p, i, i, i, i, i, f,
-                                      f, f, p, p, p, p, i, p]
+                                      f, f, p, p, p, p, p, *lit, i, p]
         lib.rtow_grad_bwd.restype = i
     return lib
 
 
 class BounceGrad(torch.autograd.Function):
     """One differentiable bounce (``pallas_grad.bounce_grad``, :573):
-    (cont, ints) -> (cont, ints), differentiable in ``cont``, ``tbl`` and
-    the triangle rows ``tri_tbl``.
+    (cont, ints) -> (cont, ints), differentiable in ``cont``, ``tbl``, the
+    triangle rows ``tri_tbl`` and the light rows ``rows``.
 
     The forward is :func:`bounce_fwd` and saves its input state (the
     tape); the backward is :func:`bounce_bwd` on that state.  ``ints``
     carries no cotangent, nor do the triangle boxes: ``tris`` is the
-    table without its rows (``tbl=None``), decisions only."""
+    table without its rows (``tbl=None``), decisions only; ``lit`` is the
+    lit features without their rows."""
 
     @staticmethod
-    def forward(ctx, cont, ints, tbl, tri_tbl, tris, it, seed, max_depth,
-                background, flat):
+    def forward(ctx, cont, ints, tbl, tri_tbl, rows, tris, lit, it, seed,
+                max_depth, background, flat):
         full = None if tris is None else tris._replace(tbl=tri_tbl)
         cont_out, ints_out = bounce_fwd(cont, ints, tbl, full, it=it,
                                         seed=seed, max_depth=max_depth,
-                                        background=background, flat=flat)
-        ctx.save_for_backward(cont, ints, tbl, tri_tbl)
-        ctx.tris = tris
+                                        background=background, flat=flat,
+                                        lit=lit._replace(rows=rows))
+        ctx.save_for_backward(cont, ints, tbl, tri_tbl, rows)
+        ctx.tris, ctx.lit = tris, lit
         ctx.scalars = dict(it=it, seed=seed, max_depth=max_depth,
                            background=background, flat=flat)
         ctx.mark_non_differentiable(ints_out)
@@ -386,22 +515,23 @@ class BounceGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_cont, _g_ints):
-        cont, ints, tbl, tri_tbl = ctx.saved_tensors
+        cont, ints, tbl, tri_tbl, rows = ctx.saved_tensors
         full = None if ctx.tris is None else ctx.tris._replace(tbl=tri_tbl)
-        cot_in, g_tbl, g_tri = bounce_bwd(cont, ints, g_cont.contiguous(),
-                                          tbl, full, **ctx.scalars)
-        return (cot_in, None, g_tbl, g_tri, None, None, None, None, None,
-                None)
+        cot_in, g_tbl, g_tri, g_rows = bounce_bwd(
+            cont, ints, g_cont.contiguous(), tbl, full,
+            lit=ctx.lit._replace(rows=rows), **ctx.scalars)
+        return (cot_in, None, g_tbl, g_tri, g_rows) + (None,) * 7
 
 
 def bounce_grad(cont, ints, tbl, tris: Optional[TriTable] = None, *,
                 it: int, seed: int, max_depth: int,
-                background: Union[str, tuple] = "sky", flat: bool = False):
+                background: Union[str, tuple] = "sky", flat: bool = False,
+                lit: Lit = Lit()):
     """:class:`BounceGrad` applied to one bounce."""
     return BounceGrad.apply(
-        cont, ints, tbl, None if tris is None else tris.tbl,
-        None if tris is None else tris._replace(tbl=None), it, seed,
-        max_depth, background, flat)
+        cont, ints, tbl, None if tris is None else tris.tbl, lit.rows,
+        None if tris is None else tris._replace(tbl=None),
+        lit._replace(rows=None), it, seed, max_depth, background, flat)
 
 
 # ---------------------------------------------------------------------------
@@ -409,15 +539,31 @@ def bounce_grad(cont, ints, tbl, tris: Optional[TriTable] = None, *,
 
 
 def _check_scene(scene: Scene) -> None:
-    if (bool((scene.materials.kind > DIELECTRIC).any())
-            or scene.has_emissive or scene.has_checker):
+    if bool((scene.materials.kind == IMAGE).any()):
         raise NotImplementedError(
-            "emissive, checker, noise and image-texture materials in the "
-            "gradient kernels are not ported yet (ROADMAP Queue 1 item 10)")
+            "image textures in the gradient kernels need the reference "
+            "integrator's texel gathers (ROADMAP Queue 1 item 5)")
     if scene.volume_kinds:
         raise NotImplementedError(
             "constant-density media in the gradient kernels are not ported "
-            "yet (ROADMAP Queue 1 item 10)")
+            "yet (ROADMAP Queue 1 item 10b)")
+
+
+def grad_lit(scene: Scene, nee: bool = False) -> Lit:
+    """The gradient kernels' lit features of ``scene``, as
+    ``render_pixels_kernel`` derives its statics (:887-913): emission
+    wherever the scene has an emissive material, next-event estimation
+    toward its lights only with ``nee`` (a ValueError on a scene without
+    one), checker and noise textures; no roulette, which the gradient
+    path does not have.  The light rows are ``build_light_table``'s,
+    differentiable in the scene's leaves."""
+    if nee and not scene.has_emissive:
+        raise ValueError("nee=True needs an emissive scene "
+                         "(SceneBuilder.add_light)")
+    kinds = tuple(k for k, _ in scene.light_ids) if nee else ()
+    return Lit(emissive=scene.has_emissive, nee_kinds=kinds,
+               checker=scene.has_checker,
+               rows=build_light_table(scene) if kinds else None)
 
 
 def grad_tri_table(scene: Scene, flat: bool = False) -> TriTable:
@@ -456,17 +602,20 @@ def _permute(cont, ints, perm):
 
 def render_rays_kernel(scene: Scene, rays: Rays, *, n_pixels: int, spp: int,
                        max_depth: int, seed: int = 0, sort_lanes=None,
-                       force_flat: bool = False) -> torch.Tensor:
+                       force_flat: bool = False,
+                       nee: bool = False) -> torch.Tensor:
     """Differentiable mean radiance of ``n_pixels`` pixels -> (P, 3), from
     their ``n_pixels * spp`` camera rays in (pixel, sample) order (the
     lane half of ``render_pixels_kernel``, pallas_grad.py:915-1001):
     :func:`lane_state`, then ``max_depth + 1`` bounces of
     :class:`BounceGrad`, each after a sort of the lanes where
     ``sort_lanes`` (None: for meshes of more than 16,384 triangles).
-    ``force_flat`` sweeps the triangle blocks flat.  The render runs on
+    ``force_flat`` sweeps the triangle blocks flat; ``nee`` samples the
+    lights at every diffuse hit (:func:`grad_lit`).  The render runs on
     the scene's device: the kernels on a card, their plain versions on
     the CPU."""
     _check_scene(scene)
+    lit = grad_lit(scene, nee)
     if sort_lanes is None:
         sort_lanes = scene.n_triangles > WAVEFRONT_MIN_TRIS
     tbl, sph_boxes = build_sphere_table(scene)
@@ -484,7 +633,7 @@ def render_rays_kernel(scene: Scene, rays: Rays, *, n_pixels: int, spp: int,
         cont, ints = bounce_grad(cont, ints, tbl, tris, it=it, seed=seed,
                                  max_depth=max_depth,
                                  background=scene.background,
-                                 flat=force_flat)
+                                 flat=force_flat, lit=lit)
     if sort_lanes:  # back to lane order, so a pixel's samples are adjacent
         cont, ints = _permute(cont, ints, torch.argsort(ints[2]))
     return cont[10:13, :l_raw].T.reshape(n_pixels, spp, 3).mean(dim=1)
@@ -512,13 +661,12 @@ def render_pixels_kernel(
     ``gen`` (a ``torch.Generator`` on the scene's device, in place of the
     JAX key) and :func:`render_rays_kernel`.  ``jitter=False`` pins rays
     to pixel centres (FD gates).  ``sort_lanes`` (None: by the triangle
-    count) and ``_force_flat`` as there.  Gradients reach every scene leaf
-    that ``build_sphere_table`` and ``build_tri_table`` read (sphere
-    centers and radii, triangle vertices, albedo, fuzz, ir)."""
-    if nee:
-        raise NotImplementedError(
-            "nee=True needs NEE in the gradient kernels "
-            "(ROADMAP Queue 1 item 10)")
+    count) and ``_force_flat`` as there; ``nee=True`` (emissive scenes
+    only) runs next-event estimation with MIS in both kernels.  Gradients
+    reach every scene leaf that ``build_sphere_table``,
+    ``build_tri_table`` and, under NEE, ``build_light_table`` read
+    (sphere centers and radii, triangle vertices, albedo and the second
+    colour, fuzz, ir)."""
     if grad_reduce_axes:
         raise NotImplementedError(
             "grad_reduce_axes needs the sharded train step "
@@ -534,7 +682,8 @@ def render_pixels_kernel(
     return render_rays_kernel(scene, camera_rays(camera, gen, s, t),
                               n_pixels=pixel_ids.shape[0], spp=spp,
                               max_depth=max_depth, seed=seed,
-                              sort_lanes=sort_lanes, force_flat=_force_flat)
+                              sort_lanes=sort_lanes, force_flat=_force_flat,
+                              nee=nee)
 
 
 def scene_value_and_grad(fn: Callable[[Scene], torch.Tensor],

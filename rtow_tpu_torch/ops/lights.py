@@ -17,6 +17,12 @@ triangle table's median-split reorder):
 * triangle: cols 1-3 v0, 4-6 e1, 7-9 e2, 10 area;
 * cols 11-13 the emitted radiance; col 0 the kind (0 sphere, 1 triangle),
   which nothing reads: the kinds are the static ``light_kinds`` tuple.
+
+The sampler and the pdf read the table as tensors, so autograd carries
+cotangents into its rows (the gradient path's light-row cotangent).  A
+table may also hold one copy of the rows per lane, (L, K, 14): every
+read is ``table[..., k, c]``, so each lane's rows get their own
+cotangent.
 """
 from __future__ import annotations
 
@@ -92,20 +98,19 @@ def sample_light_dirs(table, light_kinds, pick, u1, u2, px, py, pz, tm):
     cos theta); ``pdf`` is the strategy's solid-angle density (the
     picked light's over K, 0 where the sample is degenerate)."""
     n = len(light_kinds)
-    rows = table.detach().cpu().tolist()
     k_idx = torch.clamp((pick * n).to(torch.int32), max=n - 1)
     zero = torch.zeros_like(px)
     dx = dy = dz = w0 = w1 = w2 = pdf = zero
     tl = torch.full_like(px, 1e30)
     for k, lkind in enumerate(light_kinds):
-        t = rows[k]
+        t = table[..., k, :].unbind(-1)
         sel = k_idx == k
         er, eg, eb = t[11], t[12], t[13]
         if lkind == "s":
             cx = t[1] + tm * t[4]
             cy = t[2] + tm * t[5]
             cz = t[3] + tm * t[6]
-            r2 = torch.full_like(px, t[7] * t[7])  # float32(r * r)
+            r2 = t[7] * t[7]
             tox, toy, toz = cx - px, cy - py, cz - pz
             d2 = tox * tox + toy * toy + toz * toz
             d = torch.sqrt(torch.clamp(d2, min=1e-12))
@@ -141,8 +146,7 @@ def sample_light_dirs(table, light_kinds, pick, u1, u2, px, py, pz, tm):
             d = torch.sqrt(torch.clamp(d2, min=1e-12))
             inv_d = 1.0 / d
             sx, sy, sz = tox * inv_d, toy * inv_d, toz * inv_d
-            nx, ny, nz, nlen = _light_normal(e1x, e1y, e1z, e2x, e2y, e2z,
-                                             px)
+            nx, ny, nz, nlen = _light_normal(e1x, e1y, e1z, e2x, e2y, e2z)
             cos_a = -(sx * nx + sy * ny + sz * nz) / nlen
             ok = cos_a > 1e-6
             geo = torch.where(ok, cos_a * area * n / (_PI * torch.clamp(
@@ -161,15 +165,12 @@ def sample_light_dirs(table, light_kinds, pick, u1, u2, px, py, pz, tm):
     return dx, dy, dz, tl, (w0, w1, w2), pdf
 
 
-def _light_normal(e1x, e1y, e1z, e2x, e2y, e2z, like):
+def _light_normal(e1x, e1y, e1z, e2x, e2y, e2z):
     """A triangle light's unnormalised normal cross(e1, e2) and its
-    length (floored at 1e-24 under the root), as float32 tensors shaped
-    like ``like``'s scalar."""
-    e = torch.tensor([e1x, e1y, e1z, e2x, e2y, e2z], dtype=_F32,
-                     device=like.device)
-    nx = e[1] * e[5] - e[2] * e[4]
-    ny = e[2] * e[3] - e[0] * e[5]
-    nz = e[0] * e[4] - e[1] * e[3]
+    length (floored at 1e-24 under the root)."""
+    nx = e1y * e2z - e1z * e2y
+    ny = e1z * e2x - e1x * e2z
+    nz = e1x * e2y - e1y * e2x
     nlen = torch.sqrt(torch.clamp(nx * nx + ny * ny + nz * nz, min=1e-24))
     return nx, ny, nz, nlen
 
@@ -181,19 +182,18 @@ def light_pdf_toward(table, light_kinds, ox, oy, oz, dx, dy, dz, t_hit, tm):
     whose first intersection along d lies within 1e-3 max(t_hit, 1) of
     the hit."""
     n = len(light_kinds)
-    rows = table.detach().cpu().tolist()
     dlen = torch.sqrt(torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-24))
     inv_l = 1.0 / dlen
     dx, dy, dz = dx * inv_l, dy * inv_l, dz * inv_l
     t_hit = t_hit * dlen
     pdf = torch.zeros_like(ox)
     for k, lkind in enumerate(light_kinds):
-        t = rows[k]
+        t = table[..., k, :].unbind(-1)
         if lkind == "s":
             cx = t[1] + tm * t[4]
             cy = t[2] + tm * t[5]
             cz = t[3] + tm * t[6]
-            r2 = torch.full_like(ox, t[7] * t[7])
+            r2 = t[7] * t[7]
             tox, toy, toz = cx - ox, cy - oy, cz - oz
             d2 = tox * tox + toy * toy + toz * toz
             oc_d = -(tox * dx + toy * dy + toz * dz)
@@ -220,8 +220,7 @@ def light_pdf_toward(table, light_kinds, ox, oy, oz, dx, dy, dz, t_hit, tm):
             t_k = (e2x * qx_ + e2y * qy_ + e2z * qz_) * inv
             ok = ((det >= 1e-6) & (u >= 0.0) & (v >= 0.0)
                   & (u + v <= 1.0) & (t_k > 0.0))
-            nx, ny, nz, nlen = _light_normal(e1x, e1y, e1z, e2x, e2y, e2z,
-                                             ox)
+            nx, ny, nz, nlen = _light_normal(e1x, e1y, e1z, e2x, e2y, e2z)
             cos_a = -(dx * nx + dy * ny + dz * nz) / nlen
             pdf_k = (t_k * t_k) / torch.clamp(cos_a * area * n, min=1e-12)
         match = ok & ((t_k - t_hit).abs()

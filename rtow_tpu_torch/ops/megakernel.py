@@ -505,7 +505,9 @@ class Lit(NamedTuple):
                     or self.vol_kinds or self.roulette)
 
     def lights(self):
-        return self.rows[:len(self.nee_kinds)]
+        """The light rows: (K, 14), or (L, K, 14) where ``rows`` holds one
+        copy per lane (the gradient path's per-lane row cotangents)."""
+        return self.rows[..., :len(self.nee_kinds), :]
 
     def volumes(self):
         return self.rows[self.vol_row0:]

@@ -119,13 +119,17 @@ def render_auto(
     """Render with the backend the config and scene call for, on the
     scene's device (``rtow_tpu.pipeline.render_auto``, :194).
 
-    Only single-device renders through the kernels are ported; the
+    Only single-device renders through the kernels are ported: ``-t N``
+    renders on one device where fewer than two are there to shard over (a
+    CPU scene, or a host with one card), as the JAX package does
+    (``pipeline.py:219``), and raises where two or more cards are; the
     sorted wavefront (meshes over 16,384 triangles) has no lit features
     yet, and every other case raises."""
-    if cfg.n_devices != 1:
+    if (cfg.n_devices > 1 and scene.device.type == "cuda"
+            and torch.cuda.device_count() > 1):
         raise NotImplementedError(
-            "--devices > 1 needs multi-device rendering "
-            "(ROADMAP Queue 1 item 11)")
+            "--devices > 1 on a host with several cards needs multi-device "
+            "rendering (ROADMAP Queue 1 item 11)")
     if cfg.backend == "jnp":
         raise NotImplementedError(
             "--backend jnp needs the reference integrator "

@@ -2,7 +2,8 @@
 the megakernel K1 (ops/megakernel.py, spheres and triangles, and its lit
 instances: emission, NEE, media, textures, roulette), the sorted
 wavefront's bounce K3 (ops/flat_bounce.py) and the gradient bounces
-K4 / K5 (ops/grad.py).
+K4 / K5 (ops/grad.py), with their lit instances (emission, NEE with the
+light rows' cotangent, textures).
 
 Marked ``cuda``: each test skips (with its reason) where
 ``torch.cuda.is_available()`` is false.  This file imports neither JAX
@@ -20,7 +21,11 @@ bit-identical to their plain versions, with the same counts of steps, box
 tests, triangle tests, shadow rays and live lanes.
 K5 sums its adjoint in another order than autograd and the table
 gradient with atomics: per cot_in row and per g_tbl column, max |d| at
-most 1e-3 of the largest |plain|.
+most 1e-3 of the largest |plain|; on lit scenes each table part's column
+is held to its largest sum of |terms| (grad.bounce_bwd_terms), since a
+column of mixed-sign terms can sum to far below its terms; a light-row
+column to at least 1e-3 of the largest (a horizontal lamp's x and z
+cotangents are 0, their terms rounding of sums that cancel).
 """
 import os
 import sys
@@ -241,10 +246,11 @@ def test_grad_bwd_kernel_matches_plain(dev):
         cot = torch.from_numpy(rng.standard_normal(cont.shape)
                                .astype(np.float32)).to(dev)
         before = grad.bounce_bwd.launches
-        kci, kg, kt = grad.bounce_bwd(cont, ints, cot, tbl, **kw)
+        kci, kg, kt, kr = grad.bounce_bwd(cont, ints, cot, tbl, **kw)
         assert grad.bounce_bwd.launches == before + 1
-        pci, pg, pt = grad.bounce_bwd_reference(cont, ints, cot, tbl, **kw)
-        assert kt is None and pt is None
+        pci, pg, pt, pr = grad.bounce_bwd_reference(cont, ints, cot, tbl,
+                                                    **kw)
+        assert kt is None and pt is None and kr is None and pr is None
         assert bool(torch.isfinite(kci).all() and torch.isfinite(kg).all())
         for k, p, dim in ((kci, pci, 1), (kg[:, :13], pg[:, :13], 0)):
             scale = p.abs().amax(dim=dim, keepdim=True)
@@ -305,7 +311,7 @@ def test_grad_mesh_kernels_match_plain(dev, segments, rings, flat):
     rng = np.random.default_rng(4)
     for it, (cont, ints) in enumerate(tape):
         kw = dict(it=it, seed=3, max_depth=8, flat=flat)
-        ks, ps = (torch.zeros(3, dtype=torch.int64, device=dev)
+        ks, ps = (torch.zeros(4, dtype=torch.int64, device=dev)
                   for _ in range(2))
         kc, ki = grad.bounce_fwd(cont, ints, tbl, tris, stats=ks, **kw)
         pc, pi = grad.bounce_fwd_reference(cont, ints, tbl, tris, stats=ps,
@@ -314,9 +320,9 @@ def test_grad_mesh_kernels_match_plain(dev, segments, rings, flat):
         assert torch.equal(ks, ps), (it, ks.tolist(), ps.tolist())
         cot = torch.from_numpy(rng.standard_normal(cont.shape)
                                .astype(np.float32)).to(dev)
-        kci, kg, kt = grad.bounce_bwd(cont, ints, cot, tbl, tris, **kw)
-        pci, pg, pt = grad.bounce_bwd_reference(cont, ints, cot, tbl, tris,
-                                                **kw)
+        kci, kg, kt, _ = grad.bounce_bwd(cont, ints, cot, tbl, tris, **kw)
+        pci, pg, pt, _ = grad.bounce_bwd_reference(cont, ints, cot, tbl,
+                                                   tris, **kw)
         for k, p, dim in ((kci, pci, 1), (kg[:, :13], pg[:, :13], 0),
                           (kt[:, :14], pt[:, :14], 0)):
             assert bool(torch.isfinite(k).all())
@@ -346,4 +352,97 @@ def test_mesh_gradient_launches_kernels_only(dev, monkeypatch):
             grad.bounce_bwd.launches - before[1]) == (5, 5)
     g = grads.triangles.verts
     assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+    assert bool(torch.isfinite(loss))
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5 on lit scenes
+
+
+LIT_SCENES = {"light": (light_scene, True), "cornell": (cornell_scene, True),
+              "cornell_no_nee": (cornell_scene, False),
+              "textures": (textures_scene, False)}
+
+
+@pytest.mark.parametrize("name", list(LIT_SCENES))
+def test_grad_lit_kernels_match_plain(dev, name):
+    """K4's lit instance bit-identical to its plain version with equal
+    counters (box and triangle tests, live lanes, shadow rays) at every
+    bounce of one forward at 48x48 spp4 depth 8; K5 within 1e-3: cot_in
+    per row of its largest |plain|, g_tbl and g_tri per column of its
+    largest sum of |terms|, and g_rows per entry of its float64 sum, or of
+    a tenth of its sum of |terms| where the sum cancels below that (the
+    cotangents have one sign, so the emission columns' terms do not)."""
+    build, nee = LIT_SCENES[name]
+    scene, cam = build(1.0, device=dev)
+    lit = grad.grad_lit(scene, nee)
+    tbl, _ = mk.build_sphere_table(scene)
+    tris = grad.grad_tri_table(scene) if scene.n_triangles else None
+    gen = torch.Generator(dev).manual_seed(2)
+    pix = torch.arange(48 * 48, device=dev).repeat_interleave(4)
+    s, t = pixel_coords(48, 48, gen, pix)
+    cont, ints = mk.lane_state(camera_rays(cam, gen, s, t), pix.numel(), dev)
+    rng = np.random.default_rng(4)
+    shadows = 0
+    for it in range(9):
+        kw = dict(it=it, seed=3, max_depth=8, lit=lit,
+                  background=scene.background)
+        ks, ps = (torch.zeros(4, dtype=torch.int64, device=dev)
+                  for _ in range(2))
+        kc, ki = grad.bounce_fwd(cont, ints, tbl, tris, stats=ks, **kw)
+        pc, pi = grad.bounce_fwd_reference(cont, ints, tbl, tris, stats=ps,
+                                           **kw)
+        assert torch.equal(kc, pc) and torch.equal(ki, pi), it
+        assert torch.equal(ks, ps), it
+        shadows += int(ks[3])
+        cot = torch.from_numpy(np.abs(rng.standard_normal(cont.shape))
+                               .astype(np.float32)).to(dev)
+        kci, kg, kt, kr = grad.bounce_bwd(cont, ints, cot, tbl, tris, **kw)
+        pci, sph, tri, rows = grad.bounce_bwd_terms(cont, ints, cot, tbl,
+                                                    tris, **kw)
+        scale = pci.abs().amax(dim=1, keepdim=True)
+        assert bool(torch.isfinite(kci).all())
+        assert bool(((kci - pci).abs() <= 1e-3 * scale).all()), it
+        parts = [(kg, sph, tbl.shape[0])]
+        if tris is not None:
+            parts.append((kt, tri, tris.tbl.shape[0]))
+        for k, terms, n_rows in parts:
+            p = grad.table_sums(terms, n_rows)
+            mags = grad.table_sums((terms[0], terms[1].abs()), n_rows)
+            assert bool(torch.isfinite(k).all())
+            assert bool(((k - p).abs()
+                         <= 1e-3 * mags.amax(dim=0, keepdim=True)).all()), it
+        assert (kr is None) == (rows is None) == (not nee)
+        if rows is not None:  # an entry's scale >= 1e-3 of the largest
+            exact = rows.double().sum(dim=0)
+            mags = rows.double().abs().sum(dim=0)
+            scale = torch.maximum(exact.abs(), 0.1 * mags).clamp_min(
+                float(mags.max()) * 1e-3)
+            assert bool(torch.isfinite(kr).all())
+            assert bool(((kr.double() - exact).abs() <= 1e-3 * scale).all())
+        assert not kg[:, 12].any()
+        cont, ints = kc, ki
+    assert (shadows > 0) == nee
+
+
+def test_lit_gradient_launches_kernels_only(dev, monkeypatch):
+    """render_pixels_kernel(nee=True) on the Cornell box launches K4 and
+    K5 once per bounce, never their plain versions; the light-driven
+    gradients (the lamp's emission, the walls' albedo, the vertices) are
+    finite and non-zero."""
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(grad, "bounce_fwd_reference", refuse)
+    monkeypatch.setattr(grad, "bounce_bwd_reference", refuse)
+    scene, cam = cornell_scene(1.0, device=dev)
+    before = (grad.bounce_fwd.launches, grad.bounce_bwd.launches)
+    loss, grads = grad.loss_and_grad_kernel(
+        scene, cam, torch.Generator(dev).manual_seed(0),
+        torch.zeros((32 * 32, 3), device=dev), torch.arange(32 * 32),
+        width=32, height=32, spp=4, max_depth=4, nee=True)
+    assert (grad.bounce_fwd.launches - before[0],
+            grad.bounce_bwd.launches - before[1]) == (5, 5)
+    for g in (grads.materials.albedo, grads.triangles.verts):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
     assert bool(torch.isfinite(loss))

@@ -172,30 +172,51 @@ def test_scene_to_numpy_round_trips():
 # The wrappers' contract
 
 
+def _relabel(scene, kinds):
+    """``scene`` with the kinds of some materials changed ({material:
+    kind}), its metadata (emitters, textures) derived anew."""
+    arrays = {k: v.copy() for k, v in scene.to_numpy().items()}
+    for m, kind in kinds.items():
+        arrays["materials.kind"][m] = kind
+    if 6 in kinds.values():  # IMAGE: the metadata cannot be derived
+        k = scene.materials.kind.clone()
+        for m, kind in kinds.items():
+            k[m] = kind
+        return scene.replace_leaves({"materials.kind": k})
+    return Scene.from_numpy(arrays, "cpu", scene.background)
+
+
 def test_unported_arguments_raise(view):
+    """nee=True without an emitter is a ValueError (pallas_grad.py:
+    888-892), the sharded step's argument is not ported; emissive,
+    checker and noise materials render (the lit slice), image textures
+    raise, and so does nothing on an emissive mesh."""
     cam, pix, _ = view
     scene = _two_lambertians()
     kw = dict(width=W, height=H, spp=1, max_depth=1)
     gen = torch.Generator().manual_seed(0)
-    for extra in (dict(nee=True), dict(grad_reduce_axes=("spp",))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            grad.render_pixels_kernel(scene, cam, gen, pix, **kw, **extra)
-    for kind in (3, 4, 5, 6):  # emissive, checker, noise, image
-        mats = scene.materials.kind.clone()
-        mats[0] = kind
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            grad.render_pixels_kernel(
-                scene.replace_leaves({"materials.kind": mats}), cam, gen,
-                pix, **kw)
-    # A mesh is in the kernels; an emissive one is not.
-    kinds = scene.materials.kind.clone()
-    kinds[1] = 3
-    tris = scene.replace_leaves({
-        "triangles.verts": torch.ones((1, 3, 3)),
-        "triangles.material": torch.ones((1,), dtype=torch.int32),
-        "materials.kind": kinds})
+    with pytest.raises(ValueError, match="emissive"):
+        grad.render_pixels_kernel(scene, cam, gen, pix, nee=True, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        grad.render_pixels_kernel(tris, cam, gen, pix, **kw)
+        grad.render_pixels_kernel(scene, cam, gen, pix,
+                                  grad_reduce_axes=("spp",), **kw)
+    for kind in (3, 4, 5, 6):  # emissive, checker, noise, image
+        lit = _relabel(scene, {0: kind})
+        if kind == 6:
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                grad.render_pixels_kernel(lit, cam, gen, pix, **kw)
+            continue
+        loss, grads = grad.loss_and_grad_kernel(
+            lit, cam, gen, torch.zeros((pix.shape[0], 3)), pix,
+            nee=kind == 3, **kw)
+        assert np.isfinite(float(loss))
+        assert bool(torch.isfinite(grads.materials.albedo).all())
+    # A mesh is in the kernels, and so is an emissive one.
+    tris = _relabel(scene.replace_leaves({
+        "triangles.verts": torch.ones((1, 3, 3)),
+        "triangles.material": torch.ones((1,), dtype=torch.int32)}), {1: 3})
+    img = grad.render_pixels_kernel(tris, cam, gen, pix, nee=True, **kw)
+    assert bool(torch.isfinite(img).all())
 
 
 def test_sorted_lanes_on_spheres_match_unsorted(view):

@@ -109,9 +109,9 @@ def test_one_bounce_matches_bounce_grad_and_its_vjp(covers, background):
     kw = dict(it=it, seed=seed, max_depth=depth, background=background)
     c_t, i_t = torch.from_numpy(cont), torch.from_numpy(ints)
     pc, pi = grad.bounce_fwd(c_t, i_t, tbl, **kw)
-    pcot, pgtbl, pgtri = grad.bounce_bwd(c_t, i_t, torch.from_numpy(cot), tbl,
-                                         **kw)
-    assert pgtri is None  # no triangles
+    pcot, pgtbl, pgtri, prows = grad.bounce_bwd(
+        c_t, i_t, torch.from_numpy(cot), tbl, **kw)
+    assert pgtri is None and prows is None  # no triangles, no light rows
 
     # Forward: the discrete state is equal; the floats differ by last bits
     # magnified in the re-derived t (every lane within 5e-3, 80% of lanes

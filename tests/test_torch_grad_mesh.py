@@ -54,7 +54,7 @@ from rtow_tpu.ops import pallas_grad as jgrad
 from rtow_tpu.ops import pallas_megakernel as jmk
 from rtow_tpu_torch import diff
 from rtow_tpu_torch.models.camera import Rays, make_camera
-from rtow_tpu_torch.models.scene import SceneBuilder
+from rtow_tpu_torch.models.scene import Scene, SceneBuilder
 from rtow_tpu_torch.ops import grad
 from rtow_tpu_torch.ops import megakernel as mk
 
@@ -206,10 +206,10 @@ def test_one_bounce_matches_bounce_grad_and_its_vjp(segments, rings, knot):
     tris = grad.grad_tri_table(scene)
     kw = dict(it=it, seed=seed, max_depth=depth)
     c_t, i_t = torch.from_numpy(cont), torch.from_numpy(ints)
-    stats = torch.zeros(3, dtype=torch.int64)
+    stats = torch.zeros(4, dtype=torch.int64)
     pc, pi = grad.bounce_fwd(c_t, i_t, tbl, tris, stats=stats, **kw)
-    pcot, pgtbl, pgtri = grad.bounce_bwd(c_t, i_t, torch.from_numpy(cot),
-                                         tbl, tris, **kw)
+    pcot, pgtbl, pgtri, _ = grad.bounce_bwd(c_t, i_t, torch.from_numpy(cot),
+                                            tbl, tris, **kw)
 
     # Both kinds were hit, and the sweep was counted.
     assert np.abs(pgtri.numpy()).sum() > 0 and np.abs(pgtbl.numpy()).sum() > 0
@@ -433,19 +433,22 @@ def test_caps_raise():
 
 
 def test_lit_meshes_raise():
-    """An emissive knot, and a knot in fog: their adjoints are not in the
-    kernels yet."""
+    """The knot over an emissive ground renders through the lit kernels
+    (emission, and NEE toward the ground past the triangles); a knot in
+    fog still raises: media are ROADMAP Queue 1 item 10b."""
     _, scene = _knot_scenes(16, 12)
-    kinds = scene.materials.kind.clone()
-    kinds[0] = 3
+    arrays = {k: v.copy() for k, v in scene.to_numpy().items()}
+    arrays["materials.kind"][1] = 3
     verts, faces = make_knot(16, 12)
     b = SceneBuilder()
     b.add_mesh(verts[faces], b.add_lambertian((0.6, 0.5, 0.4)))
     b.add_fog_sphere((0.0, 0.0, 0.0), 0.5, 1.0)
     cam = make_camera(device="cpu", **CAM)
-    for lit in (scene.replace_leaves({"materials.kind": kinds}),
-                b.build(device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            grad.render_pixels_kernel(lit, cam, torch.Generator(),
-                                      torch.arange(4), width=2, height=2,
-                                      spp=1, max_depth=1)
+    kw = dict(width=2, height=2, spp=1, max_depth=1)
+    img = grad.render_pixels_kernel(
+        Scene.from_numpy(arrays, "cpu"), cam, torch.Generator(),
+        torch.arange(4), nee=True, **kw)
+    assert bool(torch.isfinite(img).all())
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10b"):
+        grad.render_pixels_kernel(b.build(device="cpu"), cam,
+                                  torch.Generator(), torch.arange(4), **kw)

@@ -287,7 +287,8 @@ def test_k3_check_scene_names_each_feature():
 
 @pytest.mark.parametrize("feature", ["light", "checker", "fog"])
 def test_gradient_kernels_refuse_lit_scenes(feature):
-    """K4 / K5 have the sphere, sky and three-material bounce only."""
+    """K4 / K5 take emission, NEE and textures since the lit slice of the
+    gradient path; media are still refused (ROADMAP Queue 1 item 10b)."""
     b = SceneBuilder()
     b.add_sphere((0, -100, 0), 100.0, b.add_lambertian((0.5,) * 3))
     if feature == "light":
@@ -300,6 +301,15 @@ def test_gradient_kernels_refuse_lit_scenes(feature):
     cam = make_camera(lookfrom=(0, 1, 4), lookat=(0, 1, 0), fov_degrees=40,
                       aspect_ratio=1.0, aperture=0.0, focus_dist=4.0,
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        grad.render_pixels_kernel(scene, cam, torch.Generator(), [0, 1],
-                                  width=8, height=8, spp=1, max_depth=1)
+    kw = dict(width=8, height=8, spp=1, max_depth=1,
+              nee=feature == "light")
+    if feature == "fog":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP Queue 1 item 10b"):
+            grad.render_pixels_kernel(scene, cam, torch.Generator(), [0, 1],
+                                      **kw)
+        return
+    img = grad.render_pixels_kernel(scene, cam, torch.Generator(),
+                                    list(range(64)), **kw)
+    assert img.shape == (64, 3) and bool(torch.isfinite(img).all())
+    assert float(img.max()) > 0

@@ -104,13 +104,26 @@ def test_cli_renders_a_mesh_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags", [
     ["--globe"], ["-l", os.path.join(ROOT, "samples", "knot_small.obj"),
-                  "--backend", "jnp"], ["-t", "2"],
+                  "--backend", "jnp"],
     ["--backend", "jnp"], ["--profile-dir", "trace"],
 ])
 def test_unported_flags_fail_loudly(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--device", "cpu", "-w", "8", "-s", "1", "-o", os.devnull,
                   *flags])
+
+
+def test_devices_flag_renders_on_one_device(tmp_path):
+    """``-t 2`` with fewer than two cards renders on one device, as the
+    JAX CLI does (rtow_tpu/pipeline.py:219): here, on the CPU, the same
+    PPM as ``-t 1``."""
+    out = {}
+    for t in ("1", "2"):
+        path = tmp_path / f"t{t}.ppm"
+        assert cli.main(["--device", "cpu", "-w", "16", "-s", "2", "-c", "3",
+                         "-t", t, "-o", str(path)]) == 0
+        out[t] = path.read_bytes()
+    assert out["1"] == out["2"]
 
 
 def test_unported_materials_fail_loudly():
