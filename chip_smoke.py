@@ -32,7 +32,13 @@ forward+backward times of both bench knots) and lit inverse rendering
 box and ``light_scene`` with NEE, ``textures_scene`` and the checker
 cover; three ``diff.build_train_step(nee=True)`` steps on the Cornell box
 at 400x400, 16 samples per pixel, depth 8, the lamp's emission and the
-walls' albedo; the forward and forward+backward times).  Every phase
+walls' albedo; the forward and forward+backward times) and inverse
+rendering through media (K4's and K5's media against their plain
+versions on the smoke box with and without NEE, a fog ball under a
+sphere light and a fog box under the sky; three
+``diff.build_train_step(nee=True)`` steps of the smoke box's densities
+and albedos at 400x400, 16 samples per pixel, depth 8; the forward and
+forward+backward times).  Every phase
 prints one line; any failed check raises and the script exits non-zero.  The
 line before the card line is the kernels' JSON summary; the last line
 of standard output is one JSON object:
@@ -111,6 +117,10 @@ LR_MESH = 3.0
 #: Lit inverse rendering: the JAX package's Cornell demo's step for the
 #: walls' albedo (tools/inverse_demo.py:165-169), for every albedo row.
 LR_LIT = 30.0
+#: Media inverse rendering: one SGD rate for the smoke box's densities and
+#: albedos (the densities' gradients are ~40x the albedos': measured with
+#: the plain versions at 40x40 spp4 on the CPU, the loss fell at 0.01-0.05).
+LR_VOL = 0.02
 
 #: The light-driven path: the Cornell box as BASELINE.md:336-343 measured
 #: it (400 px, depth 8, NEE at 512 spp), the smoke box alike.
@@ -409,6 +419,7 @@ def main() -> None:
     lit = lit_phases(torch, dev, card, say, event_ms, cover_radiance)
     mesh_grad = mesh_grad_phases(torch, dev, card, say, event_ms)
     lit_grad = lit_grad_phases(torch, dev, card, say, event_ms)
+    vol_grad = vol_grad_phases(torch, dev, card, say, event_ms)
 
     print(json.dumps({"kernels": [{
         "name": "megakernel",
@@ -422,7 +433,8 @@ def main() -> None:
         "bound_ms": k1_bound,
         "bound_by": "operations",
         "library_ms": None,
-    }, mesh, lit] + grad + mesh_grad + lit_grad}), flush=True)
+    }, mesh, lit] + grad + mesh_grad + lit_grad + vol_grad}),
+        flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -704,12 +716,20 @@ def check_rows(torch, k, p, exact, mags, what):
     return r
 
 
-def plant_faults(torch, k, p, sums, what) -> str:
-    """check_rows's rule on K5's light-row cotangent ``k`` made wrong on
-    purpose, every entry scaled by 1.01 and the whole of it 0 -> what the
-    rule read on each; raises CheckFailed if it would pass either."""
+def plant_faults(torch, k, p, sums, what, vol_row0=None) -> str:
+    """check_rows's rule on K5's row cotangent ``k`` made wrong on purpose,
+    every entry scaled by 1.01 and the whole of it 0, and where the rows
+    hold volumes (from ``vol_row0`` on) their density column scaled by
+    1.01 and 0 -> what the rule read on each; raises CheckFailed if it
+    would pass any."""
+    faults = [("x1.01", k * 1.01), ("0", torch.zeros_like(k))]
+    if vol_row0 is not None:
+        for fault, factor in (("density x1.01", 1.01), ("density 0", 0.0)):
+            bad = k.clone()
+            bad[vol_row0:, 6] *= factor
+            faults.append((fault, bad))
     seen = []
-    for fault, bad in (("x1.01", k * 1.01), ("0", torch.zeros_like(k))):
+    for fault, bad in faults:
         r = rows_agreement(torch, bad, p, *sums)
         check(r[1] > GRAD_TOL or r[2] > GRAD_SHARE,
               f"{what}: check_rows passed K5's g_rows {fault}")
@@ -1731,28 +1751,149 @@ def lit_grad_phases(torch, dev, card, say, event_ms):
     plain versions made to raise; the forward and forward+backward
     medians, K4 and K5 by CUDA events with their bounds, and a profiled
     step.  Returns the lit instances' JSON entries."""
-    import numpy as np
-
-    from rtow_tpu_torch import diff
     from rtow_tpu_torch.config import Config
     from rtow_tpu_torch.models.builders import (
         cornell_scene, cover_scene, light_scene, textures_scene,
     )
-    from rtow_tpu_torch.models.camera import camera_rays, pixel_coords
-    from rtow_tpu_torch.ops import grad as G
-    from rtow_tpu_torch.ops import megakernel as mk
-
-    rng = np.random.default_rng(2)
 
     def checker_cover(aspect, device):
         return cover_scene(Config(image_width=W_LIT, aspect_ratio=aspect,
                                   checker_ground=True), device=device)
 
-    # name -> (builder, aspect, nee)
-    scenes = {"cornell": (cornell_scene, 1.0, True),
-              "light": (light_scene, 1.0, True),
-              "textures": (textures_scene, 1.5, False),
-              "checker_cover": (checker_cover, 1.5, False)}
+    def start(scene):
+        # cornell_scene's materials: 0 white, 1 red, 2 green, 3 the lamp,
+        # 4 the mirror.
+        albedo = scene.materials.albedo.clone()
+        albedo[3] = 5.0
+        albedo[1] = 0.4
+        return scene.replace_leaves({"materials.albedo": albedo})
+
+    def moved(first, cur):
+        return (f"lamp {float(first.materials.albedo[3].mean()):.4g} -> "
+                f"{float(cur.materials.albedo[3].mean()):.4g}, red wall -> "
+                + ", ".join(f"{x:.4g}" for x in
+                            cur.materials.albedo[1].tolist()))
+
+    return grad_feature_phases(torch, dev, card, say, event_ms, dict(
+        phases=("21", "22"), what="lit", suffix="_lit",
+        scenes={"cornell": (cornell_scene, 1.0, True),
+                "light": (light_scene, 1.0, True),
+                "textures": (textures_scene, 1.5, False),
+                "checker_cover": (checker_cover, 1.5, False)},
+        timed="cornell", counter="lit_launches",
+        train=dict(scene="cornell", start=start, lr=LR_LIT,
+                   keep=lambda p: p.endswith("albedo"),
+                   about="albedo mask, the lamp from 5 toward 15, the red "
+                         "wall from 0.4", moved=moved,
+                   grad_ok=lambda g: float(
+                       g.materials.albedo[3].abs().max()) > 0)))
+
+
+def fog_light_scene(aspect, device):
+    """``fog_light_setup`` of tests/test_pallas_grad_volumes.py: a fog ball
+    ("s") and a sphere light over a gray ground, black background."""
+    from rtow_tpu_torch.models.scene import SceneBuilder
+
+    b = SceneBuilder()
+    g = b.add_lambertian((0.5, 0.5, 0.5))
+    lamp = b.add_light((6.0, 5.0, 4.0))
+    b.add_sphere((0.0, -100.5, -1.0), 100.0, g)
+    b.add_sphere((0.8, 2.2, -0.6), 0.35, lamp)
+    b.add_fog_sphere((0.0, 0.4, -1.0), 0.6, density=2.0,
+                     albedo=(0.8, 0.7, 0.6))
+    return (b.build(background=(0.0, 0.0, 0.0), device=device),
+            fog_camera(aspect, device))
+
+
+def fog_box_scene(aspect, device):
+    """An unrotated fog box ("b") over the same ground under the sky."""
+    from rtow_tpu_torch.models.scene import SceneBuilder
+
+    b = SceneBuilder()
+    b.add_sphere((0.0, -100.5, -1.0), 100.0, b.add_lambertian((0.5,) * 3))
+    b.add_fog_box((-0.5, -0.2, -1.5), (0.5, 0.9, -0.5), 2.0,
+                  albedo=(0.8, 0.7, 0.6))
+    return b.build(device=device), fog_camera(aspect, device)
+
+
+def fog_camera(aspect, device):
+    from rtow_tpu_torch.models.camera import make_camera
+
+    return make_camera(lookfrom=(0.0, 0.5, 1.8), lookat=(0.0, 0.3, -1.0),
+                       fov_degrees=55.0, aspect_ratio=aspect, aperture=0.0,
+                       focus_dist=1.0, device=device)
+
+
+def vol_grad_phases(torch, dev, card, say, event_ms):
+    """Phases 23-24: K4's and K5's media (their lit instances with the
+    free-flight event, NEE from it and the shadow rays' transmittance)
+    against their plain versions at every bounce of one forward (the smoke
+    box with and without NEE, the fog ball under a sphere light with NEE,
+    a fog box under the sky; all 400x400 spp16 depth 8), then media
+    inverse rendering at full size: three
+    ``diff.build_train_step(nee=True)`` steps on the smoke box from its
+    densities doubled and the white fog's albedo at 0.6, training the
+    densities and albedos, with the plain versions made to raise; the
+    forward and forward+backward medians, K4 and K5 by CUDA events with
+    their bounds, and a profiled step.  Returns the media's JSON
+    entries."""
+    from rtow_tpu_torch.models.builders import smoke_scene
+
+    def start(scene):
+        v = scene.volumes
+        albedo = v.albedo.clone()
+        albedo[1] = 0.6  # the white fog
+        return scene.replace_leaves({"volumes.density": v.density * 2.0,
+                                     "volumes.albedo": albedo})
+
+    def moved(first, cur):
+        return (f"densities {first.volumes.density.tolist()} -> "
+                + ", ".join(f"{x:.5g}" for x in cur.volumes.density.tolist())
+                + ", white fog albedo 0.6 -> " + ", ".join(
+                    f"{x:.5g}" for x in cur.volumes.albedo[1].tolist()))
+
+    return grad_feature_phases(torch, dev, card, say, event_ms, dict(
+        phases=("23", "24"), what="media", suffix="_vol",
+        scenes={"smoke_nee": (smoke_scene, 1.0, True),
+                "smoke": (smoke_scene, 1.0, False),
+                "fog_light": (fog_light_scene, 1.0, True),
+                "fog_box": (fog_box_scene, 1.0, False)},
+        timed="smoke_nee", counter="vol_launches",
+        train=dict(scene="smoke_nee", start=start, lr=LR_VOL,
+                   keep=lambda p: p in ("volumes.density", "volumes.albedo"),
+                   about="densities and albedos, the densities from twice "
+                         "theirs, the white fog's albedo from 0.6",
+                   moved=moved,
+                   grad_ok=lambda g: bool(
+                       (g.volumes.density.abs() > 0).all())
+                   and float(g.volumes.albedo.abs().max()) > 0)))
+
+
+def grad_feature_phases(torch, dev, card, say, event_ms, spec):
+    """Two phases of one feature of the gradient kernels (``spec``: its
+    phase numbers, scenes (name -> (builder, aspect, nee)) and trainer):
+    K4's and K5's instances against their plain versions at every bounce
+    of one forward on each scene at W_LIT wide, spp16 depth 8 (K4 bit for
+    bit with equal counters, K5 by check_k5 under same-sign cotangents,
+    wrong g_rows planted and refused each time; both kernels timed on
+    the forward's launches), then three ``diff.build_train_step(nee=...)``
+    steps of the trainer's scene at full size with the plain versions
+    made to raise (9 launches of each kernel a step, all counted in
+    ``spec["counter"]``, and a falling loss), the forward and
+    forward+backward medians, K4 and K5 by CUDA events on the timed
+    scene's tape with their bounds, and a profiled step.  Returns the two
+    JSON entries."""
+    import numpy as np
+
+    from rtow_tpu_torch import diff
+    from rtow_tpu_torch.models.camera import camera_rays, pixel_coords
+    from rtow_tpu_torch.ops import grad as G
+    from rtow_tpu_torch.ops import megakernel as mk
+
+    p_cmp, p_train = spec["phases"]
+    what = spec["what"]
+    rng = np.random.default_rng(2)
+    scenes = spec["scenes"]
 
     def setup(name):
         build, aspect, nee = scenes[name]
@@ -1761,7 +1902,7 @@ def lit_grad_phases(torch, dev, card, say, event_ms):
         lit = G.grad_lit(scene, nee)
         tbl, _ = mk.build_sphere_table(scene)
         tris = G.grad_tri_table(scene) if scene.n_triangles else None
-        return scene, cam, width, height, lit, tbl, tris
+        return scene, cam, width, height, lit, tbl, tris, nee
 
     def tape_of(scene, cam, width, height, lit, tbl, tris, seed=7):
         """The (depth + 1) input states of one forward through K4 from
@@ -1783,10 +1924,32 @@ def lit_grad_phases(torch, dev, card, say, event_ms):
     def counters():
         return torch.zeros(4, dtype=torch.int64, device=dev)
 
-    # ---- (21) the lit instances against their plain versions -----------
+    def kernel_ms(scene, tbl, tris, lit, tape):
+        """Medians of 3 (after a warm-up) of K4's and K5's (depth + 1)
+        launches on ``tape`` (K5 under standard-normal cotangents), each
+        set issued back to back between one pair of CUDA events ->
+        ((K4 ms, runs), (K5 ms, runs))."""
+        n = tape[0][0].shape[1]
+        cots = [torch.from_numpy(rng.standard_normal((13, n))
+                                 .astype(np.float32)).to(dev) for _ in tape]
+        args = [dict(it=it, seed=0, max_depth=DEPTH_GRAD, lit=lit,
+                     background=scene.background) for it in range(len(tape))]
+        out = []
+        for kern, bwd in ((G.bounce_fwd, False), (G.bounce_bwd, True)):
+            def run():
+                return event_ms(torch, lambda: [
+                    kern(c, i, ct, tbl, tris, **a) if bwd
+                    else kern(c, i, tbl, tris, **a)
+                    for (c, i), ct, a in zip(tape, cots, args)])[0]
+            run()  # warm-up
+            runs = [run() for _ in range(3)]
+            out.append((statistics.median(runs), runs))
+        return out
+
+    # ---- the instances against their plain versions ---------------------
     lines, errs, timed, planted = [], [], {}, []
     for name in scenes:
-        scene, cam, width, height, lit, tbl, tris = setup(name)
+        scene, cam, width, height, lit, tbl, tris, _nee = setup(name)
         tape = tape_of(scene, cam, width, height, lit, tbl, tris)
         npad = tbl.shape[0]
         worst, f64, counts, p_ms, coherent = {}, {}, [], [0.0, 0.0], 0
@@ -1799,12 +1962,12 @@ def lit_grad_phases(torch, dev, card, say, event_ms):
                 cont, ints, tbl, tris, stats=ps, **a))
             p_ms[0] += ms
             check(torch.equal(kc, pc) and torch.equal(ki, pi),
-                  f"K4 lit {name}, bounce {it}: not bit-identical (max |d| "
-                  f"{float((kc - pc).abs().max())})")
+                  f"K4 {what} {name}, bounce {it}: not bit-identical (max "
+                  f"|d| {float((kc - pc).abs().max())})")
             check(torch.equal(ks, ps),
-                  f"K4 lit {name}, bounce {it}: counted {ks.tolist()}, "
+                  f"K4 {what} {name}, bounce {it}: counted {ks.tolist()}, "
                   f"plain {ps.tolist()}")
-            # Same-sign cotangents: a light row's entry then sums its lanes'
+            # Same-sign cotangents: a row's entry then sums its lanes'
             # terms without random cancellation (the emission columns' terms
             # all share one sign), so check_rows holds it to its own value.
             cot = torch.from_numpy(np.abs(rng.standard_normal(
@@ -1834,17 +1997,19 @@ def lit_grad_phases(torch, dev, card, say, event_ms):
             if l_t is not None:
                 sums["g_rows"] = (l_t.double().sum(dim=0),
                                   l_t.double().abs().sum(dim=0))
-            res = check_k5(torch, kern, plain, f"lit {name}, bounce {it}",
+            del l_t
+            res = check_k5(torch, kern, plain, f"{what} {name}, bounce {it}",
                            sums=sums)
             check(torch.equal(kb, ks) and torch.equal(pb, ps),
-                  f"K5 lit {name}, bounce {it}: its replay counted "
+                  f"K5 {what} {name}, bounce {it}: its replay counted "
                   f"{kb.tolist()} / {pb.tolist()}, K4 {ks.tolist()}")
             if "g_rows" in res:
                 coherent += res["g_rows"][3]
                 res["g_rows"] = res["g_rows"][:3] + res["g_rows"][4:]
                 if it == 0:  # the rule must refuse a wrong sum
-                    planted.append(plant_faults(torch, kern[3], plain[3],
-                                                sums["g_rows"], name))
+                    planted.append(plant_faults(
+                        torch, kern[3], plain[3], sums["g_rows"], name,
+                        vol_row0=lit.vol_row0 if lit.vol_kinds else None))
             for part, r in res.items():
                 worst[part] = max(worst.get(part, 0.0), r[1])
                 errs.append(r[0])
@@ -1852,69 +2017,70 @@ def lit_grad_phases(torch, dev, card, say, event_ms):
                     f64[part] = [max(x, y) for x, y in
                                  zip(f64.get(part, (0.0, 0.0)), r[3:])]
             counts.append(ks.tolist())
-        if name == "cornell":  # phase 22 times the kernels here
+        (k4_ms, _), (k5_ms, _) = kernel_ms(scene, tbl, tris, lit, tape)
+        if name == spec["timed"]:  # the next phase times the kernels here
             timed = (scene, tbl, tris, lit, tape, counts, p_ms)
         live = sum(c[2] for c in counts)
         shadows = sum(c[3] for c in counts)
         lines.append(
             f"{name} ({tape[0][0].shape[1]} lanes, {len(lit.nee_kinds)} "
-            f"lights, checker {lit.checker}): {live} live lane-bounces, "
-            f"{shadows} shadow rays, {sum(c[1] for c in counts)} triangle "
-            f"tests; {coherent} coherent light-row entries; plain K4 "
-            f"{p_ms[0]:.1f} ms, K5 {p_ms[1]:.1f} ms; K5 "
-            f"worst share of scale " + ", ".join(
-                f"{k} {v:.2g}" for k, v in worst.items())
+            f"lights, {len(lit.vol_kinds)} volumes "
+            f"{''.join(lit.vol_kinds)}, checker {lit.checker}): {live} live "
+            f"lane-bounces, {shadows} shadow rays, "
+            f"{sum(c[1] for c in counts)} triangle tests; {coherent} "
+            f"coherent row entries; K4 {k4_ms:.3f} ms, K5 {k5_ms:.3f} ms "
+            f"(its {len(tape)} launches, median of 3); plain K4 "
+            f"{p_ms[0]:.1f} ms, K5 {p_ms[1]:.1f} ms; K5 worst share of "
+            f"scale " + ", ".join(f"{k} {v:.2g}" for k, v in worst.items())
             + "; from the float64 sum, kernel / plain: " + ", ".join(
                 f"{k} {v[0]:.2g} / {v[1]:.2g}" for k, v in f64.items()))
-    say("21", f"K4 / K5 lit instances vs plain on {card}, all "
-              f"{DEPTH_GRAD + 1} bounces of one forward at spp{SPP_GRAD} "
-              f"depth {DEPTH_GRAD}: K4 bit-identical with equal counters "
-              f"(box tests, triangle tests, live lanes, shadow rays), K5's "
-              f"replay counting the same, K5 within {GRAD_TOL} of the scale "
-              f"(cot_in: its row's max |plain|; g_tbl, g_tri: the column's "
-              f"largest sum of |terms|; g_rows: each entry's own float64 "
-              f"sum, or {ROWS_CANCEL} of its sum of |terms| where that "
-              f"cancels), same-sign cotangents; " + "; ".join(lines)
-              + "; g_rows x1.01 and g_rows = 0 planted at bounce 0, both "
-              "refused: " + ", ".join(planted))
+    say(p_cmp, f"K4 / K5 {what} instances vs plain on {card}, all "
+               f"{DEPTH_GRAD + 1} bounces of one forward at spp{SPP_GRAD} "
+               f"depth {DEPTH_GRAD}: K4 bit-identical with equal counters "
+               f"(box tests, triangle tests, live lanes, shadow rays), K5's "
+               f"replay counting the same, K5 within {GRAD_TOL} of the "
+               f"scale (cot_in: its row's max |plain|; g_tbl, g_tri: the "
+               f"column's largest sum of |terms|; g_rows: each entry's own "
+               f"float64 sum, or {ROWS_CANCEL} of its sum of |terms| where "
+               f"that cancels), same-sign cotangents; " + "; ".join(lines)
+               + "; wrong sums planted at bounce 0, each refused: "
+               + ", ".join(planted))
 
-    # ---- (22) lit inverse rendering at full size --------------------------
-    scene, cam, width, height, lit, tbl, tris = setup("cornell")
+    # ---- the trainer at full size -------------------------------------------
+    tr = spec["train"]
+    scene, cam, width, height, lit, tbl, tris, nee = setup(tr["scene"])
     n_pix = width * height
     pix = torch.arange(n_pix, device=dev)
     kw = dict(width=width, height=height, spp=SPP_GRAD,
-              max_depth=DEPTH_GRAD, nee=True)
+              max_depth=DEPTH_GRAD, nee=nee)
     with torch.no_grad():
         target = G.render_pixels_kernel(
             scene, cam, torch.Generator(dev).manual_seed(123), pix, **kw)
-    # cornell_scene's materials: 0 white, 1 red, 2 green, 3 the lamp, 4
-    # the mirror.
-    albedo = scene.materials.albedo.clone()
-    albedo[3] = 5.0
-    albedo[1] = 0.4
-    start = scene.replace_leaves({"materials.albedo": albedo})
-    step = diff.build_train_step(cam, lr=LR_LIT,
-                                 keep=lambda p: p.endswith("albedo"), **kw)
+    start = tr["start"](scene)
+    step = diff.build_train_step(cam, lr=tr["lr"], keep=tr["keep"], **kw)
 
     def refuse(*_a, **_k):
-        raise CheckFailed("the lit trainer ran a plain version on the card")
+        raise CheckFailed(f"the {what} trainer ran a plain version on the "
+                          f"card")
 
+    counter = spec["counter"]
     plain = (G.bounce_fwd_reference, G.bounce_bwd_reference)
     G.bounce_fwd_reference = G.bounce_bwd_reference = refuse
     try:
         losses, cur, per_step = [], start, []
-        G.bounce_fwd.launches = G.bounce_bwd.launches = 0
-        G.bounce_fwd.lit_launches = G.bounce_bwd.lit_launches = 0
+        for f in (G.bounce_fwd, G.bounce_bwd):
+            f.launches = 0
+            setattr(f, counter, 0)
         t0 = time.perf_counter()
         for _ in range(3):
             cur, loss = step(cur, torch.Generator(dev).manual_seed(7), target)
             losses.append(float(loss))
             per_step.append((G.bounce_fwd.launches, G.bounce_bwd.launches,
-                             G.bounce_fwd.lit_launches,
-                             G.bounce_bwd.lit_launches))
+                             getattr(G.bounce_fwd, counter),
+                             getattr(G.bounce_bwd, counter)))
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        main_launches = per_step[-1][:2]
+        main_launches = per_step[-1][2:]
 
         def fwd_call():
             with torch.no_grad():
@@ -1937,90 +2103,77 @@ def lit_grad_phases(torch, dev, card, say, event_ms):
         G.bounce_fwd_reference, G.bounce_bwd_reference = plain
     want = [(k * (DEPTH_GRAD + 1),) * 4 for k in (1, 2, 3)]
     check(per_step == want,
-          f"K4 / K5 launches and lit launches after each lit train step "
+          f"K4 / K5 launches and {counter} after each {what} train step "
           f"{per_step}, not {want}")
     check(all(np.isfinite(losses)) and losses[0] > losses[1] > losses[2],
-          f"lit trainer: loss did not fall over the steps: {losses}")
-    ga = grads.materials.albedo
+          f"{what} trainer: loss did not fall over the steps: {losses}")
     check(bool(torch.isfinite(loss)) and all(
         bool(torch.isfinite(g).all()) for g in grads.leaves().values()
-        if g is not None) and float(ga[3].abs().max()) > 0,
-        "lit trainer: loss_and_grad not finite, or no lamp gradient")
-    lamp0 = float(start.materials.albedo[3].mean())
-    lamp3 = float(cur.materials.albedo[3].mean())
-    red3 = cur.materials.albedo[1].tolist()
+        if g is not None) and tr["grad_ok"](grads),
+        f"{what} trainer: loss_and_grad not finite, or a trained leaf "
+        f"without a gradient")
     fwd_ms, fb_ms = statistics.median(fwd_runs), statistics.median(fb_runs)
-    say("22", f"3 train steps of the Cornell box {width}x{height} "
-              f"spp{SPP_GRAD} depth {DEPTH_GRAD}, nee=True (lr {LR_LIT}, "
-              f"albedo mask, the lamp from 5 toward 15, the red wall from "
-              f"0.4): loss {', '.join(f'{x:.6g}' for x in losses)}; lamp "
-              f"{lamp0:.4g} -> {lamp3:.4g}, red wall -> "
-              f"{', '.join(f'{x:.4g}' for x in red3)}; K4 {main_launches[0]} "
-              f"and K5 {main_launches[1]} launches, all lit, no plain "
-              f"version; {train_s:.2f} s")
-    say("22", f"on {card}: forward {fwd_ms:.2f} ms (median of "
-              f"{', '.join(f'{x:.2f}' for x in fwd_runs)}), "
-              f"{n_pix * SPP_GRAD / fwd_ms / 1e3:.3f} Mrays/s; "
-              f"forward+backward {fb_ms:.2f} ms (median of "
-              f"{', '.join(f'{x:.2f}' for x in fb_runs)}); grad_ratio "
-              f"{fb_ms / fwd_ms:.3f}")
+    say(p_train, f"3 train steps of {tr['scene']} {width}x{height} "
+                 f"spp{SPP_GRAD} depth {DEPTH_GRAD}, nee={nee} (lr "
+                 f"{tr['lr']}, {tr['about']}): loss "
+                 f"{', '.join(f'{x:.6g}' for x in losses)}; "
+                 f"{tr['moved'](start, cur)}; K4 {main_launches[0]} and K5 "
+                 f"{main_launches[1]} launches, all counted in {counter}, no "
+                 f"plain version; {train_s:.2f} s")
+    say(p_train, f"on {card}: forward {fwd_ms:.2f} ms (median of "
+                 f"{', '.join(f'{x:.2f}' for x in fwd_runs)}), "
+                 f"{n_pix * SPP_GRAD / fwd_ms / 1e3:.3f} Mrays/s; "
+                 f"forward+backward {fb_ms:.2f} ms (median of "
+                 f"{', '.join(f'{x:.2f}' for x in fb_runs)}); grad_ratio "
+                 f"{fb_ms / fwd_ms:.3f}")
     busy_ms = sum(dev_ms.values())
     parts = split_device_time(dev_ms, (("K4", "grad_fwd"),
                                        ("K5", "grad_bwd")))
     top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:6]
-    say("22", f"one lit train step under torch.profiler on {card}: "
-              f"{step_ms:.2f} ms wall, device kernels {busy_ms:.2f} ms "
-              f"(idle share {1 - busy_ms / step_ms:.1%}): K4 "
-              f"{parts['K4']:.2f}, K5 {parts['K5']:.2f}, other "
-              f"{parts['other'] + parts['sort'] + parts['gather']:.2f} ms; "
-              f"by kernel: " + "; ".join(f"{k[:40]} {ms:.3f} ms"
-                                        for k, ms in top))
+    say(p_train, f"one {what} train step under torch.profiler on {card}: "
+                 f"{step_ms:.2f} ms wall, device kernels {busy_ms:.2f} ms "
+                 f"(idle share {1 - busy_ms / step_ms:.1%}): K4 "
+                 f"{parts['K4']:.2f}, K5 {parts['K5']:.2f}, other "
+                 f"{parts['other'] + parts['sort'] + parts['gather']:.2f} "
+                 f"ms; by kernel: " + "; ".join(f"{k[:40]} {ms:.3f} ms"
+                                                for k, ms in top))
 
-    # K4 and K5 alone: one forward's and one backward's 9 launches on
-    # phase 21's tape of the Cornell box, by CUDA events, beside the plain
-    # versions' times on the same launches there, and the bound from the
-    # counts of those launches.
+    # K4 and K5 alone: one forward's and one backward's 9 launches on the
+    # timed scene's tape, by CUDA events, beside the plain versions' times
+    # on the same launches there, and the bound from the counts of those
+    # launches.
     scene, tbl, tris, lit, tape, counts, plain_ms = timed
     n = tape[0][0].shape[1]
     n_sph = scene.n_spheres
-    cots = [torch.from_numpy(rng.standard_normal((13, n)).astype(np.float32))
-            .to(dev) for _ in tape]
-
-    def run_all(fn, bwd):
-        return event_ms(torch, lambda: [
-            fn(c, i, ct, tbl, tris, **a) if bwd else fn(c, i, tbl, tris, **a)
-            for (c, i), ct, a in zip(
-                tape, cots, [dict(it=it, seed=0, max_depth=DEPTH_GRAD,
-                                  lit=lit, background=scene.background)
-                             for it in range(len(tape))])])
-
+    n_vol = len(lit.vol_kinds)
     rows = []
-    for kname, kern, p_ms, bwd in (
-            ("grad_fwd", G.bounce_fwd, plain_ms[0], False),
-            ("grad_bwd", G.bounce_bwd, plain_ms[1], True)):
-        run_all(kern, bwd)  # warm-up
-        k_runs = [run_all(kern, bwd)[0] for _ in range(3)]
-        k_ms = statistics.median(k_runs)
+    for kname, (k_ms, k_runs), p_ms, bwd in zip(
+            ("grad_fwd", "grad_bwd"), kernel_ms(scene, tbl, tris, lit, tape),
+            plain_ms, (False, True)):
         bound = 0.0
         by_ops = by_bytes = 0
         for box, tri, live, shadows in counts:
-            # Per live lane-bounce the step and the sphere sweep, and the
-            # ray's inverse directions for the triangle sweep; per box and
-            # triangle test (both sweeps) their unconditional part; per
-            # shadow ray its light sample, MIS weight and contribution and
-            # its sphere sweep; K5 adds the shade's cheapest adjoint per
-            # lane, and per shadow ray the sample's replay and an adjoint
-            # at least as long.
+            # Per live lane-bounce the step and the sphere sweep, the ray's
+            # inverse directions for the triangle sweep, and per volume its
+            # interval and free flight; per box and triangle test (both
+            # sweeps) their unconditional part; per shadow ray its light
+            # sample, MIS weight and contribution, its sphere sweep and per
+            # volume the transmittance's interval; K5 adds the shade's
+            # cheapest adjoint per lane, and per shadow ray and per volume
+            # the replay and an adjoint at least as long.
+            twice = 2 if bwd else 1
             ops = (live * (OPS_PER_STEP + OPS_INV_DIR + OPS_PER_ROW * n_sph
+                           + OPS_PER_VOL * n_vol * twice
                            + (OPS_BWD_EXTRA if bwd else 0))
                    + box * OPS_PER_BOX + tri * OPS_PER_TRI
-                   + shadows * (OPS_NEE * (2 if bwd else 1)
+                   + shadows * ((OPS_NEE + OPS_PER_VOL * n_vol) * twice
                                 + OPS_PER_ROW * n_sph))
             # Bytes: the lane arrays in and out once (K5: the state and the
             # output cotangents in, the input cotangents out), the tables
-            # and light rows in once, K5's table gradients out once.
-            tables = (tbl.numel() + tris.tbl.numel() + tris.boxes.numel()
-                      + lit.rows.numel()) * 4
+            # and rows in once, K5's table gradients out once.
+            tables = (tbl.numel() + lit.rows.numel() + (
+                0 if tris is None
+                else tris.tbl.numel() + tris.boxes.numel())) * 4
             nbytes = ((16 + 13 + 13 if bwd else 16 + 16) * 4 * n
                       + tables * (2 if bwd else 1))
             ops_s, bytes_s = ops / PEAK_F32, nbytes / PEAK_BYTES
@@ -2028,16 +2181,17 @@ def lit_grad_phases(torch, dev, card, say, event_ms):
             by_ops += ops_s >= bytes_s
             by_bytes += ops_s < bytes_s
         by = "operations" if by_ops >= by_bytes else "bytes"
-        say("22", f"{kname} lit instance on the Cornell box: {len(tape)} "
-                  f"launches of {n} lanes on {card}: kernel {k_ms:.3f} ms "
-                  f"(median of {', '.join(f'{x:.3f}' for x in k_runs)}); "
-                  f"plain {p_ms:.1f} ms (phase 21); bound {bound:.3f} ms "
-                  f"(operations in {by_ops} launches, bytes in {by_bytes}) "
-                  f"= {bound / k_ms:.1%} of the kernel time; per launch "
-                  f"(box tests, triangle tests, live lanes, shadow rays): "
-                  f"{counts}")
+        say(p_train, f"{kname} {what} instance on {spec['timed']}: "
+                     f"{len(tape)} launches of {n} lanes on {card}: kernel "
+                     f"{k_ms:.3f} ms (median of "
+                     f"{', '.join(f'{x:.3f}' for x in k_runs)}); plain "
+                     f"{p_ms:.1f} ms (phase {p_cmp}); bound {bound:.3f} ms "
+                     f"(operations in {by_ops} launches, bytes in "
+                     f"{by_bytes}) = {bound / k_ms:.1%} of the kernel time; "
+                     f"per launch (box tests, triangle tests, live lanes, "
+                     f"shadow rays): {counts}")
         rows.append({
-            "name": f"{kname}_lit",
+            "name": f"{kname}{spec['suffix']}",
             "route": "cuda",
             "source": f"rtow_tpu_torch/csrc/{kname}.cu",
             "replaces": ("rtow_tpu/ops/pallas_grad.py:224" if bwd

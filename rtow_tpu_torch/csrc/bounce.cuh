@@ -778,14 +778,16 @@ RTOW_HD float transmittance(const Lit& L, const Ray& r, float t_max) {
   return expf(-tau);
 }
 
-// The free-flight volume event before t_surf (sample_volume_event): whether
-// one lands, at t_v, with the medium's albedo.
-RTOW_HD bool volume_event(const Lit& L, const Ray& r, uint32_t lane,
-                          uint32_t salt, float t_surf, float* t_v,
-                          float* alb) {
+// The free-flight volume event before t_surf (sample_volume_event): the
+// volume where one lands (-1 where none does), at t_v, with the medium's
+// albedo.
+RTOW_HD int volume_event(const Lit& L, const Ray& r, uint32_t lane,
+                         uint32_t salt, float t_surf, float* t_v,
+                         float* alb) {
   const float dlen =
       sqrtf(at_least(r.dx * r.dx + r.dy * r.dy + r.dz * r.dz, 1e-24f));
   float tv = kLightFar;
+  int win = -1;
   for (int k = 0; k < L.n_vol; ++k) {
     float t0, t1;
     const bool valid =
@@ -798,13 +800,14 @@ RTOW_HD bool volume_event(const Lit& L, const Ray& r, uint32_t lane,
     const float t_k = t_in + -logf(at_least(u, 1e-12f)) / sigma / dlen;
     if (valid && t_in < t_out && t_k < t_out && t_k < tv) {
       tv = t_k;
+      win = k;
       alb[0] = q[8];
       alb[1] = q[9];
       alb[2] = q[10];
     }
   }
   *t_v = tv;
-  return tv < kLightFar;
+  return win;
 }
 
 // Next-event estimation from p (_nee_contrib): a light sample, its MIS
@@ -899,7 +902,8 @@ RTOW_HD int bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
   const bool nee = kLit && L.n_lights > 0;
   if constexpr (kLit) {
     float v_t, v_alb[3];
-    if (L.n_vol > 0 && volume_event(L, r, lane, salt, best_t, &v_t, v_alb)) {
+    if (L.n_vol > 0 &&
+        volume_event(L, r, lane, salt, best_t, &v_t, v_alb) >= 0) {
       if (*bounce >= max_depth) return 0;
       const float vpx = r.ox + v_t * r.dx;
       const float vpy = r.oy + v_t * r.dy;

@@ -7,20 +7,25 @@
 // order of the forward in bounce.cuh: the shade (from the output cotangents
 // to those of the hit point, the normal, the input direction and the
 // material), the lit features where the bounce has them (emission and its
-// MIS weight, next-event estimation with the light sample, the textures),
-// then the hit record of the winner's kind, a sphere's or a triangle's (to
-// the input state and the winner's table row).  The replay calls the
-// forward's own functions -- nearest_sphere, then nearest_triangle where the
-// scene has triangles, sample_light, the shadow sweep, light_pdf_toward --
-// so every discrete decision (the winner, hit or miss, which root, the face,
-// TIR and Schlick's choice, k > 0, the material, the picked light, the
-// shadow ray's visibility, which lights match the hit, the checker's cell)
-// is the forward's, bit for bit.  Discrete decisions carry no cotangent.
-// Tie rules are autograd's on the plain version
-// (rtow_tpu_torch/ops/megakernel.py:shade, ops/lights.py), which are JAX's
-// but at a max / clamp tie: min(cos_raw, 1) passes half the cotangent at
-// cos_raw == 1; |r| passes sign(r), 0 at r = 0; at_least(x, lo) passes all
-// of it where x >= lo (torch.clamp's rule); a select passes nothing to the
+// MIS weight, next-event estimation with the light sample and the shadow
+// ray's transmittance, the textures), then the hit record of the winner's
+// kind, a sphere's or a triangle's (to the input state and the winner's
+// table row); or, where a free-flight event lands first, the volume
+// scatter's (pallas_grad.py:317-337: the event's distance, a function of
+// the volume's density and boundary and of the ray, and its albedo).  The
+// replay calls the forward's own functions -- nearest_sphere, then
+// nearest_triangle where the scene has triangles, volume_event,
+// sample_light, the shadow sweep, light_pdf_toward -- so every discrete
+// decision (the winner, hit or miss, which root, the face, TIR and
+// Schlick's choice, k > 0, the material, the picked light, the shadow ray's
+// visibility, which lights match the hit, the checker's cell, which
+// volume's event lands first, if any) is the forward's, bit for bit.
+// Discrete decisions carry no cotangent.  Tie rules are autograd's on the
+// plain version (rtow_tpu_torch/ops/megakernel.py:shade, ops/lights.py,
+// ops/volumes.py), which are JAX's but at a clamp tie: min(cos_raw, 1)
+// passes half the cotangent at cos_raw == 1, as a box slab's min / max
+// does; |r| passes sign(r), 0 at r = 0; at_least(x, lo) passes all of it
+// where x >= lo (torch.clamp's rule); a select passes nothing to the
 // branch it drops, so the guarded square roots and divisions of the forward
 // take no part.
 #pragma once
@@ -366,20 +371,22 @@ RTOW_HD float unit_adjoint(const float* to, float d2, const float* g_w,
 }
 
 // The adjoint of sample_light for the picked light k from p at time tm:
-// from the cotangents of the sampled direction gdir, of the pdf g_pdf and of
-// the weights g_w (3) to the point's gp (added), the time's *g_tm (added)
-// and the row's gq (14, added).  The distance ls.t feeds the shadow sweep
-// only, a discrete decision.  Sphere: the cone sample (cos_max through
-// sqrt_pos, the Frisvad basis with its sign a constant); triangle: the area
-// sample (the point from v0, e1, e2; cos_a; area; d2).
+// from the cotangents of the sampled direction gdir, of the pdf g_pdf, of
+// the weights g_w (3) and of the light's distance g_t (the shadow ray's
+// transmittance reads it; its sweep is a discrete decision) to the point's
+// gp (added), the time's *g_tm (added) and the row's gq (14, added).
+// Sphere: the cone sample (cos_max through sqrt_pos, the Frisvad basis with
+// its sign a constant) and the distance to the sphere along it; triangle:
+// the area sample (the point from v0, e1, e2; cos_a; area; d2).
 RTOW_HD void sample_light_adjoint(const Lit& L, int k, float u1, float u2,
                                   const float* p, float tm, const float* gdir,
-                                  float g_pdf, const float* g_w, float* gp,
-                                  float* g_tm, float* gq) {
+                                  float g_pdf, const float* g_w, float g_t,
+                                  float* gp, float* g_tm, float* gq) {
   const float* q = L.rows + kLitCols * k;
   const float n = static_cast<float>(L.n_lights);
   float g_to[3] = {0.0f, 0.0f, 0.0f};
-  float g_d2 = 0.0f;
+  float g_d2 = 0.0f, g_r2 = 0.0f;
+  float gd[3] = {gdir[0], gdir[1], gdir[2]};
   if (((L.light_kinds >> (2 * k)) & 3u) == 0u) {  // sphere
     const float c[3] = {q[1] + tm * q[4], q[2] + tm * q[5], q[3] + tm * q[6]};
     const float r2 = q[7] * q[7];
@@ -408,6 +415,21 @@ RTOW_HD void sample_light_adjoint(const Lit& L, int k, float u1, float u2,
     const float disc = oc_d * oc_d - (d2 - r2);
     const bool ok = d2 > r2 && disc > 0.0f;
     const float geo = ok ? 2.0f * (1.0f - cos_max) * n : 0.0f;
+    // t = at_least(t_k, 1e-4), t_k = -oc_d - sqrt_pos(disc, 0),
+    // disc = oc_d^2 - (d2 - r2), oc_d = -(to . dir)
+    if (-oc_d - sqrt_pos(disc, 0.0f) >= 1e-4f) {
+      float g_ocd = -g_t;
+      if (disc > 0.0f) {
+        const float g_disc = -g_t * 0.5f / sqrtf(disc);
+        g_ocd += 2.0f * oc_d * g_disc;
+        g_d2 -= g_disc;
+        g_r2 += g_disc;
+      }
+      for (int i = 0; i < 3; ++i) {
+        g_to[i] -= g_ocd * dir[i];
+        gd[i] -= g_ocd * to[i];
+      }
+    }
     // w_c = emit_c * geo
     float g_geo = 0.0f;
     for (int c = 0; c < 3; ++c) {
@@ -424,11 +446,11 @@ RTOW_HD void sample_light_adjoint(const Lit& L, int k, float u1, float u2,
     float g_u[3], g_v[3], g_w3[3];
     float g_sin = 0.0f, g_cos = 0.0f;
     for (int i = 0; i < 3; ++i) {
-      g_sin += gdir[i] * (cp * u[i] + sp * v[i]);
-      g_u[i] = gdir[i] * cp * sin_t;
-      g_v[i] = gdir[i] * sp * sin_t;
-      g_cos += gdir[i] * w[i];
-      g_w3[i] = gdir[i] * cos_t;
+      g_sin += gd[i] * (cp * u[i] + sp * v[i]);
+      g_u[i] = gd[i] * cp * sin_t;
+      g_v[i] = gd[i] * sp * sin_t;
+      g_cos += gd[i] * w[i];
+      g_w3[i] = gd[i] * cos_t;
     }
     // the basis: b = wx wy a, a = -1 / (sign + wz), da / dwz = a^2
     const float g_b = g_u[1] * sign + g_v[0];
@@ -441,10 +463,10 @@ RTOW_HD void sample_light_adjoint(const Lit& L, int k, float u1, float u2,
     if (st_arg > 1e-12f) g_cos -= 2.0f * cos_t * (g_sin * 0.5f / sin_t);
     g_cm += u1 * g_cos;
     // cos_max = sqrt_pos(1 - r2 / dd), dd = at_least(d2, 1e-12)
-    float g_dd = 0.0f, g_r2 = 0.0f;
+    float g_dd = 0.0f;
     if (cm_arg > 0.0f) {
       const float g_arg = g_cm * 0.5f / cos_max;
-      g_r2 = -g_arg / dd;
+      g_r2 -= g_arg / dd;
       g_dd = g_arg * r2 / (dd * dd);
     }
     if (d2 >= 1e-12f) g_d2 += g_dd;
@@ -469,8 +491,11 @@ RTOW_HD void sample_light_adjoint(const Lit& L, int k, float u1, float u2,
       to[i] = q[1 + i] + bu * e1[i] + bv * e2[i] - p[i];
     const float d2 = dot3(to, to);
     const float dd = at_least(d2, 1e-12f);
-    const float inv_d = 1.0f / sqrtf(dd);
+    const float dist = sqrtf(dd);
+    const float inv_d = 1.0f / dist;
     const float dir[3] = {to[0] * inv_d, to[1] * inv_d, to[2] * inv_d};
+    // t = at_least(dist, 1e-4), dist = sqrt(dd)
+    if (dist >= 1e-4f && d2 >= 1e-12f) g_d2 += g_t * 0.5f / dist;
     const float nb[3] = {e1[1] * e2[2] - e1[2] * e2[1],
                          e1[2] * e2[0] - e1[0] * e2[2],
                          e1[0] * e2[1] - e1[1] * e2[0]};
@@ -502,7 +527,7 @@ RTOW_HD void sample_light_adjoint(const Lit& L, int k, float u1, float u2,
     float g_dir[3], g_nb[3];
     const float g_nlen = g_cos_a * dn / (nlen * nlen);
     for (int i = 0; i < 3; ++i) {
-      g_dir[i] = gdir[i] - g_cos_a * nb[i] / nlen;
+      g_dir[i] = gd[i] - g_cos_a * nb[i] / nlen;
       g_nb[i] = -g_cos_a * dir[i] / nlen;
       if (l2 >= 1e-24f) g_nb[i] += nb[i] * (g_nlen / nlen);
     }
@@ -738,34 +763,226 @@ RTOW_HD void texture_adjoint(const float4* tbl, int k, const Material& m0,
   }
 }
 
-// The adjoint of next_event at surface hit e with the textured material m
-// (the gradient path has no media): replays the light sample and the
-// shadow sweep (counting it in tally as the forward does); where the
-// shadow ray got through, maps the radiance cotangents G[10..12] to the
-// throughput's gin[7..9], the hit point's, the normal's and the albedo's
-// (g), the time's (*g_tm) and the picked light's row (g_lrows), all added.
+// ---- the media's adjoints ---------------------------------------------------
+
+// z = max(x, y) and z = min(x, y): z's cotangent g to x's and y's (added),
+// half to each at a tie, as torch.maximum and torch.minimum pass it.
+RTOW_HD void max_adjoint(float x, float y, float g, float* gx, float* gy) {
+  if (x > y) {
+    *gx += g;
+  } else if (x < y) {
+    *gy += g;
+  } else {
+    *gx += 0.5f * g;
+    *gy += 0.5f * g;
+  }
+}
+
+RTOW_HD void min_adjoint(float x, float y, float g, float* gx, float* gy) {
+  max_adjoint(-x, -y, g, gx, gy);
+}
+
+// The adjoint of vol_interval for volume k along a ray (o, d) that crosses
+// its boundary: from the cotangents g_t0, g_t1 of the interval to the ray's
+// g_o, g_d and the volume row's gq (14), all added.  A sphere: both roots
+// of the quadratic (columns 0-3).  A box: the slabs' min / max (columns
+// 0-5); a rotated box also through the ray's inverse rotation and
+// translation (columns 7 and 11-13).  A direction component inside the
+// 1e-24 guard is the constant there.
+RTOW_HD void vol_interval_adjoint(const Lit& L, int k, const float* o,
+                                  const float* d, float g_t0, float g_t1,
+                                  float* g_o, float* g_d, float* gq) {
+  const float* q = L.rows + kLitCols * (L.vol_row0 + k);
+  const uint32_t kind = (L.vol_kinds >> (2 * k)) & 3u;
+  if (kind == 0u) {  // t0, t1 = (-h -/+ sq) inv_a, sq = sqrt(disc)
+    const float oc[3] = {o[0] - q[0], o[1] - q[1], o[2] - q[2]};
+    const float a = dot3(d, d);
+    const float h = dot3(oc, d);
+    const float c = dot3(oc, oc) - q[3] * q[3];
+    const float disc = h * h - a * c;
+    const float sq = sqrtf(disc);
+    const float inv_a = 1.0f / at_least(a, 1e-24f);
+    const float g_inv = g_t0 * (-h - sq) + g_t1 * (-h + sq);
+    float g_h = -(g_t0 + g_t1) * inv_a;
+    const float g_disc = (g_t1 - g_t0) * inv_a * 0.5f / sq;
+    // disc = h^2 - a c
+    g_h += 2.0f * h * g_disc;
+    float g_a = -c * g_disc;
+    const float g_c = -a * g_disc;
+    if (a >= 1e-24f) g_a -= g_inv * inv_a * inv_a;
+    // c = |oc|^2 - r^2, h = oc . d, a = |d|^2, oc = o - center
+    for (int i = 0; i < 3; ++i) {
+      const float g_oc = 2.0f * oc[i] * g_c + g_h * d[i];
+      g_o[i] += g_oc;
+      gq[i] -= g_oc;
+      g_d[i] += g_h * oc[i] + 2.0f * d[i] * g_a;
+    }
+    gq[3] -= 2.0f * q[3] * g_c;
+    return;
+  }
+  float lo_o[3] = {o[0], o[1], o[2]}, lo_d[3] = {d[0], d[1], d[2]};
+  float cs = 1.0f, sn = 0.0f, w[3] = {0.0f, 0.0f, 0.0f};
+  if (kind == 2u) {  // the ray in the box's frame
+    cs = cosf(q[7]);
+    sn = sinf(q[7]);
+    for (int i = 0; i < 3; ++i) w[i] = o[i] - q[11 + i];
+    lo_o[0] = cs * w[0] - sn * w[2];
+    lo_o[1] = w[1];
+    lo_o[2] = sn * w[0] + cs * w[2];
+    lo_d[0] = cs * d[0] - sn * d[2];
+    lo_d[2] = sn * d[0] + cs * d[2];
+  }
+  float inv[3], ta[3], tb[3], lo[3], hi[3];
+  for (int i = 0; i < 3; ++i) {
+    const float di = fabsf(lo_d[i]) < 1e-24f
+                         ? (lo_d[i] < 0.0f ? -1e-24f : 1e-24f)
+                         : lo_d[i];
+    inv[i] = 1.0f / di;
+    ta[i] = (q[i] - lo_o[i]) * inv[i];
+    tb[i] = (q[3 + i] - lo_o[i]) * inv[i];
+    lo[i] = ta[i] < tb[i] ? ta[i] : tb[i];
+    hi[i] = ta[i] > tb[i] ? ta[i] : tb[i];
+  }
+  // t0 = max(max(lo0, lo1), lo2), t1 = min(min(hi0, hi1), hi2)
+  float g_lo[3] = {0.0f, 0.0f, 0.0f}, g_hi[3] = {0.0f, 0.0f, 0.0f};
+  float g_m = 0.0f, g_n = 0.0f;
+  max_adjoint(lo[0] > lo[1] ? lo[0] : lo[1], lo[2], g_t0, &g_m, &g_lo[2]);
+  max_adjoint(lo[0], lo[1], g_m, &g_lo[0], &g_lo[1]);
+  min_adjoint(hi[0] < hi[1] ? hi[0] : hi[1], hi[2], g_t1, &g_n, &g_hi[2]);
+  min_adjoint(hi[0], hi[1], g_n, &g_hi[0], &g_hi[1]);
+  float g_lo_o[3], g_lo_d[3];
+  for (int i = 0; i < 3; ++i) {
+    // lo = min(ta, tb), hi = max(ta, tb); ta = (lo_col - o) inv, tb alike
+    float g_ta = 0.0f, g_tb = 0.0f;
+    min_adjoint(ta[i], tb[i], g_lo[i], &g_ta, &g_tb);
+    max_adjoint(ta[i], tb[i], g_hi[i], &g_ta, &g_tb);
+    gq[i] += g_ta * inv[i];
+    gq[3 + i] += g_tb * inv[i];
+    g_lo_o[i] = -(g_ta * inv[i] + g_tb * inv[i]);
+    const float g_inv = g_ta * (q[i] - lo_o[i]) + g_tb * (q[3 + i] - lo_o[i]);
+    g_lo_d[i] = fabsf(lo_d[i]) < 1e-24f ? 0.0f : -g_inv * inv[i] * inv[i];
+  }
+  if (kind == 2u) {
+    // lo_o = R w, lo_d = R d: R = [[c, 0, -s], [0, 1, 0], [s, 0, c]]
+    const float g_c = g_lo_o[0] * w[0] + g_lo_o[2] * w[2] +
+                      g_lo_d[0] * d[0] + g_lo_d[2] * d[2];
+    const float g_s = -g_lo_o[0] * w[2] + g_lo_o[2] * w[0] -
+                      g_lo_d[0] * d[2] + g_lo_d[2] * d[0];
+    gq[7] += cs * g_s - sn * g_c;
+    const float g_w[3] = {cs * g_lo_o[0] + sn * g_lo_o[2], g_lo_o[1],
+                          -sn * g_lo_o[0] + cs * g_lo_o[2]};
+    for (int i = 0; i < 3; ++i) {
+      g_o[i] += g_w[i];
+      gq[11 + i] -= g_w[i];
+    }
+    g_d[0] += cs * g_lo_d[0] + sn * g_lo_d[2];
+    g_d[1] += g_lo_d[1];
+    g_d[2] += -sn * g_lo_d[0] + cs * g_lo_d[2];
+  } else {
+    for (int i = 0; i < 3; ++i) {
+      g_o[i] += g_lo_o[i];
+      g_d[i] += g_lo_d[i];
+    }
+  }
+}
+
+// |d| = sqrt(at_least(|d|^2, 1e-24)): adds its cotangent g_len to d's.
+RTOW_HD void len_adjoint(const float* d, float g_len, float* g_d) {
+  const float a2 = dot3(d, d);
+  if (!(a2 >= 1e-24f)) return;
+  const float g_a2 = g_len * 0.5f / sqrtf(a2);
+  for (int i = 0; i < 3; ++i) g_d[i] += 2.0f * d[i] * g_a2;
+}
+
+// The adjoint of transmittance(L, r, t_max) = T = exp(-tau),
+// tau = sum_k sigma_k at_least(min(t1, t_max) - at_least(t0, 0), 0) |d|
+// over the volumes the ray crosses: from T's cotangent g_T to the ray's
+// origin g_o and direction g_d, t_max's *g_tmax (all added) and the volume
+// rows' g_lrows (from row vol_row0 on).
+RTOW_HD void transmittance_adjoint(const Lit& L, const Ray& r, float t_max,
+                                   float T, float g_T, float* g_o,
+                                   float* g_d, float* g_tmax,
+                                   float* g_lrows) {
+  const float o[3] = {r.ox, r.oy, r.oz}, d[3] = {r.dx, r.dy, r.dz};
+  const float dlen = sqrtf(at_least(dot3(d, d), 1e-24f));
+  const float g_tau = -g_T * T;
+  float g_len = 0.0f;
+  for (int k = 0; k < L.n_vol; ++k) {
+    float t0, t1;
+    if (!vol_interval(L, k, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, &t0, &t1))
+      continue;
+    const float* q = L.rows + kLitCols * (L.vol_row0 + k);
+    const float t_out = t1 < t_max ? t1 : t_max;
+    const float raw = t_out - at_least(t0, 0.0f);
+    const float overlap = at_least(raw, 0.0f);
+    // tau += (sigma overlap) |d|
+    float gq[kLitCols] = {};
+    const float g_so = g_tau * dlen;
+    g_len += g_tau * (q[6] * overlap);
+    gq[6] = g_so * overlap;
+    const float g_ov = raw >= 0.0f ? g_so * q[6] : 0.0f;
+    float g_t1 = 0.0f;
+    min_adjoint(t1, t_max, g_ov, &g_t1, g_tmax);
+    vol_interval_adjoint(L, k, o, d, t0 >= 0.0f ? -g_ov : 0.0f, g_t1, g_o,
+                         g_d, gq);
+    add_rows(g_lrows + kLitCols * (L.vol_row0 + k), gq);
+  }
+  len_adjoint(d, g_len, g_d);
+}
+
+// The adjoint of volume k's free-flight distance along r,
+// t_v = at_least(t0, 1e-3) + (-log u) / max(sigma, 1e-12) / |d| with u the
+// lane's uniform at salt 16 + k: from t_v's cotangent g_tv to the ray's
+// g_o, g_d and the volume row's gq (all added).
+RTOW_HD void free_flight_adjoint(const Lit& L, int k, const Ray& r,
+                                 uint32_t lane, uint32_t salt, float g_tv,
+                                 float* g_o, float* g_d, float* gq) {
+  const float o[3] = {r.ox, r.oy, r.oz}, d[3] = {r.dx, r.dy, r.dz};
+  const float* q = L.rows + kLitCols * (L.vol_row0 + k);
+  float t0, t1;
+  vol_interval(L, k, r.ox, r.oy, r.oz, r.dx, r.dy, r.dz, &t0, &t1);
+  const float dlen = sqrtf(at_least(dot3(d, d), 1e-24f));
+  const float sigma = q[6] < 1e-12f ? 1e-12f : q[6];
+  const float x = -logf(at_least(uniform(lane, salt, 16 + k), 1e-12f)) / sigma;
+  // step = x / |d|, x = -log u / sigma
+  const float g_x = g_tv / dlen;
+  len_adjoint(d, -g_tv * (x / dlen) / dlen, g_d);
+  if (q[6] >= 1e-12f) gq[6] -= g_x * (x / sigma);
+  vol_interval_adjoint(L, k, o, d, t0 >= 1e-3f ? g_tv : 0.0f, 0.0f, g_o, g_d,
+                       gq);
+}
+
+// The adjoint of next_event from p = (px, py, pz): a surface hit's with
+// the normal n and the textured albedo, or a volume event's (`volume`: the
+// isotropic phase, n unused) with the medium's albedo.  Replays the light
+// sample and the shadow sweep (counting it in tally as the forward does);
+// where the shadow ray got through, maps the radiance cotangents G[10..12]
+// to the throughput's gin[7..9], the point's, the normal's and the
+// albedo's (g), the time's (*g_tm), the picked light's row and, through
+// the shadow ray's transmittance, the volume rows (g_lrows), all added.
 template <bool kTris>
 RTOW_HD void next_event_adjoint(const float4* tbl, int npad, const Tris& tris,
-                                const Lit& L, const float* s, const Hit& e,
-                                const Material& m, uint32_t lane,
-                                uint32_t salt, const float* G, float* gin,
-                                ShadeGrad* g, float* g_tm, float* g_lrows,
-                                Tally* tally) {
+                                const Lit& L, const float* s, float px,
+                                float py, float pz, float nx, float ny,
+                                float nz, float nar, float nag, float nab,
+                                bool volume, uint32_t lane, uint32_t salt,
+                                const float* G, float* gin, ShadeGrad* g,
+                                float* g_tm, float* g_lrows, Tally* tally) {
   const float pick = uniform(lane, salt, 8);
   const float u1 = uniform(lane, salt, 9);
   const float u2 = uniform(lane, salt, 10);
   int k = static_cast<int>(pick * static_cast<float>(L.n_lights));
   if (k > L.n_lights - 1) k = L.n_lights - 1;
-  const LightSample ls = sample_light(L, k, u1, u2, e.px, e.py, e.pz, s[6]);
+  const LightSample ls = sample_light(L, k, u1, u2, px, py, pz, s[6]);
   const float thresh = ls.t * kShadowFrac;
-  const float dot = e.nx * ls.dx + e.ny * ls.dy + e.nz * ls.dz;
+  const float dot = nx * ls.dx + ny * ls.dy + nz * ls.dz;
   const float cos_t = at_least(dot, 0.0f);
-  const float phase = cos_t * kInvPi;
+  const float phase = volume ? kQuarterInvPi : cos_t * kInvPi;
+  const float f0 = volume ? 0.25f : cos_t;
   const float sum = ls.pdf + phase;
   const float den = at_least(sum, kEps12);
   const float w_l = ls.pdf / den;
-  const float cw = cos_t * w_l;
-  const Ray sr{e.px, e.py, e.pz, ls.dx, ls.dy, ls.dz, s[6]};
+  const Ray sr{px, py, pz, ls.dx, ls.dy, ls.dz, s[6]};
   const float la = sr.dx * sr.dx + sr.dy * sr.dy + sr.dz * sr.dz;
   ++tally->shadows;
   float st;
@@ -773,9 +990,12 @@ RTOW_HD void next_event_adjoint(const float4* tbl, int npad, const Tris& tris,
   nearest_sphere(tbl, npad, sr, la, 1.0f / la, thresh, &st, &sk);
   if constexpr (kTris) nearest_triangle(tris, sr, npad, &st, &sk, tally);
   if (!(st >= thresh)) return;  // blocked: nothing was added
+  const float T = L.n_vol > 0 ? transmittance(L, sr, ls.t) : 1.0f;
+  const float factor = f0 * T;
+  const float cw = factor * w_l;
 
   // c_c = tp_c al_c w_c cw
-  const float al[3] = {m.alr, m.alg, m.alb};
+  const float al[3] = {nar, nag, nab};
   const float lw[3] = {ls.w0, ls.w1, ls.w2};
   float g_w[3], g_al[3], g_cw = 0.0f;
   for (int c = 0; c < 3; ++c) {
@@ -788,24 +1008,32 @@ RTOW_HD void next_event_adjoint(const float4* tbl, int npad, const Tris& tris,
   g->alr += g_al[0];
   g->alg += g_al[1];
   g->alb += g_al[2];
-  // cw = cos_t w_l, w_l = pdf / at_least(pdf + cos_t / pi, 1e-12)
-  const float g_wl = g_cw * cos_t;
-  float g_pdf = g_wl / den, g_cos = g_cw * w_l;
+  // cw = (f0 T) w_l, w_l = pdf / at_least(pdf + phase, 1e-12); at a
+  // surface f0 = cos_t and phase = cos_t / pi, at a volume event constants
+  const float g_wl = g_cw * factor;
+  const float g_factor = g_cw * w_l;
+  float g_pdf = g_wl / den, g_cos = volume ? 0.0f : g_factor * T;
   if (sum >= kEps12) {
     const float g_den = -g_wl * ls.pdf / (den * den);
     g_pdf += g_den;
-    g_cos += g_den * kInvPi;
+    if (!volume) g_cos += g_den * kInvPi;
   }
+  float gp[3] = {0.0f, 0.0f, 0.0f}, g_dir[3] = {0.0f, 0.0f, 0.0f};
+  float g_t = 0.0f;
+  if (L.n_vol > 0)
+    transmittance_adjoint(L, sr, ls.t, T, g_factor * f0, gp, g_dir, &g_t,
+                          g_lrows);
   const float g_dot = dot >= 0.0f ? g_cos : 0.0f;
   g->nx += g_dot * ls.dx;
   g->ny += g_dot * ls.dy;
   g->nz += g_dot * ls.dz;
-  const float g_dir[3] = {g_dot * e.nx, g_dot * e.ny, g_dot * e.nz};
-  const float p[3] = {e.px, e.py, e.pz};
-  float gp[3] = {0.0f, 0.0f, 0.0f};
+  g_dir[0] += g_dot * nx;
+  g_dir[1] += g_dot * ny;
+  g_dir[2] += g_dot * nz;
+  const float p[3] = {px, py, pz};
   float gq[kLitCols] = {};
-  sample_light_adjoint(L, k, u1, u2, p, s[6], g_dir, g_pdf, g_w, gp, g_tm,
-                       gq);
+  sample_light_adjoint(L, k, u1, u2, p, s[6], g_dir, g_pdf, g_w, g_t, gp,
+                       g_tm, gq);
   g->px += gp[0];
   g->py += gp[1];
   g->pz += gp[2];
@@ -852,6 +1080,52 @@ RTOW_HD void emission_adjoint(const Lit& L, const Ray& r, float a,
   light_pdf_adjoint(L, r, t_hit, g_pl, gin, gin + 3, g_tm, g_lrows);
 }
 
+// The adjoint of a volume scatter (the volume branch of bounce_lane_t)
+// at t_v in volume kv with the medium's albedo v_alb: the new state is
+// o' = p = o + t_v d, the isotropic direction (a constant), tp' = tp alb,
+// and under NEE rad' = rad + the light sample's contribution from p.  Writes
+// gin[0..5] and gin[7..9], adds to gin[6] (a moving light's time) and the
+// rows' g_lrows: the volume's density, albedo and boundary, the picked
+// light's, and every volume's the shadow ray crosses.
+template <bool kTris>
+RTOW_HD void volume_adjoint(const float4* tbl, int npad, const Tris& tris,
+                            const Lit& L, const float* s, const Ray& r,
+                            int kv, float v_t, const float* v_alb, bool nee,
+                            uint32_t lane, uint32_t salt, const float* G,
+                            float* gin, float* g_lrows, Tally* tally) {
+  const float d[3] = {r.dx, r.dy, r.dz};
+  const float p[3] = {r.ox + v_t * r.dx, r.oy + v_t * r.dy,
+                      r.oz + v_t * r.dz};
+  float gq[kLitCols] = {};
+  ShadeGrad g{};
+  g.px = G[0];
+  g.py = G[1];
+  g.pz = G[2];
+  for (int c = 0; c < 3; ++c) {
+    gin[7 + c] = G[7 + c] * v_alb[c];
+    gq[8 + c] = G[7 + c] * s[7 + c];
+  }
+  float g_tm = 0.0f;
+  if (nee)
+    next_event_adjoint<kTris>(tbl, npad, tris, L, s, p[0], p[1], p[2], 0.0f,
+                              0.0f, 0.0f, v_alb[0], v_alb[1], v_alb[2], true,
+                              lane, salt, G, gin, &g, &g_tm, g_lrows, tally);
+  gq[8] += g.alr;
+  gq[9] += g.alg;
+  gq[10] += g.alb;
+  // p = o + t_v d
+  const float gp[3] = {g.px, g.py, g.pz};
+  float g_o[3] = {gp[0], gp[1], gp[2]};
+  float g_d[3] = {gp[0] * v_t, gp[1] * v_t, gp[2] * v_t};
+  free_flight_adjoint(L, kv, r, lane, salt, dot3(gp, d), g_o, g_d, gq);
+  for (int i = 0; i < 3; ++i) {
+    gin[i] = g_o[i];
+    gin[3 + i] = g_d[i];
+  }
+  gin[6] += g_tm;
+  add_rows(g_lrows + kLitCols * (L.vol_row0 + kv), gq);
+}
+
 // Replays bounce_lane_t<kTris, kLit> for a live lane from its saved input
 // state s (13 floats, bounce) and maps the output cotangents G (13, in the
 // order of s) to the input cotangents gin (13) and the winner row's
@@ -859,11 +1133,13 @@ RTOW_HD void emission_adjoint(const Lit& L, const Ray& r, float a,
 // textures; kTriParamGrads for a triangle; in its table's column order;
 // the caller zeroes it).  Returns the winner's id (spheres 0 .. npad - 1,
 // triangles npad + row), or -1 where the bounce read no row (a miss, a
-// non-emissive hit at depth).  kTris sweeps `tris` after the spheres,
-// counting its work in `tally`, as the forward does.  kLit replays the lit
-// bounce with the features L has (emission, NEE toward L.n_lights lights,
-// the textures; from_diffuse is the input alive code 2) and adds the light
-// rows' cotangent to g_lrows (n_lights x 14).
+// non-emissive hit at depth, a volume event).  kTris sweeps `tris` after
+// the spheres, counting its work in `tally`, as the forward does.  kLit
+// replays the lit bounce with the features L has (the free-flight event
+// before the surface, emission, NEE toward L.n_lights lights with the
+// shadow ray's transmittance, the textures; from_diffuse is the input alive
+// code 2) and adds the rows' cotangent to g_lrows (the light rows, then the
+// volume rows from L.vol_row0: all of L's rows x 14).
 template <bool kTris, bool kLit = false>
 RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
                                   const Tris& tris, const float* s,
@@ -881,6 +1157,20 @@ RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
   int best_k;
   nearest_sphere(tbl, npad, r, a, inv_a, &best_t, &best_k);
   if constexpr (kTris) nearest_triangle(tris, r, npad, &best_t, &best_k, tally);
+  const bool nee = kLit && L.n_lights > 0;
+
+  if constexpr (kLit) {
+    float v_t, v_alb[3];
+    const int kv = L.n_vol > 0
+                       ? volume_event(L, r, lane, salt, best_t, &v_t, v_alb)
+                       : -1;
+    if (kv >= 0) {  // before the miss: a ray under the sky still scatters
+      if (bounce >= max_depth) return -1;  // absorbed: the identity
+      volume_adjoint<kTris>(tbl, npad, tris, L, s, r, kv, v_t, v_alb, nee,
+                            lane, salt, G, gin, g_lrows, tally);
+      return -1;
+    }
+  }
 
   if (!(best_t < kBig)) {  // miss: rad' = rad + tp * background
     float skyr = bg.r, skyg = bg.g, skyb = bg.b;
@@ -923,7 +1213,6 @@ RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
   }
   const bool tex = kLit && L.checker && !is_tri;
   const Material m = tex ? textured(tbl, best_k, m0, e.px, e.py, e.pz) : m0;
-  const bool nee = kLit && L.n_lights > 0;
   float g_tm = 0.0f;
   if constexpr (kLit) {
     if (L.emissive && m.kind == kEmissive) {  // at any depth; no scatter
@@ -941,8 +1230,9 @@ RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
   const Scatter sc = scatter(m, e, r, a, w);
   ShadeGrad g = shade_adjoint(e, m, sc, w, r, s, G, gin);
   if (nee && is_diffuse(m.kind))
-    next_event_adjoint<kTris>(tbl, npad, tris, L, s, e, m, lane, salt, G, gin,
-                              &g, &g_tm, g_lrows, tally);
+    next_event_adjoint<kTris>(tbl, npad, tris, L, s, e.px, e.py, e.pz, e.nx,
+                              e.ny, e.nz, m.alr, m.alg, m.alb, false, lane,
+                              salt, G, gin, &g, &g_tm, g_lrows, tally);
   if (tex) texture_adjoint(tbl, best_k, m0, e, &g, gw);
   if (is_tri)
     triangle_hit_adjoint(tris.tbl, best_k - npad, e, r, g, gin, gw);

@@ -3,7 +3,8 @@
 // Replaces rtow_tpu/ops/pallas_grad.py:_grad_bwd_kernel (K5, :224; launched
 // by _bounce_grad_bwd :639) for spheres and triangles, the sky or a flat
 // background, the Lambertian / metal / dielectric materials, emission,
-// next-event estimation and checker / noise textures.  The plain PyTorch
+// next-event estimation, checker / noise textures and constant-density
+// media.  The plain PyTorch
 // version is bounce_bwd_reference in rtow_tpu_torch/ops/grad.py (autograd
 // through the plain shade); the wrapper is bounce_bwd there, called by the
 // autograd Function BounceGrad.
@@ -12,14 +13,17 @@
 // int32) and the output cotangents cot_out (13, n), write the input
 // cotangents cot_in (13, n), add the sphere-table cotangent into g_tbl
 // (npad, 16), for a scene with triangles the triangle-table cotangent into
-// g_tri (Mpad, 16), and under NEE the light rows' cotangent into g_rows
-// (n_rows, 14); the caller zeroes all three.  A dead lane passes its
+// g_tri (Mpad, 16), and under NEE or with media the cotangent of the
+// light rows and the volume rows behind them into g_rows (n_rows, 14);
+// the caller zeroes all three.  A dead lane passes its
 // cotangents through.  A live lane replays K4's bounce -- the same sweeps,
 // draws, light sample, shadow sweep and decisions, from bounce.cuh -- then
 // runs the hand-written adjoint of the shade, of the lit features and of
-// the winner's hit record (bounce_adjoint.cuh).  Its winner row's cotangent
+// the winner's hit record, or of the volume scatter where a free-flight
+// event landed first (bounce_adjoint.cuh).  Its winner row's cotangent
 // goes to that row of the table gradient of the winner's kind, for lanes
-// that scattered or hit an emitter (a miss reads no row).  Four instances,
+// that scattered off a surface or hit an emitter (a miss or a volume event
+// reads no row).  Four instances,
 // as K4's: spheres only or spheres then triangles (flat or down the
 // hierarchy), each unlit or lit, with the same optional `stats` as K4.
 //
@@ -28,9 +32,9 @@
 // per-block copy of the sphere-table gradient in shared memory (npad x 16
 // floats: 32 KB for the cover), and each block then adds the non-zero
 // entries of its copy to g_tbl with atomicAdd: one global atomic per touched
-// entry per block instead of one per lane.  The light rows' cotangent (at
-// most 16 x 14 floats) is summed the same way, in shared memory behind the
-// staged light rows.  The triangle table's gradient (4 MB for a
+// entry per block instead of one per lane.  The cotangent of the light and
+// volume rows (at most 24 x 14 floats) is summed the same way, in shared
+// memory behind the staged rows.  The triangle table's gradient (4 MB for a
 // 65,536-triangle mesh, 23 MB for 360,448 rows) cannot sit in shared memory:
 // a triangle lane adds each non-zero column of its row cotangent to g_tri
 // with one global atomicAdd, 14 at most.  Sorted lanes put a warp's threads
@@ -180,7 +184,7 @@ extern "C" {
 // rtow_grad_fwd (tri null: the sphere instances); cont, cot_out, cot_in:
 // (13, n) float32; ints: (3, n) int32; g_tbl: (npad, 16), g_tri
 // (n_blocks * tri_block, 16) and g_rows (n_rows, 14) float32, zeroed by the
-// caller (g_tri unused without triangles, g_rows without light rows);
+// caller (g_tri unused without triangles, g_rows without rows);
 // stats and the lit features: as for rtow_grad_fwd.  Returns the
 // cudaError_t of the launch.
 int rtow_grad_bwd(const float* table, int npad, const float* tri,
@@ -193,7 +197,8 @@ int rtow_grad_bwd(const float* table, int npad, const float* tri,
                   float* g_tbl, float* g_tri, float* g_rows,
                   unsigned long long* stats, const float* lit_rows,
                   int n_rows, int emissive, int n_lights, int light_kinds,
-                  int checker, int device, void* stream) {
+                  int checker, int n_vol, int vol_kinds, int vol_row0,
+                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const rtow::Tris tris{reinterpret_cast<const float4*>(tri),
@@ -202,9 +207,10 @@ int rtow_grad_bwd(const float* table, int npad, const float* tri,
                         reinterpret_cast<const float4*>(hypers),
                         n_blocks, n_super, n_hyper, tri_block, tri_count};
   const rtow::Background bg{use_sky, bgr, bgg, bgb};
-  const rtow::Lit lit{lit_rows, emissive, n_lights, checker, 0, 0, 0,
-                      static_cast<uint32_t>(light_kinds), 0u};
-  const bool any_lit = emissive || n_lights > 0 || checker;
+  const rtow::Lit lit{lit_rows, emissive, n_lights, checker, n_vol,
+                      vol_row0, 0, static_cast<uint32_t>(light_kinds),
+                      static_cast<uint32_t>(vol_kinds)};
+  const bool any_lit = emissive || n_lights > 0 || checker || n_vol > 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tri == nullptr)
     return dispatch<false>(any_lit, table, npad, tris, cont, ints, cot_out, n,

@@ -3,7 +3,8 @@
 // Replaces rtow_tpu/ops/pallas_grad.py:_grad_fwd_kernel (K4, :101; launched
 // by _bounce_fwd_impl :592) for spheres and triangles, the sky or a flat
 // background, the Lambertian / metal / dielectric materials, emission,
-// next-event estimation and checker / noise textures.  The plain PyTorch
+// next-event estimation, checker / noise textures and constant-density
+// media.  The plain PyTorch
 // version is bounce_fwd_reference in rtow_tpu_torch/ops/grad.py; the wrapper
 // is bounce_fwd there, called once per bounce by the autograd Function
 // BounceGrad.
@@ -21,14 +22,18 @@
 // The triangle instances sweep the spheres, then the triangle table: its
 // block boxes flat, or down the super / hyper hierarchy where the caller
 // passes one (n_super > 0), exactly as K3 does; winner ids are npad + row.
-// The lit instances (a scene with an emissive, checker or noise material)
+// The lit instances (a scene with an emissive, checker or noise material,
+// or media)
 // run K1's lit bounce, bounce_lane_t<kTris, true>, with the light rows
 // staged in shared memory behind the sphere table: emission with its MIS
 // weight (the input alive code 2 marks a diffuse scatter), next-event
 // estimation toward the n_lights rows (0 without nee=True) with the shadow
-// sweep from t_init = the light's distance less 0.1%, and the textures;
-// alive becomes the code {0, 1, 2}.  No media and no roulette: the JAX
-// gradient path has neither here.  Each counts its box tests, triangle
+// sweep from t_init = the light's distance less 0.1% and the shadow ray's
+// medium transmittance, the textures, and constant-density media (the
+// free-flight event before the surface, pallas_grad.py:165-178: an event
+// at depth ends the lane, a volume scatter leaves alive 2 under NEE and 1
+// without, the volume rows staged behind the light rows); alive becomes the
+// code {0, 1, 2}.  No roulette: the JAX gradient path has none.  Each counts its box tests, triangle
 // tests (the shadow sweeps' included), live lanes and shadow rays into
 // `stats` where the caller asks (one atomic per warp and counter).
 //
@@ -157,9 +162,11 @@ extern "C" {
 // float32; ints, ints_out: (3, n) int32; stats: null, or four uint64 that
 // the launch adds its box tests, triangle tests, live lanes and NEE shadow
 // rays to.  The lit features: lit_rows,
-// the (n_rows, 14) float32 light rows (null without NEE); the emissive and
-// checker flags; n_lights lights of kinds light_kinds (2 bits each, row 0
-// lowest: 0 sphere, 1 triangle).  Returns the cudaError_t of the launch.
+// the (n_rows, 14) float32 light rows, then volume rows (null with
+// neither); the emissive and checker flags; n_lights lights of kinds
+// light_kinds (2 bits each, row 0 lowest: 0 sphere, 1 triangle); n_vol
+// volumes of kinds vol_kinds (2 bits each: 0 sphere, 1 box, 2 rotated box)
+// in the rows from vol_row0 on.  Returns the cudaError_t of the launch.
 int rtow_grad_fwd(const float* table, int npad, const float* tri,
                   const float* boxes, const float* supers,
                   const float* hypers, int n_blocks, int n_super,
@@ -168,8 +175,8 @@ int rtow_grad_fwd(const float* table, int npad, const float* tri,
                   int max_depth, int use_sky, float bgr, float bgg, float bgb,
                   float* cont_out, int* ints_out, unsigned long long* stats,
                   const float* lit_rows, int n_rows, int emissive,
-                  int n_lights, int light_kinds, int checker, int device,
-                  void* stream) {
+                  int n_lights, int light_kinds, int checker, int n_vol,
+                  int vol_kinds, int vol_row0, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const rtow::Tris tris{reinterpret_cast<const float4*>(tri),
@@ -178,9 +185,10 @@ int rtow_grad_fwd(const float* table, int npad, const float* tri,
                         reinterpret_cast<const float4*>(hypers),
                         n_blocks, n_super, n_hyper, tri_block, tri_count};
   const rtow::Background bg{use_sky, bgr, bgg, bgb};
-  const rtow::Lit lit{lit_rows, emissive, n_lights, checker, 0, 0, 0,
-                      static_cast<uint32_t>(light_kinds), 0u};
-  const bool any_lit = emissive || n_lights > 0 || checker;
+  const rtow::Lit lit{lit_rows, emissive, n_lights, checker, n_vol,
+                      vol_row0, 0, static_cast<uint32_t>(light_kinds),
+                      static_cast<uint32_t>(vol_kinds)};
+  const bool any_lit = emissive || n_lights > 0 || checker || n_vol > 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tri == nullptr)
     return dispatch<false>(any_lit, table, npad, tris, cont, ints, n, it,

@@ -11,7 +11,7 @@
 // tests/test_torch_lanes_host.py builds it and holds its lanes against the
 // plain PyTorch versions in rtow_tpu_torch/ops/grad.py: K4's outputs lane
 // by lane, and K5's input cotangents and row cotangents (sphere, triangle,
-// light) lane by lane, where the card's K5 sums the row cotangents with
+// light and volume) lane by lane, where the card's K5 sums the row cotangents with
 // atomics before anything can compare them.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o lanes.so host_lanes.cpp
@@ -119,13 +119,15 @@ void rtow_host_fwd(const float* table, int npad, const float* tri,
                    int seed, int max_depth, int use_sky, float bgr, float bgg,
                    float bgb, float* cont_out, int* ints_out,
                    unsigned long long* stats, const float* lit_rows,
-                   int emissive, int n_lights, int light_kinds, int checker) {
+                   int emissive, int n_lights, int light_kinds, int checker,
+                   int n_vol, int vol_kinds, int vol_row0) {
   const rtow::Tris tris = tris_of(tri, boxes, supers, hypers, n_blocks,
                                   n_super, n_hyper, tri_block, tri_count);
   const rtow::Background bg{use_sky, bgr, bgg, bgb};
-  const rtow::Lit L{lit_rows, emissive, n_lights, checker, 0, 0, 0,
-                    static_cast<uint32_t>(light_kinds), 0u};
-  const bool lit = emissive || n_lights > 0 || checker;
+  const rtow::Lit L{lit_rows, emissive, n_lights, checker, n_vol, vol_row0,
+                    0, static_cast<uint32_t>(light_kinds),
+                    static_cast<uint32_t>(vol_kinds)};
+  const bool lit = emissive || n_lights > 0 || checker || n_vol > 0;
   const auto* tbl = reinterpret_cast<const float4*>(table);
   const uint32_t salt = rtow::salt_of(seed, static_cast<uint32_t>(it));
   auto run = tri == nullptr ? (lit ? fwd_lanes<false, true>
@@ -139,8 +141,8 @@ void rtow_host_fwd(const float* table, int npad, const float* tri,
 // One backward bounce of n lanes, each lane's parts kept apart: cot_in
 // (13, n); winner (n,): the winner id whose row the lane's cotangent gw
 // (n, 16) belongs to (spheres 0 .. npad - 1, triangles npad + row), or -1;
-// g_rows (n, n_rows, 14): the lane's light-row cotangent, zeroed by the
-// caller.  The other arguments as for rtow_host_fwd.
+// g_rows (n, n_rows, 14): the lane's cotangent of the light and volume
+// rows, zeroed by the caller.  The other arguments as for rtow_host_fwd.
 void rtow_host_bwd(const float* table, int npad, const float* tri,
                    const float* boxes, const float* supers,
                    const float* hypers, int n_blocks, int n_super,
@@ -151,13 +153,14 @@ void rtow_host_bwd(const float* table, int npad, const float* tri,
                    int* winner, float* gw, float* g_rows,
                    unsigned long long* stats, const float* lit_rows,
                    int n_rows, int emissive, int n_lights, int light_kinds,
-                   int checker) {
+                   int checker, int n_vol, int vol_kinds, int vol_row0) {
   const rtow::Tris tris = tris_of(tri, boxes, supers, hypers, n_blocks,
                                   n_super, n_hyper, tri_block, tri_count);
   const rtow::Background bg{use_sky, bgr, bgg, bgb};
-  const rtow::Lit L{lit_rows, emissive, n_lights, checker, 0, 0, 0,
-                    static_cast<uint32_t>(light_kinds), 0u};
-  const bool lit = emissive || n_lights > 0 || checker;
+  const rtow::Lit L{lit_rows, emissive, n_lights, checker, n_vol, vol_row0,
+                    0, static_cast<uint32_t>(light_kinds),
+                    static_cast<uint32_t>(vol_kinds)};
+  const bool lit = emissive || n_lights > 0 || checker || n_vol > 0;
   const auto* tbl = reinterpret_cast<const float4*>(table);
   const uint32_t salt = rtow::salt_of(seed, static_cast<uint32_t>(it));
   auto run = tri == nullptr ? (lit ? bwd_lanes<false, true>

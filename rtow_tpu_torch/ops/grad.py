@@ -1,5 +1,5 @@
-"""Kernel-speed gradients for sphere and mesh scenes, lit or not (the port
-of ``rtow_tpu/ops/pallas_grad.py`` short of its media).
+"""Kernel-speed gradients for sphere and mesh scenes, lit or not, with or
+without media (the port of ``rtow_tpu/ops/pallas_grad.py``).
 
 One differentiable bounce is :class:`BounceGrad`, the counterpart of the
 ``bounce_grad`` custom_vjp (:573): its forward is the bounce kernel K4,
@@ -29,9 +29,13 @@ derives it from the scene, as ``render_pixels_kernel`` derives its
 statics, :887-913): emission with its MIS weight, next-event estimation
 toward the (K, 14) light rows with ``nee=True`` (the shadow ray swept from
 ``t_init`` = the light's distance less 0.1%; the alive code {0, 1, 2}
-marks a diffuse scatter), and checker and noise albedo.  The light rows
-are a differentiable input of :class:`BounceGrad`; their cotangent
-flows back into the Scene through ``build_light_table``.
+marks a diffuse or volume scatter), checker and noise albedo, and
+constant-density media: the free-flight event (one uniform per volume at
+salts 16 on) before the surface, whose distance and albedo read the
+(V, 14) volume rows packed behind the light rows from ``vol_row0``, and
+the shadow ray's transmittance.  The rows are a differentiable input of
+:class:`BounceGrad`; their cotangent flows back into the Scene through
+``build_light_table`` and ``build_volume_table``.
 
 :func:`render_rays_kernel` chains ``max_depth + 1`` bounces over
 (pixel x sample) lanes; autograd's tape of the bounces' saved inputs
@@ -48,8 +52,8 @@ rr rg rb, ``ints`` (3, L) int32 = alive, bounce, lane id.  L is a
 multiple of 1,024; padding lanes are dead.  The RNG salt is the bounce's
 scan step ``it`` (0..max_depth), the same for every lane.
 
-Media, image textures and the sharded step raise
-``NotImplementedError`` naming their ROADMAP item.
+Image textures and the sharded step raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -68,8 +72,9 @@ from .megakernel import (
     build_sphere_table, build_tri_table, check_counter, check_lit,
     check_table, check_tris, draw_scatter, hit_basics, lane_hash,
     lane_state, lit_rows, nearest_sphere, nearest_triangle, nee_contrib,
-    shade, step_salt, uniform, winners,
+    shade, step_salt, uniform, volume_event, winners,
 )
+from .volumes import build_volume_table
 from .wavefront import WAVEFRONT_MIN_TRIS, sort_keys
 
 #: Continuous (cotangent-bearing) state rows.
@@ -153,27 +158,32 @@ def _shadow_open(tbl, tris, p, l, tm, thresh, nee_act, flat, tally):
 def _lit_shade(state, ints, w, tri, best_t, alive, lane, salt, *, tbl, tris,
                lit, max_depth, background, flat, tally):
     """The differentiable half of a bounce with the lit features
-    (``_grad_fwd_kernel``'s live tile, :179-215): next-event estimation
-    where ``lit`` has lights, its contribution added where the shadow ray
-    gets through, then :func:`~.megakernel.shade` with emission, the MIS
+    (``_grad_fwd_kernel``'s live tile, :165-215): the free-flight event
+    where ``lit`` has media (its distance and albedo differentiable in the
+    volume rows, which event wins a constant), next-event estimation
+    where it has lights (from the hit point or the event's), its
+    contribution added where the shadow ray gets through, then
+    :func:`~.megakernel.shade` with the volume scatter, emission, the MIS
     weight (the previous bounce's diffuse flag is the alive code 2) and
     the textures.  Returns shade's (13-tuple, can, bounce)."""
     bounce = ints[1]
     basics = hit_basics(state, w, best_t, tri=tri, checker=lit.checker)
+    draws = draw_scatter(lane, salt)
+    v_event = volume_event(state, draws, lane, salt, best_t, lit)
     from_diffuse = None
     if lit.nee_kinds:
         from_diffuse = ints[0] > 1
         nee_us = (uniform(lane, salt, 8), uniform(lane, salt, 9),
                   uniform(lane, salt, 10))
         p, l, thresh, contrib, nee_act = nee_contrib(
-            state, basics, alive, bounce, max_depth, nee_us, lit)
+            state, basics, alive, bounce, max_depth, nee_us, lit, v_event)
         add = _shadow_open(tbl, tris, p, l, state[6], thresh, nee_act, flat,
                            tally)
         state = state[:10] + tuple(ch + torch.where(add, c, 0.0)
                                    for ch, c in zip(state[10:], contrib))
-    return shade(state, w, draw_scatter(lane, salt), best_t, alive, bounce,
-                 max_depth, background, tri=tri, basics=basics, lit=lit,
-                 from_diffuse=from_diffuse)
+    return shade(state, w, draws, best_t, alive, bounce, max_depth,
+                 background, tri=tri, basics=basics, lit=lit,
+                 from_diffuse=from_diffuse, v_event=v_event)
 
 
 def _count(tally, alive, stats) -> None:
@@ -212,11 +222,11 @@ def bounce_bwd_reference(cont, ints, cot_out, tbl,
                          lit: Lit = Lit()):
     """Plain PyTorch version of K5 -> (cot_in (13, L), g_tbl (Npad, 16),
     g_tri (Mpad, 16) or None without ``tris``, g_rows (R, 14) or None
-    without light rows): each hit lane's row cotangent from
+    without light or volume rows): each hit lane's row cotangent from
     :func:`bounce_bwd_terms` added to its winner's row of ``g_tbl`` or,
     for a triangle, of ``g_tri`` (``pallas_grad.py:444-539``; the kind
-    column and column 15 get 0), and the lanes' light-row cotangents
-    summed (``glgt``, :448-462)."""
+    column and column 15 get 0), and the lanes' cotangents of the light
+    and volume rows summed (``glgt``, :448-462)."""
     cot_in, sph, tri, rows = bounce_bwd_terms(
         cont, ints, cot_out, tbl, tris, it=it, seed=seed,
         max_depth=max_depth, background=background, flat=flat, stats=stats,
@@ -243,16 +253,16 @@ def bounce_bwd_terms(cont, ints, cot_out, tbl,
     """K5's plain version before its table sums -> (cot_in (13, L), the
     sphere-hit lanes' (winner rows, row cotangents (H, 13), or (H, 16)
     with textures), the triangle-hit lanes' (winner rows, row cotangents
-    (T, 14)) or None without ``tris``, each lane's light-row cotangent
-    (L, R, 14) or None without light rows).
+    (T, 14)) or None without ``tris``, each lane's cotangent of the light
+    and volume rows (L, R, 14) or None without them).
 
     Replays the sweeps, the draws and the shadow rays, then takes
     ``torch.autograd.grad`` of the plain lit shade (:func:`_lit_shade`)
     w.r.t. the input state, the winner rows of each kind (the rows
     :func:`winners` gives the forward) and a per-lane copy of the light
-    rows.  ``tm`` passes through the bounce, so its cotangent gets the
-    downstream one added (:433-436): the stacked output below holds that
-    identity."""
+    and volume rows.  ``tm`` passes through the bounce, so its cotangent
+    gets the downstream one added (:433-436): the stacked output below
+    holds that identity."""
     tally = [0, 0, 0]
     alive, best_t, best_k, lane, salt = _replay(cont, ints, tbl, tris, it,
                                                 seed, flat, tally)
@@ -329,12 +339,8 @@ def _scalars(it, seed, max_depth):
 
 def _check_grad_lit(lit: Lit, tbl: torch.Tensor) -> None:
     """Raise unless ``lit`` holds only what the gradient kernels take:
-    emission, NEE and textures (JAX's gradient statics have no roulette;
-    media are ROADMAP Queue 1 item 10b)."""
-    if lit.vol_kinds:
-        raise NotImplementedError(
-            "constant-density media in the gradient kernels are not ported "
-            "yet (ROADMAP Queue 1 item 10b)")
+    emission, NEE, textures and media (JAX's gradient statics have no
+    roulette)."""
     if lit.roulette:
         raise ValueError("the gradient kernels have no Russian roulette "
                          "(pallas_grad.py:910-913)")
@@ -367,11 +373,14 @@ def _tri_args(tris: Optional[TriTable], flat: bool) -> tuple:
 
 
 def _lit_args(lit: Lit) -> tuple:
-    """The launchers' lit arguments: the light rows (or a null pointer),
-    their count, and the emissive, NEE and texture features."""
+    """The launchers' lit arguments: the light and volume rows (or a null
+    pointer), their count, the emissive, NEE and texture features, and
+    the media (their count, kinds and first row)."""
     return (None if lit.rows is None else lit.rows.data_ptr(), lit_rows(lit),
             int(lit.emissive), len(lit.nee_kinds),
-            _kind_bits(lit.nee_kinds, "st"), int(lit.checker))
+            _kind_bits(lit.nee_kinds, "st"), int(lit.checker),
+            len(lit.vol_kinds), _kind_bits(lit.vol_kinds, "sbr"),
+            lit.vol_row0)
 
 
 def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
@@ -383,11 +392,12 @@ def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
 
     ``tris``: the scene's triangle table, or None; ``flat`` sweeps its
     block boxes without the hierarchy; ``lit``: the lit features and the
-    light rows (:func:`grad_lit`); ``stats``, a (4,) int64 tensor on the
-    table's device, gets the box tests, triangle tests (the shadow
-    sweep's included), live lanes and NEE shadow rays added to it.  A CUDA ``tbl`` launches ``csrc/grad_fwd.cu``
-    (counted in ``bounce_fwd.launches``, and in ``lit_launches`` where
-    ``lit`` has a feature); a CPU ``tbl`` runs
+    light and volume rows (:func:`grad_lit`); ``stats``, a (4,) int64
+    tensor on the table's device, gets the box tests, triangle tests (the
+    shadow sweep's included), live lanes and NEE shadow rays added to it.
+    A CUDA ``tbl`` launches ``csrc/grad_fwd.cu`` (counted in
+    ``bounce_fwd.launches``, in ``lit_launches`` where ``lit`` has a
+    feature, and in ``vol_launches`` where it has media); a CPU ``tbl`` runs
     :func:`bounce_fwd_reference`; any other device raises."""
     it, seed, max_depth = _check("grad_fwd kernel", tbl, tris, cont, ints,
                                  None, stats, lit, it=it, seed=seed,
@@ -410,13 +420,15 @@ def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
     _cuda.check_launch(lib, err, "grad_fwd")
     bounce_fwd.launches += 1
     bounce_fwd.lit_launches += lit.any
+    bounce_fwd.vol_launches += bool(lit.vol_kinds)
     return cont_out, ints_out
 
 
-#: Kernel launches made by :func:`bounce_fwd` in this process, and those
-#: of them that ran a lit instance.
+#: Kernel launches made by :func:`bounce_fwd` in this process, those of
+#: them that ran a lit instance, and those of these that ran media.
 bounce_fwd.launches = 0
 bounce_fwd.lit_launches = 0
+bounce_fwd.vol_launches = 0
 
 
 def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
@@ -426,12 +438,12 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
                stats: Optional[torch.Tensor] = None, lit: Lit = Lit()):
     """One backward bounce (``_bounce_grad_bwd``, :639) from the bounce's
     saved input state -> (cot_in (13, L), g_tbl (Npad, 16), g_tri (Mpad,
-    16) or None without ``tris``, g_rows (R, 14) or None without light
-    rows).  ``tris``, ``flat``, ``lit`` and ``stats`` as for
+    16) or None without ``tris``, g_rows (R, 14) or None without light or
+    volume rows).  ``tris``, ``flat``, ``lit`` and ``stats`` as for
     :func:`bounce_fwd`.
 
     A CUDA ``tbl`` launches ``csrc/grad_bwd.cu`` (counted in
-    ``bounce_bwd.launches`` and ``lit_launches``, as for
+    ``bounce_bwd.launches``, ``lit_launches`` and ``vol_launches``, as for
     :func:`bounce_fwd`); a CPU ``tbl`` runs
     :func:`bounce_bwd_reference`; any other device raises."""
     it, seed, max_depth = _check("grad_bwd kernel", tbl, tris, cont, ints,
@@ -459,13 +471,15 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
     _cuda.check_launch(lib, err, "grad_bwd")
     bounce_bwd.launches += 1
     bounce_bwd.lit_launches += lit.any
+    bounce_bwd.vol_launches += bool(lit.vol_kinds)
     return cot_in, g_tbl, g_tri, g_rows
 
 
-#: Kernel launches made by :func:`bounce_bwd` in this process, and those
-#: of them that ran a lit instance.
+#: Kernel launches made by :func:`bounce_bwd` in this process, those of
+#: them that ran a lit instance, and those of these that ran media.
 bounce_bwd.launches = 0
 bounce_bwd.lit_launches = 0
+bounce_bwd.vol_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -475,7 +489,7 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = _cuda.load(name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tri = [p, p, p, p, i, i, i, i, i]
-    lit = [p, i, i, i, i, i]
+    lit = [p, i, i, i, i, i, i, i, i]
     if name == "grad_fwd":
         lib.rtow_grad_fwd.argtypes = [p, i, *tri, p, p, i, i, i, i, i, f, f,
                                       f, p, p, p, *lit, i, p]
@@ -490,7 +504,7 @@ def _lib(name: str) -> ctypes.CDLL:
 class BounceGrad(torch.autograd.Function):
     """One differentiable bounce (``pallas_grad.bounce_grad``, :573):
     (cont, ints) -> (cont, ints), differentiable in ``cont``, ``tbl``, the
-    triangle rows ``tri_tbl`` and the light rows ``rows``.
+    triangle rows ``tri_tbl`` and the light and volume rows ``rows``.
 
     The forward is :func:`bounce_fwd` and saves its input state (the
     tape); the backward is :func:`bounce_bwd` on that state.  ``ints``
@@ -543,10 +557,6 @@ def _check_scene(scene: Scene) -> None:
         raise NotImplementedError(
             "image textures in the gradient kernels need the reference "
             "integrator's texel gathers (ROADMAP Queue 1 item 5)")
-    if scene.volume_kinds:
-        raise NotImplementedError(
-            "constant-density media in the gradient kernels are not ported "
-            "yet (ROADMAP Queue 1 item 10b)")
 
 
 def grad_lit(scene: Scene, nee: bool = False) -> Lit:
@@ -554,16 +564,22 @@ def grad_lit(scene: Scene, nee: bool = False) -> Lit:
     ``render_pixels_kernel`` derives its statics (:887-913): emission
     wherever the scene has an emissive material, next-event estimation
     toward its lights only with ``nee`` (a ValueError on a scene without
-    one), checker and noise textures; no roulette, which the gradient
-    path does not have.  The light rows are ``build_light_table``'s,
-    differentiable in the scene's leaves."""
+    one), checker and noise textures, and the scene's media; no roulette,
+    which the gradient path does not have.  The rows are
+    ``build_light_table``'s under NEE, then ``build_volume_table``'s from
+    ``vol_row0`` (:891-905), differentiable in the scene's leaves."""
     if nee and not scene.has_emissive:
         raise ValueError("nee=True needs an emissive scene "
                          "(SceneBuilder.add_light)")
     kinds = tuple(k for k, _ in scene.light_ids) if nee else ()
+    rows = [build_light_table(scene)] if kinds else []
+    vol_row0 = rows[0].shape[0] if rows else 0
+    if scene.volume_kinds:
+        rows.append(build_volume_table(scene))
     return Lit(emissive=scene.has_emissive, nee_kinds=kinds,
                checker=scene.has_checker,
-               rows=build_light_table(scene) if kinds else None)
+               vol_kinds=tuple(scene.volume_kinds), vol_row0=vol_row0,
+               rows=torch.cat(rows) if rows else None)
 
 
 def grad_tri_table(scene: Scene, flat: bool = False) -> TriTable:
@@ -664,9 +680,11 @@ def render_pixels_kernel(
     count) and ``_force_flat`` as there; ``nee=True`` (emissive scenes
     only) runs next-event estimation with MIS in both kernels.  Gradients
     reach every scene leaf that ``build_sphere_table``,
-    ``build_tri_table`` and, under NEE, ``build_light_table`` read
-    (sphere centers and radii, triangle vertices, albedo and the second
-    colour, fuzz, ir)."""
+    ``build_tri_table``, under NEE ``build_light_table``, and
+    ``build_volume_table`` read (sphere centers and radii, triangle
+    vertices, albedo and the second colour, fuzz, ir; the media's
+    density, albedo, corners or centre and radius, rotate_y and
+    translate)."""
     if grad_reduce_axes:
         raise NotImplementedError(
             "grad_reduce_axes needs the sharded train step "

@@ -510,7 +510,8 @@ class Lit(NamedTuple):
         return self.rows[..., :len(self.nee_kinds), :]
 
     def volumes(self):
-        return self.rows[self.vol_row0:]
+        """The volume rows: (V, 14), or (L, V, 14) per lane."""
+        return self.rows[..., self.vol_row0:, :]
 
 
 def render_blocks_reference(
@@ -668,16 +669,7 @@ def bounce_lanes(tbl, tris, state, lane, salt, bounce, max_depth, background,
                      cols=TBL_COLS if lit.checker else 13)
     draws = draw_scatter(lane, salt)
     alive = torch.ones_like(best_t, dtype=torch.bool)
-    v_event = None
-    if lit.vol_kinds:
-        from .volumes import sample_volume_event
-
-        us = [uniform(lane, salt, 16 + j) for j in range(len(lit.vol_kinds))]
-        v_hit, v_t, (v_ar, v_ag, v_ab) = sample_volume_event(
-            lit.volumes(), lit.vol_kinds, us, ox, oy, oz, dx, dy, dz, best_t)
-        uvx, uvy, uvz, _choice = draws
-        v_event = (v_hit, v_t, v_ar, v_ag, v_ab, uvx * 0.5, uvy * 0.5,
-                   uvz * 0.5)
+    v_event = volume_event(state, draws, lane, salt, best_t, lit)
     basics = hit_basics(state, w, best_t, tri=tri, checker=lit.checker)
     if lit.nee_kinds:
         nee_us = (uniform(lane, salt, 8), uniform(lane, salt, 9),
@@ -705,6 +697,22 @@ def bounce_lanes(tbl, tris, state, lane, salt, bounce, max_depth, background,
                  background, tri=tri, basics=basics, lit=lit,
                  from_diffuse=from_diffuse, v_event=v_event,
                  rr_u=uniform(lane, salt, 11) if lit.roulette else None)
+
+
+def volume_event(state, draws, lane, salt, best_t, lit: Lit):
+    """The free-flight event of ``lit``'s media before the surface at
+    ``best_t`` (one uniform per volume at salts 16 on), or None without
+    media: (v_hit, t_v, albedo rgb, the isotropic direction xyz), as
+    :func:`nee_contrib` and :func:`shade` take it."""
+    if not lit.vol_kinds:
+        return None
+    from .volumes import sample_volume_event
+
+    us = [uniform(lane, salt, 16 + j) for j in range(len(lit.vol_kinds))]
+    v_hit, v_t, (v_ar, v_ag, v_ab) = sample_volume_event(
+        lit.volumes(), lit.vol_kinds, us, *state[:6], best_t)
+    uvx, uvy, uvz, _choice = draws
+    return (v_hit, v_t, v_ar, v_ag, v_ab, uvx * 0.5, uvy * 0.5, uvz * 0.5)
 
 
 def nearest_sphere(tbl, ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_init=None):

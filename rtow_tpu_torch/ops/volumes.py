@@ -42,10 +42,16 @@ def build_volume_table(scene) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def _cols(table, k):
+    """Volume ``k``'s 14 columns of ``table`` ((V, 14), or (L, V, 14) with
+    one copy of the rows per lane): scalars, or (L,) per lane."""
+    return table[..., k, :].unbind(-1)
+
+
 def _interval(row, kind, ox, oy, oz, dx, dy, dz):
     """(t0, t1, valid) of the ray against one volume's boundary (ray
-    units of d).  ``row``: the volume's 14 floats.  A rotated box takes
-    the ray into its local frame."""
+    units of d).  ``row``: the volume's 14 columns (tensors, or floats).
+    A rotated box takes the ray into its local frame."""
     if kind == "s":
         cx, cy, cz, r = row[:4]
         ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
@@ -53,13 +59,15 @@ def _interval(row, kind, ox, oy, oz, dx, dy, dz):
         h = ocx * dx + ocy * dy + ocz * dz
         c = ocx * ocx + ocy * ocy + ocz * ocz - r * r
         disc = h * h - a * c
+        # The double-where guard: a lane that misses the sphere must not
+        # take sqrt'(0) into the gradient (JAX volumes.py:128-134).
         deg = disc <= 0.0
         sq = torch.where(deg, 0.0, torch.sqrt(torch.where(deg, 1.0, disc)))
         inv_a = 1.0 / torch.clamp(a, min=1e-24)
         return (-h - sq) * inv_a, (-h + sq) * inv_a, disc > 0.0
     x0, y0, z0, x1, y1, z1 = row[:6]
     if kind == "r":
-        th = torch.tensor(row[7], dtype=_F32, device=ox.device)
+        th = torch.as_tensor(row[7], dtype=_F32, device=ox.device)
         c, sn = torch.cos(th), torch.sin(th)
         wx, wy, wz = ox - row[11], oy - row[12], oz - row[13]
         ox, oz = c * wx - sn * wz, sn * wx + c * wz
@@ -84,15 +92,15 @@ def volume_transmittance(table, volume_kinds, ox, oy, oz, dx, dy, dz,
                          t_max):
     """exp(-sum_k sigma_k * overlap_k) along [0, t_max] of the ray: the
     medium attenuation a shadow ray carries."""
-    rows = table.detach().cpu().tolist()
     dlen = torch.sqrt(torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-24))
     tau = torch.zeros_like(ox)
     for k, kind in enumerate(volume_kinds):
-        t0, t1, valid = _interval(rows[k], kind, ox, oy, oz, dx, dy, dz)
+        row = _cols(table, k)
+        t0, t1, valid = _interval(row, kind, ox, oy, oz, dx, dy, dz)
         t_in = torch.clamp(t0, min=0.0)
         t_out = torch.minimum(t1, t_max)
         overlap = torch.clamp(t_out - t_in, min=0.0)
-        tau = tau + torch.where(valid, rows[k][6] * overlap * dlen, 0.0)
+        tau = tau + torch.where(valid, row[6] * overlap * dlen, 0.0)
     return torch.exp(-tau)
 
 
@@ -102,20 +110,21 @@ def sample_volume_event(table, volume_kinds, us, ox, oy, oz, dx, dy, dz,
 
     ``us``: one per-lane uniform per volume; ``t_surf``: the surface
     sweep's t (a huge value on a miss).  The nearest event that lands
-    inside its volume's clipped interval wins."""
-    rows = table.detach().cpu().tolist()
+    inside its volume's clipped interval wins.  t_v is differentiable in
+    the winner's density and boundary and in the ray; which event wins
+    is a comparison, a constant for autograd."""
     dlen = torch.sqrt(torch.clamp(dx * dx + dy * dy + dz * dz, min=1e-24))
     t_v = torch.full_like(ox, _BIG)
     zero = torch.zeros_like(ox)
     ar = ag = ab = zero
     for k, kind in enumerate(volume_kinds):
-        row = rows[k]
+        row = _cols(table, k)
         t0, t1, valid = _interval(row, kind, ox, oy, oz, dx, dy, dz)
         t_in = torch.clamp(t0, min=1e-3)
         t_out = torch.minimum(t1, t_surf)
-        # Divisions by tensors: torch divides a CUDA tensor by a Python
+        # A divisor as wide as the lanes: torch divides a CUDA tensor by a
         # scalar as a product with its reciprocal, which rounds otherwise.
-        sigma = torch.full_like(ox, max(row[6], float(np.float32(1e-12))))
+        sigma = torch.clamp(row[6], min=1e-12).expand_as(ox)
         step = -torch.log(torch.clamp(us[k], min=1e-12)) / sigma / dlen
         t_k = t_in + step
         ok = valid & (t_in < t_out) & (t_k < t_out)

@@ -3,7 +3,7 @@ the megakernel K1 (ops/megakernel.py, spheres and triangles, and its lit
 instances: emission, NEE, media, textures, roulette), the sorted
 wavefront's bounce K3 (ops/flat_bounce.py) and the gradient bounces
 K4 / K5 (ops/grad.py), with their lit instances (emission, NEE with the
-light rows' cotangent, textures).
+light rows' cotangent, textures, media with the volume rows').
 
 Marked ``cuda``: each test skips (with its reason) where
 ``torch.cuda.is_available()`` is false.  This file imports neither JAX
@@ -364,17 +364,16 @@ LIT_SCENES = {"light": (light_scene, True), "cornell": (cornell_scene, True),
               "textures": (textures_scene, False)}
 
 
-@pytest.mark.parametrize("name", list(LIT_SCENES))
-def test_grad_lit_kernels_match_plain(dev, name):
+def _grad_kernels_match_plain(dev, scene, cam, nee):
     """K4's lit instance bit-identical to its plain version with equal
     counters (box and triangle tests, live lanes, shadow rays) at every
     bounce of one forward at 48x48 spp4 depth 8; K5 within 1e-3: cot_in
     per row of its largest |plain|, g_tbl and g_tri per column of its
     largest sum of |terms|, and g_rows per entry of its float64 sum, or of
     a tenth of its sum of |terms| where the sum cancels below that (the
-    cotangents have one sign, so the emission columns' terms do not)."""
-    build, nee = LIT_SCENES[name]
-    scene, cam = build(1.0, device=dev)
+    cotangents have one sign, so the emission columns' terms do not).
+    Returns the lit features, the shadow rays and the sum of |K5's
+    g_rows|."""
     lit = grad.grad_lit(scene, nee)
     tbl, _ = mk.build_sphere_table(scene)
     tris = grad.grad_tri_table(scene) if scene.n_triangles else None
@@ -383,7 +382,7 @@ def test_grad_lit_kernels_match_plain(dev, name):
     s, t = pixel_coords(48, 48, gen, pix)
     cont, ints = mk.lane_state(camera_rays(cam, gen, s, t), pix.numel(), dev)
     rng = np.random.default_rng(4)
-    shadows = 0
+    shadows, g_rows = 0, 0.0
     for it in range(9):
         kw = dict(it=it, seed=3, max_depth=8, lit=lit,
                   background=scene.background)
@@ -410,9 +409,11 @@ def test_grad_lit_kernels_match_plain(dev, name):
             p = grad.table_sums(terms, n_rows)
             mags = grad.table_sums((terms[0], terms[1].abs()), n_rows)
             assert bool(torch.isfinite(k).all())
+            if not n_rows:  # the smoke box has no spheres
+                continue
             assert bool(((k - p).abs()
                          <= 1e-3 * mags.amax(dim=0, keepdim=True)).all()), it
-        assert (kr is None) == (rows is None) == (not nee)
+        assert (kr is None) == (rows is None) == (lit.rows is None)
         if rows is not None:  # an entry's scale >= 1e-3 of the largest
             exact = rows.double().sum(dim=0)
             mags = rows.double().abs().sum(dim=0)
@@ -420,8 +421,19 @@ def test_grad_lit_kernels_match_plain(dev, name):
                 float(mags.max()) * 1e-3)
             assert bool(torch.isfinite(kr).all())
             assert bool(((kr.double() - exact).abs() <= 1e-3 * scale).all())
+            g_rows = g_rows + kr.abs()
         assert not kg[:, 12].any()
         cont, ints = kc, ki
+    return lit, shadows, g_rows
+
+
+@pytest.mark.parametrize("name", list(LIT_SCENES))
+def test_grad_lit_kernels_match_plain(dev, name):
+    """_grad_kernels_match_plain on the lit scenes."""
+    build, nee = LIT_SCENES[name]
+    lit, shadows, _ = _grad_kernels_match_plain(dev, *build(1.0, device=dev),
+                                                nee)
+    assert lit.rows is None or nee
     assert (shadows > 0) == nee
 
 
@@ -444,5 +456,88 @@ def test_lit_gradient_launches_kernels_only(dev, monkeypatch):
     assert (grad.bounce_fwd.launches - before[0],
             grad.bounce_bwd.launches - before[1]) == (5, 5)
     for g in (grads.materials.albedo, grads.triangles.verts):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+    assert bool(torch.isfinite(loss))
+
+
+# ---------------------------------------------------------------------------
+# K4 / K5 through constant-density media
+
+
+def fog_light_scene(dev):
+    """``fog_light_setup`` of tests/test_pallas_grad_volumes.py: a fog ball
+    ("s") and a sphere light over a gray ground, black background."""
+    b = SceneBuilder()
+    g = b.add_lambertian((0.5, 0.5, 0.5))
+    lamp = b.add_light((6.0, 5.0, 4.0))
+    b.add_sphere((0.0, -100.5, -1.0), 100.0, g)
+    b.add_sphere((0.8, 2.2, -0.6), 0.35, lamp)
+    b.add_fog_sphere((0.0, 0.4, -1.0), 0.6, density=2.0,
+                     albedo=(0.8, 0.7, 0.6))
+    return b.build(background=(0.0, 0.0, 0.0), device=dev), _fog_camera(dev)
+
+
+def fog_box_scene(dev):
+    """An unrotated fog box ("b") over the same ground under the sky."""
+    b = SceneBuilder()
+    b.add_sphere((0.0, -100.5, -1.0), 100.0, b.add_lambertian((0.5,) * 3))
+    b.add_fog_box((-0.5, -0.2, -1.5), (0.5, 0.9, -0.5), 2.0,
+                  albedo=(0.8, 0.7, 0.6))
+    return b.build(device=dev), _fog_camera(dev)
+
+
+def _fog_camera(dev):
+    return make_camera(lookfrom=(0.0, 0.5, 1.8), lookat=(0.0, 0.3, -1.0),
+                       fov_degrees=55.0, aspect_ratio=1.0, aperture=0.0,
+                       focus_dist=1.0, device=dev)
+
+
+#: name -> (builder, nee): phase 23's scenes.
+VOL_SCENES = {
+    "smoke": (lambda dev: smoke_scene(1.0, device=dev), False),
+    "smoke_nee": (lambda dev: smoke_scene(1.0, device=dev), True),
+    "fog_light": (fog_light_scene, True),
+    "fog_box": (fog_box_scene, False),
+}
+
+
+@pytest.mark.parametrize("name", list(VOL_SCENES))
+def test_grad_vol_kernels_match_plain(dev, name):
+    """_grad_kernels_match_plain through media: the free-flight event, NEE
+    from it and the shadow rays' transmittance in K4's lit instance, their
+    adjoints in K5's; every volume row gets a cotangent."""
+    build, nee = VOL_SCENES[name]
+    scene, cam = build(dev)
+    lit, shadows, g_rows = _grad_kernels_match_plain(dev, scene, cam, nee)
+    assert lit.vol_kinds == scene.volume_kinds
+    assert (shadows > 0) == nee
+    vols = g_rows[lit.vol_row0:]
+    assert bool((vols[:, 6] > 0).all())  # every density
+    assert bool((vols[:, :6].amax(dim=1) > 0).all())  # every boundary
+
+
+def test_vol_gradient_launches_kernels_only(dev, monkeypatch):
+    """render_pixels_kernel(nee=True) on the smoke box launches K4 and K5
+    once per bounce, never their plain versions; the media's gradients
+    (density, albedo, the boxes' corners, angles and translations) are
+    finite and non-zero."""
+    def refuse(*_a, **_k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(grad, "bounce_fwd_reference", refuse)
+    monkeypatch.setattr(grad, "bounce_bwd_reference", refuse)
+    scene, cam = smoke_scene(1.0, device=dev)
+    before = (grad.bounce_fwd.launches, grad.bounce_bwd.launches,
+              grad.bounce_fwd.lit_launches, grad.bounce_bwd.lit_launches)
+    loss, grads = grad.loss_and_grad_kernel(
+        scene, cam, torch.Generator(dev).manual_seed(0),
+        torch.zeros((32 * 32, 3), device=dev), torch.arange(32 * 32),
+        width=32, height=32, spp=4, max_depth=4, nee=True)
+    after = (grad.bounce_fwd.launches, grad.bounce_bwd.launches,
+             grad.bounce_fwd.lit_launches, grad.bounce_bwd.lit_launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (5, 5, 5, 5)
+    vol = grads.volumes
+    for g in (vol.density, vol.albedo, vol.p0, vol.p1, vol.rotate_y,
+              vol.translate):
         assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
     assert bool(torch.isfinite(loss))

@@ -22,8 +22,9 @@ as JAX's gates are held.  Pixels at the centre of the view,
   scale, through the noise's derivative in the hit point and the scale.
 * Sorted lanes with NEE match unsorted ones (tests/test_pallas_grad.py:
   377) on ``light_scene`` and the Cornell box at 8x8, spp 4, depth 3.
-* ``nee=True`` without an emitter raises ValueError; media and image
-  textures still raise NotImplementedError naming their ROADMAP items.
+* ``nee=True`` without an emitter raises ValueError; image textures
+  still raise NotImplementedError naming their ROADMAP item; a scene with
+  media renders.
 """
 import numpy as np
 import pytest
@@ -146,7 +147,7 @@ def test_noise_grad_matches_fd(leaf, index, eps):
 
 def test_lit_scene_contract():
     """nee=True needs an emitter (ValueError, as pallas_grad.py:888-892);
-    media and image textures are not in the kernels yet."""
+    image textures are not in the kernels yet; media are."""
     cam = make_camera(lookfrom=(0, 1, 4), lookat=(0, 1, 0), fov_degrees=40,
                       aspect_ratio=1.0, aperture=0.0, focus_dist=4.0,
                       device="cpu")
@@ -158,9 +159,9 @@ def test_lit_scene_contract():
         grad.render_pixels_kernel(dark, cam, torch.Generator(), [0, 1],
                                   nee=True, **kw)
     b.add_fog_sphere((0, 1, 0), 0.5, 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10b"):
-        grad.render_pixels_kernel(b.build(device="cpu"), cam,
-                                  torch.Generator(), [0, 1], **kw)
+    img = grad.render_pixels_kernel(b.build(device="cpu"), cam,
+                                    torch.Generator(), [0, 1], **kw)
+    assert img.shape == (2, 3) and bool(torch.isfinite(img).all())
     kinds = dark.materials.kind.clone()
     kinds[0] = 6  # IMAGE
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):

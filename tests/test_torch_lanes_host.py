@@ -15,8 +15,14 @@ The lanes are real ones: every bounce's input state of one plain forward
 (:func:`grad.bounce_fwd_reference`, chained over ``depth + 1`` bounces
 from the camera's rays), with standard-normal output cotangents (numpy
 seed).  Scenes: ``light_scene`` and ``cornell_scene`` with NEE toward
-their lights, ``textures_scene`` (checker and noise, sky), and the
-4,096-triangle knot over a ground sphere (the hierarchy, unlit).
+their lights, ``textures_scene`` (checker and noise, sky), the
+4,096-triangle knot over a ground sphere (the hierarchy, unlit), the
+sky-lit fog ball of ``tests/test_pallas_grad_volumes.py`` (a "s" volume:
+the free-flight event before the miss) and ``smoke_scene`` with NEE (two
+"r" boxes behind the lamp's light rows: the event, NEE from it, and the
+shadow rays' transmittance), and three media of the three kinds around
+two lamps of the two kinds with NEE (the light's distance in the
+transmittance).
 
 * K4: each bounce's outputs against the plain version's.  The alive
   codes, bounce counts and lane ids are equal on every lane, and so are
@@ -96,11 +102,52 @@ def _knot():
     return b.build(device="cpu"), cam
 
 
+def _fog():
+    """The sky-lit fog ball of tests/test_pallas_grad_volumes.py
+    (``fog_setup``) over its gray ground."""
+    b = SceneBuilder()
+    b.add_sphere((0.0, -100.5, -1.0), 100.0, b.add_lambertian((0.5,) * 3))
+    b.add_fog_sphere((0.0, 0.4, -1.0), 0.6, density=2.0,
+                     albedo=(0.8, 0.7, 0.6))
+    cam = make_camera(lookfrom=(0.0, 0.5, 1.8), lookat=(0.0, 0.3, -1.0),
+                      fov_degrees=55.0, aspect_ratio=1.0, aperture=0.0,
+                      focus_dist=1.0, device="cpu")
+    return b.build(device="cpu"), cam
+
+
+def _fogs():
+    """A fog ball ("s"), a fog box ("b") and a rotated one ("r") over a
+    ground sphere, black background, lit by a sphere lamp inside the ball
+    and a quad lamp (two triangles, facing down) inside the box: shadow
+    rays that end inside a medium, so the light's distance carries a
+    cotangent into the transmittance, for both kinds of light."""
+    b = SceneBuilder()
+    b.add_sphere((0.0, -100.5, -1.0), 100.0, b.add_lambertian((0.5,) * 3))
+    lamp = b.add_light((4.0, 3.5, 3.0))
+    b.add_sphere((-0.6, 0.9, -1.2), 0.2, lamp)
+    b.add_quad((0.3, 1.2, -1.4), (0.9, 1.2, -1.4), (0.9, 1.2, -0.8),
+               (0.3, 1.2, -0.8), lamp)
+    b.add_fog_sphere((-0.6, 0.9, -1.2), 0.5, density=0.8,
+                     albedo=(0.8, 0.7, 0.6))
+    b.add_fog_box((0.2, 0.9, -1.5), (1.0, 1.4, -0.7), 0.7,
+                  albedo=(0.6, 0.8, 0.7))
+    b.add_fog_box((-0.25, -0.5, -0.25), (0.25, 0.4, 0.25), 1.5,
+                  albedo=(0.7, 0.6, 0.9), rotate_y=35.0,
+                  translate=(0.0, 0.0, -1.0))
+    cam = make_camera(lookfrom=(0.0, 0.5, 1.8), lookat=(0.0, 0.3, -1.0),
+                      fov_degrees=55.0, aspect_ratio=1.0, aperture=0.0,
+                      focus_dist=1.0, device="cpu")
+    return b.build(background=(0.0, 0.0, 0.0), device="cpu"), cam
+
+
 SCENES = {
     "light": (lambda: builders.light_scene(1.0, device="cpu"), True),
     "cornell": (lambda: builders.cornell_scene(1.0, device="cpu"), True),
     "textures": (lambda: builders.textures_scene(1.0, device="cpu"), False),
     "knot": (_knot, False),
+    "fog": (_fog, False),
+    "smoke": (lambda: builders.smoke_scene(1.0, device="cpu"), True),
+    "fogs": (_fogs, True),
 }
 
 
@@ -117,9 +164,9 @@ def build_host_lanes(out_dir):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     tri = [p, p, p, p, i, i, i, i, i]
     lib.rtow_host_fwd.argtypes = [p, i, *tri, p, p, i, i, i, i, i, f, f, f,
-                                  p, p, p, p, i, i, i, i]
+                                  p, p, p, p, i, i, i, i, i, i, i]
     lib.rtow_host_bwd.argtypes = [p, i, *tri, p, p, p, i, i, i, i, i, f, f, f,
-                                  p, p, p, p, p, p, i, i, i, i, i]
+                                  p, p, p, p, p, p, i, i, i, i, i, i, i, i]
     return lib
 
 
@@ -189,7 +236,9 @@ class _Case:
     def _lit(self):
         lit = self.lit
         return (_ptr(lit.rows), int(lit.emissive), len(lit.nee_kinds),
-                mk._kind_bits(lit.nee_kinds, "st"), int(lit.checker))
+                mk._kind_bits(lit.nee_kinds, "st"), int(lit.checker),
+                len(lit.vol_kinds), mk._kind_bits(lit.vol_kinds, "sbr"),
+                lit.vol_row0)
 
     def _host_fwd(self, host, cont, ints, it):
         tris, scalars = self._common(it)
@@ -288,7 +337,7 @@ def _close(got, want, dim, what):
 @pytest.mark.parametrize("name", list(SCENES))
 def test_k5_lanes_match_bounce_bwd_terms(host, name):
     case = _case(host, name)
-    touched = [0, 0, 0]
+    touched = [0, 0, 0, 0]  # sphere, triangle, light and volume rows
     for it, b in enumerate(case.bounces):
         same = _agree(b)
         for j, (got, want) in enumerate(zip(b["host"], b["plain"])):
@@ -300,12 +349,16 @@ def test_k5_lanes_match_bounce_bwd_terms(host, name):
             if j == 0:
                 _close(got[:, same], want[:, same], 1, what)
                 continue
+            if j == 3:
+                vols = want[same, case.lit.vol_row0:]
+                touched[3] += int((vols != 0).flatten(1).any(dim=1).sum())
             got, want = got[same].flatten(1), want[same].flatten(1)
             _close(got, want, 0, what)
             touched[j - 1] += int((want != 0).any(dim=1).sum())
-    assert touched[0] > 0
+    assert (touched[0] > 0) == bool(case.scene.n_spheres)
     assert (touched[1] > 0) == (case.tris is not None)
-    assert (touched[2] > 0) == bool(case.lit.nee_kinds)
+    assert (touched[2] > 0) == (case.lit.rows is not None)
+    assert (touched[3] > 0) == bool(case.lit.vol_kinds)
 
 
 def test_k5_triangle_terms_sum_as_plain(host):

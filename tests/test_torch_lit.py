@@ -288,7 +288,7 @@ def test_k3_check_scene_names_each_feature():
 @pytest.mark.parametrize("feature", ["light", "checker", "fog"])
 def test_gradient_kernels_refuse_lit_scenes(feature):
     """K4 / K5 take emission, NEE and textures since the lit slice of the
-    gradient path; media are still refused (ROADMAP Queue 1 item 10b)."""
+    gradient path, and media since its media slice: none is refused."""
     b = SceneBuilder()
     b.add_sphere((0, -100, 0), 100.0, b.add_lambertian((0.5,) * 3))
     if feature == "light":
@@ -303,12 +303,6 @@ def test_gradient_kernels_refuse_lit_scenes(feature):
                       device="cpu")
     kw = dict(width=8, height=8, spp=1, max_depth=1,
               nee=feature == "light")
-    if feature == "fog":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP Queue 1 item 10b"):
-            grad.render_pixels_kernel(scene, cam, torch.Generator(), [0, 1],
-                                      **kw)
-        return
     img = grad.render_pixels_kernel(scene, cam, torch.Generator(),
                                     list(range(64)), **kw)
     assert img.shape == (64, 3) and bool(torch.isfinite(img).all())
