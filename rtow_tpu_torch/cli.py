@@ -3,7 +3,8 @@ CLI11 app, src/main.cpp:138-170), plus ``--device``.  PPM P3 on stdout
 or to a file, logging on stderr.  ``-l mesh.obj`` renders an OBJ mesh
 (K1 up to 16,384 triangles, the sorted wavefront and K3 above);
 ``--lights``, ``--cornell``, ``--textures``, ``--smoke``, ``--checker``
-and ``--russian-roulette`` run K1's lit instances.  Flags whose feature
+and ``--russian-roulette`` run the kernels' lit instances (K1's, and
+K3's for ``-l`` meshes over 16,384 triangles).  Flags whose feature
 the port has not ported (``--globe``, ``--backend jnp``, ``--devices``
 above 1, ``--profile-dir``) raise ``NotImplementedError`` naming the
 ROADMAP item.

@@ -62,6 +62,9 @@ __global__ void __launch_bounds__(kThreads)
              float* __restrict__ g_rows,
              unsigned long long* __restrict__ stats, rtow::Lit lit,
              int lit_rows) {
+  // One-sided triangles, as JAX's gradient (pallas_grad.py:910), fixed at
+  // compile time: the sweep's side test then costs what the cull alone does.
+  tris.side_mask = rtow::kKeepSign;
   // npad x 4 float4 of table, npad x 16 of its gradient; then (kLit) the
   // light rows and their gradient, lit_rows x 14 floats each.
   extern __shared__ float4 smem[];

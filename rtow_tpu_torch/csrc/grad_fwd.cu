@@ -69,6 +69,9 @@ __global__ void __launch_bounds__(kThreads)
              float* __restrict__ cont_out, int* __restrict__ ints_out,
              unsigned long long* __restrict__ stats, rtow::Lit lit,
              int lit_rows) {
+  // One-sided triangles, as JAX's gradient (pallas_grad.py:910), fixed at
+  // compile time: the sweep's side test then costs what the cull alone does.
+  tris.side_mask = rtow::kKeepSign;
   extern __shared__ float4 tbl[];  // npad rows x 4 float4, then lit rows
   for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) tbl[i] = table[i];
   if constexpr (kLit) {

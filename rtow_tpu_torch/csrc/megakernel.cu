@@ -20,7 +20,11 @@
 // memory: it stays in global memory, read through the read-only path and
 // held in L2, and each thread slab-tests every 128-row block's box and
 // sweeps only the blocks its ray enters.  Scenes without triangles run the
-// sphere-only instance of the kernel, unchanged.
+// sphere-only instance of the kernel, unchanged.  Two-sided triangles
+// (cull = 0) run triangle instances of their own (kTwoSided): the side
+// test is then fixed at compile time, where a run-time one cost the lit
+// Cornell box 2-3% on an H100 (an AND per triangle test); 6 instances in
+// all.
 //
 // Scenes with lights, textures, media or roulette run the lit instances
 // (kLit, bounce_lane_t<kTris, true>): the same loop, the alive code 2
@@ -67,8 +71,9 @@ struct Cam {
 };
 
 // kLit: the lit bounce; lit.rows points at global memory here and is
-// staged into shared memory.
-template <bool kTris, bool kLit>
+// staged into shared memory.  kTwoSided: the triangles' side test, fixed at
+// compile time (the launcher picks the instance from tris.side_mask).
+template <bool kTris, bool kLit, bool kTwoSided>
 __global__ void __launch_bounds__(kThreads)
     megakernel(const float4* __restrict__ table, int npad, rtow::Tris tris,
                const float* __restrict__ cam_vec, int seed, int width,
@@ -80,6 +85,7 @@ __global__ void __launch_bounds__(kThreads)
                unsigned long long* __restrict__ shadows, rtow::Lit lit,
                int lit_rows) {
   using rtow::uniform;
+  tris.side_mask = kTwoSided ? rtow::kDropSign : rtow::kKeepSign;
   extern __shared__ float4 tbl[];  // npad rows x 4 float4, then lit rows
   for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) tbl[i] = table[i];
   if constexpr (kLit) {
@@ -164,7 +170,7 @@ __global__ void __launch_bounds__(kThreads)
     rtow::warp_add(tally.shadows, shadows);
 }
 
-template <bool kTris, bool kLit>
+template <bool kTris, bool kLit, bool kTwoSided>
 int launch(const float* table, int npad, const rtow::Tris& tris,
            const float* cam, int seed, int width, int height, int tile0,
            int spp, int max_depth, int n_tiles, const rtow::Background& bg,
@@ -172,7 +178,7 @@ int launch(const float* table, int npad, const rtow::Tris& tris,
            unsigned long long* steps, unsigned long long* tests,
            unsigned long long* shadows, const rtow::Lit& lit, int lit_rows,
            cudaStream_t stream) {
-  auto kernel = megakernel<kTris, kLit>;
+  auto kernel = megakernel<kTris, kLit, kTwoSided>;
   const int smem = (npad * rtow::kCols + (kLit ? lit_rows * rtow::kLitCols
                                                : 0)) *
                    static_cast<int>(sizeof(float));
@@ -188,7 +194,7 @@ int launch(const float* table, int npad, const rtow::Tris& tris,
 }
 
 // The instance for the scene: with or without triangles, lit where the
-// scene has any lit feature.
+// scene has any lit feature, two-sided where tris.side_mask says so.
 template <bool kTris>
 int dispatch(bool any_lit, const float* table, int npad,
              const rtow::Tris& tris, const float* cam, int seed, int width,
@@ -197,7 +203,10 @@ int dispatch(bool any_lit, const float* table, int npad,
              float* out_b, unsigned long long* steps,
              unsigned long long* tests, unsigned long long* shadows,
              const rtow::Lit& lit, int lit_rows, cudaStream_t stream) {
-  auto run = any_lit ? launch<kTris, true> : launch<kTris, false>;
+  const bool two_sided = kTris && tris.side_mask == rtow::kDropSign;
+  auto run = any_lit ? launch<kTris, true, false> : launch<kTris, false, false>;
+  if (two_sided)
+    run = any_lit ? launch<kTris, true, kTris> : launch<kTris, false, kTris>;
   return run(table, npad, tris, cam, seed, width, height, tile0, spp,
              max_depth, n_tiles, bg, out_r, out_g, out_b, steps, tests,
              shadows, lit, lit_rows, stream);
@@ -217,8 +226,9 @@ extern "C" {
 // that it adds its NEE shadow rays to.  The lit features: lit_rows,
 // the (vol_row0 + n_vol or n_lights) x 14 float32 light then volume rows;
 // emissive, checker, roulette flags; n_lights lights of kinds light_kinds
-// and n_vol volumes of kinds vol_kinds (2 bits each, row 0 lowest).
-// Returns the cudaError_t of the launch.
+// and n_vol volumes of kinds vol_kinds (2 bits each, row 0 lowest); cull:
+// 1 one-sided triangles, 0 two-sided.  Returns the cudaError_t of the
+// launch.
 int rtow_megakernel(const float* table, int npad, const float* tri,
                     const float* tri_boxes, int tri_blocks, int tri_block,
                     int tri_count, const float* cam, int seed, int width,
@@ -229,13 +239,13 @@ int rtow_megakernel(const float* table, int npad, const float* tri,
                     const float* lit_rows,
                     int emissive, int n_lights, int light_kinds, int checker,
                     int n_vol, int vol_kinds, int vol_row0, int roulette,
-                    int device, void* stream) {
+                    int cull, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const rtow::Tris tris{reinterpret_cast<const float4*>(tri),
                         reinterpret_cast<const float4*>(tri_boxes),
                         nullptr, nullptr, tri_blocks, 0, 0, tri_block,
-                        tri_count};
+                        tri_count, cull ? rtow::kKeepSign : rtow::kDropSign};
   const rtow::Background bg{use_sky, bgr, bgg, bgb};
   const rtow::Lit lit{lit_rows, emissive, n_lights, checker, n_vol,
                       vol_row0, roulette,

@@ -14,14 +14,20 @@ through.  The lane's random numbers are the counter hash on its lane id
 (pallas_megakernel.py:1791-1792), so a lane's path does not depend on
 where the sort put it.
 
+Scenes with lights, textures or media, and renders with Russian
+roulette, carry their lit features in ``Tables.lit``
+(``megakernel.scene_lit``; JAX's static flags and light-table operand,
+:1742-1744): emission with its MIS weight, next-event estimation with a
+shadow ray down the same hierarchy, the volume event, the textured
+albedo, roulette.  Under NEE the alive code is 2 after a diffuse or
+volume scatter, and the next bounce reads it back as ``from_diffuse =
+alive > 1`` (:1809).  ``cull=False`` makes the triangles two-sided.
+
 ``bounce_step`` is the wrapper: on a CUDA tensor it launches the
 hand-written kernel ``csrc/flat_bounce.cu`` (counting the launch in
-``bounce_step.launches``), on a CPU tensor it runs
+``bounce_step.launches``, and a lit one also in
+``bounce_step.lit_launches``), on a CPU tensor it runs
 :func:`bounce_step_reference`, and on anything else it raises.
-
-K3 has the sphere, triangle, sky and three-material bounce only: lights,
-textures, media and roulette on a large mesh raise (:func:`check_scene`)
-until its lit features are ported.
 """
 from __future__ import annotations
 
@@ -31,12 +37,11 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
-from ..models.scene import EMISSIVE
 from . import _cuda
 from .megakernel import (
-    TriTable, background_args, check_counter, check_table, check_tris,
-    draw_scatter, lane_hash, nearest_sphere, nearest_triangle, shade,
-    step_salt, winners,
+    LIGHT_COLS, Lit, TriTable, background_args, bounce_lanes, check_counter,
+    check_lit, check_table, check_tris, lit_args, lit_rows, lane_hash,
+    step_salt,
 )
 
 #: Rows of the packed lane state.
@@ -48,29 +53,17 @@ _F32 = torch.float32
 
 class Tables(NamedTuple):
     """The scene tables of a bounce: the (Npad, 16) sphere table (Npad
-    may be 0) and the triangle table with its hierarchy."""
+    may be 0), the triangle table with its hierarchy, and the lit
+    features with their light and volume rows (none by default)."""
     sph: torch.Tensor
     tris: TriTable
+    lit: Lit = Lit()
 
 
-def check_scene(scene, roulette: bool = False) -> None:
-    """Raise ``NotImplementedError`` if ``scene`` (or ``roulette``) needs
-    a feature K3 does not have: emission and NEE, textures, media,
-    Russian roulette."""
-    kinds = scene.materials.kind
-    needs = [name for name, on in (
-        ("lights", scene.has_emissive or bool((kinds == EMISSIVE).any())),
-        ("textures", scene.has_checker or bool((kinds > EMISSIVE).any())),
-        ("media", bool(scene.volume_kinds)),
-        ("Russian roulette", roulette)) if on]
-    if needs:
-        raise NotImplementedError(
-            f"{', '.join(needs)} on meshes of over 16,384 triangles need "
-            f"K3's lit features (ROADMAP Queue 1 item 9)")
-
-
-def _check(state: torch.Tensor, tables: Tables, stats) -> None:
-    check_table(tables.sph, "flat bounce")
+def _check(state: torch.Tensor, tables: Tables, stats, shadows) -> None:
+    check_lit(tables.lit, tables.sph)
+    check_table(tables.sph, "flat bounce",
+                staged=lit_rows(tables.lit) * LIGHT_COLS * 4)
     check_tris(tables.tris, tables.sph, "flat bounce")
     if (state.dtype != _F32 or state.dim() != 2
             or state.shape[0] != STATE_ROWS or not state.is_contiguous()
@@ -80,58 +73,63 @@ def _check(state: torch.Tensor, tables: Tables, stats) -> None:
     if state.shape[1] >= 1 << 24:
         raise ValueError("lane ids must stay exact in float32 (L < 2**24)")
     check_counter(stats, 3, tables.sph, "stats")
+    check_counter(shadows, 1, tables.sph, "shadows")
 
 
 def bounce_step_reference(state: torch.Tensor, it: int, seed: int,
                           max_depth: int, tables: Tables, *,
                           background: Union[str, tuple] = "sky",
-                          stats: Optional[torch.Tensor] = None
-                          ) -> torch.Tensor:
+                          stats: Optional[torch.Tensor] = None,
+                          shadows: Optional[torch.Tensor] = None,
+                          cull: bool = True) -> torch.Tensor:
     """Plain PyTorch version of K3: a new (16, L) state.  Same inputs and
-    outputs as :func:`bounce_step`."""
+    outputs as :func:`bounce_step`; the bounce is K1's plain one
+    (``megakernel.bounce_lanes``) with both triangle sweeps down the
+    hierarchy, as the kernel traverses it."""
     out = state.clone()
     live = torch.nonzero(state[_ALIVE] > 0).flatten()
-    tally = [0, 0]
+    lit = tables.lit
+    tally = [0, 0, 0]  # box tests, triangle tests, shadow rays
     if live.numel():
-        cont = state[:13, live]
-        ox, oy, oz, dx, dy, dz, tm = cont[:7]
-        a = dx * dx + dy * dy + dz * dz
-        best_t, best_k = nearest_sphere(tables.sph, ox, oy, oz, dx, dy, dz,
-                                        tm, a, 1.0 / a)
-        best_t, best_k = nearest_triangle(
-            tables.tris, ox, oy, oz, dx, dy, dz, best_t, best_k,
-            tables.sph.shape[0], tally=tally)
-        w, tri = winners(tables.sph, tables.tris, best_t, best_k)
-        lane = lane_hash(state[_LANE, live].long())
-        new, can, bounce = shade(
-            tuple(cont.unbind(0)), w, draw_scatter(lane, step_salt(seed, it)),
-            best_t, torch.ones_like(best_t, dtype=torch.bool),
+        code = state[_ALIVE, live]
+        new, can, bounce = bounce_lanes(
+            tables.sph, tables.tris, tuple(state[:13, live].unbind(0)),
+            lane_hash(state[_LANE, live].long()), step_salt(seed, it),
             state[_BOUNCE, live].to(torch.int32), max_depth, background,
-            tri=tri)
+            lit=lit, from_diffuse=code > 1 if lit.nee_kinds else None,
+            tally=tally, flat=False, cull=cull)
         out[:13, live] = torch.stack(new)
         out[_ALIVE, live] = can.to(_F32)
         out[_BOUNCE, live] = bounce.to(_F32)
     if stats is not None:
-        stats += torch.tensor(tally + [live.numel()], device=state.device)
+        stats += torch.tensor(tally[:2] + [live.numel()], device=state.device)
+    if shadows is not None:
+        shadows += tally[2]
     return out
 
 
 def bounce_step(state: torch.Tensor, it: int, seed: int, max_depth: int,
                 tables: Tables, *, background: Union[str, tuple] = "sky",
-                stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+                stats: Optional[torch.Tensor] = None,
+                shadows: Optional[torch.Tensor] = None,
+                cull: bool = True) -> torch.Tensor:
     """Advance every lane of ``state`` (16, L) one bounce -> a new state
     (``bounce_step_pallas``, :1838).
 
     ``it`` is the bounce's step (the salt's counter), ``seed`` the
-    chunk's seed, ``tables`` the scene's :class:`Tables`.  ``stats``, a
-    (3,) int64 tensor on the state's device, gets the bounce's box tests,
-    triangle tests and live lanes added to it.  A CUDA state launches
-    ``csrc/flat_bounce.cu``; a CPU state runs
+    chunk's seed, ``tables`` the scene's :class:`Tables` (its ``lit``
+    picks the lit instance); ``cull`` False makes the triangles
+    two-sided (``bounce_step_pallas(cull=False)``, :1848).  Counters,
+    int64 on the state's device: ``stats`` (3,) gets the bounce's box
+    tests, triangle tests (the shadow rays' included) and live lanes
+    added to it, ``shadows`` (1,) its NEE shadow rays.  A CUDA state
+    launches ``csrc/flat_bounce.cu``; a CPU state runs
     :func:`bounce_step_reference`; any other device raises."""
-    _check(state, tables, stats)
+    _check(state, tables, stats, shadows)
     if state.device.type == "cpu":
         return bounce_step_reference(state, it, seed, max_depth, tables,
-                                     background=background, stats=stats)
+                                     background=background, stats=stats,
+                                     shadows=shadows, cull=cull)
     tris = tables.tris
     use_sky, (bgr, bgg, bgb) = background_args(background)
     out = torch.empty_like(state)
@@ -140,17 +138,21 @@ def bounce_step(state: torch.Tensor, it: int, seed: int, max_depth: int,
         tables.sph.data_ptr(), tables.sph.shape[0], tris.tbl.data_ptr(),
         tris.boxes.data_ptr(), tris.supers.data_ptr(), tris.hypers.data_ptr(),
         tris.n_blocks, tris.n_super, tris.n_hyper, tris.block, tris.count,
-        state.data_ptr(), out.data_ptr(), state.shape[1],
+        int(cull), state.data_ptr(), out.data_ptr(), state.shape[1],
         step_salt(seed, it), int(max_depth), int(use_sky), bgr, bgg, bgb,
         None if stats is None else stats.data_ptr(),
-        *_cuda.device_args(state))
+        None if shadows is None else shadows.data_ptr(),
+        *lit_args(tables.lit, tables.sph), *_cuda.device_args(state))
     _cuda.check_launch(lib, err, "flat bounce")
     bounce_step.launches += 1
+    bounce_step.lit_launches += tables.lit.any
     return out
 
 
-#: Kernel launches made by :func:`bounce_step` in this process.
+#: Kernel launches made by :func:`bounce_step` in this process, and those
+#: of them that ran the lit instance.
 bounce_step.launches = 0
+bounce_step.lit_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -159,7 +161,8 @@ def _lib() -> ctypes.CDLL:
     declared."""
     lib = _cuda.load("flat_bounce")
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
-    lib.rtow_flat_bounce.argtypes = [p, i, p, p, p, p, i, i, i, i, i, p, p, i,
-                                     u, i, i, f, f, f, p, i, p]
+    lib.rtow_flat_bounce.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p,
+                                     p, i, u, i, i, f, f, f, p, p, p, i, i,
+                                     i, i, i, i, i, i, i, p]
     lib.rtow_flat_bounce.restype = i
     return lib

@@ -347,8 +347,11 @@ def _check_grad_lit(lit: Lit, tbl: torch.Tensor) -> None:
     check_lit(lit, tbl)
 
 
-def _check(kernel, tbl, tris, cont, ints, cot, stats, lit, **scalars):
+def _check(kernel, tbl, tris, cont, ints, cot, stats, lit, cull, **scalars):
     """The wrappers' checks -> (it, seed, max_depth)."""
+    if not cull:
+        raise ValueError("the gradient kernels cull back faces, as JAX's "
+                         "do (pallas_grad.py:910): no two-sided triangles")
     _check_grad_lit(lit, tbl)
     copies = 2 if cot is not None else 1
     check_table(tbl, kernel, copies=copies,
@@ -387,7 +390,7 @@ def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
                tris: Optional[TriTable] = None, *, it: int, seed: int,
                max_depth: int, background: Union[str, tuple] = "sky",
                flat: bool = False, stats: Optional[torch.Tensor] = None,
-               lit: Lit = Lit()):
+               lit: Lit = Lit(), cull: bool = True):
     """One forward bounce (``_bounce_fwd_impl``, :592) -> (cont, ints).
 
     ``tris``: the scene's triangle table, or None; ``flat`` sweeps its
@@ -398,9 +401,11 @@ def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
     A CUDA ``tbl`` launches ``csrc/grad_fwd.cu`` (counted in
     ``bounce_fwd.launches``, in ``lit_launches`` where ``lit`` has a
     feature, and in ``vol_launches`` where it has media); a CPU ``tbl`` runs
-    :func:`bounce_fwd_reference`; any other device raises."""
+    :func:`bounce_fwd_reference`; any other device raises.  Triangles are
+    one-sided: ``cull`` False raises, as JAX's gradient has no two-sided
+    triangles."""
     it, seed, max_depth = _check("grad_fwd kernel", tbl, tris, cont, ints,
-                                 None, stats, lit, it=it, seed=seed,
+                                 None, stats, lit, cull, it=it, seed=seed,
                                  max_depth=max_depth)
     if tbl.device.type == "cpu":
         return bounce_fwd_reference(cont, ints, tbl, tris, it=it, seed=seed,
@@ -435,20 +440,21 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
                tbl: torch.Tensor, tris: Optional[TriTable] = None, *,
                it: int, seed: int, max_depth: int,
                background: Union[str, tuple] = "sky", flat: bool = False,
-               stats: Optional[torch.Tensor] = None, lit: Lit = Lit()):
+               stats: Optional[torch.Tensor] = None, lit: Lit = Lit(),
+               cull: bool = True):
     """One backward bounce (``_bounce_grad_bwd``, :639) from the bounce's
     saved input state -> (cot_in (13, L), g_tbl (Npad, 16), g_tri (Mpad,
     16) or None without ``tris``, g_rows (R, 14) or None without light or
-    volume rows).  ``tris``, ``flat``, ``lit`` and ``stats`` as for
-    :func:`bounce_fwd`.
+    volume rows).  ``tris``, ``flat``, ``lit``, ``stats`` and ``cull`` as
+    for :func:`bounce_fwd`.
 
     A CUDA ``tbl`` launches ``csrc/grad_bwd.cu`` (counted in
     ``bounce_bwd.launches``, ``lit_launches`` and ``vol_launches``, as for
     :func:`bounce_fwd`); a CPU ``tbl`` runs
     :func:`bounce_bwd_reference`; any other device raises."""
     it, seed, max_depth = _check("grad_bwd kernel", tbl, tris, cont, ints,
-                                 cot_out, stats, lit, it=it, seed=seed,
-                                 max_depth=max_depth)
+                                 cot_out, stats, lit, cull, it=it,
+                                 seed=seed, max_depth=max_depth)
     if tbl.device.type == "cpu":
         return bounce_bwd_reference(cont, ints, cot_out, tbl, tris, it=it,
                                     seed=seed, max_depth=max_depth,

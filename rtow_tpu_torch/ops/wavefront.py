@@ -13,6 +13,13 @@ they fit in a window 8x narrower, the loop runs on the head of the
 sorted state alone.  After the last bounce a scatter by lane id puts
 the radiance back in (pixel, sample) order.
 
+Lit scenes (lights, textures, media) and renders with Russian roulette
+take K3's lit instance: the scene's lit features ride in the tables
+(``scene_tables``; ``megakernel.scene_lit``), and the alive row keeps
+its code {0, 1, 2} through the sort and the window (both test
+``alive > 0``), so the next bounce knows a diffuse scatter came before
+it.  ``cull_backfaces=False`` makes the triangles two-sided.
+
 The image does not depend on the sort: every lane's random numbers are
 the counter hash on its lane id and the bounce (``ops/flat_bounce.py``).
 Camera rays come from a ``torch.Generator`` seeded per chunk
@@ -27,7 +34,7 @@ from __future__ import annotations
 
 import sys
 import time as _time
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,9 +43,9 @@ from ..config import Config
 from ..models.camera import Camera, camera_rays, pixel_coords
 from ..models.scene import Scene
 from ..utils.profiling import RenderStats
-from .flat_bounce import Tables, bounce_step, check_scene
+from .flat_bounce import Tables, bounce_step
 from .megakernel import (
-    TILE, build_sphere_table, build_tri_table, pick_tri_block,
+    TILE, build_sphere_table, build_tri_table, pick_tri_block, scene_lit,
 )
 from .megakernel import lane_state as lane_pair
 
@@ -105,18 +112,21 @@ def sort_keys(ray, alive: torch.Tensor, bmin: torch.Tensor,
     return torch.where(live, key, DEAD_KEY)
 
 
-def scene_tables(scene: Scene) -> Tuple[Tables, torch.Tensor, torch.Tensor]:
+def scene_tables(scene: Scene, roulette: bool = False
+                 ) -> Tuple[Tables, torch.Tensor, torch.Tensor]:
     """(K3's tables, scene-box min, 1 / extent) of a mesh scene
     (``_scene_tables``, :152): the triangle table at the scene's
-    ``pick_tri_block`` width, and the grid of the sort keys' origin code,
-    the union of the valid block boxes."""
+    ``pick_tri_block`` width, the lit features of the scene (and
+    ``roulette``) with their light then volume rows (JAX's light-table
+    operand, :179-188), and the grid of the sort keys' origin code, the
+    union of the valid block boxes."""
     sph, sph_boxes = build_sphere_table(scene)
     tris = build_tri_table(scene, pick_tri_block(scene.n_triangles))
     boxes = torch.cat([sph_boxes, tris.boxes])
     bmin = boxes[:, 0:3].amin(dim=0)
     bmax = boxes[:, 3:6].amax(dim=0)
     inv_ext = 1.0 / torch.clamp(bmax - bmin, min=1e-6)
-    return Tables(sph, tris), bmin, inv_ext
+    return Tables(sph, tris, scene_lit(scene, roulette)), bmin, inv_ext
 
 
 def _window_ladder(n: int) -> list:
@@ -156,20 +166,29 @@ def _sorted(state, bmin, inv_ext):
 def lane_state(rays, n_lanes: int) -> torch.Tensor:
     """The packed (16, L) state of ``n_lanes`` camera rays
     (``_trace_lane_per_sample``, :256-269): ``megakernel.lane_state``
-    (L a whole number of TILEs, padding lanes dead) with its alive,
-    bounce and lane-id rows as float32."""
+    (L a whole number of TILEs, camera lanes at alive code 1, padding
+    lanes dead) with its alive, bounce and lane-id rows as float32."""
     cont, ints = lane_pair(rays, n_lanes, rays.origin.device)
     return torch.cat([cont, ints.to(_F32)])
 
 
 def trace_lanes(state: torch.Tensor, seed: int, *, max_depth: int,
                 tables: Tables, bmin: torch.Tensor, inv_ext: torch.Tensor,
-                background="sky", stats: Optional[torch.Tensor] = None,
-                tape: Optional[list] = None) -> torch.Tensor:
+                background="sky", cull: bool = True,
+                stats: Optional[torch.Tensor] = None,
+                shadows: Optional[torch.Tensor] = None,
+                tape: Optional[list] = None,
+                windows: Optional[list] = None,
+                level_its: Optional[list] = None) -> torch.Tensor:
     """Run the sorted bounce loop on a packed state until every lane is
     dead -> the final state, in sorted order (``_trace_lane_per_sample``'s
-    loop, :282-391).  ``tape``, a list, gets each bounce's (input state,
-    step) appended (the inputs K3 was given)."""
+    loop, :282-391).  ``stats``, ``shadows``, ``cull``: see
+    ``bounce_step``.  ``tape``, a list, gets each bounce's (input state,
+    step) appended (the inputs K3 was given).  ``windows``, a list of
+    three ints, gets each bounce's window tiles, live lanes and live
+    tiles added to it, and ``level_its`` the step count after each
+    window level appended (JAX's ``acc[3:6]`` and ``level_its``,
+    :304-321, :384)."""
     widths = _window_ladder(state.shape[1])
     it = 0
     for i, w in enumerate(widths):
@@ -183,11 +202,18 @@ def trace_lanes(state: torch.Tensor, seed: int, *, max_depth: int,
             win = _sorted(win, bmin, inv_ext)
             if tape is not None:
                 tape.append((win, it))
+            if windows is not None:
+                live_tiles = (win[13] > 0).view(-1, TILE).any(dim=1).sum()
+                for j, n in enumerate((w // TILE, n_live, int(live_tiles))):
+                    windows[j] += n
             win = bounce_step(win, it, seed, max_depth, tables,
-                              background=background, stats=stats)
+                              background=background, stats=stats,
+                              shadows=shadows, cull=cull)
             it += 1
             n_live = int((win[13] > 0).sum())
         state = torch.cat([win, rest], dim=1) if rest.shape[1] else win
+        if level_its is not None:
+            level_its.append(it)
     return state
 
 
@@ -196,25 +222,47 @@ def trace_wavefront_sorted(tables: Tables, camera: Camera,
                            seed: int, *, spp: int, max_depth: int,
                            width: int, height: int, bmin: torch.Tensor,
                            inv_ext: torch.Tensor, background="sky",
-                           stats: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           cull_backfaces: bool = True,
+                           stats: Union[bool, torch.Tensor, None] = None,
+                           shadows: Optional[torch.Tensor] = None):
     """Radiance sums of a chunk of pixels -> (P, 3)
     (``trace_wavefront_sorted``, :404), one lane per sample.
 
     ``gen`` draws the camera rays; ``seed`` salts the bounces' counter
-    hash.  The regenerating layout (fewer lanes than samples per pixel)
+    hash; ``tables`` carries the lit features (``scene_tables``);
+    ``cull_backfaces`` False makes the triangles two-sided.  ``stats``:
+    a (3,) counter (see ``bounce_step``, as ``shadows``), or True for
+    JAX's triple (rad, acc, level_its) (:304-321): ``acc`` a (6,) int64
+    tensor whose ``acc[3:6]`` are JAX's (window tiles, live lanes and
+    live 1,024-lane tiles, summed over the bounces) and ``acc[0:3]`` the
+    port's own box tests, triangle tests and shadow rays (JAX counts
+    block sweeps per TPU tile there, which per-thread traversal has no
+    counterpart of); ``level_its`` the step count after each window
+    level.  The regenerating layout (fewer lanes than samples per pixel)
     is not ported."""
     n_pix = pixel_ids.numel()
     lane_pix = pixel_ids.repeat_interleave(spp)
     s, t = pixel_coords(width, height, gen, lane_pix)
     state = lane_state(camera_rays(camera, gen, s, t), lane_pix.numel())
+    triple = stats is True
+    windows, level_its = ([0, 0, 0], []) if triple else (None, None)
+    if triple:
+        dev = state.device
+        stats = torch.zeros(3, dtype=torch.int64, device=dev)
+        shadows = torch.zeros(1, dtype=torch.int64, device=dev)
     final = trace_lanes(state, seed, max_depth=max_depth, tables=tables,
                         bmin=bmin, inv_ext=inv_ext, background=background,
-                        stats=stats)
+                        cull=cull_backfaces, stats=stats, shadows=shadows,
+                        windows=windows, level_its=level_its)
     # Back to (pixel, sample) order: a scatter by lane id.
     rad = torch.empty((3, final.shape[1]), dtype=_F32, device=final.device)
     rad[:, final[15].long()] = final[10:13]
-    return rad[:, :lane_pix.numel()].reshape(3, n_pix, spp).sum(dim=2).T
+    rad = rad[:, :lane_pix.numel()].reshape(3, n_pix, spp).sum(dim=2).T
+    if not triple:
+        return rad
+    acc = torch.cat([stats[:2], shadows,
+                     torch.tensor(windows, device=stats.device)])
+    return rad, acc, torch.tensor(level_its)
 
 
 def chunk_plan(cfg: Config) -> Tuple[int, int]:
@@ -234,15 +282,17 @@ def chunk_generator(device, seed: int, chunk: int) -> torch.Generator:
 
 
 def render_wavefront(scene: Scene, camera: Camera, cfg: Config,
-                     progress: bool = False,
-                     stats: Optional[torch.Tensor] = None) -> np.ndarray:
+                     progress: bool = False, cull_backfaces: bool = True,
+                     stats: Optional[torch.Tensor] = None,
+                     shadows: Optional[torch.Tensor] = None) -> np.ndarray:
     """Whole-frame mean radiance (H, W, 3) float64 through the sorted
-    path, on the scene's device (``render_wavefront``, :699).
+    path, on the scene's device (``render_wavefront``, :699), with the
+    scene's lit features and ``cfg.russian_roulette``.
 
     Chunks of ``ppc`` pixels in Morton order, chunk ``g`` salted with
     ``cfg.seed + g * 7919``.  With ``progress`` a scanline ticker is
-    printed after each chunk.  ``stats``: see ``bounce_step``."""
-    check_scene(scene, cfg.russian_roulette)
+    printed after each chunk.  ``cull_backfaces`` False makes the
+    triangles two-sided.  ``stats``, ``shadows``: see ``bounce_step``."""
     width, height = cfg.image_width, cfg.image_height
     spp = cfg.samples_per_pixel
     n_pixels = width * height
@@ -252,7 +302,7 @@ def render_wavefront(scene: Scene, camera: Camera, cfg: Config,
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     t0 = _time.perf_counter()
-    tables, bmin, inv_ext = scene_tables(scene)
+    tables, bmin, inv_ext = scene_tables(scene, cfg.russian_roulette)
     perm = np.full((n_chunks * ppc,), n_pixels, np.int64)
     perm[:n_pixels] = _morton_pixel_perm(width, height)
     perm_t = torch.from_numpy(perm).to(device)
@@ -265,7 +315,7 @@ def render_wavefront(scene: Scene, camera: Camera, cfg: Config,
             cfg.seed + g * _CHUNK_SEED_STRIDE, spp=spp,
             max_depth=cfg.max_child_rays, width=width, height=height,
             bmin=bmin, inv_ext=inv_ext, background=scene.background,
-            stats=stats)
+            cull_backfaces=cull_backfaces, stats=stats, shadows=shadows)
         fb[g * ppc:(g + 1) * ppc] = torch.where(
             (pixel_ids < n_pixels)[:, None], sums, 0.0)
         if progress:

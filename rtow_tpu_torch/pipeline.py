@@ -4,12 +4,11 @@ Two backends, each on the scene's device (the CUDA kernel for CUDA
 tensors, its plain PyTorch version for CPU tensors), picked as the JAX
 package picks them (``pipeline.py:39-71``): sphere scenes and meshes of
 up to 16,384 triangles go through the persistent megakernel K1
-(ops/megakernel.py), with emission, next-event estimation, textures,
-media and Russian roulette; larger meshes go through the
-sorted-wavefront loop and its bounce kernel K3 (ops/wavefront.py,
-ops/flat_bounce.py), which has none of those yet.  Everything else the
-JAX package can render raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+(ops/megakernel.py), larger meshes through the sorted-wavefront loop and
+its bounce kernel K3 (ops/wavefront.py, ops/flat_bounce.py); both with
+emission, next-event estimation, textures, media and Russian roulette.
+Everything else the JAX package can render raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
 """
 from __future__ import annotations
 
@@ -122,9 +121,10 @@ def render_auto(
     Only single-device renders through the kernels are ported: ``-t N``
     renders on one device where fewer than two are there to shard over (a
     CPU scene, or a host with one card), as the JAX package does
-    (``pipeline.py:219``), and raises where two or more cards are; the
-    sorted wavefront (meshes over 16,384 triangles) has no lit features
-    yet, and every other case raises."""
+    (``pipeline.py:219``), and raises where two or more cards are.
+    Meshes over 16,384 triangles take the sorted wavefront, lit or not;
+    the reference integrator's cases (``--backend jnp``, image textures)
+    and ``--profile-dir`` raise."""
     if (cfg.n_devices > 1 and scene.device.type == "cuda"
             and torch.cuda.device_count() > 1):
         raise NotImplementedError(

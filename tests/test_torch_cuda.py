@@ -3,7 +3,8 @@ the megakernel K1 (ops/megakernel.py, spheres and triangles, and its lit
 instances: emission, NEE, media, textures, roulette), the sorted
 wavefront's bounce K3 (ops/flat_bounce.py) and the gradient bounces
 K4 / K5 (ops/grad.py), with their lit instances (emission, NEE with the
-light rows' cotangent, textures, media with the volume rows').
+light rows' cotangent, textures, media with the volume rows'), and K1's
+and K3's two-sided triangles.
 
 Marked ``cuda``: each test skips (with its reason) where
 ``torch.cuda.is_available()`` is false.  This file imports neither JAX
@@ -15,10 +16,11 @@ Tolerance, as in chip_smoke.py: both versions round every float32
 operation alike (the kernel is built with -fmad=false, IEEE division and
 sqrt) and use the same CUDA math library; at most 1% of pixels may be
 off by more than 1e-4 of mean radiance (a last-bit difference can flip
-a discrete choice), with mean |difference| at most 1e-3.  K1's lit
-instances, K3 (bounce by bounce from the same input state) and K4 are
-bit-identical to their plain versions, with the same counts of steps, box
-tests, triangle tests, shadow rays and live lanes.
+a discrete choice), with mean |difference| at most 1e-3.  K1's lit and
+two-sided instances, K3 and its lit instance (bounce by bounce from the
+same input state) and K4 are bit-identical to their plain versions, with
+the same counts of steps, box tests, triangle tests, shadow rays and live
+lanes.
 K5 sums its adjoint in another order than autograd and the table
 gradient with atomics: per cot_in row and per g_tbl column, max |d| at
 most 1e-3 of the largest |plain|; on lit scenes each table part's column
@@ -206,6 +208,134 @@ def test_render_auto_launches_k3_for_large_meshes(dev):
     assert mk.render_blocks.launches == k1
     assert fb.bounce_step.launches > k3
     assert np.isfinite(img).all() and img.shape == (32, 32, 3)
+
+
+def lit_knot_scene(dev, name, segments=64, rings=64):
+    """The 8,192-triangle knot (the super level) lit as the CPU tests
+    light it: under two quad lamps on black ("quad_lamps"), with a fog
+    ball and a sphere lamp ("fog_lamp"), beside checker and noise spheres
+    under the sky ("textures"), or under the sky alone ("roulette")."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_mesh import make_knot
+
+    verts, faces = make_knot(segments, rings)
+    b = SceneBuilder()
+    b.add_mesh(verts[faces], b.add_lambertian((0.6, 0.5, 0.4)))
+    bg = "sky"
+    if name == "quad_lamps":
+        lamp = b.add_light((4.0, 4.0, 4.0))
+        b.add_quad((-0.5, 1.5, -0.5), (0.5, 1.5, -0.5), (0.5, 1.5, 0.5),
+                   (-0.5, 1.5, 0.5), lamp)
+        b.add_quad((1.5, -0.5, -0.5), (1.5, -0.5, 0.5), (1.5, 0.5, 0.5),
+                   (1.5, 0.5, -0.5), lamp)
+        bg = (0.0, 0.0, 0.0)
+    elif name == "fog_lamp":
+        b.add_fog_sphere((0.4, 0.0, 0.0), 0.6, 1.5, albedo=(0.8, 0.9, 0.7))
+        b.add_sphere((0.0, 1.5, 0.5), 0.3, b.add_light((8.0, 8.0, 8.0)))
+        bg = (0.0, 0.0, 0.0)
+    elif name == "textures":
+        b.add_sphere((-0.9, 0.3, 0.6), 0.35, b.add_checker(
+            (0.9, 0.9, 0.9), (0.1, 0.2, 0.3), scale=20.0))
+        b.add_sphere((0.9, -0.3, 0.6), 0.35, b.add_noise(
+            (0.9, 0.8, 0.7), (0.2, 0.1, 0.1), scale=6.0))
+    return b.build(background=bg, device=dev)
+
+
+def _k3_tape(dev, scene, roulette=False, cull=True):
+    """(tables, tape) of one sorted loop over the knot at 64x64 spp4
+    depth 8, each launch's input state and step on the tape."""
+    tables, bmin, inv_ext = wf.scene_tables(scene, roulette)
+    cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=45.0, aspect_ratio=1.0, aperture=0.0,
+                      focus_dist=3.0, device=dev)
+    gen = torch.Generator(dev).manual_seed(3)
+    pix = torch.arange(64 * 64, device=dev).repeat_interleave(4)
+    s, t = pixel_coords(64, 64, gen, pix)
+    tape = []
+    wf.trace_lanes(wf.lane_state(camera_rays(cam, gen, s, t), pix.numel()),
+                   9, max_depth=8, tables=tables, bmin=bmin, inv_ext=inv_ext,
+                   background=scene.background, cull=cull, tape=tape)
+    return tables, tape
+
+
+def _k3_held(dev, scene, tables, tape, cull=True):
+    """K3 against its plain version at every launch of ``tape``:
+    bit-identical, with equal box tests, triangle tests, live lanes and
+    shadow rays.  Returns the kernel's shadow rays over the tape."""
+    n_shadows = 0
+    for state, it in tape:
+        kc, pc = ([torch.zeros(n, dtype=torch.int64, device=dev)
+                   for n in (3, 1)] for _ in range(2))
+        kern = fb.bounce_step(state, it, 9, 8, tables,
+                              background=scene.background, stats=kc[0],
+                              shadows=kc[1], cull=cull)
+        plain = fb.bounce_step_reference(
+            state, it, 9, 8, tables, background=scene.background,
+            stats=pc[0], shadows=pc[1], cull=cull)
+        torch.cuda.synchronize()
+        assert torch.equal(kern, plain), it
+        assert torch.equal(torch.cat(kc), torch.cat(pc)), it
+        n_shadows += int(kc[1])
+    return n_shadows
+
+
+@pytest.mark.parametrize("name", ["quad_lamps", "fog_lamp", "textures",
+                                  "roulette"])
+def test_flat_bounce_lit_matches_plain_on_card(dev, name):
+    """K3's lit instance at every launch of a sorted loop over the lit
+    8,192-triangle knot: bit-identical to the plain version with equal
+    counters, each launch counted as a lit launch, the alive code 2
+    carried through the sort where NEE is on."""
+    scene = lit_knot_scene(dev, name)
+    tables, tape = _k3_tape(dev, scene, roulette=name == "roulette")
+    assert tables.lit.any and tables.tris.n_super > 0
+    before = fb.bounce_step.lit_launches
+    n_shadows = _k3_held(dev, scene, tables, tape)
+    assert fb.bounce_step.lit_launches == before + len(tape) > 3
+    nee = bool(tables.lit.nee_kinds)
+    assert (n_shadows > 0) == nee
+    assert any(bool((state[13] == 2).any()) for state, _ in tape) == nee
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+def test_two_sided_matches_plain_on_card(dev, kernel):
+    """K1 and K3 with two-sided triangles (``cull=False``) on the knot
+    under two quad lamps, its winding reversed so that the camera sees
+    the back faces: bit-identical to the plain versions with equal
+    counters, and the render differs from the culled one."""
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from make_mesh import make_knot
+
+    verts, faces = make_knot(64, 64 if kernel == "K3" else 32)
+    b = SceneBuilder()
+    b.add_mesh(verts[faces[:, ::-1]], b.add_lambertian((0.6, 0.5, 0.4)))
+    lamp = b.add_light((4.0, 4.0, 4.0))
+    b.add_quad((-0.5, 1.5, -0.5), (0.5, 1.5, -0.5), (0.5, 1.5, 0.5),
+               (-0.5, 1.5, 0.5), lamp)
+    scene = b.build(background=(0.0, 0.0, 0.0), device=dev)
+    if kernel == "K3":
+        tables, tape = _k3_tape(dev, scene, cull=False)
+        assert _k3_held(dev, scene, tables, tape, cull=False) > 0
+        return
+    cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=45.0, aspect_ratio=1.0, aperture=0.0,
+                      focus_dist=3.0, device=dev)
+    tbl, tris = mk.scene_k1_tables(scene)
+    args = (tbl, mk.pack_camera(cam),
+            mk.pack_meta(3, width=128, height=128, spp=2, max_depth=8),
+            mk.n_tiles_for(128, 128))
+    kw = dict(background=scene.background, tris=tris,
+              lit=mk.scene_lit(scene))
+    out, counts = [], []
+    for fn, cull in ((mk.render_blocks, False),
+                     (mk.render_blocks_reference, False),
+                     (mk.render_blocks, True)):
+        c = [torch.zeros(n, dtype=torch.int64, device=dev) for n in (1, 2, 1)]
+        out.append(torch.stack(fn(*args, **kw, steps=c[0], tests=c[1],
+                                  shadows=c[2], cull=cull)))
+        counts.append(torch.cat(c).tolist())
+    assert torch.equal(out[0], out[1]) and counts[0] == counts[1]
+    assert not torch.equal(out[0], out[2])
 
 
 def _grad_tape(dev, depth=8):

@@ -2,7 +2,8 @@
 scene builders (``--lights``, ``--cornell``, ``--textures``, ``--smoke``,
 the ``--checker`` cover), ``Scene.from_numpy`` of their JAX scenes, K1's
 plain version with emission, NEE+MIS, textures, media and Russian
-roulette, the CLI flags, and the paths that must refuse those features.
+roulette, the CLI flags, and those features on meshes over 16,384
+triangles (the sorted wavefront and K3's plain lit version).
 
 Tolerances:
 
@@ -237,12 +238,13 @@ def test_cli_globe_still_raises():
 
 
 # ---------------------------------------------------------------------------
-# Where this slice stops: the paths without lit features refuse them
+# Meshes over 16,384 triangles: the sorted wavefront's lit features
 
 
-def _big_mesh(material: str):
-    """A 16,640-triangle strip (over K1's 16,384) with a light, a medium
-    or a textured sphere beside it."""
+def _big_mesh(material: str, background=(1.0, 1.0, 1.0)):
+    """A 16,640-triangle strip (over K1's 16,384, so the sorted wavefront
+    and K3 render it), facing the camera, with a lamp in front of it, a
+    dark fog ball, a checkered ground or nothing beside it ("plain")."""
     n = 16640
     x = np.arange(n, dtype=np.float64)
     tris = np.stack([np.stack([x, np.zeros(n), np.zeros(n)], 1),
@@ -250,43 +252,71 @@ def _big_mesh(material: str):
                      np.stack([x, np.ones(n), np.zeros(n)], 1)], 1)
     b = SceneBuilder()
     b.add_mesh(tris, b.add_lambertian((0.5,) * 3))
-    if material == "light":
-        b.add_sphere((0, 5, 0), 1.0, b.add_light((1.0, 1.0, 1.0)))
-    if material == "fog":
-        b.add_fog_sphere((0, 0, 0), 1.0, 0.5)
-    if material == "checker":
-        b.add_sphere((0, -100, 0), 99.0, b.add_checker((1, 1, 1), (0, 0, 0)))
-    return b.build(background=(0.0, 0.0, 0.0), device="cpu")
+    if "light" in material:
+        b.add_sphere((0.9, 0.5, 2.0), 0.3, b.add_light((4.0, 4.0, 4.0)))
+    if "fog" in material:
+        b.add_fog_sphere((0.5, 0.5, 0.0), 1.0, 2.0, albedo=(0.2,) * 3)
+    ground = b.add_checker((1, 1, 1), (0, 0, 0)) if "checker" in material \
+        else b.add_lambertian((1.0,) * 3)
+    b.add_sphere((0, -100, 0), 99.0, ground)
+    return b.build(background=background, device="cpu")
 
 
-@pytest.mark.parametrize("material,roulette", [
-    ("light", False), ("fog", False), ("checker", False), ("plain", True)])
-def test_large_meshes_refuse_lit_features(material, roulette):
-    """Scenes over 16,384 triangles take the sorted wavefront and K3,
-    which have no lit features yet: render_auto raises, naming the
-    ROADMAP item, and never drops the feature."""
-    scene = _big_mesh(material)
+def _render_big(scene, roulette=False, depth=8):
     assert pipeline.wavefront_supported(scene)
     cam = make_camera(lookfrom=(0, 0, 5), lookat=(0, 0, 0), fov_degrees=40,
                       aspect_ratio=1.0, aperture=0.0, focus_dist=5.0,
                       device="cpu")
-    cfg = Config(device="cpu", image_width=8, aspect_ratio=1.0,
-                 samples_per_pixel=1, russian_roulette=roulette)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        pipeline.render_auto(scene, cam, cfg)
+    cfg = Config(device="cpu", image_width=16, aspect_ratio=1.0,
+                 samples_per_pixel=4, max_child_rays=depth,
+                 russian_roulette=roulette)
+    before = flat_bounce.bounce_step.launches
+    img = pipeline.render_auto(scene, cam, cfg)
+    assert flat_bounce.bounce_step.launches == before  # the CPU's plain K3
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+    return img
 
 
-def test_k3_check_scene_names_each_feature():
-    (_, _), (smoke, _) = DEMOS["smoke"]()
-    with pytest.raises(NotImplementedError,
-                       match="lights, media, Russian roulette"):
-        flat_bounce.check_scene(smoke, roulette=True)
-    (_, _), (cover, _) = DEMOS["cover"]()
-    flat_bounce.check_scene(cover)  # nothing to refuse
+@pytest.mark.parametrize("material,roulette", [
+    ("light", False), ("fog", False), ("checker", False), ("plain", True)])
+def test_large_meshes_render_lit_features(material, roulette):
+    """Scenes over 16,384 triangles take the sorted wavefront and K3 with
+    their lit features: render_auto renders them, and each feature shows.
+    The lamp is the only light of a black scene; the dark fog dims the
+    white sky; the checker's black squares darken the white ground; and
+    roulette changes the image (its draws are a lane's own, so every
+    other lane renders as without it) but not its mean."""
+    if material == "light":
+        scene = _big_mesh(material, background=(0.0, 0.0, 0.0))
+        assert mk.scene_lit(scene).nee_kinds == ("s",)
+        img = _render_big(scene)
+        assert img.mean() > 0.01
+        return
+    scene = _big_mesh(material)
+    img = _render_big(scene, roulette)
+    without = _render_big(_big_mesh("plain"))
+    if material == "plain":
+        assert not np.array_equal(img, without)
+        assert abs(img.mean() - without.mean()) < 0.05
+    else:
+        assert img.mean() < without.mean() - 0.02
+
+
+def test_large_mesh_renders_every_lit_feature_at_once():
+    """The lamp, the fog, the checkered ground and roulette on one scene
+    over 16,384 triangles: K3's lit bounce takes them together (rows: the
+    light, then the volume from ``vol_row0`` 1)."""
+    scene = _big_mesh("light fog checker", background=(0.0, 0.0, 0.0))
+    lit = mk.scene_lit(scene, roulette=True)
+    assert (lit.emissive, lit.nee_kinds, lit.checker, lit.vol_kinds,
+            lit.vol_row0, lit.roulette) == (True, ("s",), True, ("s",), 1,
+                                            True)
+    img = _render_big(scene, roulette=True, depth=50)
+    assert img.mean() > 0.01
 
 
 @pytest.mark.parametrize("feature", ["light", "checker", "fog"])
-def test_gradient_kernels_refuse_lit_scenes(feature):
+def test_gradient_kernels_take_lit_scenes(feature):
     """K4 / K5 take emission, NEE and textures since the lit slice of the
     gradient path, and media since its media slice: none is refused."""
     b = SceneBuilder()
