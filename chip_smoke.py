@@ -44,7 +44,17 @@ of the 65k knot under two square lamps and of the 65k knot with roulette
 under the sky; the lit knot at 400x400, 64 samples per pixel, depth 8,
 through ``render_wavefront``, and ``cli.main -l <65k knot> --russian-
 roulette``; K1 and K3 with two-sided triangles on a knot wound away from
-the camera).  Every phase
+the camera) and the JAX package's production scheduler, K1's work pool
+(the render through ``cli.main`` runs it by default and under
+``RTOW_POOL=0`` the classic scheduler; the pool instances against the
+plain pool on every K1 instance, bit for bit with equal counters; exact
+sample accounting at 1200x675; pool against classic as one estimator;
+the two schedulers' A/B with their occupancy on the cover, the Cornell
+box and ``knot_small``) and the probes T1 (``python -m
+rtow_tpu_torch.tools.mxu_probe``: the sphere sweep's CUDA-core and
+tensor-core forms) and T2 (``python -m
+rtow_tpu_torch.tools.repro_nb_slice``: a block-by-block table sum, against
+its plain version and ``torch.sum``).  Every phase
 prints one line; any failed check raises and the script exits non-zero.  The
 line before the card line is the kernels' JSON summary; the last line
 of standard output is one JSON object:
@@ -157,6 +167,11 @@ OPS_PER_STEP = 6 + 17
 OPS_BWD_EXTRA = 32
 
 
+#: The pool against its plain version (phase 28): reduced frames with a
+#: partial tile column (400 = 3 x 128 + 16, 300 = 2 x 128 + 44), and two
+#: items per column (16 + 4 samples).
+POOL_COVER, POOL_SQUARE, POOL_SPP = (400, 225), 300, 20
+
 #: The lit knot (phases 25-27): bench.py's 65k knot lit only by two square
 #: lamps of emission 4 on a black background, one 1.5 above the knot
 #: facing down and one 1.5 to its right facing it (each 1 x 1, centred on
@@ -218,6 +233,21 @@ def kept_radiance():
         yield kept
     finally:
         ppm.write_ppm = write
+
+
+@contextlib.contextmanager
+def pool_env(value):
+    """``RTOW_POOL`` set to ``value`` (None: unset) inside the block, as a
+    user sets it around ``python -m rtow_tpu_torch``."""
+    old = os.environ.pop("RTOW_POOL", None)
+    if value is not None:
+        os.environ["RTOW_POOL"] = value
+    try:
+        yield
+    finally:
+        os.environ.pop("RTOW_POOL", None)
+        if old is not None:
+            os.environ["RTOW_POOL"] = old
 
 
 def ptxas_entries(log: str) -> dict:
@@ -284,10 +314,10 @@ def main() -> None:
              f"{torch.version.cuda}, nvcc "
              f"{nvcc_ver.stdout.strip().splitlines()[-1]}")
 
-    # ---- (1) build, all four sources at once -----------------------------
+    # ---- (1) build, all six sources at once ------------------------------
     t0 = time.perf_counter()
     builds = _cuda.build_all(["megakernel", "flat_bounce", "grad_fwd",
-                              "grad_bwd"])
+                              "grad_bwd", "mxu_probe", "nb_slice"])
     wall = time.perf_counter() - t0
     for name, build in builds.items():
         regs = [int(w) for line in build.log.splitlines() if "Used" in line
@@ -308,7 +338,21 @@ def main() -> None:
     say("1", "K3's instances (ptxas): " + "; ".join(
         f"{k} {regs} registers, {spill} B spilled"
         for k, (regs, spill) in sorted(k3.items())))
-    say("1", f"four builds in parallel: {wall:.1f} s wall")
+    k1 = {}
+    for entry, v in ptxas_entries(builds["megakernel"].log).items():
+        bits = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
+                         entry).groups()
+        k1[" ".join(w for w, b in zip(("triangles", "lit", "two-sided",
+                                        "pool"), bits) if b == "1")
+           or "spheres"] = v
+    say("1", "K1's instances (ptxas): " + "; ".join(
+        f"{k} {regs} registers, {spill} B spilled"
+        for k, (regs, spill) in sorted(k1.items())))
+    say("1", "the probes' kernels (ptxas): " + "; ".join(
+        f"{k} {regs} registers, {spill} B spilled"
+        for name in ("mxu_probe", "nb_slice")
+        for k, (regs, spill) in ptxas_entries(builds[name].log).items()))
+    say("1", f"six builds in parallel: {wall:.1f} s wall")
 
     def frame(scene, cam, width, height, spp, depth, *, plain=False,
               seed=0):
@@ -319,7 +363,7 @@ def main() -> None:
                              max_depth=depth),
                 mk.n_tiles_for(width, height))
         fn = mk.render_blocks_reference if plain else mk.render_blocks
-        r, g, b = fn(*args, background=scene.background)
+        r, g, b = fn(*args, background=scene.background, pool=False)
         torch.cuda.synchronize()
         return mk.unblock_image(r, g, b, width=width, height=height) / spp
 
@@ -358,7 +402,7 @@ def main() -> None:
     empty = b.build(background=(1.0, 1.0, 1.0), device=dev)
     for spp in (17, 24):
         sums = mk.render_spheres(empty, cam, 0, width=24, height=24,
-                                 spp=spp, max_depth=4)
+                                 spp=spp, max_depth=4, pool=False)
         check(bool((sums == spp).all()), f"sample accounting spp {spp}")
     say("3", "exact sample accounting: every pixel's sums == spp at spp 17 "
              "and 24 (white background, empty scene)")
@@ -369,34 +413,47 @@ def main() -> None:
     say("4", "two kernel runs of the cover 400x225 are bit-identical")
 
     # ---- (5) the main path: cli.main at full size ----------------------
+    # Under the JAX package's production scheduler (RTOW_POOL unset: the
+    # work pool), then under RTOW_POOL=0 (the classic one); each run's
+    # launches counted from 0.
     spp_main = 128
-    log = io.StringIO()
-    with tempfile.TemporaryDirectory() as tmp:
-        ppm_path = os.path.join(tmp, "cover.ppm")
-        mk.render_blocks.launches = 0
-        t0 = time.perf_counter()
-        with contextlib.redirect_stderr(log), kept_radiance() as kept:
-            rc = cli.main(["-w", str(W_MAIN), "-a", repr(ASPECT), "-s",
-                           str(spp_main), "-c", "50", "-o", ppm_path])
-        wall = time.perf_counter() - t0
-        cover_radiance = kept[0]
-        launches = mk.render_blocks.launches
-        check(rc == 0, f"cli.main returned {rc}")
-        check(launches > 0, "the main path launched no megakernel")
-        with open(ppm_path) as f:
-            img = read_ppm(f)
-    check(img.shape == (H_MAIN, W_MAIN, 3), f"PPM shape {img.shape}")
-    check(img.min() >= 0 and img.max() <= 255 and img.std() > 10,
-          "PPM values out of range or flat")
-    top = img[:40].reshape(-1, 3).mean(axis=0)
-    check(top[2] > top[0], f"top rows are not sky-blue (mean rgb {top})")
-    stats = [ln for ln in log.getvalue().splitlines() if ln.startswith("Done")]
-    say("5", f"cli.main -w {W_MAIN} -a {ASPECT!r} -s {spp_main} -c 50: "
-             f"{launches} launches, {wall:.2f} s end to end "
-             f"({W_MAIN * H_MAIN * spp_main / wall / 1e6:.2f} Mprimary-rays/s "
-             f"incl. scene build and PPM write); render: {stats[-1]}")
+    runs5 = {}
+    for label, env in (("pool", None), ("classic", "0")):
+        log = io.StringIO()
+        with tempfile.TemporaryDirectory() as tmp, pool_env(env):
+            ppm_path = os.path.join(tmp, "cover.ppm")
+            mk.render_blocks.launches = mk.render_blocks.pool_launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(log), kept_radiance() as kept:
+                rc = cli.main(["-w", str(W_MAIN), "-a", repr(ASPECT), "-s",
+                               str(spp_main), "-c", "50", "-o", ppm_path])
+            wall = time.perf_counter() - t0
+            n = (mk.render_blocks.launches, mk.render_blocks.pool_launches)
+            check(rc == 0, f"cli.main ({label}) returned {rc}")
+            check(n[0] > 0 and n[1] == (n[0] if label == "pool" else 0),
+                  f"cli.main ({label}): {n[1]} of {n[0]} launches ran the "
+                  f"pool")
+            with open(ppm_path) as f:
+                img = read_ppm(f)
+        check(img.shape == (H_MAIN, W_MAIN, 3), f"PPM shape {img.shape}")
+        check(img.min() >= 0 and img.max() <= 255 and img.std() > 10,
+              "PPM values out of range or flat")
+        top = img[:40].reshape(-1, 3).mean(axis=0)
+        check(top[2] > top[0], f"top rows are not sky-blue (mean rgb {top})")
+        stats = [ln for ln in log.getvalue().splitlines()
+                 if ln.startswith("Done")]
+        runs5[label] = (n[0], wall, kept[0])
+        say("5", f"cli.main -w {W_MAIN} -a {ASPECT!r} -s {spp_main} -c 50 "
+                 f"({label} scheduler{'' if env is None else ', RTOW_POOL=0'}"
+                 f"): {n[0]} launches, {n[1]} of them the pool, {wall:.2f} s "
+                 f"end to end ({W_MAIN * H_MAIN * spp_main / wall / 1e6:.2f} "
+                 f"Mprimary-rays/s incl. scene build and PPM write); render: "
+                 f"{stats[-1]}")
+    launches, pool_launches = runs5["classic"][0], runs5["pool"][0]
+    cover_radiance = runs5["pool"][2]
 
     # ---- (6) kernel and plain times at the main path's shape -----------
+    # The classic scheduler, as every earlier PR timed it, then the pool.
     big = cover_scene(Config(image_width=W_MAIN, aspect_ratio=ASPECT),
                       device=dev)
     tbl, _ = mk.build_sphere_table(big[0])
@@ -404,58 +461,66 @@ def main() -> None:
             mk.pack_meta(0, width=W_MAIN, height=H_MAIN, spp=16,
                          max_depth=50),
             mk.n_tiles_for(W_MAIN, H_MAIN))
-
-    def timed(fn):
-        return event_ms(torch, lambda: fn(*args))
-
-    timed(mk.render_blocks)  # warm-up
-    runs = [timed(mk.render_blocks) for _ in range(3)]
-    kernel_ms = statistics.median(ms for ms, _ in runs)
-    plain_ms, plain_out = timed(mk.render_blocks_reference)
-    kern = mk.unblock_image(*runs[0][1], width=W_MAIN, height=H_MAIN) / 16
-    plain = mk.unblock_image(*plain_out, width=W_MAIN, height=H_MAIN) / 16
-    mx6, mean6, flip6 = agreement(kern, plain)
-    check(flip6 <= FLIP_SHARE and mean6 <= MEAN_TOL,
-          f"cover {W_MAIN}x{H_MAIN}: {flip6:.4%} of pixels off by > "
-          f"{PIXEL_TOL}, mean |d| {mean6}")
-    say("6", f"cover {W_MAIN}x{H_MAIN} spp16 depth50 on {card}: kernel "
-             f"{kernel_ms:.2f} ms (median of 3: "
-             f"{', '.join(f'{ms:.2f}' for ms, _ in runs)}), plain "
-             f"{plain_ms:.2f} ms; kernel vs plain {flip6:.4%} of pixels off "
-             f"by > {PIXEL_TOL}, mean |d| {mean6:.3g}, max |d| {mx6:.3g}")
-
-    # Ray steps (a stats launch each, not timed) -> K1's bound: the
-    # sweep's and the step's float32 operations over the card's peak.  The
-    # sweep is counted over the scene's spheres, not the table's padding.
     n_sph = big[0].n_spheres
 
-    def k1_steps(spp):
-        steps = torch.zeros(1, dtype=torch.int64, device=dev)
+    def k1_counts(spp, pool):
+        """(ray steps, lane slots) of a stats launch (not timed)."""
+        steps, slots = (torch.zeros(1, dtype=torch.int64, device=dev)
+                        for _ in range(2))
         mk.render_blocks(*args[:2], mk.pack_meta(0, width=W_MAIN,
                                                  height=H_MAIN, spp=spp,
                                                  max_depth=50),
-                         args[3], steps=steps)
-        return int(steps)
+                         args[3], steps=steps, slots=slots, pool=pool)
+        return int(steps), int(slots)
 
     def k1_bound_ms(steps):
+        # The sweep's and the step's float32 operations over the card's
+        # peak; the sweep counted over the scene's spheres, not the
+        # table's padding.
         return steps * (OPS_PER_STEP + OPS_PER_ROW * n_sph) / PEAK_F32 * 1e3
 
-    steps16 = k1_steps(16)
-    k1_bound = k1_bound_ms(steps16)
     meta128 = mk.pack_meta(0, width=W_MAIN, height=H_MAIN, spp=spp_main,
                            max_depth=50)
-    ms128 = statistics.median(
-        event_ms(torch, lambda: mk.render_blocks(*args[:2], meta128,
-                                                  args[3]))[0]
-        for _ in range(3))
-    steps128 = k1_steps(spp_main)
-    say("6", f"K1 ray steps: spp16 {steps16}, spp{spp_main} {steps128}; "
-             f"bound (float32 ops {OPS_PER_STEP} + {OPS_PER_ROW} x {n_sph} "
-             f"per step / 67 TFLOP/s): spp16 {k1_bound:.2f} ms = "
-             f"{k1_bound / kernel_ms:.1%} of {kernel_ms:.2f} ms; "
-             f"spp{spp_main} {k1_bound_ms(steps128):.2f} ms = "
-             f"{k1_bound_ms(steps128) / ms128:.1%} of {ms128:.2f} ms "
-             f"(one whole-frame launch, median of 3)")
+    k1_rows = {}
+    for label, pool in (("classic", False), ("pool", True)):
+        def timed(fn):
+            return event_ms(torch, lambda: fn(*args, pool=pool))
+
+        timed(mk.render_blocks)  # warm-up
+        runs = [timed(mk.render_blocks) for _ in range(3)]
+        kernel_ms = statistics.median(ms for ms, _ in runs)
+        plain_ms, plain_out = timed(mk.render_blocks_reference)
+        kern = mk.unblock_image(*runs[0][1], width=W_MAIN,
+                                height=H_MAIN) / 16
+        plain = mk.unblock_image(*plain_out, width=W_MAIN, height=H_MAIN) / 16
+        mx6, mean6, flip6 = agreement(kern, plain)
+        check(flip6 <= FLIP_SHARE and mean6 <= MEAN_TOL,
+              f"cover {W_MAIN}x{H_MAIN} ({label}): {flip6:.4%} of pixels off "
+              f"by > {PIXEL_TOL}, mean |d| {mean6}")
+        say("6", f"cover {W_MAIN}x{H_MAIN} spp16 depth50, {label} "
+                 f"scheduler, on {card}: kernel {kernel_ms:.2f} ms (median "
+                 f"of 3: {', '.join(f'{ms:.2f}' for ms, _ in runs)}), plain "
+                 f"{plain_ms:.2f} ms; kernel vs plain {flip6:.4%} of pixels "
+                 f"off by > {PIXEL_TOL}, mean |d| {mean6:.3g}, max |d| "
+                 f"{mx6:.3g}")
+        steps16, slots16 = k1_counts(16, pool)
+        k1_bound = k1_bound_ms(steps16)
+        ms128 = statistics.median(
+            event_ms(torch, lambda: mk.render_blocks(
+                *args[:2], meta128, args[3], pool=pool))[0]
+            for _ in range(3))
+        steps128, slots128 = k1_counts(spp_main, pool)
+        say("6", f"K1 ({label}) ray steps: spp16 {steps16}, spp{spp_main} "
+                 f"{steps128}; lane slots {slots16}, {slots128} (occupancy "
+                 f"{steps16 / slots16:.1%}, {steps128 / slots128:.1%}); bound "
+                 f"(float32 ops {OPS_PER_STEP} + {OPS_PER_ROW} x {n_sph} per "
+                 f"step / 67 TFLOP/s): spp16 {k1_bound:.2f} ms = "
+                 f"{k1_bound / kernel_ms:.1%} of {kernel_ms:.2f} ms; "
+                 f"spp{spp_main} {k1_bound_ms(steps128):.2f} ms = "
+                 f"{k1_bound_ms(steps128) / ms128:.1%} of {ms128:.2f} ms "
+                 f"(one whole-frame launch, median of 3)")
+        k1_rows[label] = dict(ms=kernel_ms, plain_ms=plain_ms, err=mx6,
+                              bound=k1_bound)
 
     grad = grad_phases(torch, dev, card, say)
     mesh = mesh_phases(torch, dev, card, say, event_ms, agreement)
@@ -465,20 +530,29 @@ def main() -> None:
     vol_grad = vol_grad_phases(torch, dev, card, say, event_ms)
     lit_mesh = lit_mesh_phases(torch, dev, card, say, event_ms)
 
-    print(json.dumps({"kernels": [{
-        "name": "megakernel",
+    pool = pool_phases(torch, dev, card, say, event_ms)
+    tools = tool_phases(torch, dev, card, say, event_ms)
+
+    k1_entries = [{
+        "name": name,
         "route": "cuda",
         "source": "rtow_tpu_torch/csrc/megakernel.cu",
-        "replaces": "rtow_tpu/ops/pallas_megakernel.py:1433",
-        "launches": launches,
-        "max_abs_err": mx6,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": k1_bound,
+        "replaces": replaces,
+        "launches": n,
+        "max_abs_err": max(k1_rows[label]["err"], extra_err),
+        "ms": k1_rows[label]["ms"],
+        "plain_ms": k1_rows[label]["plain_ms"],
+        "bound_ms": k1_rows[label]["bound"],
         "bound_by": "operations",
         "library_ms": None,
-    }, mesh, lit, lit_mesh] + grad + mesh_grad + lit_grad + vol_grad}),
-        flush=True)
+    } for name, label, replaces, n, extra_err in (
+        ("megakernel", "classic", "rtow_tpu/ops/pallas_megakernel.py:1433",
+         launches, 0.0),
+        ("megakernel_pool", "pool", "rtow_tpu/ops/pallas_megakernel.py:1492",
+         pool_launches, pool["max_abs_err"]))]
+    print(json.dumps({"kernels": k1_entries + [mesh, lit, lit_mesh] + grad
+                      + mesh_grad + lit_grad + vol_grad + tools}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -906,7 +980,7 @@ def mesh_phases(torch, dev, card, say, event_ms, agreement):
                 mk.n_tiles_for(W_MESH, W_MESH))
 
     def k1_frame(fn, tests=None):
-        r, g, b = fn(*k1_args(SPP_MESH), tris=tris, tests=tests)
+        r, g, b = fn(*k1_args(SPP_MESH), tris=tris, tests=tests, pool=False)
         torch.cuda.synchronize()
         return mk.unblock_image(r, g, b, width=W_MESH,
                                 height=W_MESH) / SPP_MESH
@@ -926,7 +1000,8 @@ def mesh_phases(torch, dev, card, say, event_ms, agreement):
     same = torch.equal(kern, plain)
     steps = torch.zeros(1, dtype=torch.int64, device=dev)
     kt = torch.zeros(2, dtype=torch.int64, device=dev)
-    mk.render_blocks(*k1_args(SPP_MESH), tris=tris, steps=steps, tests=kt)
+    mk.render_blocks(*k1_args(SPP_MESH), tris=tris, steps=steps, tests=kt,
+                     pool=False)
     check(torch.equal(kt, pt) or not same,
           f"K1 knot_small: kernel and plain counted {kt.tolist()} / "
           f"{pt.tolist()} tests for the same frame")
@@ -1221,16 +1296,17 @@ def k1_pair(torch, mk, dev, args, kw):
     """One launch of K1 and one of its plain version on the same inputs:
     ((kernel planes, kernel counters), (plain planes, plain counters)),
     the three radiance planes stacked and the counters as [steps, box
-    tests, triangle tests, shadow rays]."""
+    tests, triangle tests, shadow rays, lane slots]."""
     out = []
     for fn in (mk.render_blocks, mk.render_blocks_reference):
-        steps, tests, shadows = (torch.zeros(n, dtype=torch.int64,
-                                             device=dev) for n in (1, 2, 1))
+        steps, tests, shadows, slots = (
+            torch.zeros(n, dtype=torch.int64, device=dev)
+            for n in (1, 2, 1, 1))
         planes = torch.stack(fn(*args, **kw, steps=steps, tests=tests,
-                                shadows=shadows))
+                                shadows=shadows, slots=slots))
         torch.cuda.synchronize()
         out.append((planes, steps.tolist() + tests.tolist()
-                    + shadows.tolist()))
+                    + shadows.tolist() + slots.tolist()))
     return out
 
 
@@ -1292,7 +1368,7 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
                              max_depth=depth),
                 mk.n_tiles_for(width, width))
         kw = dict(background=scene.background, tris=tris,
-                  lit=mk.scene_lit(scene, roulette))
+                  lit=mk.scene_lit(scene, roulette), pool=False)
         return args, kw
 
     def held(name, finite, same, err, kc, pc):
@@ -1304,7 +1380,8 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
                     f"(max |d| {err:.3g})")
         check(kc == pc,
               f"lit K1 {name}: kernel counted {kc}, plain {pc} (steps, box "
-              f"tests, triangle tests, shadow rays) for the same launch")
+              f"tests, triangle tests, shadow rays, lane slots) for the same "
+              f"launch")
 
     def compared(name, args, kw):
         """held() on one launch of each here.  Returns the counters."""
@@ -1332,7 +1409,7 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
         lines.append(f"{name} {counts}")
     say("14", f"lit K1 vs plain at {W_LIT}x{W_LIT} spp2 (depth {DEPTH_LIT}, "
               f"the covers 50) on {card}: bit-identical with equal counters "
-              f"(steps, box tests, triangle tests, shadow rays): "
+              f"(steps, box tests, triangle tests, shadow rays, lane slots): "
               + "; ".join(lines))
 
     # ---- (15) the light-driven path through cli.main at full size --------
@@ -1454,7 +1531,7 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
               f"({len(bands)} worker processes, "
               f"{time.perf_counter() - t0:.1f} s wall): bit-identical with "
               f"equal counters (steps, box tests, triangle tests, shadow "
-              f"rays): " + "; ".join(lines))
+              f"rays, lane slots): " + "; ".join(lines))
 
     # ---- (18) the lit instance's times and bound, spp 16 -----------------
     rows = {}
@@ -1467,7 +1544,8 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
         k_ms = statistics.median(k_runs)
         p_ms, _ = event_ms(torch, lambda: mk.render_blocks_reference(
             *args, **kw))
-        steps, n_box, n_tri, n_shadow = compared(f"{name} spp16", args, kw)
+        steps, n_box, n_tri, n_shadow, _ = compared(f"{name} spp16", args,
+                                                     kw)
         # The work this frame needs: the sphere sweep over the scene's
         # spheres (not the table's padding), once per step and once per
         # shadow ray; the counted box and triangle tests; NEE per shadow
@@ -2493,7 +2571,7 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
                          max_depth=DEPTH_KNOT_LIT),
             mk.n_tiles_for(W_MESH, W_MESH))
     kw = dict(background=k1_scene.background, tris=tris,
-              lit=mk.scene_lit(k1_scene))
+              lit=mk.scene_lit(k1_scene), pool=False)
     two_sided = lambda: mk.render_blocks(*args, **kw, cull=False)  # noqa
     event_ms(torch, two_sided)  # warm-up
     k1_ms = statistics.median(event_ms(torch, two_sided)[0]
@@ -2504,7 +2582,8 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
     culled = torch.stack(mk.render_blocks(*args, **kw))
     check(bool(torch.isfinite(k).all()) and torch.equal(k, p) and kc == pc,
           f"two-sided K1: bit-identical {torch.equal(k, p)}, counters "
-          f"{kc} / {pc} (steps, box tests, triangle tests, shadow rays)")
+          f"{kc} / {pc} (steps, box tests, triangle tests, shadow rays, lane "
+          f"slots)")
     check(not torch.equal(k, culled) and float(k.mean()) > 0,
           "two-sided K1: the render equals the culled one, or is black")
     rev_scene = lit_knot(SceneBuilder, verts, faces, dev, reverse=True)
@@ -2519,7 +2598,8 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
               f"from the camera, on {card}: K1 on the 4,096-triangle knot "
               f"{W_MESH}x{W_MESH} spp2 depth {DEPTH_KNOT_LIT}: kernel and "
               f"plain bit-identical, counters equal {kc} (steps, box tests, "
-              f"triangle tests, shadow rays), the culled render differs; "
+              f"triangle tests, shadow rays, lane slots), the culled render "
+              f"differs; "
               f"kernel {k1_ms:.3f} ms (median of 3), plain {k1_plain_ms:.1f} "
               f"ms.  K3 on chunk {g_mid} of the 65k knot ({len(tape)} "
               f"launches): bit-identical at every launch, counters equal "
@@ -2542,6 +2622,330 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
         "bound_by": main_row["by"],
         "library_ms": None,
     }
+
+
+def pool_phases(torch, dev, card, say, event_ms):
+    """Phases 28-29: the pool instances of K1 against the plain pool on
+    every K1 instance, bit for bit with equal counters; the pool's sample
+    accounting at the main path's size; pool against classic as one
+    estimator; the two schedulers' A/B on three scenes with their
+    occupancy.  Returns {"max_abs_err": ...} of phase 28."""
+    import numpy as np
+
+    from rtow_tpu_torch.config import Config
+    from rtow_tpu_torch.models import builders as B
+    from rtow_tpu_torch.models.camera import make_camera
+    from rtow_tpu_torch.models.scene import SceneBuilder
+    from rtow_tpu_torch.ops import megakernel as mk
+
+    small_obj = os.path.join(ROOT, "samples", "knot_small.obj")
+
+    def cover(width, height, **kw):
+        return B.cover_scene(Config(image_width=width,
+                                    aspect_ratio=width / height, **kw),
+                             device=dev)
+
+    def knot(width):
+        return B.mesh_scene(Config(model=small_obj, image_width=width,
+                                   aspect_ratio=1.0), device=dev)
+
+    def launch_args(scene, cam, width, height, spp, depth, roulette=False,
+                    **kw):
+        tbl, tris = mk.scene_k1_tables(scene)
+        args = (tbl, mk.pack_camera(cam),
+                mk.pack_meta(0, width=width, height=height, spp=spp,
+                             max_depth=depth),
+                mk.n_tiles_for(width, height))
+        return args, dict(background=scene.background, tris=tris,
+                          lit=mk.scene_lit(scene, roulette), **kw)
+
+    # ---- (28) the pool against its plain version, every K1 instance ------
+    # Reduced frames (POOL_COVER, POOL_SQUARE, POOL_SPP).  Bit-identical
+    # sums and equal counters (the lane slots are 128 x each row's
+    # iterations: the rows' hand-outs ended alike).
+    (cw, ch), sq = POOL_COVER, POOL_SQUARE
+    cases = {
+        "cover (spheres)": (cover(cw, ch), cw, ch, 50, False, True),
+        "knot_small (triangles)": (knot(sq), sq, sq, 20, False, True),
+        "knot_small two-sided": (knot(sq), sq, sq, 20, False, False),
+        "Cornell box (lit, triangles)": (B.cornell_scene(1.0, device=dev),
+                                         sq, sq, 8, False, True),
+        "smoke box (lit, media)": (B.smoke_scene(1.0, device=dev), sq, sq,
+                                   8, False, True),
+        "roulette cover (lit, spheres)": (cover(cw, ch), cw, ch, 50, True,
+                                          True),
+    }
+    lines, errs, t0 = [], [], time.perf_counter()
+    for name, ((scene, cam), w, h, depth, roulette, cull) in cases.items():
+        args, kw = launch_args(scene, cam, w, h, POOL_SPP, depth, roulette,
+                               cull=cull, pool=True)
+        before = mk.render_blocks.pool_launches
+        (k, kc), (p, pc) = k1_pair(torch, mk, dev, args, kw)
+        check(mk.render_blocks.pool_launches == before + 1,
+              f"pool {name}: the launch did not run the pool")
+        err = float((k - p).abs().max())
+        errs.append(err)
+        check(bool(torch.isfinite(k).all()) and float(k.mean()) > 0,
+              f"pool {name}: kernel output not finite, or black")
+        check(torch.equal(k, p), f"pool {name}: not bit-identical to the "
+                                 f"plain pool (max |d| {err:.3g})")
+        check(kc == pc, f"pool {name}: kernel counted {kc}, plain {pc}")
+        lines.append(f"{name} {w}x{h} depth {depth}: {kc}")
+    say("28", f"the pool instances of K1 vs the plain pool at spp{POOL_SPP} "
+              f"(chunk 16, hand-out every 4 iterations; partial tile "
+              f"columns) on {card}: bit-identical with equal counters (steps, "
+              f"box tests, triangle tests, shadow rays, lane slots): "
+              + "; ".join(lines)
+              + f" ({time.perf_counter() - t0:.1f} s)")
+
+    # ---- (29) accounting, the estimator, and the A/B of the schedulers ---
+    cam = make_camera(lookfrom=(0.0, 0.0, 1.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=60.0, aspect_ratio=ASPECT, aperture=0.0,
+                      focus_dist=1.0, device=dev)
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.0, -99999.0), 1.0, b.add_lambertian((0.5,) * 3))
+    white = b.build(background=(1.0, 1.0, 1.0), device=dev)
+    for spp in (128, 17):
+        sums = mk.render_spheres(white, cam, 0, width=W_MAIN, height=H_MAIN,
+                                 spp=spp, max_depth=50, pool=True)
+        check(bool((sums == spp).all()),
+              f"pool sample accounting {W_MAIN}x{H_MAIN} spp {spp}: sums "
+              f"{float(sums.min())}..{float(sums.max())}")
+    big = cover(W_MAIN, H_MAIN)
+    frames = {}
+    for label, pool, seed in (("c0", False, 0), ("c1", False, 123),
+                              ("p0", True, 0)):
+        frames[label] = mk.render_spheres(
+            *big, seed, width=W_MAIN, height=H_MAIN, spp=128, max_depth=50,
+            pool=pool).cpu().numpy() / 128
+    c0, c1, p0 = frames["c0"], frames["c1"], frames["p0"]
+    noise = float(np.abs(c0 - c1).mean())
+    d_pool = float(np.abs(c0 - p0).mean())
+    d_mean = abs(float(c0.mean()) - float(p0.mean()))
+    check(d_pool > 0 and d_pool < 1.5 * noise and d_mean < 0.01,
+          f"pool vs classic on the cover: mean |d| {d_pool:.4g} (noise "
+          f"{noise:.4g}), frame means differ by {d_mean:.4g}")
+    say("29", f"the pool's sample accounting at {W_MAIN}x{H_MAIN} spp128 and "
+              f"spp17 (white background) on {card}: every pixel's sums == "
+              f"spp; the cover {W_MAIN}x{H_MAIN} spp128 depth 50, pool vs "
+              f"classic (seed 0): mean |d| {d_pool:.5f} against the classic "
+              f"scheduler's seed-to-seed {noise:.5f} (allowed 1.5x), frame "
+              f"means {float(p0.mean()):.6f} / {float(c0.mean()):.6f}")
+
+    ab = {
+        "cover spp128 d50": (big, W_MAIN, H_MAIN, 128, 50),
+        f"Cornell box spp{SPP_LIT} d{DEPTH_LIT}": (
+            B.cornell_scene(1.0, device=dev), W_LIT, W_LIT, SPP_LIT,
+            DEPTH_LIT),
+        f"knot_small spp{SPP_MESH} d{DEPTH_MESH}": (
+            knot(W_MESH), W_MESH, W_MESH, SPP_MESH, DEPTH_MESH),
+    }
+    rows = {}
+    for name, ((scene, cam), w, h, spp, depth) in ab.items():
+        args, kw = launch_args(scene, cam, w, h, spp, depth)
+        counts, runs = {}, {"classic": [], "pool": []}
+        for label in ("classic", "pool"):
+            mk.render_blocks(*args, **kw, pool=label == "pool")  # warm-up
+            steps, slots = (torch.zeros(1, dtype=torch.int64, device=dev)
+                            for _ in range(2))
+            mk.render_blocks(*args, **kw, pool=label == "pool", steps=steps,
+                             slots=slots)
+            counts[label] = (int(steps), int(slots))
+        for order in (("classic", "pool"), ("pool", "classic")) * 2:
+            for label in order:
+                runs[label].append(event_ms(torch, lambda: mk.render_blocks(
+                    *args, **kw, pool=label == "pool"))[0])
+        med = {k: statistics.median(v) for k, v in runs.items()}
+        rows[name] = (med, counts)
+        say("29", f"A/B {name} {w}x{h}, one whole-frame launch each, in "
+                  f"turns, on {card}: classic {med['classic']:.2f} ms "
+                  f"(median of {', '.join(f'{x:.2f}' for x in runs['classic'])}"
+                  f"), pool {med['pool']:.2f} ms (median of "
+                  f"{', '.join(f'{x:.2f}' for x in runs['pool'])}), pool / "
+                  f"classic {med['pool'] / med['classic']:.3f}; steps / lane "
+                  f"slots = occupancy: classic {counts['classic'][0]} / "
+                  f"{counts['classic'][1]} = "
+                  f"{counts['classic'][0] / counts['classic'][1]:.1%}, pool "
+                  f"{counts['pool'][0]} / {counts['pool'][1]} = "
+                  f"{counts['pool'][0] / counts['pool'][1]:.1%}")
+    return {"max_abs_err": max(errs), "ab": rows}
+
+
+def per_launch_ms(torch, fn, n):
+    """Milliseconds per call of ``fn``, from CUDA events around ``n`` calls
+    after one warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+#: float32 operations of the probe T1 (a lower bound, counted from
+#: csrc/mxu_probe.cu): per (lane, sphere) pair, the CUDA-core form's oc (9),
+#: h (5), c (7), disc (3), the sign test, the square root, near and far
+#: (4), the four interval tests and the min (1): 35; the matrix form's
+#: h and c additions (2), disc (3), the sign test, the square root, near
+#: and far (4), the interval tests (4) and the min (1): 16.  Tensor-core
+#: work per (lane, block): the (256 x 16) product, 2 x 256 x 16, and the
+#: fetch, 2 x 16 x 128, each three times (3xTF32).
+OPS_PAIR_VPU = 35
+OPS_PAIR_MXU = 16
+TF32_HC = 3 * 2 * 256 * 16
+TF32_FETCH = 3 * 2 * 16 * 128
+#: H100 SXM's dense TF32 tensor-core rate (NVIDIA's data sheet).
+PEAK_TF32 = 495e12
+
+
+def tool_phases(torch, dev, card, say, event_ms):
+    """Phases 30-31: the probes T1 (four kinds) and T2 (the JAX script's 8
+    sizes), each driven through its entry point with the launch counts
+    set to 0 just before, then each kernel against its plain version (and
+    T2 against torch.sum), timed.  Returns their JSON entries."""
+    import numpy as np
+
+    from rtow_tpu_torch.tools import mxu_probe as mp
+    from rtow_tpu_torch.tools import repro_nb_slice as rs
+
+    # ---- (30) T1: the sphere-sweep probe at its defaults -----------------
+    iters, n_blocks, n_tiles = 40, 4, 64
+    out = io.StringIO()
+    mp.probe.launches = 0
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(out):
+        rc = mp.main([])
+    main_launches = mp.probe.launches
+    printed = out.getvalue().strip().splitlines()
+    check(rc == 0 and main_launches == 4 * len(mp.KINDS)
+          and sum("Gpairs/s" in ln for ln in printed) == len(mp.KINDS),
+          f"mxu_probe main: rc {rc}, {main_launches} launches, printed "
+          f"{printed}")
+    ins = [torch.from_numpy(x).to(dev) for x in mp.inputs(n_blocks, n_tiles)]
+    lanes = n_tiles * 1024
+    pairs = lanes * 128 * n_blocks * iters
+    nbytes = sum(x.numel() for x in ins) * 4 + lanes * 4
+    kern, entries, lines = {}, [], []
+    for kind in mp.KINDS:
+        run = lambda: mp.probe(kind, *ins, n_blocks=n_blocks,  # noqa: E731
+                               iters=iters)
+        k_runs = [event_ms(torch, run)[0] for _ in range(4)][1:]
+        k_ms = statistics.median(k_runs)
+        kern[kind] = run()
+        p_runs = [event_ms(torch, lambda: mp.probe_reference(
+            kind, *ins, n_blocks=n_blocks, iters=iters)) for _ in range(4)]
+        p_ms = statistics.median(ms for ms, _ in p_runs[1:])
+        plain = p_runs[-1][1]
+        got, want = kern[kind].cpu().numpy(), plain.cpu().numpy()
+        mx, rel, share = mp.compare(got, want)
+        if kind == "vpu":
+            check(np.array_equal(got, want), f"T1 vpu: not bit-identical to "
+                                             f"the plain version ({mx:.3g})")
+        elif kind == "mxu_f":
+            # The same sweep; the fetched parameters keep ~21 of their 24
+            # bits (3xTF32), so a lane's sum of iters x (t + c0x / 4 +
+            # dcx / 2 + r) moves by ~1e-6 of iters x its terms; where the
+            # terms cancel the output is small, hence the floor of iters.
+            rel_f = float((np.abs(got - want)
+                           / np.maximum(np.abs(want), iters)).max())
+            check(rel_f <= 1e-5, f"T1 mxu_f: max |d| / max(|plain|, "
+                                 f"{iters}) {rel_f:.3g}")
+        else:
+            check(share <= 0.01, f"T1 {kind}: {share:.3%} of lanes off by "
+                                 f"more than 1e-3 relative")
+        matrix = kind in ("mxu", "mxu_b")
+        f32_ops = pairs * (OPS_PAIR_MXU if matrix else OPS_PAIR_VPU)
+        tf32 = lanes * n_blocks * iters * (
+            (TF32_HC if matrix else 0) + (TF32_FETCH if kind != "vpu" else 0))
+        times = {"operations": max(f32_ops / PEAK_F32, tf32 / PEAK_TF32),
+                 "bytes": nbytes / PEAK_BYTES}
+        by = max(times, key=times.get)
+        bound = times[by] * 1e3
+        vs = mp.compare(got, kern["vpu"].cpu().numpy())
+        lines.append(
+            f"{kind}: kernel {k_ms:.3f} ms (median of "
+            f"{', '.join(f'{x:.3f}' for x in k_runs)}; "
+            f"{pairs / k_ms / 1e6:.1f} Gpairs/s), plain {p_ms:.1f} ms "
+            f"(one sweep serves its iterations; median of 3 after a warm-up), "
+            f"vs plain max |d| {mx:.3g}, max rel {rel:.3g}, {share:.4%} of "
+            f"lanes > 1e-3; vs vpu max |d| {vs[0]:.3g}, max rel {vs[1]:.3g}, "
+            f"{vs[2]:.4%} > 1e-3; bound {bound:.4f} ms ({by}: "
+            f"{f32_ops:.4g} float32 operations, {tf32:.4g} TF32 "
+            f"tensor-core operations, {nbytes} bytes) = {bound / k_ms:.1%}")
+        entries.append({
+            "name": f"mxu_probe_{kind}",
+            "route": "cuda",
+            "source": "rtow_tpu_torch/csrc/mxu_probe.cu",
+            "replaces": ("tools/mxu_probe.py:205" if matrix
+                         else "tools/mxu_probe.py:133"),
+            "launches": main_launches // len(mp.KINDS),
+            "max_abs_err": mx,
+            "ms": k_ms,
+            "plain_ms": p_ms,
+            "bound_ms": bound,
+            "bound_by": by,
+            "library_ms": None,
+        })
+    say("30", f"T1, python -m rtow_tpu_torch.tools.mxu_probe (defaults: "
+              f"{iters} iters, {n_blocks} blocks, {n_tiles} tiles) on {card}: "
+              f"{main_launches} launches; it printed: " + " | ".join(printed))
+    say("30", "T1 per kind at the defaults: " + "; ".join(lines))
+
+    # ---- (31) T2: the block-by-block table sum, the JAX script's sizes ---
+    out = io.StringIO()
+    rs.nb_slice.launches = 0
+    with contextlib.redirect_stdout(out):
+        rc = rs.main([])
+    t2_launches = rs.nb_slice.launches
+    printed = out.getvalue().strip().splitlines()
+    check(rc == 0 and t2_launches == 8 and len(printed) == 8
+          and all(ln.split(": ")[-1].strip() == "OK" for ln in printed),
+          f"repro_nb_slice main: rc {rc}, {t2_launches} launches, printed "
+          f"{printed}")
+    lines, worst, entry = [], 0.0, None
+    for width in rs.WIDTHS:
+        for nb in rs.DEFAULT_NB:
+            tbl = torch.rand((nb, 16, width), device=dev)
+            got = rs.nb_slice(tbl)
+            p_ms, want = event_ms(torch, lambda: rs.nb_slice_reference(tbl))
+            lib = torch.sum(tbl[:, :, :128])
+            rel = float(((got - want).abs() / want.abs()).max())
+            rel_lib = float(((got - lib).abs() / lib.abs()).max())
+            check(rel <= 1e-5 and rel_lib <= 1e-5
+                  and bool((got == got[0, 0]).all()),
+                  f"T2 NB={nb} width {width}: relative |d| {rel:.3g} vs "
+                  f"plain, {rel_lib:.3g} vs torch.sum")
+            worst = max(worst, float((got - want).abs().max()))
+            k_ms = per_launch_ms(torch, lambda: rs.nb_slice(tbl), 20)
+            l_ms = per_launch_ms(torch, lambda: torch.sum(tbl[:, :, :128]),
+                                 20)
+            nbytes = nb * 16 * 128 * 4 + 8 * 128 * 4
+            bound = nbytes / PEAK_BYTES * 1e3
+            lines.append(f"NB={nb} width {width}: kernel {k_ms * 1e3:.1f} us, "
+                         f"torch.sum {l_ms * 1e3:.1f} us, plain {p_ms:.1f} "
+                         f"ms, bound {bound * 1e3:.2f} us (bytes) = "
+                         f"{bound / k_ms:.1%}; rel |d| {rel:.2g} vs plain, "
+                         f"{rel_lib:.2g} vs torch.sum")
+            entry = {
+                "name": "nb_slice",
+                "route": "cuda",
+                "source": "rtow_tpu_torch/csrc/nb_slice.cu",
+                "replaces": "tools/repro_nb_slice.py:30",
+                "launches": t2_launches,
+                "max_abs_err": worst,
+                "ms": k_ms,
+                "plain_ms": p_ms,
+                "bound_ms": bound,
+                "bound_by": "bytes",
+                "library_ms": l_ms,
+            }
+    say("31", f"T2, python -m rtow_tpu_torch.tools.repro_nb_slice on {card}: "
+              f"{t2_launches} launches; it printed: " + " | ".join(printed))
+    say("31", "T2 on uniform [0, 1) tables (the kernels' line: NB=1408, "
+              "width 256): " + "; ".join(lines))
+    return entries + [entry]
 
 
 if __name__ == "__main__":

@@ -1,14 +1,21 @@
 """The persistent whole-frame megakernel (K1), its plain PyTorch version,
 and the parts of the bounce it shares with the other kernels (the port
-of ``rtow_tpu/ops/pallas_megakernel.py``'s classic scheduler and
-``_bounce_core``).
+of ``rtow_tpu/ops/pallas_megakernel.py``'s ``_kernel`` with both its
+schedulers, and ``_bounce_core``).
 
 ``render_blocks`` is the wrapper: on a CUDA tensor it launches the
 hand-written kernel ``csrc/megakernel.cu``, on a CPU tensor it runs
 ``render_blocks_reference``, and on anything else it raises.  Both
-compute what the Pallas kernel ``_kernel`` computes under its classic
-scheduler (``RTOW_POOL=0``): every lane of an 8x128-pixel tile owns one
-pixel and loops until that pixel has ``spp`` samples — regenerate a
+compute what the Pallas kernel ``_kernel`` computes, under the scheduler
+that ``RTOW_POOL`` names (or the ``pool`` argument).  Under the classic
+scheduler (``RTOW_POOL=0``) every lane of an 8x128-pixel tile owns one
+pixel and loops until that pixel has ``spp`` samples.  Under the
+drain-balanced work pool (``RTOW_POOL=1``, the JAX package's production
+default, :1492-1615) each image row's 128 pixels x ``spp`` samples form
+a queue of (column, ``RTOW_POOL_CHUNK``-sample) items that the row's
+idle lanes take every ``RTOW_POOL_K`` iterations, flushing their
+radiance into per-pixel sums (:func:`pool_knobs`).  Either way a lane
+loops: regenerate a
 thin-lens, time-jittered camera ray when idle, then advance one bounce
 (sphere sweep, then the flat triangle sweep for meshes of up to 16,384
 triangles; Lambertian / metal / dielectric scatter, sky or flat
@@ -21,11 +28,13 @@ layout: three (n_tiles * 8, 128) float32 planes.
 
 Random numbers are the JAX kernel's stateless counter hash, bit for bit:
 lane id ``pix = tile * 1024 + row * 128 + col``, salt
-``mix(seed + it * 40503)`` with ``it`` the lane's own step count, draw
-``mix(lane ^ (salt + draw * 0x9E3779B9))``.  Under the classic
-scheduler a lane takes exactly one step per iteration of its tile's
-loop until it is done, so ``it`` depends only on the lane's own history,
-and a per-lane loop replays the JAX kernel's stream exactly.
+``mix(seed + it * 40503)``, draw ``mix(lane ^ (salt + draw *
+0x9E3779B9))``.  Under the classic scheduler a lane takes exactly one
+step per iteration of its tile's loop until it is done, so ``it`` is the
+lane's own step count and a per-lane loop replays the JAX kernel's
+stream exactly.  Under the pool ``it`` is the row's iteration count,
+which idle lanes advance too: rows are independent (each has its own
+queue), so a per-row loop replays the stream exactly.
 
 The sphere table keeps the JAX package's Morton order and the triangle
 table its median-split order, so the nearest hit resolves ties the same
@@ -48,6 +57,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 from typing import NamedTuple, Optional, Tuple, Union
 
 import numpy as np
@@ -114,7 +124,38 @@ RR_PMIN = float(np.float32(0.05))
 #: Hopper): 3,632 spheres.
 MAX_TABLE_BYTES = 232448
 
+#: Shared memory the pool's instances stage beside the tables: each lane's
+#: column and radiance (16 B), then a take mask and a count per warp, for
+#: the block's 256 threads (``PoolStage`` in ``csrc/megakernel.cu``).
+POOL_STAGE_BYTES = 256 * 16 + 8 * 4 * 2
+
 _F32 = torch.float32
+
+
+class Pool(NamedTuple):
+    """A launch's scheduler: the work pool (``on``) with items of
+    ``chunk`` samples handed out every ``k`` iterations, or the classic
+    one."""
+    on: bool
+    chunk: int
+    k: int
+
+
+def pool_knobs(pool: Optional[bool] = None, pool_chunk: Optional[int] = None,
+               pool_k: Optional[int] = None) -> Pool:
+    """The scheduler a launch runs.  Each argument left None is read from
+    the environment at call time, with the JAX package's defaults
+    (``pallas_megakernel.py:1511-1516``, ``pipeline.py:74-84``):
+    ``RTOW_POOL`` "1" (the pool on unless it is set to something else),
+    ``RTOW_POOL_CHUNK`` 16, ``RTOW_POOL_K`` 4."""
+    env = os.environ.get
+    on = env("RTOW_POOL", "1") == "1" if pool is None else bool(pool)
+    chunk = int(env("RTOW_POOL_CHUNK", "16") if pool_chunk is None
+                else pool_chunk)
+    k = int(env("RTOW_POOL_K", "4") if pool_k is None else pool_k)
+    if chunk < 1 or k < 1:
+        raise ValueError(f"pool chunk {chunk} and period {k} must be >= 1")
+    return Pool(on, chunk, k)
 
 
 # ---------------------------------------------------------------------------
@@ -529,16 +570,51 @@ def render_blocks_reference(
     lit: Lit = Lit(),
     shadows: Optional[torch.Tensor] = None,
     cull: bool = True,
+    pool: Optional[bool] = None,
+    pool_chunk: Optional[int] = None,
+    pool_k: Optional[int] = None,
+    slots: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the megakernel, on ``tbl``'s device.
 
-    Runs the per-lane loop vectorised over a chunk of lanes at a time,
-    dropping lanes as they finish.  Same inputs and outputs as
-    :func:`render_blocks`."""
+    The classic scheduler runs the per-lane loop vectorised over a chunk
+    of lanes at a time, dropping lanes as they finish; the pool runs the
+    per-row loop vectorised over every row (:func:`_trace_pool`).  Same
+    inputs and outputs as :func:`render_blocks`."""
+    knobs = pool_knobs(pool, pool_chunk, pool_k)
     seed, width, height, _n_pixels, tile0, spp, max_depth = meta
+    dev = tbl.device
+    cam_f = [float(x) for x in cam.detach().cpu()]
+    tally = [0, 0, 0]  # box tests, triangle tests, shadow rays
+    kw = dict(seed=seed, width=width, height=height, spp=spp,
+              max_depth=max_depth, background=background, tris=tris,
+              tally=tally, lit=lit, cull=cull)
+    if knobs.on:
+        out, n_steps, n_slots = _trace_pool(tbl, cam_f, n_tiles, tile0,
+                                            knobs, **kw)
+    else:
+        out, n_steps, n_slots = _trace_classic(tbl, cam_f, n_tiles, tile0,
+                                               **kw)
+    if steps is not None:
+        steps += n_steps
+    if slots is not None:
+        slots += n_slots
+    if tests is not None:
+        tests += torch.tensor(tally[:2], device=dev)
+    if shadows is not None:
+        shadows += tally[2]
+    planes = out.view(3, n_tiles * TILE_ROWS, LANES)
+    return planes[0], planes[1], planes[2]
+
+
+def _trace_classic(tbl, cam, n_tiles, tile0, *, seed, width, height, spp,
+                   max_depth, background, tris, tally, lit, cull):
+    """The classic scheduler: (radiance sums (3, n_tiles * 1024), ray
+    steps, lane slots = 32 x each warp's longest loop)."""
     dev = tbl.device
     n_lanes = n_tiles * TILE
     out = torch.zeros((3, n_lanes), dtype=_F32, device=dev)
+    its = torch.zeros(n_lanes, dtype=torch.int64, device=dev)
 
     g = torch.arange(n_lanes, device=dev, dtype=torch.int64)
     tiles_x = -(-width // LANES)
@@ -550,37 +626,30 @@ def render_blocks_reference(
     in_img = (prow < height) & (pcol < width)
     pix = (pid * TILE + row * LANES + col) & _M32
     lanes = torch.nonzero(in_img).flatten() if spp > 0 else g[:0]
-    cam_f = [float(x) for x in cam.detach().cpu()]
     # Lanes per chunk: the pair temporaries are (chunk, 128) float32, so
     # 2**20 lanes take about 0.5 GB each on the card.
     chunk = 1 << 20 if dev.type == "cuda" else 1 << 16
-    tally = [0, 0, 0]  # box tests, triangle tests, shadow rays
+    n_steps = 0
     for start in range(0, lanes.numel(), chunk):
         idx = lanes[start:start + chunk]
-        out[:, idx], n = _trace_lanes(
-            tbl, cam_f, pix[idx], prow[idx], pcol[idx], seed=seed,
+        out[:, idx], its[idx], n = _trace_lanes(
+            tbl, cam, pix[idx], prow[idx], pcol[idx], seed=seed,
             width=width, height=height, spp=spp, max_depth=max_depth,
             background=background, tris=tris, tally=tally, lit=lit,
             cull=cull)
-        if steps is not None:
-            steps += n
-    if tests is not None:
-        tests += torch.tensor(tally[:2], device=dev)
-    if shadows is not None:
-        shadows += tally[2]
-    planes = out.view(3, n_tiles * TILE_ROWS, LANES)
-    return planes[0], planes[1], planes[2]
+        n_steps += n
+    n_slots = 32 * int(its.view(-1, 32).amax(dim=1).sum())
+    return out, n_steps, n_slots
 
 
 def _trace_lanes(tbl, cam, pix, prow, pcol, *, seed, width, height, spp,
                  max_depth, background, tris, tally, lit, cull):
-    """(radiance sums (3, L) of lanes ``pix`` after ``spp`` samples, ray
-    steps taken)."""
-    (cox, coy, coz, cux, cuy, cuz, cvx, cvy, cvz, llx, lly, llz,
-     chx, chy, chz, cwx, cwy, cwz, lens_r, t0, dt) = cam
+    """(radiance sums (3, L) of lanes ``pix`` after ``spp`` samples, each
+    lane's step count, ray steps taken)."""
     dev = tbl.device
     n = pix.numel()
     out = torch.zeros((3, n), dtype=_F32, device=dev)
+    its = torch.zeros(n, dtype=torch.int64, device=dev)
     inv_w = float(np.float32(1.0) / np.float32(width - 1))
     inv_h = float(np.float32(1.0) / np.float32(height - 1))
 
@@ -604,22 +673,15 @@ def _trace_lanes(tbl, cam, pix, prow, pcol, *, seed, width, height, spp,
         salt = step_salt(seed, it)
         # ---- regeneration: idle lanes (all have samples left) -------
         need = code == 0
-        s = (fcol + uniform(lane, salt, 0)) * inv_w
-        t = (frow + uniform(lane, salt, 1)) * inv_h
-        rad_l = lens_r * torch.sqrt(uniform(lane, salt, 2))
-        th = _TWO_PI * uniform(lane, salt, 3)
-        lx = rad_l * torch.cos(th)
-        ly = rad_l * torch.sin(th)
-        nox = cox + lx * cux + ly * cvx
-        noy = coy + lx * cuy + ly * cvy
-        noz = coz + lx * cuz + ly * cvz
+        nox, noy, noz, ndx, ndy, ndz, ntm = camera_ray(
+            cam, lane, salt, fcol, frow, inv_w, inv_h)
         ox = torch.where(need, nox, ox)
         oy = torch.where(need, noy, oy)
         oz = torch.where(need, noz, oz)
-        dx = torch.where(need, llx + s * chx + t * cwx - nox, dx)
-        dy = torch.where(need, lly + s * chy + t * cwy - noy, dy)
-        dz = torch.where(need, llz + s * chz + t * cwz - noz, dz)
-        tm = torch.where(need, t0 + uniform(lane, salt, 4) * dt, tm)
+        dx = torch.where(need, ndx, dx)
+        dy = torch.where(need, ndy, dy)
+        dz = torch.where(need, ndz, dz)
+        tm = torch.where(need, ntm, tm)
         tpr = torch.where(need, 1.0, tpr)
         tpg = torch.where(need, 1.0, tpg)
         tpb = torch.where(need, 1.0, tpb)
@@ -641,6 +703,7 @@ def _trace_lanes(tbl, cam, pix, prow, pcol, *, seed, width, height, spp,
         done = (code == 0) & (started == spp)
         if bool(done.any()):
             out[:, idx[done]] = torch.stack([rr[done], rg[done], rb[done]])
+            its[idx[done]] = it
             keep = ~done
             idx, lane, fcol, frow = idx[keep], lane[keep], fcol[keep], frow[keep]
             ox, oy, oz, dx, dy, dz, tm = (
@@ -648,7 +711,166 @@ def _trace_lanes(tbl, cam, pix, prow, pcol, *, seed, width, height, spp,
             tpr, tpg, tpb, rr, rg, rb = (
                 v[keep] for v in (tpr, tpg, tpb, rr, rg, rb))
             code, bounce, started = code[keep], bounce[keep], started[keep]
-    return out, steps
+    return out, its, steps
+
+
+def camera_ray(cam, lane, salt, fcol, frow, inv_w, inv_h):
+    """A thin-lens, time-jittered camera ray through pixel column ``fcol``
+    and flipped row ``frow`` (the kernel's regeneration, :1618-1639):
+    origin xyz, direction xyz, time."""
+    (cox, coy, coz, cux, cuy, cuz, cvx, cvy, cvz, llx, lly, llz,
+     chx, chy, chz, cwx, cwy, cwz, lens_r, t0, dt) = cam
+    s = (fcol + uniform(lane, salt, 0)) * inv_w
+    t = (frow + uniform(lane, salt, 1)) * inv_h
+    rad_l = lens_r * torch.sqrt(uniform(lane, salt, 2))
+    th = _TWO_PI * uniform(lane, salt, 3)
+    lx = rad_l * torch.cos(th)
+    ly = rad_l * torch.sin(th)
+    nox = cox + lx * cux + ly * cvx
+    noy = coy + lx * cuy + ly * cvy
+    noz = coz + lx * cuz + ly * cvz
+    return (nox, noy, noz, llx + s * chx + t * cwx - nox,
+            lly + s * chy + t * cwy - noy, llz + s * chz + t * cwz - noz,
+            t0 + uniform(lane, salt, 4) * dt)
+
+
+def _pool_flush(acc, rad, cur, take):
+    """Adds each taking lane's radiance to its pixel's sum, in place:
+    ``acc`` and ``rad`` (3, R, 128), ``cur`` (R, 128) the lanes' columns,
+    ``take`` (R, 128) which lanes flush.  Column c of row r gets the
+    radiance of the row's taking lanes at c summed in lane order from 0,
+    then added to ``acc`` -- the order ``csrc/megakernel.cu`` sums in (the
+    JAX kernel's ``acc + ch @ onehot``, :1584-1596)."""
+    rows = torch.nonzero(take.any(dim=1)).flatten()
+    if not rows.numel():
+        return
+    cur_r, take_r = cur[rows], take[rows]
+    lane = torch.arange(LANES, device=cur.device)
+    # rank[r, i]: the taking lanes before lane i at lane i's column.
+    before = ((cur_r[:, :, None] == cur_r[:, None, :]) & take_r[:, None, :]
+              & (lane[None, None, :] < lane[None, :, None]))
+    rank = torch.where(take_r, before.sum(dim=2), -1)
+    s = torch.zeros((3,) + cur_r.shape, dtype=_F32, device=cur.device)
+    for k in range(int(rank.max()) + 1):
+        r, i = torch.nonzero(rank == k, as_tuple=True)
+        c = cur_r[r, i]
+        s[:, r, c] = s[:, r, c] + rad[:, rows[r], i]
+    acc[:, rows] = acc[:, rows] + s
+
+
+def _trace_pool(tbl, cam, n_tiles, tile0, knobs: Pool, *, seed, width,
+                height, spp, max_depth, background, tris, tally, lit, cull):
+    """The work pool (``_kernel`` with ``RTOW_POOL=1``, :1492-1615,
+    :1689-1726), one loop over all rows at once: (radiance sums (3,
+    n_tiles * 1024), ray steps, lane slots = 128 x each row's
+    iterations).
+
+    Row r's queue holds ``ceil(spp / chunk) * 128`` items; item i is
+    column i % 128, chunk i // 128, with ``clip(spp - chunk * chunk_size,
+    0, chunk_size)`` samples (none off the image).  Lane c starts on item
+    c; the row's counter starts at 128.  At every iteration ``it`` with
+    ``it % k == 0`` the lanes that are dead with no samples left take the
+    next items in lane order (an exclusive prefix sum), flushing their
+    radiance into their current column's sum first.  Then idle lanes
+    with samples left regenerate a camera ray through their current
+    column, and every live lane advances one bounce.  A row runs while a
+    lane is alive or has samples left or its queue is not drained; a
+    final flush adds every lane's radiance."""
+    dev = tbl.device
+    n_rows = n_tiles * TILE_ROWS
+    rows = torch.arange(n_rows, device=dev, dtype=torch.int64)
+    tiles_x = -(-width // LANES)
+    pid = tile0 + rows // TILE_ROWS
+    prow = (pid // tiles_x) * TILE_ROWS + rows % TILE_ROWS
+    pcol0 = (pid % tiles_x) * LANES
+    col = torch.arange(LANES, device=dev, dtype=torch.int64).expand(
+        n_rows, LANES)
+    lane = lane_hash(((pid * TILE)[:, None] + (rows % TILE_ROWS)[:, None]
+                      * LANES + col) & _M32).flatten()
+    row_ok = (prow < height)[:, None]
+    n_items = -(-spp // knobs.chunk) * LANES
+
+    def budget(c, chunk):
+        ok = row_ok & (pcol0[:, None] + c < width)
+        left = torch.as_tensor(spp - chunk * knobs.chunk, device=dev)
+        return torch.where(ok, left.clamp(0, knobs.chunk), 0)
+
+    inv_w = float(np.float32(1.0) / np.float32(width - 1))
+    inv_h = float(np.float32(1.0) / np.float32(height - 1))
+    frow = (height - 1 - prow).to(_F32).repeat_interleave(LANES)
+    pcol_lane = pcol0.repeat_interleave(LANES)
+    n = n_rows * LANES
+    zeros = torch.zeros(n, dtype=_F32, device=dev)
+    # state: ox oy oz dx dy dz tm tpr tpg tpb rr rg rb, per lane.
+    state = [zeros.clone() for _ in range(13)]
+    state[3] += 1.0
+    code = torch.zeros(n, dtype=torch.int32, device=dev)
+    bounce = torch.zeros(n, dtype=torch.int32, device=dev)
+    rem = budget(col, 0).flatten()
+    cur = col.flatten().clone()
+    nxt = torch.full((n_rows,), LANES, dtype=torch.int64, device=dev)
+    acc = torch.zeros((3, n_rows, LANES), dtype=_F32, device=dev)
+    row_its = torch.zeros(n_rows, dtype=torch.int64, device=dev)
+
+    def radiance():
+        return torch.stack(state[10:13]).view(3, n_rows, LANES)
+
+    it = steps = 0
+    while True:
+        busy = ((code != 0) | (rem > 0)).view(n_rows, LANES).any(dim=1)
+        going = busy | (nxt < n_items)
+        if not bool(going.any()):
+            break
+        row_its += going
+        salt = step_salt(seed, it)
+        if it % knobs.k == 0:
+            # ---- hand-out: idle lanes take items, flushing first --------
+            done = ((code == 0) & (rem == 0)).view(n_rows, LANES)
+            off = torch.cumsum(done, dim=1) - done.long()
+            item = nxt[:, None] + off
+            take = done & (item < n_items)
+            _pool_flush(acc, radiance(), cur.view(n_rows, LANES), take)
+            flat = take.flatten()
+            for ch in (10, 11, 12):
+                state[ch] = torch.where(flat, 0.0, state[ch])
+            new_col = item % LANES
+            cur = torch.where(flat, new_col.flatten(), cur)
+            rem = torch.where(flat, budget(new_col, item // LANES).flatten(),
+                              rem)
+            nxt = nxt + take.sum(dim=1)
+        # ---- regeneration through the lane's current column -------------
+        need = (code == 0) & (rem > 0)
+        sub = torch.nonzero(need).flatten()
+        if sub.numel():
+            fcol = (pcol_lane[sub] + cur[sub]).to(_F32)
+            ray = camera_ray(cam, lane[sub], salt, fcol, frow[sub], inv_w,
+                             inv_h)
+            for j, v in enumerate(ray):
+                state[j] = state[j].index_put((sub,), v)
+            for j in (7, 8, 9):
+                state[j] = state[j].index_put(
+                    (sub,), torch.ones_like(sub, dtype=_F32))
+            bounce = bounce.index_put((sub,), torch.zeros_like(
+                sub, dtype=torch.int32))
+            rem = rem - need.to(rem.dtype)
+        # ---- one bounce of the live lanes -------------------------------
+        live = torch.nonzero((code != 0) | need).flatten()
+        if live.numel():
+            from_diffuse = ((code[live] > 1) & ~need[live]
+                            if lit.nee_kinds else None)
+            new, new_code, new_bounce = bounce_lanes(
+                tbl, tris, tuple(v[live] for v in state), lane[live], salt,
+                bounce[live], max_depth, background, lit=lit,
+                from_diffuse=from_diffuse, tally=tally, cull=cull)
+            for j, v in enumerate(new):
+                state[j] = state[j].index_put((live,), v)
+            code = code.index_put((live,), new_code.to(torch.int32))
+            bounce = bounce.index_put((live,), new_bounce.to(torch.int32))
+        steps += live.numel()
+        it += 1
+    _pool_flush(acc, radiance(), cur.view(n_rows, LANES),
+               torch.ones((n_rows, LANES), dtype=torch.bool, device=dev))
+    return acc.view(3, -1), steps, LANES * int(row_its.sum())
 
 
 def bounce_lanes(tbl, tris, state, lane, salt, bounce, max_depth, background,
@@ -1312,6 +1534,10 @@ def render_blocks(
     lit: Lit = Lit(),
     shadows: Optional[torch.Tensor] = None,
     cull: bool = True,
+    pool: Optional[bool] = None,
+    pool_chunk: Optional[int] = None,
+    pool_k: Optional[int] = None,
+    slots: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Radiance sums of tiles ``tile0 .. tile0 + n_tiles - 1`` as three
     (n_tiles * 8, 128) float32 planes (``render_blocks_pallas``, :2004).
@@ -1330,9 +1556,21 @@ def render_blocks(
     their light and volume rows (:func:`scene_lit`); a launch with any
     of them runs a lit instance and is also counted in
     ``render_blocks.lit_launches``.  ``cull`` False makes the triangles
-    two-sided (``render_blocks_pallas(cull=False)``, :2013)."""
+    two-sided (``render_blocks_pallas(cull=False)``, :2013).
+
+    The scheduler: the work pool where ``pool`` is True, the classic one
+    where it is False; ``pool``, ``pool_chunk`` and ``pool_k`` left None
+    are read from ``RTOW_POOL``, ``RTOW_POOL_CHUNK`` and ``RTOW_POOL_K``
+    at each call (:func:`pool_knobs`).  A pool launch is also counted in
+    ``render_blocks.pool_launches``.  ``slots`` (1,) gets the lane slots
+    added to it, the lane-iterations a launch holds lanes for: 128 x
+    each row's iterations under the pool, 32 x each warp's longest loop
+    under the classic scheduler; ``steps / slots`` is the occupancy."""
+    knobs = pool_knobs(pool, pool_chunk, pool_k)
     check_lit(lit, tbl)
-    check_table(tbl, "megakernel", staged=lit_rows(lit) * LIGHT_COLS * 4)
+    check_table(tbl, "megakernel",
+                staged=(lit_rows(lit) * LIGHT_COLS * 4
+                        + (POOL_STAGE_BYTES if knobs.on else 0)))
     if tris is not None:
         check_tris(tris, tbl, "megakernel")
     check_counter(tests, 2, tbl, "tests")
@@ -1344,13 +1582,17 @@ def render_blocks(
         raise ValueError(f"bad meta {meta} / n_tiles {n_tiles}")
     check_counter(steps, 1, tbl, "steps")
     check_counter(shadows, 1, tbl, "shadows")
-    if tbl.device.type == "cpu":
-        return render_blocks_reference(tbl, cam, meta, n_tiles,
-                                       background=background, steps=steps,
-                                       tris=tris, tests=tests, lit=lit,
-                                       shadows=shadows, cull=cull)
-    lib = _lib()
+    check_counter(slots, 1, tbl, "slots")
     seed, width, height, _n_pixels, tile0, spp, max_depth = meta
+    if knobs.on and -(-spp // knobs.chunk) * LANES >= 1 << 31:
+        raise ValueError(f"spp {spp} makes more pool items than int32 holds")
+    if tbl.device.type == "cpu":
+        return render_blocks_reference(
+            tbl, cam, meta, n_tiles, background=background, steps=steps,
+            tris=tris, tests=tests, lit=lit, shadows=shadows, cull=cull,
+            pool=knobs.on, pool_chunk=knobs.chunk, pool_k=knobs.k,
+            slots=slots)
+    lib = _lib()
     use_sky, (bgr, bgg, bgb) = background_args(background)
     out = torch.empty((3, n_tiles * TILE_ROWS, LANES), dtype=_F32,
                       device=tbl.device)
@@ -1367,17 +1609,21 @@ def render_blocks(
         None if steps is None else steps.data_ptr(),
         None if tests is None else tests.data_ptr(),
         None if shadows is None else shadows.data_ptr(),
-        *lit_args(lit, tbl), int(cull), *_cuda.device_args(tbl))
+        *lit_args(lit, tbl), int(cull), int(knobs.on), knobs.chunk,
+        knobs.k, None if slots is None else slots.data_ptr(),
+        *_cuda.device_args(tbl))
     _cuda.check_launch(lib, err, "megakernel")
     render_blocks.launches += 1
     render_blocks.lit_launches += lit.any
+    render_blocks.pool_launches += knobs.on
     return out[0], out[1], out[2]
 
 
-#: Kernel launches made by :func:`render_blocks` in this process, and those
-#: of them that ran a lit instance.
+#: Kernel launches made by :func:`render_blocks` in this process, those of
+#: them that ran a lit instance, and those that ran the pool scheduler.
 render_blocks.launches = 0
 render_blocks.lit_launches = 0
+render_blocks.pool_launches = 0
 
 
 def unblock_image(r, g, b, *, width: int, height: int) -> torch.Tensor:
@@ -1478,17 +1724,21 @@ def scene_k1_tables(scene) -> Tuple[torch.Tensor, Optional[TriTable]]:
 
 def render_spheres(scene, camera, seed: int, *, width: int, height: int,
                    spp: int, max_depth: int, roulette: bool = False,
-                   cull: bool = True) -> torch.Tensor:
+                   cull: bool = True, pool: Optional[bool] = None,
+                   pool_chunk: Optional[int] = None,
+                   pool_k: Optional[int] = None) -> torch.Tensor:
     """Whole-frame render of a sphere or small-mesh scene -> (n_pixels,
     3) radiance sums (``render_spheres_pallas``, :2163); ``cull`` False
-    makes the triangles two-sided."""
+    makes the triangles two-sided; the scheduler as :func:`render_blocks`
+    picks it."""
     tbl, tris = scene_k1_tables(scene)
     meta = pack_meta(seed, width=width, height=height, spp=spp,
                      max_depth=max_depth)
     r, g, b = render_blocks(tbl, pack_camera(camera), meta,
                             n_tiles_for(width, height),
                             background=scene.background, tris=tris,
-                            lit=scene_lit(scene, roulette), cull=cull)
+                            lit=scene_lit(scene, roulette), cull=cull,
+                            pool=pool, pool_chunk=pool_chunk, pool_k=pool_k)
     return unblock_image(r, g, b, width=width, height=height)
 
 
@@ -1500,6 +1750,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.rtow_megakernel.argtypes = [p, i, p, p, i, i, i, p, i, i, i, i, i,
                                     i, i, i, f, f, f, p, p, p, p, p, p,
-                                    p, i, i, i, i, i, i, i, i, i, i, p]
+                                    p, i, i, i, i, i, i, i, i, i, i, i, i,
+                                    p, i, p]
     lib.rtow_megakernel.restype = i
     return lib

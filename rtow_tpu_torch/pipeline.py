@@ -23,8 +23,8 @@ from .config import Config
 from .models.camera import Camera
 from .models.scene import IMAGE, Scene
 from .ops.megakernel import (
-    LANES, TILE_ROWS, n_tiles_for, pack_camera, pack_meta, render_blocks,
-    scene_k1_tables, scene_lit, unblock_image,
+    LANES, TILE_ROWS, n_tiles_for, pack_camera, pack_meta, pool_knobs,
+    render_blocks, scene_k1_tables, scene_lit, unblock_image,
 )
 from .ops.wavefront import WAVEFRONT_MIN_TRIS, render_wavefront
 from .utils.profiling import RenderStats
@@ -48,7 +48,12 @@ def render_megakernel(
     With ``progress`` the frame is issued as 10 sequential tile bands
     with a carriage-return ticker between them (the reference's
     scanlines-remaining ticker, src/render.cpp:154); each band is one
-    launch over a contiguous tile range."""
+    launch over a contiguous tile range.  The scheduler is the one that
+    ``RTOW_POOL`` / ``RTOW_POOL_CHUNK`` / ``RTOW_POOL_K`` name when the
+    render starts (the work pool unless ``RTOW_POOL`` is set otherwise),
+    as ``rtow_tpu.pipeline`` keys its traces on them (:74-84, :158,
+    :180); the pool works per tile, so the bands do not change a
+    pixel."""
     width, height = cfg.image_width, cfg.image_height
     spp = cfg.samples_per_pixel
     if seed is None:
@@ -62,6 +67,8 @@ def render_megakernel(
     tbl, tris = scene_k1_tables(scene)
     lit = scene_lit(scene, cfg.russian_roulette)
     cam = pack_camera(camera)
+    knobs = pool_knobs()
+    sched = dict(pool=knobs.on, pool_chunk=knobs.chunk, pool_k=knobs.k)
     if progress and tiles_total >= 20:
         n_bands = 10
         band_tiles = -(-tiles_total // n_bands)
@@ -72,7 +79,7 @@ def render_megakernel(
                              tile0=band * band_tiles)
             parts.append(render_blocks(tbl, cam, meta, band_tiles,
                                        background=scene.background,
-                                       tris=tris, lit=lit))
+                                       tris=tris, lit=lit, **sched))
             _sync(device)
             rows_done = min((band + 1) * band_tiles * TILE_ROWS // tiles_x,
                             height)
@@ -86,7 +93,7 @@ def render_megakernel(
                          max_depth=cfg.max_child_rays)
         r, g, b = render_blocks(tbl, cam, meta, tiles_total,
                                 background=scene.background, tris=tris,
-                                lit=lit)
+                                lit=lit, **sched)
     rad = unblock_image(r, g, b, width=width, height=height)
     _sync(device)
     elapsed = _time.perf_counter() - t0

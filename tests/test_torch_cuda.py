@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 the megakernel K1 (ops/megakernel.py, spheres and triangles, and its lit
-instances: emission, NEE, media, textures, roulette), the sorted
+instances: emission, NEE, media, textures, roulette; each under both
+schedulers, the work pool and the classic one), the probes T1 and T2
+(rtow_tpu_torch/tools), the sorted
 wavefront's bounce K3 (ops/flat_bounce.py) and the gradient bounces
 K4 / K5 (ops/grad.py), with their lit instances (emission, NEE with the
 light rows' cotangent, textures, media with the volume rows'), and K1's
@@ -146,6 +148,110 @@ def test_exact_sample_accounting_on_card(dev, spp):
     sums = mk.render_spheres(scene, cam, 0, width=24, height=24, spp=spp,
                              max_depth=4)
     assert bool((sums == spp).all())
+
+
+def _pool_scene(dev, name):
+    """(scene, camera, roulette, depth) of a K1 instance for the pool's
+    card tests: the cover (spheres), the knot one- and two-sided
+    (triangles), the Cornell box (lit, triangles), the smoke box (lit
+    media) and the cover with roulette (lit, spheres)."""
+    if name in ("cover", "roulette"):
+        scene, cam = cover_scene(Config(image_width=130, aspect_ratio=1.3),
+                                 device=dev)
+        return scene, cam, name == "roulette", 50
+    if name in ("cornell", "smoke"):
+        scene, cam = {"cornell": cornell_scene,
+                      "smoke": smoke_scene}[name](1.3, device=dev)
+        return scene, cam, False, 8
+    scene, cam = mesh_scene(Config(
+        image_width=130, aspect_ratio=1.3,
+        model=os.path.join(ROOT, "samples", "knot_small.obj")), device=dev)
+    return scene, cam, False, 20
+
+
+@pytest.mark.parametrize("name", ["cover", "knot", "knot_two_sided",
+                                  "cornell", "smoke", "roulette"])
+def test_pool_kernel_bit_identical_to_plain_on_card(dev, name):
+    """K1's pool instances against the plain pool at 130x100 (a partial
+    tile column: 126 of its lanes take the image columns' items), spp 20
+    (two chunks, the second of 4 samples): bit-identical planes and equal
+    counters (steps, box and triangle tests, shadow rays, lane slots);
+    each launch counted as a pool launch.  The classic instance's slots
+    agree too."""
+    scene, cam, roulette, depth = _pool_scene(dev, name)
+    tbl, tris = mk.scene_k1_tables(scene)
+    args = (tbl, mk.pack_camera(cam),
+            mk.pack_meta(5, width=130, height=100, spp=20, max_depth=depth),
+            mk.n_tiles_for(130, 100))
+    kw = dict(background=scene.background, tris=tris,
+              lit=mk.scene_lit(scene, roulette),
+              cull=name != "knot_two_sided")
+    for pool in (True, False):
+        out, counts = [], []
+        before = mk.render_blocks.pool_launches
+        for fn in (mk.render_blocks, mk.render_blocks_reference):
+            c = [torch.zeros(n, dtype=torch.int64, device=dev)
+                 for n in (1, 2, 1, 1)]
+            out.append(torch.stack(fn(*args, **kw, pool=pool, steps=c[0],
+                                      tests=c[1], shadows=c[2],
+                                      slots=c[3])))
+            counts.append(torch.cat(c).tolist())
+        assert mk.render_blocks.pool_launches == before + pool
+        assert bool(torch.isfinite(out[0]).all()) and float(out[0].mean()) > 0
+        assert torch.equal(out[0], out[1]), name
+        assert counts[0] == counts[1], (name, pool, counts)
+        assert 0 < counts[0][0] <= counts[0][4]
+
+
+@pytest.mark.parametrize("width,spp", [(24, 24), (24, 17), (130, 17),
+                                       (130, 40)])
+def test_pool_exact_sample_accounting_on_card(dev, width, spp):
+    cam = make_camera(lookfrom=(0.0, 0.0, 1.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=60.0, aspect_ratio=1.0, aperture=0.0,
+                      focus_dist=1.0, device=dev)
+    b = SceneBuilder()
+    b.add_sphere((0.0, 0.0, -99999.0), 1.0, b.add_lambertian((0.5,) * 3))
+    scene = b.build(background=(1.0, 1.0, 1.0), device=dev)
+    sums = mk.render_spheres(scene, cam, 0, width=width, height=24, spp=spp,
+                             max_depth=4, pool=True)
+    assert bool((sums == spp).all())
+
+
+def test_probes_match_plain_on_card(dev):
+    """T1's four kinds and T2 against their plain versions: "vpu" bit for
+    bit (the same float32 operations); "mxu_f" within 1e-5 of
+    max(|plain|, iters) (its fetch is a 3xTF32 product: a parameter keeps
+    ~21 of its 24 bits, the sweep's decisions are the plain version's,
+    and where a lane's terms cancel its output is small); "mxu" and "mxu_b"
+    (h and c in 3xTF32 against float32, then a quadratic that cancels on
+    the r = 1000 ground sphere) within 1e-3 relative on all but 1% of the
+    lanes; T2 exact on ones, 1e-5 relative on uniform data."""
+    from rtow_tpu_torch.tools import mxu_probe, repro_nb_slice
+
+    ins = [torch.from_numpy(x).to(dev) for x in mxu_probe.inputs(2, 4)]
+    plain = mxu_probe.probe_reference("vpu", *ins, n_blocks=2, iters=3)
+    for kind in mxu_probe.KINDS:
+        before = mxu_probe.probe.launches
+        got = mxu_probe.probe(kind, *ins, n_blocks=2, iters=3)
+        want = mxu_probe.probe_reference(kind, *ins, n_blocks=2, iters=3)
+        assert mxu_probe.probe.launches == before + 1
+        rel = ((got - want).abs() / want.abs().clamp(min=1e-3)).cpu()
+        if kind == "vpu":
+            assert torch.equal(got, want) and torch.equal(got, plain)
+        elif kind == "mxu_f":
+            assert float(((got - want).abs()
+                          / want.abs().clamp(min=3.0)).max()) <= 1e-5
+        else:
+            assert float((rel > 1e-3).float().mean()) <= 0.01
+    for width in (128, 256):
+        for nb in (1, 300, 1408):
+            ones = torch.ones((nb, 16, width), device=dev)
+            assert bool((repro_nb_slice.nb_slice(ones) == nb * 2048).all())
+            rand = torch.rand((nb, 16, width), device=dev)
+            got = repro_nb_slice.nb_slice(rand)
+            want = repro_nb_slice.nb_slice_reference(rand)
+            assert torch.equal(got, got[0, 0].expand(8, 128))
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
 
 
 def test_table_larger_than_shared_memory_raises(dev):

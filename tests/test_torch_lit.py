@@ -161,7 +161,7 @@ def test_k1_lit_matches_pallas(name, roulette, depth):
         tbl, mk.pack_camera(cam),
         mk.pack_meta(0, width=24, height=24, spp=2, max_depth=depth),
         mk.n_tiles_for(24, 24), background=scene.background, tris=tris,
-        lit=lit, shadows=shadows)
+        lit=lit, shadows=shadows, pool=False)
     got = mk.unblock_image(r, g, b, width=24, height=24).numpy()
     d = np.abs(got - want).max(axis=1) / 2
     assert np.mean(d <= 1e-4) >= 0.95

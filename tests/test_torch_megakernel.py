@@ -4,7 +4,9 @@ CPU.
 The JAX side runs ``render_spheres_pallas`` under
 ``pltpu.force_tpu_interpret_mode()`` with the CLASSIC scheduler:
 ``tests/conftest.py`` sets ``RTOW_POOL=0`` before any kernel is traced.
-The port side runs ``render_blocks``' plain PyTorch version (the CUDA
+The port side names its scheduler (``pool=False``; the work pool's gates
+are ``tests/test_torch_pool.py``) and runs ``render_blocks``' plain
+PyTorch version (the CUDA
 kernel needs a card; ``tests/test_torch_cuda.py`` holds it against this
 plain version there).  Both draw the same counter-hash random numbers
 lane by lane, so images are compared pixel by pixel:
@@ -46,7 +48,7 @@ def _jax_sums(scene, cam, *, width, height, spp, depth, seed=0):
 
 def _port_sums(scene, cam, *, width, height, spp, depth, seed=0):
     return mk.render_spheres(scene, cam, seed, width=width, height=height,
-                             spp=spp, max_depth=depth).numpy()
+                             spp=spp, max_depth=depth, pool=False).numpy()
 
 
 def _pixel_diff(a, b, spp):
@@ -264,7 +266,7 @@ def test_out_of_image_lanes_stay_zero(const_bg):
     meta = mk.pack_meta(0, width=24, height=20, spp=3, max_depth=2)
     r, g, b = mk.render_blocks(tbl, mk.pack_camera(cam), meta,
                                mk.n_tiles_for(24, 20),
-                               background=scene.background)
+                               background=scene.background, pool=False)
     # One tile column: block rows are image rows.
     assert r.shape == (3 * mk.TILE_ROWS, mk.LANES)
     for plane in (r, g, b):

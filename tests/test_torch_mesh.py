@@ -236,7 +236,7 @@ def test_k1_knot_and_sphere_matches_pallas():
     r, g, bl = mk.render_blocks(
         tbl, mk.pack_camera(make_camera(device="cpu", **cam_kw)),
         mk.pack_meta(0, width=32, height=32, spp=2, max_depth=4),
-        mk.n_tiles_for(32, 32), tris=tris, tests=tests)
+        mk.n_tiles_for(32, 32), tris=tris, tests=tests, pool=False)
     got = mk.unblock_image(r, g, bl, width=32, height=32).numpy()
     d = np.abs(got - want).max(axis=1) / 2
     assert np.mean(d <= 1e-4) >= 0.95

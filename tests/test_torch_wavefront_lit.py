@@ -241,7 +241,7 @@ def test_k1_two_sided_matches_pallas(lamps):
         want = np.asarray(jmk.render_spheres_pallas(
             jscene, jax_make_camera(**CAM), 0, cull=False, **kw))
     got = mk.render_spheres(scene, make_camera(device="cpu", **CAM), 0,
-                            cull=False, **kw).numpy()
+                            cull=False, pool=False, **kw).numpy()
     d = np.abs(got - want).max(axis=1) / 2
     assert np.mean(d <= 1e-4) >= 0.95
     assert np.abs(got - want).mean() / 2 <= 5e-3
