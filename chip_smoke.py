@@ -70,6 +70,7 @@ import contextlib
 import io
 import json
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -179,6 +180,9 @@ POOL_COVER, POOL_SQUARE, POOL_SPP = (400, 225), 300, 20
 #: repo), at the JAX package's showcase settings (README.md:312-316:
 #: 400x400, 64 samples per pixel, depth 8), through render_wavefront.
 DEPTH_KNOT_LIT = 8
+#: Seconds the band checks of phase 17 may take together (100.5 s on an
+#: H100 80GB HBM3 at 700 W).
+BAND_S = 400
 KNOT_LAMP_EMIT = 4.0
 
 
@@ -250,30 +254,33 @@ def pool_env(value):
             os.environ["RTOW_POOL"] = old
 
 
-def ptxas_entries(log: str) -> dict:
-    """{kernel entry: [registers, spill store bytes]} from ptxas's
-    verbose report in an nvcc build log."""
-    out, entry, props = {}, None, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            entry = line.split("'")[1]
-            out[entry] = [None, None]
-        elif "Function properties for" in line:
-            props = line.split("for ")[-1].strip()
-        elif "bytes spill stores" in line and entry and props == entry:
-            out[entry][1] = int(line.split("bytes spill stores")[0]
-                                .split(",")[-1])
-        elif "Used " in line and entry:
-            out[entry][0] = int(line.split("Used ")[1].split()[0])
-    return out
-
-
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def running_children() -> list:
+    """[pid and command line] of every child of this process that has not
+    exited (zombies aside), as Linux's /proc lists them."""
+    pids = set()
+    for task in os.listdir("/proc/self/task"):
+        with open(f"/proc/self/task/{task}/children") as f:
+            pids.update(f.read().split())
+    left = []
+    for pid in sorted(pids, key=int):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except FileNotFoundError:  # it ended meanwhile
+            continue
+        if state != "Z":
+            left.append(f"{pid} {cmd.strip()}")
+    return left
 
 
 def main() -> None:
@@ -300,6 +307,7 @@ def main() -> None:
     from rtow_tpu_torch.models.scene import SceneBuilder
     from rtow_tpu_torch.ops import _cuda
     from rtow_tpu_torch.ops import megakernel as mk
+    from rtow_tpu_torch.ptxas_report import entries as ptxas_entries
     from rtow_tpu_torch.utils.ppm import read_ppm
 
     dev = torch.device("cuda", 0)
@@ -332,12 +340,13 @@ def main() -> None:
                  f"({report})")
     k3 = {}
     for entry, v in ptxas_entries(builds["flat_bounce"].log).items():
-        lit, two = re.search(r"flat_bounceILb(\d)ELb(\d)E", entry).groups()
-        k3[("lit" if lit == "1" else "unlit")
+        warp, lit, two = re.search(r"flat_bounce(_warp)?ILb(\d)ELb(\d)E",
+                                   entry).groups()
+        k3[("warp " if warp else "") + ("lit" if lit == "1" else "unlit")
            + (" two-sided" if two == "1" else "")] = v
     say("1", "K3's instances (ptxas): " + "; ".join(
         f"{k} {regs} registers, {spill} B spilled"
-        for k, (regs, spill) in sorted(k3.items())))
+        for k, (regs, spill, _) in sorted(k3.items())))
     k1 = {}
     for entry, v in ptxas_entries(builds["megakernel"].log).items():
         bits = re.search(r"megakernelILb(\d)ELb(\d)ELb(\d)ELb(\d)E",
@@ -347,11 +356,20 @@ def main() -> None:
            or "spheres"] = v
     say("1", "K1's instances (ptxas): " + "; ".join(
         f"{k} {regs} registers, {spill} B spilled"
-        for k, (regs, spill) in sorted(k1.items())))
+        for k, (regs, spill, _) in sorted(k1.items())))
+    for name, label in (("grad_fwd", "K4"), ("grad_bwd", "K5")):
+        inst = {}
+        for entry, v in ptxas_entries(builds[name].log).items():
+            bits = re.search(name + r"ILb(\d)ELb(\d)E", entry).groups()
+            inst[" ".join(w for w, b in zip(("triangles", "lit"), bits)
+                          if b == "1") or "spheres"] = v
+        say("1", f"{label}'s instances (ptxas): " + "; ".join(
+            f"{k} {regs} registers, {spill} B spilled"
+            for k, (regs, spill, _) in sorted(inst.items())))
     say("1", "the probes' kernels (ptxas): " + "; ".join(
         f"{k} {regs} registers, {spill} B spilled"
         for name in ("mxu_probe", "nb_slice")
-        for k, (regs, spill) in ptxas_entries(builds[name].log).items()))
+        for k, (regs, spill, _) in ptxas_entries(builds[name].log).items()))
     say("1", f"six builds in parallel: {wall:.1f} s wall")
 
     def frame(scene, cam, width, height, spp, depth, *, plain=False,
@@ -550,8 +568,14 @@ def main() -> None:
          launches, 0.0),
         ("megakernel_pool", "pool", "rtow_tpu/ops/pallas_megakernel.py:1492",
          pool_launches, pool["max_abs_err"]))]
-    print(json.dumps({"kernels": k1_entries + [mesh, lit, lit_mesh] + grad
-                      + mesh_grad + lit_grad + vol_grad + tools}),
+    # ---- (32) every process this script started has ended --------------
+    left = running_children()
+    check(not left, f"processes started by this script still run: {left}")
+    say("32", "no process started by this script is still running (nvcc, "
+              "nvidia-smi and phase 17's workers all waited for)")
+
+    print(json.dumps({"kernels": k1_entries + mesh + [lit] + lit_mesh
+                      + grad + mesh_grad + lit_grad + vol_grad + tools}),
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -952,7 +976,8 @@ def mesh_phases(torch, dev, card, say, event_ms, agreement):
     ``render_wavefront``, and K3 against its plain version, bit for bit
     with equal counters, at every launch of each knot's centre chunk
     (262,144 lanes, then the window ladder's narrower launches), timed
-    there.  Returns K3's JSON entry (the 65k knot's times)."""
+    there.  Returns K3's JSON entries, the thread and warp forms (the 65k
+    knot's times)."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from make_mesh import make_knot
 
@@ -1061,6 +1086,7 @@ def mesh_phases(torch, dev, card, say, event_ms, agreement):
             for label, path in (("65k knot", obj), ("knot_small", small_obj)):
                 ppm_path = os.path.join(tmp, "mesh.ppm")
                 mk.render_blocks.launches = fb.bounce_step.launches = 0
+                fb.bounce_step.warp_launches = 0
                 t0 = time.perf_counter()
                 with contextlib.redirect_stderr(log):
                     rc = cli.main(["-l", path, "-w", str(W_MESH), "-a", "1",
@@ -1074,13 +1100,14 @@ def mesh_phases(torch, dev, card, say, event_ms, agreement):
                       and img.max() <= 255,
                       f"{label}: PPM shape {img.shape} or values flat")
                 runs[label] = (wall, mk.render_blocks.launches,
-                               fb.bounce_step.launches)
+                               fb.bounce_step.launches,
+                               fb.bounce_step.warp_launches)
     finally:
         fb.bounce_step_reference = plain_k3
-    k3_launches = runs["65k knot"][2]
-    check(k3_launches > 0 and runs["65k knot"][1] == 0,
-          f"65k knot: K3 launched {k3_launches}, K1 "
-          f"{runs['65k knot'][1]} times")
+    k3_launches, k3_warp = runs["65k knot"][2:]
+    check(k3_launches > k3_warp > 0 and runs["65k knot"][1] == 0,
+          f"65k knot: K3 launched {k3_launches} times ({k3_warp} the warp "
+          f"form), K1 {runs['65k knot'][1]} times")
     check(runs["knot_small"][1] > 0 and runs["knot_small"][2] == 0,
           f"knot_small: K1 launched {runs['knot_small'][1]}, K3 "
           f"{runs['knot_small'][2]} times")
@@ -1091,7 +1118,9 @@ def mesh_phases(torch, dev, card, say, event_ms, agreement):
                         "Scene has 1920 triangles"],
           f"cli.main printed {tri_lines}")
     say("11", f"cli.main -l <65k knot OBJ> -w {W_MESH} -a 1 -s {SPP_MESH} "
-              f"-c {DEPTH_MESH}: {k3_launches} K3 launches, 0 of K1, "
+              f"-c {DEPTH_MESH}: {k3_launches} K3 launches ({k3_warp} of "
+              f"them the warp form, at most {fb.WARP_MAX_LIVE} live lanes), "
+              f"0 of K1, "
               f"{runs['65k knot'][0]:.2f} s end to end (render: {done[0]}); "
               f"-l samples/knot_small.obj: {runs['knot_small'][1]} K1 "
               f"launches, 0 of K3, {runs['knot_small'][0]:.2f} s (render: "
@@ -1110,9 +1139,12 @@ def mesh_phases(torch, dev, card, say, event_ms, agreement):
         check(img.shape == (W_MESH, W_MESH, 3) and bool(
             (img >= 0).all()) and img.std() > 0.05, f"{name}: bad image")
         stats = torch.zeros(3, dtype=torch.int64, device=dev)
-        fb.bounce_step.launches = 0
+        fb.bounce_step.launches = fb.bounce_step.warp_launches = 0
         wf.render_wavefront(scene, bench_cam, bench_cfg, stats=stats)
         per_frame = fb.bounce_step.launches
+        warp_frame = fb.bounce_step.warp_launches
+        check(per_frame > warp_frame > 0, f"{name} frame: {warp_frame} of "
+                                          f"{per_frame} launches the warp form")
         wall = statistics.median(walls)
         f_wall, f_dev = profile_ms(torch, frame)
         parts = split_device_time(f_dev)
@@ -1130,10 +1162,11 @@ def mesh_phases(torch, dev, card, say, event_ms, agreement):
                   f"{card}: {wall:.3f} s a frame (median of "
                   f"{', '.join(f'{x:.3f}' for x in walls)}), "
                   f"{W_MESH * W_MESH * SPP_MESH / wall / 1e6:.2f} Mrays/s; "
-                  f"{per_frame} K3 launches, {live} live lane-bounces, "
-                  f"{box} box and {tri} triangle tests a frame.  One frame "
-                  f"under torch.profiler: {f_wall:.1f} ms wall, device "
-                  f"{busy:.1f} ms: K3 {parts['K3']:.1f}, sort "
+                  f"{per_frame} K3 launches ({warp_frame} the warp form), "
+                  f"{live} live lane-bounces, {box} box and {tri} triangle "
+                  f"tests a frame.  One frame under torch.profiler: "
+                  f"{f_wall:.1f} ms wall, device {busy:.1f} ms (idle share "
+                  f"{1 - busy / f_wall:.1%}): K3 {parts['K3']:.1f}, sort "
                   f"{parts['sort']:.1f}, gather/scatter "
                   f"{parts['gather']:.1f}, other {parts['other']:.1f}.  "
                   f"Chunk {g_mid} (the centre) under torch.profiler: "
@@ -1159,29 +1192,30 @@ def mesh_phases(torch, dev, card, say, event_ms, agreement):
                   f"triangles, {tt.n_blocks} blocks of {tt.block}, "
                   f"{tt.n_super} supers, {tt.n_hyper} hypers; "
                   f"{tape[0][0].shape[1]} lanes, {len(tape)} launches) on "
-                  f"{card}: kernel and plain version bit-identical at every "
-                  f"launch, counters equal; kernel {r['ms']:.3f} ms (median "
-                  f"of {', '.join(f'{x:.3f}' for x in r['runs'])}), plain "
-                  f"{r['plain_ms']:.1f} ms, bound {r['bound']:.3f} ms "
-                  f"(operations in {r['by_ops']} launches, bytes in "
-                  f"{r['by_bytes']}) = {r['bound'] / r['ms']:.1%} of the "
-                  f"kernel time; per launch (live lanes / triangle tests per "
-                  f"live lane / ms, each launch timed alone with its "
-                  f"counters): {', '.join(r['per_launch'])}")
-    main_row = rows["65k"]
-    return {
-        "name": "flat_bounce",
+                  f"{card}: both forms and the plain version bit-identical "
+                  f"at every launch, counters equal; " + k3_line(r))
+    return k3_entries("flat_bounce", rows["65k"], rows.values(),
+                      k3_launches, k3_warp)
+
+
+def k3_entries(name, row, rows, launches, warp_launches):
+    """The kernels' JSON entries of K3's thread and warp forms: the main
+    path's launches of each, and the chunk ``row``'s times in each form
+    (its 20 or so launches, all in that form)."""
+    return [{
+        "name": name + suffix,
         "route": "cuda",
         "source": "rtow_tpu_torch/csrc/flat_bounce.cu",
         "replaces": "rtow_tpu/ops/pallas_megakernel.py:1739",
-        "launches": k3_launches,
-        "max_abs_err": max(r["err"] for r in rows.values()),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound"],
-        "bound_by": main_row["by"],
+        "launches": n,
+        "max_abs_err": max(r["err"] for r in rows),
+        "ms": row[key],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound"],
+        "bound_by": row["by"],
         "library_ms": None,
-    }
+    } for suffix, key, n in (("", "ms", launches - warp_launches),
+                             ("_warp", "warp_ms", warp_launches))]
 
 
 def k3_tape(torch, dev, wf, scene, cam, cfg, g, pixels, seed, spp, depth,
@@ -1205,61 +1239,91 @@ def k3_tape(torch, dev, wf, scene, cam, cfg, g, pixels, seed, spp, depth,
 
 def k3_held(torch, dev, fb, what, scene, tables, tape, seed, depth,
             cull=True):
-    """K3 against its plain version at every launch of ``tape``: the
-    outputs bit-identical and the counters (box tests, triangle tests,
-    live lanes, shadow rays) equal, launch by launch.  Times the tape's
-    launches back to back between one pair of CUDA events (median of 3,
-    after a warm-up), the plain version once, and each launch alone with
-    its counters.  Returns the times, the summed counters and the bound:
-    per launch the larger of its float32 operations (counted from
+    """K3's two forms against its plain version at every launch of
+    ``tape``: the outputs bit-identical and the counters (box tests,
+    triangle tests, live lanes, shadow rays) equal, launch by launch.
+    Times the tape's launches back to back between one pair of CUDA
+    events in each form (``thread``, ``warp``, and ``picked``, the form
+    ``bounce_step`` picks from the live count), median of 3 rounds in
+    turns after a warm-up; the plain version once; and each launch alone
+    with its counters in both forms, in turns (thread, warp, warp,
+    thread).  Returns the times, the summed counters and the bound: per
+    launch the larger of its float32 operations (counted from
     csrc/bounce.cuh, ``OPS_*``) over the card's peak and its bytes (16
     state rows in and out per live lane, at most the table rows, boxes and
     light rows it tested, each read once) over the memory rate."""
     kw = dict(background=scene.background, cull=cull)
+    lives = [int((state[13] > 0).sum()) for state, _ in tape]
+    cut = fb.WARP_MAX_LIVE
 
-    def counters():
-        return [(torch.zeros(3, dtype=torch.int64, device=dev),
-                 torch.zeros(1, dtype=torch.int64, device=dev)) for _ in tape]
+    def launch(form, i, **counters):
+        state, it = tape[i]
+        if form == "thread":
+            return fb.bounce_step(state, it, seed, depth, tables, **kw,
+                                  **counters)
+        fb.WARP_MAX_LIVE = 1 << 30 if form == "warp" else cut
+        try:
+            return fb.bounce_step(state, it, seed, depth, tables, **kw,
+                                  **counters, live=lives[i])
+        finally:
+            fb.WARP_MAX_LIVE = cut
 
-    def run_all(fn, cs=None):
-        return event_ms(torch, lambda: [
-            fn(state, it, seed, depth, tables, **kw,
-               **({} if c is None else dict(stats=c[0], shadows=c[1])))
-            for (state, it), c in zip(tape, cs or [None] * len(tape))])
+    def run_all(form):
+        return event_ms(torch, lambda: [launch(form, i)
+                                        for i in range(len(tape))])
 
     # Timed runs keep no outputs (the caching allocator reuses the memory
     # of the run before).  The plain version counts on the host from sizes
     # it already has, so its counters cost it no time.
-    _, k_outs = run_all(fb.bounce_step)  # warm-up, and the outputs
-    k_runs = [run_all(fb.bounce_step)[0] for _ in range(3)]
-    p_cs = counters()
-    p_ms, p_outs = run_all(fb.bounce_step_reference, p_cs)
-    err = max(float((k - p).abs().max()) for k, p in zip(k_outs, p_outs))
-    for i, (k, p) in enumerate(zip(k_outs, p_outs)):
-        check(bool(torch.isfinite(k).all()),
-              f"{what}, launch {i}: kernel output not finite")
-        check(torch.equal(k, p),
-              f"{what}, launch {i}: not bit-identical to the plain version "
-              f"(max |d| over the tape {err:.3g})")
-    del k_outs, p_outs
+    forms = ("thread", "warp", "picked")
+    outs = {form: run_all(form)[1] for form in forms[:2]}  # warm-ups too
+    run_all("picked")
+    runs = {form: [] for form in forms}
+    for _ in range(3):
+        for form in forms:
+            runs[form].append(run_all(form)[0])
+    p_cs = [(torch.zeros(3, dtype=torch.int64, device=dev),
+             torch.zeros(1, dtype=torch.int64, device=dev)) for _ in tape]
+    p_ms, p_outs = event_ms(torch, lambda: [
+        fb.bounce_step_reference(state, it, seed, depth, tables, **kw,
+                                 stats=c[0], shadows=c[1])
+        for (state, it), c in zip(tape, p_cs)])
+    err = 0.0
+    for form, k_outs in outs.items():
+        err = max([err] + [float((k - p).abs().max())
+                           for k, p in zip(k_outs, p_outs)])
+        for i, (k, p) in enumerate(zip(k_outs, p_outs)):
+            check(bool(torch.isfinite(k).all()),
+                  f"{what}, launch {i}: the {form} form's output not finite")
+            check(torch.equal(k, p),
+                  f"{what}, launch {i}: the {form} form not bit-identical to "
+                  f"the plain version (max |d| over the tape {err:.3g})")
+    del outs, p_outs
     lit, tt = tables.lit, tables.tris
     n_sph, n_vol = scene.n_spheres, len(lit.vol_kinds)
     rows_bytes = 0 if lit.rows is None else lit.rows.numel() * 4
     bound, by_ops, by_bytes = 0.0, 0, 0
-    per_launch, total = [], [0, 0, 0, 0]
-    for i, ((state, it), (ps, psh)) in enumerate(zip(tape, p_cs)):
-        st, sh = (torch.zeros(n, dtype=torch.int64, device=dev)
-                  for n in (3, 1))
-        ms, _ = event_ms(torch, lambda: fb.bounce_step(
-            state, it, seed, depth, tables, **kw, stats=st, shadows=sh))
-        check(torch.equal(st, ps) and torch.equal(sh, psh),
-              f"{what}, launch {i}: counted {st.tolist() + sh.tolist()}, "
-              f"the plain version {ps.tolist() + psh.tolist()} (box tests, "
-              f"triangle tests, live lanes, shadow rays)")
-        box, tri, live = st.tolist()
-        shadows = int(sh)
+    per_launch, launch_ms, total = [], [], [0, 0, 0, 0]
+    for i, (ps, psh) in enumerate(p_cs):
+        ms = {"thread": [], "warp": []}
+        for form in ("thread", "warp", "warp", "thread"):
+            st, sh = (torch.zeros(n, dtype=torch.int64, device=dev)
+                      for n in (3, 1))
+            t, _ = event_ms(torch, lambda: launch(form, i, stats=st,
+                                                  shadows=sh))
+            ms[form].append(t)
+            check(torch.equal(st, ps) and torch.equal(sh, psh),
+                  f"{what}, launch {i}: the {form} form counted "
+                  f"{st.tolist() + sh.tolist()}, the plain version "
+                  f"{ps.tolist() + psh.tolist()} (box tests, triangle "
+                  f"tests, live lanes, shadow rays)")
+        box, tri, live = ps.tolist()
+        shadows = int(psh)
         total = [a + b for a, b in zip(total, (box, tri, live, shadows))]
-        per_launch.append(f"{live}/{tri / max(live, 1):.0f}/{ms:.2f}")
+        t_ms, w_ms = (statistics.mean(ms[f]) for f in ("thread", "warp"))
+        launch_ms.append((live, t_ms, w_ms))
+        per_launch.append(f"{live}/{tri / max(live, 1):.0f}/{t_ms:.3f}/"
+                          f"{w_ms:.3f}")
         ops = (box * OPS_PER_BOX + tri * OPS_PER_TRI
                + live * (OPS_PER_STEP + OPS_INV_DIR)
                + shadows * (OPS_NEE + OPS_INV_DIR)
@@ -1272,10 +1336,40 @@ def k3_held(torch, dev, fb, what, scene, tables, tape, seed, depth,
         bound += max(ops_s, bytes_s) * 1e3
         by_ops += ops_s >= bytes_s
         by_bytes += ops_s < bytes_s
-    return dict(err=err, ms=statistics.median(k_runs), runs=k_runs,
+    # The cut-over this chunk's launches favour: the live count at or
+    # below which the warp form, above which the thread form, makes the
+    # least sum of the launches' times.
+    best = min((sum(w if n <= c else t for n, t, w in launch_ms), c)
+               for c in [0] + [n for n, _, _ in launch_ms])
+    return dict(err=err, ms=statistics.median(runs["thread"]),
+                warp_ms=statistics.median(runs["warp"]),
+                picked_ms=statistics.median(runs["picked"]), runs=runs,
                 plain_ms=p_ms, bound=bound, by_ops=by_ops, by_bytes=by_bytes,
                 by="operations" if by_ops >= by_bytes else "bytes",
-                per_launch=per_launch, total=total)
+                per_launch=per_launch, launch_ms=launch_ms, total=total,
+                best_cut=best[1], best_ms=best[0],
+                cut=cut, warp_launches=sum(n <= cut for n in lives))
+
+
+def k3_line(r):
+    """The times of k3_held's result ``r``, for a phase's line."""
+    def med(form):
+        runs = ", ".join(f"{x:.3f}" for x in r["runs"][form])
+        ms = r["ms" if form == "thread" else form + "_ms"]
+        return f"{ms:.3f} ms (median of {runs})"
+
+    return (f"thread form {med('thread')}, warp form {med('warp')}, as "
+            f"picked (warp form at <= {r['cut']} live lanes: "
+            f"{r['warp_launches']} of the launches) {med('picked')}; plain "
+            f"{r['plain_ms']:.1f} ms, bound {r['bound']:.3f} ms (operations "
+            f"in {r['by_ops']} launches, bytes in {r['by_bytes']}) = "
+            f"{r['bound'] / r['ms']:.1%} of the thread form, "
+            f"{r['bound'] / r['picked_ms']:.1%} as picked; the launches' "
+            f"least sum {r['best_ms']:.3f} ms at a cut-over of "
+            f"{r['best_cut']} live lanes; per launch (live lanes / triangle "
+            f"tests per live lane / thread-form ms / warp-form ms, each "
+            f"launch timed alone with its counters, in turns): "
+            f"{', '.join(r['per_launch'])}")
 
 
 def lit_knot(SceneBuilder, verts, faces, device, reverse=False):
@@ -1342,6 +1436,55 @@ def band_check(payload):
             float((k - p).abs().max()), kc, pc, time.perf_counter() - t0)
 
 
+def band_worker(src, dst):
+    """A worker process of ``band_checks``: ``band_check`` on the payload
+    pickled at ``src``, its result pickled to ``dst``."""
+    with open(src, "rb") as f:
+        payload = pickle.load(f)
+    result = band_check(payload)
+    with open(dst, "wb") as f:
+        pickle.dump(result, f)
+
+
+def band_checks(payloads):
+    """``band_check`` on each of ``payloads`` ({key: payload}), each in a
+    Python process of its own, all started together.  Every process is
+    waited for; one still running when this returns or raises (a check
+    that failed, ``BAND_S`` passed) is killed first.  Returns {key:
+    result}."""
+    procs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for i, (key, payload) in enumerate(payloads.items()):
+                src, dst = (os.path.join(tmp, f"{i}.{x}") for x in ("in",
+                                                                     "out"))
+                with open(src, "wb") as f:
+                    pickle.dump(payload, f)
+                code = (f"import sys; sys.path.insert(0, {ROOT!r}); "
+                        f"import chip_smoke; "
+                        f"chip_smoke.band_worker({src!r}, {dst!r})")
+                procs[key] = (subprocess.Popen([sys.executable, "-c", code]),
+                              dst)
+            deadline = time.monotonic() + BAND_S
+            results = {}
+            for key, (proc, dst) in procs.items():
+                try:
+                    rc = proc.wait(timeout=max(deadline - time.monotonic(),
+                                               1.0))
+                except subprocess.TimeoutExpired:
+                    raise CheckFailed(f"the band check of {key} ran past "
+                                      f"{BAND_S} s") from None
+                check(rc == 0, f"the band check of {key} exited {rc}")
+                with open(dst, "rb") as f:
+                    results[key] = pickle.load(f)
+            return results
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+
+
 def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
     """Phases 14-18: K1's lit instances against their plain version on the
     five lit scenes (and the checkered cover), the light-driven path
@@ -1350,9 +1493,6 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
     those renders held against the plain version, and the lit instance's
     times and bound on the Cornell and smoke boxes.  Returns the lit
     instance's JSON entry (the Cornell box's times)."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
     import numpy as np
 
     from rtow_tpu_torch import cli, pipeline
@@ -1513,12 +1653,8 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
     # band, bound by the host's dispatch of its small ops: one worker
     # process per band, all at once (nothing is timed meanwhile).
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(
-            max_workers=len(bands),
-            mp_context=multiprocessing.get_context("spawn")) as pool:
-        futures = {flag: pool.submit(band_check, moved(launch, "cpu"))
-                   for flag, (_, _, launch) in bands.items()}
-        results = {flag: f.result() for flag, f in futures.items()}
+    results = band_checks({flag: moved(launch, "cpu")
+                           for flag, (_, _, launch) in bands.items()})
     lines = []
     for flag, (i, n, ((_, _, meta, n_tiles), _)) in bands.items():
         finite, same, err, kc, pc, seconds = results[flag]
@@ -2388,7 +2524,8 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
     spp64 depth 8 through ``render_wavefront`` and ``cli.main -l ...
     --russian-roulette``; K1 and K3 with two-sided triangles against
     their plain versions on a knot wound away from the camera.  Returns
-    the lit instance's JSON entry (the lit knot's chunk)."""
+    the lit instances' JSON entries, the thread and warp forms (the lit
+    knot's chunk)."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from make_mesh import make_knot
 
@@ -2456,17 +2593,11 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
                   f"triangles, {tt.n_blocks} blocks of {tt.block}, "
                   f"{tt.n_super} supers, {tt.n_hyper} hypers; spp "
                   f"{SPP_MESH}, depth {depth}; {tape[0][0].shape[1]} lanes, "
-                  f"{len(tape)} launches) on {card}: kernel and plain version "
-                  f"bit-identical at every launch, counters equal ({box} box "
-                  f"tests, {tri} triangle tests, {live} live lane-bounces, "
-                  f"{shadows} shadow rays; {codes} lanes entered a bounce at "
-                  f"alive code 2); kernel {r['ms']:.3f} ms (median of "
-                  f"{', '.join(f'{x:.3f}' for x in r['runs'])}), plain "
-                  f"{r['plain_ms']:.1f} ms, bound {r['bound']:.3f} ms "
-                  f"(operations in {r['by_ops']} launches, bytes in "
-                  f"{r['by_bytes']}) = {r['bound'] / r['ms']:.1%} of the "
-                  f"kernel time; per launch (live lanes / triangle tests per "
-                  f"live lane / ms): {', '.join(r['per_launch'])}")
+                  f"{len(tape)} launches) on {card}: both forms and the "
+                  f"plain version bit-identical at every launch, counters "
+                  f"equal ({box} box tests, {tri} triangle tests, {live} live "
+                  f"lane-bounces, {shadows} shadow rays; {codes} lanes "
+                  f"entered a bounce at alive code 2); " + k3_line(r))
 
     # ---- (26) the lit knot through render_wavefront, and cli.main -l -----
     frame = lambda: wf.render_wavefront(lit_scene, cam, lit_cfg)  # noqa: E731
@@ -2484,16 +2615,17 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
         stats = torch.zeros(3, dtype=torch.int64, device=dev)
         shadows = torch.zeros(1, dtype=torch.int64, device=dev)
         fb.bounce_step.launches = fb.bounce_step.lit_launches = 0
-        mk.render_blocks.launches = 0
+        mk.render_blocks.launches = fb.bounce_step.warp_launches = 0
         counted = wf.render_wavefront(lit_scene, cam, lit_cfg, stats=stats,
                                       shadows=shadows)
         frame_launches = fb.bounce_step.launches
-        check(frame_launches > 0
+        frame_warp = fb.bounce_step.warp_launches
+        check(frame_launches > frame_warp > 0
               and fb.bounce_step.lit_launches == frame_launches
               and mk.render_blocks.launches == 0,
               f"lit knot frame: {fb.bounce_step.lit_launches} lit of "
-              f"{frame_launches} K3 launches, {mk.render_blocks.launches} "
-              f"of K1")
+              f"{frame_launches} K3 launches ({frame_warp} the warp form), "
+              f"{mk.render_blocks.launches} of K1")
         check(np.array_equal(counted, img), "two lit knot frames differ")
         f_wall, f_dev = profile_ms(torch, frame)
         tables, bmin, inv_ext = wf.scene_tables(lit_scene)
@@ -2545,7 +2677,8 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
               f"of {ppc} pixels) on {card}: {wall:.3f} s a frame (median of "
               f"{', '.join(f'{x:.3f}' for x in walls)}), "
               f"{W_MESH * W_MESH * SPP_MESH / wall / 1e6:.2f} Mrays/s; "
-              f"{frame_launches} K3 launches, all lit; {int(shadows)} shadow "
+              f"{frame_launches} K3 launches, all lit, {frame_warp} of them "
+              f"the warp form; {int(shadows)} shadow "
               f"rays, {live} live lane-bounces, {box} box and {tri} triangle "
               f"tests a frame; radiance mean {img.mean():.4f}.  One frame "
               f"under torch.profiler: {f_wall:.1f} ms wall, device "
@@ -2602,26 +2735,12 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
               f"differs; "
               f"kernel {k1_ms:.3f} ms (median of 3), plain {k1_plain_ms:.1f} "
               f"ms.  K3 on chunk {g_mid} of the 65k knot ({len(tape)} "
-              f"launches): bit-identical at every launch, counters equal "
-              f"{r['total']} (box tests, triangle tests, live lanes, shadow "
-              f"rays); kernel {r['ms']:.3f} ms (median of "
-              f"{', '.join(f'{x:.3f}' for x in r['runs'])}), plain "
-              f"{r['plain_ms']:.1f} ms, bound {r['bound']:.3f} ms = "
-              f"{r['bound'] / r['ms']:.1%}")
-    main_row = rows["lit 65k knot"]
-    return {
-        "name": "flat_bounce_lit",
-        "route": "cuda",
-        "source": "rtow_tpu_torch/csrc/flat_bounce.cu",
-        "replaces": "rtow_tpu/ops/pallas_megakernel.py:1739",
-        "launches": frame_launches,
-        "max_abs_err": max(r["err"] for r in rows.values()),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound"],
-        "bound_by": main_row["by"],
-        "library_ms": None,
-    }
+              f"launches): both forms bit-identical at every launch, "
+              f"counters equal {r['total']} (box tests, triangle tests, live "
+              f"lanes, shadow rays); " + k3_line(r))
+    rows["two-sided"] = r
+    return k3_entries("flat_bounce_lit", rows["lit 65k knot"],
+                      rows.values(), frame_launches, frame_warp)
 
 
 def pool_phases(torch, dev, card, say, event_ms):
@@ -2785,6 +2904,36 @@ def per_launch_ms(torch, fn, n):
     return start.elapsed_time(end) / n
 
 
+#: Calls captured in the CUDA graph that times a call's device work.
+GRAPH_CALLS = 100
+
+
+def graph_ms(torch, stream, fn):
+    """Milliseconds per call of ``fn`` on the card alone: CUDA events
+    around the replay of a CUDA graph of ``GRAPH_CALLS`` captured calls
+    (captured on ``stream``, after one call there), median of 3 replays
+    after a warm-up replay."""
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / GRAPH_CALLS)
+    return statistics.median(times)
+
+
 #: float32 operations of the probe T1 (a lower bound, counted from
 #: csrc/mxu_probe.cu): per (lane, sphere) pair, the CUDA-core form's oc (9),
 #: h (5), c (7), disc (3), the sign test, the square root, near and far
@@ -2905,10 +3054,20 @@ def tool_phases(torch, dev, card, say, event_ms):
           f"repro_nb_slice main: rc {rc}, {t2_launches} launches, printed "
           f"{printed}")
     lines, worst, entry = [], 0.0, None
+    side = torch.cuda.Stream(dev)  # the CUDA graphs' capture stream
     for width in rs.WIDTHS:
         for nb in rs.DEFAULT_NB:
             tbl = torch.rand((nb, 16, width), device=dev)
+            before = rs.nb_slice.launches
             got = rs.nb_slice(tbl)
+            check(rs.nb_slice.launches == before + 1,
+                  f"T2 NB={nb}: {rs.nb_slice.launches - before} launches "
+                  f"for one call")
+            ordered = rs.nb_slice_ordered(tbl)
+            check(torch.equal(got, ordered),
+                  f"T2 NB={nb} width {width}: not bit-identical to the "
+                  f"kernel's order of the sums ({float(got[0, 0])!r} vs "
+                  f"{float(ordered[0, 0])!r})")
             p_ms, want = event_ms(torch, lambda: rs.nb_slice_reference(tbl))
             lib = torch.sum(tbl[:, :, :128])
             rel = float(((got - want).abs() / want.abs()).max())
@@ -2921,12 +3080,16 @@ def tool_phases(torch, dev, card, say, event_ms):
             k_ms = per_launch_ms(torch, lambda: rs.nb_slice(tbl), 20)
             l_ms = per_launch_ms(torch, lambda: torch.sum(tbl[:, :, :128]),
                                  20)
+            k_dev = graph_ms(torch, side, lambda: rs.nb_slice(tbl))
+            l_dev = graph_ms(torch, side, lambda: torch.sum(tbl[:, :, :128]))
             nbytes = nb * 16 * 128 * 4 + 8 * 128 * 4
             bound = nbytes / PEAK_BYTES * 1e3
-            lines.append(f"NB={nb} width {width}: kernel {k_ms * 1e3:.1f} us, "
-                         f"torch.sum {l_ms * 1e3:.1f} us, plain {p_ms:.1f} "
-                         f"ms, bound {bound * 1e3:.2f} us (bytes) = "
-                         f"{bound / k_ms:.1%}; rel |d| {rel:.2g} vs plain, "
+            lines.append(f"NB={nb} width {width}: a call {k_ms * 1e3:.1f} "
+                         f"us (torch.sum {l_ms * 1e3:.1f}), the device alone "
+                         f"{k_dev * 1e3:.2f} us (torch.sum "
+                         f"{l_dev * 1e3:.2f}), plain {p_ms:.1f} ms, bound "
+                         f"{bound * 1e3:.2f} us (bytes) = {bound / k_dev:.1%} "
+                         f"of the device time; rel |d| {rel:.2g} vs plain, "
                          f"{rel_lib:.2g} vs torch.sum")
             entry = {
                 "name": "nb_slice",
@@ -2943,8 +3106,12 @@ def tool_phases(torch, dev, card, say, event_ms):
             }
     say("31", f"T2, python -m rtow_tpu_torch.tools.repro_nb_slice on {card}: "
               f"{t2_launches} launches; it printed: " + " | ".join(printed))
-    say("31", "T2 on uniform [0, 1) tables (the kernels' line: NB=1408, "
-              "width 256): " + "; ".join(lines))
+    say("31", "T2 on uniform [0, 1) tables, one launch a call, "
+              "bit-identical to the kernel's order of the sums "
+              "(nb_slice_ordered) at every size; a call timed by CUDA events "
+              "around 20 calls, the device alone around a CUDA graph of "
+              f"{GRAPH_CALLS} captured calls (the kernels' line: NB=1408, "
+              "width 256, a call): " + "; ".join(lines))
     return entries + [entry]
 
 

@@ -433,6 +433,178 @@ RTOW_HD void nearest_triangle(const Tris& T, const Ray& r, int base,
   }
 }
 
+// ---- the warp's cooperative triangle sweep (K3's warp form) --------------
+
+// How a ray sweeps the triangle table: one thread alone (nearest_triangle)
+// or the 32 threads of a warp together (nearest_triangle_warp).  A
+// compile-time policy of bounce_lane_t and next_event, so the per-thread
+// instances compile as they did before the warp form existed.
+enum class Sweep { kThread, kWarp };
+
+// One warp's 32 lanes on one ray.  On the card each thread is a lane, and
+// every thread of the warp makes each call with the same arguments; a host
+// build plays the 32 lanes one after another in one thread, so the same
+// sweep runs under g++.
+struct Warp {
+  static constexpr int kLanes = 32;
+
+  // The mask of the lanes j for which pred(j) holds.
+  template <class Pred>
+  RTOW_HD static uint32_t ballot(Pred pred) {
+#ifdef __CUDA_ARCH__
+    const int j = static_cast<int>(threadIdx.x & 31u);
+    return __ballot_sync(0xFFFFFFFFu, pred(j));
+#else
+    uint32_t m = 0;
+    for (int j = 0; j < kLanes; ++j)
+      if (pred(j)) m |= 1u << j;
+    return m;
+#endif
+  }
+
+  // The least (t, k) over the lanes, by t and then by k, into every lane's
+  // *t, *k: lane_best(j, &t, &k) gives lane j's pair.  The t are never NaN
+  // where it matters (a NaN pair never wins, so it stays where every pair
+  // is NaN), and the order of the comparisons does not change the result.
+  template <class Best>
+  RTOW_HD static void least(Best lane_best, float* t, int* k) {
+#ifdef __CUDA_ARCH__
+    lane_best(static_cast<int>(threadIdx.x & 31u), t, k);
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ot = __shfl_xor_sync(0xFFFFFFFFu, *t, off);
+      const int ok = __shfl_xor_sync(0xFFFFFFFFu, *k, off);
+      if (ot < *t || (ot == *t && ok < *k)) {
+        *t = ot;
+        *k = ok;
+      }
+    }
+#else
+    for (int j = 0; j < kLanes; ++j) {
+      float lt;
+      int lk;
+      lane_best(j, &lt, &lk);
+      if (j == 0 || lt < *t || (lt == *t && lk < *k)) {
+        *t = lt;
+        *k = lk;
+      }
+    }
+#endif
+  }
+};
+
+RTOW_HD int lowest_bit(uint32_t m) {
+#ifdef __CUDA_ARCH__
+  return __ffs(static_cast<int>(m)) - 1;
+#else
+  return __builtin_ctz(m);
+#endif
+}
+
+constexpr int kNoRow = 0x7FFFFFFF;  // a lane's row where it hit nothing
+
+// sweep_triangle_block by the warp: lane j tests rows k0 + j, k0 + 32 + j,
+// ... (neighbouring lanes read neighbouring rows), each against its own
+// best from the block's starting bt, and the least (t, row) over the lanes
+// is the block's.  That is the serial loop's (bt, bk): its strict `<` keeps
+// the first minimal t in table order.  The rows are counted once, for the
+// ray.
+RTOW_HD void sweep_triangle_block_warp(const Tris& T, int b, const Ray& r,
+                                       int base, float* bt, int* bk,
+                                       Tally* tally) {
+  const int k0 = b * T.block;
+  const int k1 = k0 + T.block < T.count ? k0 + T.block : T.count;
+  const float bt0 = *bt;
+  float t;
+  int k;
+  Warp::least(
+      [&](int j, float* lt, int* lk) {
+        *lt = bt0;
+        *lk = kNoRow;
+        for (int row = k0 + j; row < k1; row += Warp::kLanes) {
+          float tt;
+          if (triangle_t(T.tbl, row, r, *lt, T.side_mask, &tt)) {
+            *lt = tt;
+            *lk = row;
+          }
+        }
+      },
+      &t, &k);
+  if (k != kNoRow) {
+    *bt = t;
+    *bk = base + k;
+  }
+  if (k1 > k0) tally->tris += static_cast<unsigned long long>(k1 - k0);
+}
+
+// Calls visit(c), in table order, for each child c in [c0, c1) of one level
+// (boxes `box`) that the ray enters under the then-current *bt, as
+// nearest_triangle's loops do, and counts the level's box tests.  The warp
+// slab-tests 32 children at once against *bt and visits the candidates in
+// order, testing a candidate again where a sweep has lowered *bt since: a
+// box the ray does not enter under some bt it does not enter under a
+// smaller one either, so the candidates hold every child the serial loop
+// enters, and the second test is the serial test.
+template <class Visit>
+RTOW_HD void visit_entered(const float4* box, int c0, int c1, const Ray& r,
+                           float idx, float idy, float idz, float* bt,
+                           Tally* tally, Visit visit) {
+  tally->boxes += static_cast<unsigned long long>(c1 - c0);
+  for (int g0 = c0; g0 < c1; g0 += Warp::kLanes) {
+    const float bt0 = *bt;
+    uint32_t m = Warp::ballot([&](int j) {
+      return g0 + j < c1 && box_entered(box, g0 + j, r, idx, idy, idz, bt0);
+    });
+    while (m != 0u) {
+      const int c = g0 + lowest_bit(m);
+      m &= m - 1u;
+      if (*bt == bt0 || box_entered(box, c, r, idx, idy, idz, *bt)) visit(c);
+    }
+  }
+}
+
+// nearest_triangle by the 32 lanes of a warp on one ray: the same descent
+// in the same table order, the same boxes tested and the same blocks swept
+// (every hyper; 16 supers per entered hyper; 16 blocks per entered super),
+// so (bt, bk) and the counts are the serial walk's, bit for bit.  A thread
+// of the serial form reads ~1,000 rows one after another; a lane here reads
+// one in 32 of them, neighbouring lanes' rows side by side.
+RTOW_HD void nearest_triangle_warp(const Tris& T, const Ray& r, int base,
+                                   float* bt, int* bk, Tally* tally) {
+  const float idx = 1.0f / r.dx;
+  const float idy = 1.0f / r.dy;
+  const float idz = 1.0f / r.dz;
+  const auto blocks = [&](int b) {
+    sweep_triangle_block_warp(T, b, r, base, bt, bk, tally);
+  };
+  if (T.n_super == 0) {
+    visit_entered(T.boxes, 0, T.n_blocks, r, idx, idy, idz, bt, tally, blocks);
+    return;
+  }
+  const auto supers = [&](int s) {
+    visit_entered(T.boxes, s * kSuper, (s + 1) * kSuper, r, idx, idy, idz, bt,
+                  tally, blocks);
+  };
+  if (T.n_hyper == 0) {
+    visit_entered(T.supers, 0, T.n_super, r, idx, idy, idz, bt, tally, supers);
+    return;
+  }
+  visit_entered(T.hypers, 0, T.n_hyper, r, idx, idy, idz, bt, tally,
+                [&](int h) {
+                  visit_entered(T.supers, h * kSuper, (h + 1) * kSuper, r,
+                                idx, idy, idz, bt, tally, supers);
+                });
+}
+
+// The triangle sweep under policy kSweep.
+template <Sweep kSweep>
+RTOW_HD void nearest_triangle_by(const Tris& T, const Ray& r, int base,
+                                 float* bt, int* bk, Tally* tally) {
+  if constexpr (kSweep == Sweep::kWarp)
+    nearest_triangle_warp(T, r, base, bt, bk, tally);
+  else
+    nearest_triangle(T, r, base, bt, bk, tally);
+}
+
 // A triangle's hit record (_hit_basics :922-972): t re-derived as
 // (ao . n) / det, the unit normal cross(e1, e2) (1 / sqrt, not rsqrtf, which
 // is not IEEE), always front-facing (src/common-model.cpp:122).  Without
@@ -847,8 +1019,9 @@ RTOW_HD int volume_event(const Lit& L, const Ray& r, uint32_t lane,
 // surface, the isotropic phase 1 / (4 pi) at a volume event), the shadow
 // ray's medium transmittance, and the shadow sweep from t_init = the
 // light's distance less 0.1%.  Adds the contribution to s[10..12] where
-// the shadow ray gets through; tally counts the shadow ray.
-template <bool kTris>
+// the shadow ray gets through; tally counts the shadow ray.  kSweep: how the
+// shadow ray sweeps the triangles.
+template <bool kTris, Sweep kSweep = Sweep::kThread>
 RTOW_HD void next_event(const float4* tbl, int npad, const Tris& tris,
                         const Lit& L, float* s, float px, float py, float pz,
                         float nx, float ny, float nz, float nar, float nag,
@@ -876,7 +1049,8 @@ RTOW_HD void next_event(const float4* tbl, int npad, const Tris& tris,
   float st;
   int sk;
   nearest_sphere(tbl, npad, sr, la, 1.0f / la, thresh, &st, &sk);
-  if constexpr (kTris) nearest_triangle(tris, sr, npad, &st, &sk, tally);
+  if constexpr (kTris)
+    nearest_triangle_by<kSweep>(tris, sr, npad, &st, &sk, tally);
   if (st >= thresh) {
     s[10] = s[10] + cr;
     s[11] = s[11] + cg;
@@ -919,7 +1093,12 @@ RTOW_HD bool roulette(const Lit& L, float* s, int bounce, uint32_t lane,
 // scattered diffusely (from_diffuse); NEE at diffuse hits and volume
 // events; roulette.  The alive code is then 2 after a diffuse or volume
 // scatter under NEE.  Without kLit the code is the plain bounce's.
-template <bool kTris, bool kLit = false>
+//
+// kSweep: the triangle sweeps (the main one and the shadow rays') one
+// thread alone, or the 32 threads of a warp on the same lane (K3's warp
+// form: every thread of the warp runs the whole bounce on the same inputs
+// and ends with the same s, bounce and tally).
+template <bool kTris, bool kLit = false, Sweep kSweep = Sweep::kThread>
 RTOW_HD int bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
                           float* s, int* bounce, uint32_t lane, uint32_t salt,
                           int max_depth, const Background& bg, Tally* tally,
@@ -930,7 +1109,8 @@ RTOW_HD int bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
   float best_t;
   int best_k;
   nearest_sphere(tbl, npad, r, a, inv_a, &best_t, &best_k);
-  if constexpr (kTris) nearest_triangle(tris, r, npad, &best_t, &best_k, tally);
+  if constexpr (kTris)
+    nearest_triangle_by<kSweep>(tris, r, npad, &best_t, &best_k, tally);
   const bool nee = kLit && L.n_lights > 0;
   if constexpr (kLit) {
     float v_t, v_alb[3];
@@ -941,9 +1121,9 @@ RTOW_HD int bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
       const float vpy = r.oy + v_t * r.dy;
       const float vpz = r.oz + v_t * r.dz;
       if (nee)
-        next_event<kTris>(tbl, npad, tris, L, s, vpx, vpy, vpz, 0.0f, 0.0f,
-                          0.0f, v_alb[0], v_alb[1], v_alb[2], true, lane,
-                          salt, tally);
+        next_event<kTris, kSweep>(tbl, npad, tris, L, s, vpx, vpy, vpz, 0.0f,
+                                  0.0f, 0.0f, v_alb[0], v_alb[1], v_alb[2],
+                                  true, lane, salt, tally);
       const Draws w = draw_scatter(lane, salt);
       s[0] = vpx;
       s[1] = vpy;
@@ -1002,8 +1182,9 @@ RTOW_HD int bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
     if (*bounce >= max_depth) return 0;
     diffuse = is_diffuse(m.kind);
     if (nee && diffuse)
-      next_event<kTris>(tbl, npad, tris, L, s, e.px, e.py, e.pz, e.nx, e.ny,
-                        e.nz, m.alr, m.alg, m.alb, false, lane, salt, tally);
+      next_event<kTris, kSweep>(tbl, npad, tris, L, s, e.px, e.py, e.pz,
+                                e.nx, e.ny, e.nz, m.alr, m.alg, m.alb, false,
+                                lane, salt, tally);
   }
   advance(s, bounce, e, scatter(m, e, r, a, draw_scatter(lane, salt)));
   if constexpr (kLit) {

@@ -1,6 +1,8 @@
-// A host build of the gradient kernels' per-lane code: K4's bounce
+// A host build of the kernels' per-lane code: K4's bounce
 // (rtow::bounce_lane_t) and K5's adjoint (rtow::bounce_lane_adjoint_t) in
-// plain loops over lanes, for the CPU.
+// plain loops over lanes, and the triangle sweep of K3's two forms
+// (rtow::nearest_triangle, and rtow::nearest_triangle_warp with the warp's
+// 32 lanes played one after another), for the CPU.
 //
 // The lane code in bounce.cuh and bounce_adjoint.cuh is plain C++ inside
 // RTOW_HD functions; defining RTOW_HD as `inline` and a float4 of four
@@ -11,8 +13,9 @@
 // tests/test_torch_lanes_host.py builds it and holds its lanes against the
 // plain PyTorch versions in rtow_tpu_torch/ops/grad.py: K4's outputs lane
 // by lane, and K5's input cotangents and row cotangents (sphere, triangle,
-// light and volume) lane by lane, where the card's K5 sums the row cotangents with
-// atomics before anything can compare them.
+// light and volume) lane by lane, where the card's K5 sums the row
+// cotangents with atomics before anything can compare them; and
+// tests/test_torch_k3_warp.py holds the warp's sweep to the serial one.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o lanes.so host_lanes.cpp
 
@@ -169,6 +172,38 @@ void rtow_host_bwd(const float* table, int npad, const float* tri,
                                    : bwd_lanes<true, false>);
   run(tbl, npad, tris, cont, ints, cot_out, n, salt, max_depth, bg, L, n_rows,
       cot_in, winner, gw, g_rows, stats);
+}
+
+// The triangle sweep alone for n rays: rays (7, n) float32 ox oy oz dx dy
+// dz tm, t_init (n,) their starting best t.  warp 0 runs
+// nearest_triangle, 1 nearest_triangle_warp; each ray's best t and winner
+// row (-1: none) go to t_out and k_out, its box and triangle tests are
+// added to stats (2,).  cull: 1 one-sided triangles, 0 two-sided.
+void rtow_host_sweep(const float* tri, const float* boxes,
+                     const float* supers, const float* hypers, int n_blocks,
+                     int n_super, int n_hyper, int tri_block, int tri_count,
+                     int cull, const float* rays, const float* t_init, int n,
+                     int warp, float* t_out, int* k_out,
+                     unsigned long long* stats) {
+  rtow::Tris tris = tris_of(tri, boxes, supers, hypers, n_blocks, n_super,
+                            n_hyper, tri_block, tri_count);
+  tris.side_mask = cull ? rtow::kKeepSign : rtow::kDropSign;
+  rtow::Tally tally;
+  for (int g = 0; g < n; ++g) {
+    const rtow::Ray r{rays[g], rays[n + g], rays[2 * n + g],
+                      rays[3 * n + g], rays[4 * n + g], rays[5 * n + g],
+                      rays[6 * n + g]};
+    float bt = t_init[g];
+    int bk = -1;
+    if (warp)
+      rtow::nearest_triangle_warp(tris, r, 0, &bt, &bk, &tally);
+    else
+      rtow::nearest_triangle(tris, r, 0, &bt, &bk, &tally);
+    t_out[g] = bt;
+    k_out[g] = bk;
+  }
+  stats[0] += tally.boxes;
+  stats[1] += tally.tris;
 }
 
 }  // extern "C"

@@ -25,9 +25,12 @@ alive > 1`` (:1809).  ``cull=False`` makes the triangles two-sided.
 
 ``bounce_step`` is the wrapper: on a CUDA tensor it launches the
 hand-written kernel ``csrc/flat_bounce.cu`` (counting the launch in
-``bounce_step.launches``, and a lit one also in
-``bounce_step.lit_launches``), on a CPU tensor it runs
-:func:`bounce_step_reference`, and on anything else it raises.
+``bounce_step.launches``, a lit one also in ``bounce_step.lit_launches``
+and one of the warp form also in ``bounce_step.warp_launches``), on a
+CPU tensor it runs :func:`bounce_step_reference`, and on anything else it
+raises.  The kernel has two forms with the same outputs, bit for bit:
+one thread per lane, for the wide launches, and one warp per live lane
+(``WARP_MAX_LIVE``), for the narrow ones of the window ladder's drain.
 """
 from __future__ import annotations
 
@@ -50,6 +53,20 @@ _ALIVE, _BOUNCE, _LANE = 13, 14, 15
 
 _F32 = torch.float32
 
+#: The cut-over between K3's forms: a launch whose state has at most this
+#: many live lanes runs the warp form (one warp per live lane), a wider
+#: one the thread form.  Set from the two forms timed launch by launch in
+#: turns (chip_smoke.py phases 13 and 25; NVIDIA H100 80GB HBM3, 700 W) on
+#: the 262,144-lane centre chunks of bench.py's 65k and 360k knots and of
+#: the lit 65k knot: from 201,601 live lanes down, the warp form wins every
+#: launch (65k: 1.35 against 3.81 ms there, 0.12-0.22 against 0.33-6.6 ms
+#: at 6,572 and fewer); at the chunk's first launch, all 262,144 lanes
+#: live, the thread form wins on the unlit knots (1.30 against 2.15 ms,
+#: 360k 1.03 against 1.41) and loses on the lit one (5.38 against 3.72).
+#: A count cannot tell those apart; the cut keeps the full first launch on
+#: the thread form, as bench.py's mesh legs (unlit) want.
+WARP_MAX_LIVE = 240_000
+
 
 class Tables(NamedTuple):
     """The scene tables of a bounce: the (Npad, 16) sphere table (Npad
@@ -60,7 +77,8 @@ class Tables(NamedTuple):
     lit: Lit = Lit()
 
 
-def _check(state: torch.Tensor, tables: Tables, stats, shadows) -> None:
+def _check(state: torch.Tensor, tables: Tables, stats, shadows,
+           live=None) -> None:
     check_lit(tables.lit, tables.sph)
     check_table(tables.sph, "flat bounce",
                 staged=lit_rows(tables.lit) * LIGHT_COLS * 4)
@@ -74,6 +92,9 @@ def _check(state: torch.Tensor, tables: Tables, stats, shadows) -> None:
         raise ValueError("lane ids must stay exact in float32 (L < 2**24)")
     check_counter(stats, 3, tables.sph, "stats")
     check_counter(shadows, 1, tables.sph, "shadows")
+    if live is not None and not 0 <= live <= state.shape[1]:
+        raise ValueError(f"live must be a lane count in [0, "
+                         f"{state.shape[1]}], got {live}")
 
 
 def bounce_step_reference(state: torch.Tensor, it: int, seed: int,
@@ -112,7 +133,8 @@ def bounce_step(state: torch.Tensor, it: int, seed: int, max_depth: int,
                 tables: Tables, *, background: Union[str, tuple] = "sky",
                 stats: Optional[torch.Tensor] = None,
                 shadows: Optional[torch.Tensor] = None,
-                cull: bool = True) -> torch.Tensor:
+                cull: bool = True, live: Optional[int] = None
+                ) -> torch.Tensor:
     """Advance every lane of ``state`` (16, L) one bounce -> a new state
     (``bounce_step_pallas``, :1838).
 
@@ -124,13 +146,19 @@ def bounce_step(state: torch.Tensor, it: int, seed: int, max_depth: int,
     tests, triangle tests (the shadow rays' included) and live lanes
     added to it, ``shadows`` (1,) its NEE shadow rays.  A CUDA state
     launches ``csrc/flat_bounce.cu``; a CPU state runs
-    :func:`bounce_step_reference`; any other device raises."""
-    _check(state, tables, stats, shadows)
+    :func:`bounce_step_reference`; any other device raises.
+
+    ``live``: the number of live lanes in ``state``, where the caller
+    has counted them (``wavefront.trace_lanes`` does, once a bounce).  At
+    most ``WARP_MAX_LIVE`` picks the kernel's warp form; without a count
+    the thread form runs.  Both give the same state and counters."""
+    _check(state, tables, stats, shadows, live)
     if state.device.type == "cpu":
         return bounce_step_reference(state, it, seed, max_depth, tables,
                                      background=background, stats=stats,
                                      shadows=shadows, cull=cull)
     tris = tables.tris
+    warp = live is not None and live <= WARP_MAX_LIVE
     use_sky, (bgr, bgg, bgb) = background_args(background)
     out = torch.empty_like(state)
     lib = _lib()
@@ -142,17 +170,20 @@ def bounce_step(state: torch.Tensor, it: int, seed: int, max_depth: int,
         step_salt(seed, it), int(max_depth), int(use_sky), bgr, bgg, bgb,
         None if stats is None else stats.data_ptr(),
         None if shadows is None else shadows.data_ptr(),
-        *lit_args(tables.lit, tables.sph), *_cuda.device_args(state))
+        *lit_args(tables.lit, tables.sph), int(warp),
+        *_cuda.device_args(state))
     _cuda.check_launch(lib, err, "flat bounce")
     bounce_step.launches += 1
     bounce_step.lit_launches += tables.lit.any
+    bounce_step.warp_launches += warp
     return out
 
 
-#: Kernel launches made by :func:`bounce_step` in this process, and those
-#: of them that ran the lit instance.
+#: Kernel launches made by :func:`bounce_step` in this process, those of
+#: them that ran a lit instance, and those that ran the warp form.
 bounce_step.launches = 0
 bounce_step.lit_launches = 0
+bounce_step.warp_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,6 +194,6 @@ def _lib() -> ctypes.CDLL:
     p, i, u, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_float
     lib.rtow_flat_bounce.argtypes = [p, i, p, p, p, p, i, i, i, i, i, i, p,
                                      p, i, u, i, i, f, f, f, p, p, p, i, i,
-                                     i, i, i, i, i, i, i, p]
+                                     i, i, i, i, i, i, i, i, p]
     lib.rtow_flat_bounce.restype = i
     return lib

@@ -28,7 +28,10 @@ agrees with the JAX package's statistically, not lane by lane.
 
 Host costs, by design of this first version: the window test reads the
 live-lane count each bounce (one device-to-host sync per bounce), and
-each bounce is a few dozen PyTorch launches around the one kernel.
+each bounce is a few dozen PyTorch launches around the one kernel.  The
+same count picks K3's form for the bounce (``bounce_step``'s ``live``):
+the wide launches one thread per lane, the drain's narrow ones one warp
+per live lane.
 """
 from __future__ import annotations
 
@@ -196,7 +199,8 @@ def trace_lanes(state: torch.Tensor, seed: int, *, max_depth: int,
         if w != state.shape[1]:
             state = _sorted(state, bmin, inv_ext)
         win, rest = state[:, :w], state[:, w:]
-        # The one host sync per bounce: the live count picks the window.
+        # The one host sync per bounce: the live count picks the window,
+        # and K3's form.
         n_live = int((win[13] > 0).sum())
         while n_live > 0 and n_live > nxt:
             win = _sorted(win, bmin, inv_ext)
@@ -208,7 +212,7 @@ def trace_lanes(state: torch.Tensor, seed: int, *, max_depth: int,
                     windows[j] += n
             win = bounce_step(win, it, seed, max_depth, tables,
                               background=background, stats=stats,
-                              shadows=shadows, cull=cull)
+                              shadows=shadows, cull=cull, live=n_live)
             it += 1
             n_live = int((win[13] > 0).sum())
         state = torch.cat([win, rest], dim=1) if rest.shape[1] else win

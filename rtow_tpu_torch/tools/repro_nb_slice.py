@@ -11,11 +11,13 @@ an (8, 128) float32 output.  ``main`` fills the table with ones and
 prints ``OK`` where every output element is NB x 16 x 128, else
 ``WRONG``, per size.
 
-:func:`nb_slice` is the wrapper: the kernel (``csrc/nb_slice.cu``: CTAs
-sum contiguous block ranges, then one CTA adds their partials in block
-order, so the result does not change from run to run) on a CUDA tensor,
-:func:`nb_slice_reference` (the JAX kernel's loop: each block's sum added
-to a float32 accumulator in block order) on a CPU tensor.
+:func:`nb_slice` is the wrapper: the kernel (``csrc/nb_slice.cu``, one
+launch: CTAs sum contiguous block ranges, and the last CTA to finish adds
+their partials in CTA order, so the result does not change from run to
+run) on a CUDA tensor, :func:`nb_slice_reference` (the JAX kernel's loop:
+each block's sum added to a float32 accumulator in block order) on a CPU
+tensor.  :func:`nb_slice_ordered` is the kernel's own order of the sums
+in plain PyTorch, which the kernel equals bit for bit.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from ..ops import _cuda
 
 WIDTHS = (128, 256)
 DEFAULT_NB = (256, 512, 782, 1408)
+#: The kernel's most CTAs: two per SM of an H100.
+MAX_CTAS = 264
 _F32 = torch.float32
 
 
@@ -53,37 +57,81 @@ def nb_slice_reference(tbl: torch.Tensor) -> torch.Tensor:
     return acc.expand(8, 128).contiguous()
 
 
+def nb_slice_ordered(tbl: torch.Tensor) -> torch.Tensor:
+    """:func:`nb_slice`'s function summed in the kernel's order, in plain
+    PyTorch: each of ``partial_ctas`` CTAs' 256 threads adds its float4s'
+    pair sums block by block, a warp's 32 threads are added by a shuffle
+    tree, a CTA's 8 warps and then the CTAs' partials one after another.
+    float32 additions round alike everywhere, so the kernel's output
+    equals this one bit for bit."""
+    check_table(tbl)
+    nb = tbl.shape[0]
+    per = -(-nb // partial_ctas(nb))
+    ctas = -(-nb // per)
+    v = tbl[:, :, :128].reshape(nb, 16, 32, 4)
+    # Thread r * 32 + c reads column group c of rows r, then r + 8.
+    q = ((v[..., 0] + v[..., 1]) + (v[..., 2] + v[..., 3])).reshape(
+        nb, 2, 8, 32)
+    s = torch.zeros((ctas, 8, 32), dtype=_F32, device=tbl.device)
+    first = torch.arange(ctas, device=tbl.device) * per
+    for j in range(per):
+        b = first + j
+        ok = (b < nb)[:, None, None]
+        for half in (0, 1):
+            s = torch.where(ok, s + q[b.clamp(max=nb - 1), half], s)
+    for off in (16, 8, 4, 2, 1):  # __shfl_down_sync: lane 0's sum
+        s = s[..., :off] + s[..., off:2 * off]
+    partial = torch.zeros(ctas, dtype=_F32, device=tbl.device)
+    for w in range(8):
+        partial = partial + s[:, w, 0]
+    acc = torch.zeros((), dtype=_F32, device=tbl.device)
+    for c in range(ctas):
+        acc = acc + partial[c]
+    return acc.expand(8, 128).contiguous()
+
+
 def nb_slice(tbl: torch.Tensor) -> torch.Tensor:
     """(8, 128) float32: the sum of the first 128 columns of every block of
     the (NB, 16, width) table ``tbl`` (``make_kernel``, :30).  A CUDA
     ``tbl`` launches the kernel (counted in ``nb_slice.launches``), a CPU
-    ``tbl`` runs :func:`nb_slice_reference`, any other device raises."""
+    ``tbl`` runs :func:`nb_slice_reference`, any other device raises.
+
+    A call allocates only its output: the kernel's partials and ticket
+    counter live in a scratch buffer kept per device and stream (made,
+    zeroed, at the first call on a stream: make that call before
+    capturing a CUDA graph on the stream)."""
     check_table(tbl)
     if tbl.device.type == "cpu":
         return nb_slice_reference(tbl)
     if tbl.device.type != "cuda":
         raise ValueError(f"no nb_slice kernel for device {tbl.device}")
-    n_cta = partial_ctas(tbl.shape[0])
-    partial = torch.empty(n_cta, dtype=_F32, device=tbl.device)
+    index, stream = _cuda.device_args(tbl)
+    scratch = _SCRATCH.get((index, stream))
+    if scratch is None:  # the ticket counter (0), then the partials
+        scratch = torch.zeros(1 + MAX_CTAS, dtype=torch.int32,
+                              device=tbl.device)
+        _SCRATCH[(index, stream)] = scratch
     out = torch.empty((8, 128), dtype=_F32, device=tbl.device)
     lib = _lib()
     err = lib.rtow_nb_slice(tbl.data_ptr(), tbl.shape[0], tbl.shape[2],
-                            partial.data_ptr(), n_cta, out.data_ptr(),
-                            *_cuda.device_args(tbl))
+                            scratch.data_ptr(), partial_ctas(tbl.shape[0]),
+                            out.data_ptr(), index, stream)
     _cuda.check_launch(lib, err, "nb_slice")
     nb_slice.launches += 1
     return out
 
 
-#: Kernel launches made by :func:`nb_slice` in this process (a launch is
-#: both stages).
+#: Kernel launches made by :func:`nb_slice` in this process.
 nb_slice.launches = 0
+
+#: The kernel's scratch, by (device index, stream handle).
+_SCRATCH: dict = {}
 
 
 def partial_ctas(nb: int) -> int:
-    """CTAs of the first stage: at most 264 (two per SM of an H100), each
-    summing a contiguous range of blocks."""
-    return min(nb, 264)
+    """The kernel's CTAs: at most ``MAX_CTAS``, each summing a contiguous
+    range of blocks."""
+    return min(nb, MAX_CTAS)
 
 
 @functools.lru_cache(maxsize=None)

@@ -31,6 +31,7 @@ column of mixed-sign terms can sum to far below its terms; a light-row
 column to at least 1e-3 of the largest (a horizontal lamp's x and z
 cotangents are 0, their terms rounding of sums that cancel).
 """
+import contextlib
 import os
 import sys
 
@@ -275,8 +276,9 @@ def _knot(dev, segments, rings):
 
 @pytest.mark.parametrize("segments,rings", [(16, 12), (64, 64)])
 def test_flat_bounce_matches_plain_on_card(dev, segments, rings):
-    """K3 against its plain version at every bounce of a sorted loop:
-    the 384- and 8,192-triangle knots over a ground sphere, 64x64 spp4."""
+    """K3's thread and warp forms against its plain version at every
+    bounce of a sorted loop: the 384- and 8,192-triangle knots over a
+    ground sphere, 64x64 spp4."""
     scene = _knot(dev, segments, rings)
     tables, bmin, inv_ext = wf.scene_tables(scene)
     cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
@@ -292,13 +294,11 @@ def test_flat_bounce_matches_plain_on_card(dev, segments, rings):
                    inv_ext=inv_ext, tape=tape)
     assert fb.bounce_step.launches == before + len(tape) > 3
     for state, it in tape:
-        ks, ps = (torch.zeros(3, dtype=torch.int64, device=dev)
-                  for _ in range(2))
-        kern = fb.bounce_step(state, it, 9, 20, tables, stats=ks)
-        plain = fb.bounce_step_reference(state, it, 9, 20, tables, stats=ps)
-        torch.cuda.synchronize()
+        (kern, kc), (warp, wc), (plain, pc) = _k3_forms(state, it, 9, 20,
+                                                        tables)
         assert torch.equal(kern, plain), it
-        assert torch.equal(ks, ps), it
+        assert torch.equal(warp, plain), it
+        assert kc == pc == wc, it
 
 
 def test_render_auto_launches_k3_for_large_meshes(dev):
@@ -364,40 +364,68 @@ def _k3_tape(dev, scene, roulette=False, cull=True):
     return tables, tape
 
 
+@contextlib.contextmanager
+def _warp_form():
+    """``bounce_step`` picks K3's warp form for any live count."""
+    cut = fb.WARP_MAX_LIVE
+    fb.WARP_MAX_LIVE = 1 << 30
+    try:
+        yield
+    finally:
+        fb.WARP_MAX_LIVE = cut
+
+
+def _k3_forms(state, it, seed, depth, tables, **kw):
+    """[(thread form's output, counters), (warp form's, counters)] of one
+    launch, and the plain version's, the counters [box tests, triangle
+    tests, live lanes, shadow rays]; checks that the warp launch was
+    counted as one."""
+    out = []
+    n_live = int((state[13] > 0).sum())
+    for fn, live in ((fb.bounce_step, None), (fb.bounce_step, n_live),
+                     (fb.bounce_step_reference, None)):
+        c = [torch.zeros(n, dtype=torch.int64, device=state.device)
+             for n in (3, 1)]
+        before = fb.bounce_step.warp_launches
+        with _warp_form():
+            o = fn(state, it, seed, depth, tables, **kw, stats=c[0],
+                   shadows=c[1], **({} if live is None else dict(live=live)))
+        assert fb.bounce_step.warp_launches == before + (live is not None)
+        torch.cuda.synchronize()
+        out.append((o, torch.cat(c).tolist()))
+    return out
+
+
 def _k3_held(dev, scene, tables, tape, cull=True):
-    """K3 against its plain version at every launch of ``tape``:
-    bit-identical, with equal box tests, triangle tests, live lanes and
-    shadow rays.  Returns the kernel's shadow rays over the tape."""
+    """K3's two forms against its plain version at every launch of
+    ``tape``: bit-identical, with equal box tests, triangle tests, live
+    lanes and shadow rays.  Returns the kernel's shadow rays over the
+    tape."""
     n_shadows = 0
     for state, it in tape:
-        kc, pc = ([torch.zeros(n, dtype=torch.int64, device=dev)
-                   for n in (3, 1)] for _ in range(2))
-        kern = fb.bounce_step(state, it, 9, 8, tables,
-                              background=scene.background, stats=kc[0],
-                              shadows=kc[1], cull=cull)
-        plain = fb.bounce_step_reference(
-            state, it, 9, 8, tables, background=scene.background,
-            stats=pc[0], shadows=pc[1], cull=cull)
-        torch.cuda.synchronize()
+        (kern, kc), (warp, wc), (plain, pc) = _k3_forms(
+            state, it, 9, 8, tables, background=scene.background, cull=cull)
         assert torch.equal(kern, plain), it
-        assert torch.equal(torch.cat(kc), torch.cat(pc)), it
-        n_shadows += int(kc[1])
+        assert torch.equal(warp, plain), it
+        assert kc == pc == wc, it
+        n_shadows += kc[3]
     return n_shadows
 
 
 @pytest.mark.parametrize("name", ["quad_lamps", "fog_lamp", "textures",
                                   "roulette"])
 def test_flat_bounce_lit_matches_plain_on_card(dev, name):
-    """K3's lit instance at every launch of a sorted loop over the lit
-    8,192-triangle knot: bit-identical to the plain version with equal
-    counters, each launch counted as a lit launch, the alive code 2
-    carried through the sort where NEE is on."""
+    """K3's lit instances, both forms, at every launch of a sorted loop
+    over the lit 8,192-triangle knot: bit-identical to the plain version
+    with equal counters, each launch counted as a lit launch, the alive
+    code 2 carried through the sort where NEE is on."""
     scene = lit_knot_scene(dev, name)
     tables, tape = _k3_tape(dev, scene, roulette=name == "roulette")
     assert tables.lit.any and tables.tris.n_super > 0
     before = fb.bounce_step.lit_launches
     n_shadows = _k3_held(dev, scene, tables, tape)
-    assert fb.bounce_step.lit_launches == before + len(tape) > 3
+    assert len(tape) > 3  # both forms launched at each, lit
+    assert fb.bounce_step.lit_launches == before + 2 * len(tape)
     nee = bool(tables.lit.nee_kinds)
     assert (n_shadows > 0) == nee
     assert any(bool((state[13] == 2).any()) for state, _ in tape) == nee
@@ -442,6 +470,74 @@ def test_two_sided_matches_plain_on_card(dev, kernel):
         counts.append(torch.cat(c).tolist())
     assert torch.equal(out[0], out[1]) and counts[0] == counts[1]
     assert not torch.equal(out[0], out[2])
+
+
+@pytest.mark.parametrize("n_live", [1, 31, 33, 1024])
+@pytest.mark.parametrize("lit", [False, True], ids=["unlit", "lit"])
+def test_flat_bounce_warp_form_at_live_counts(dev, lit, n_live):
+    """K3's warp form, picked by ``bounce_step`` from a live count at or
+    below ``WARP_MAX_LIVE``, on the second bounce of a sorted loop over
+    the 8,192-triangle knot (over a ground sphere, or under two quad lamps
+    with NEE: alive codes 1 and 2) with all but ``n_live`` lanes killed at
+    random places: bit-identical to the plain version, counters equal, one
+    warp launch."""
+    scene = lit_knot_scene(dev, "quad_lamps") if lit else _knot(dev, 64, 64)
+    tables, tape = _k3_tape(dev, scene)
+    state, it = tape[1][0].clone(), tape[1][1]
+    live = torch.nonzero(state[13] > 0).flatten()
+    assert live.numel() >= n_live
+    assert bool((state[13] == 2).any()) == lit
+    gen = torch.Generator().manual_seed(n_live)
+    keep = live[torch.randperm(live.numel(), generator=gen)[:n_live]
+                .to(dev)]
+    state[13] = torch.where(torch.isin(torch.arange(state.shape[1],
+                                                    device=dev), keep),
+                            state[13], 0.0)
+    assert n_live <= fb.WARP_MAX_LIVE
+    outs = []
+    for fn, kw in ((fb.bounce_step, dict(live=n_live)),
+                   (fb.bounce_step_reference, {})):
+        c = [torch.zeros(n, dtype=torch.int64, device=dev) for n in (3, 1)]
+        before = fb.bounce_step.warp_launches
+        out = fn(state, it, 9, 8, tables, background=scene.background,
+                 stats=c[0], shadows=c[1], **kw)
+        assert fb.bounce_step.warp_launches == before + bool(kw)
+        torch.cuda.synchronize()
+        outs.append((out, torch.cat(c).tolist()))
+    (warp, wc), (plain, pc) = outs
+    assert torch.equal(warp, plain)
+    assert wc == pc and wc[2] == n_live
+
+
+def test_nb_slice_one_launch_bit_identical_on_card(dev):
+    """T2 at the JAX script's 8 sizes and at NB = 1 and 300: one launch a
+    call, its output bit-identical to the kernel's order of the sums in
+    plain PyTorch (``nb_slice_ordered``) call after call (the ticket
+    counter is back at 0 after each), on a second stream, and replayed
+    from a CUDA graph."""
+    from rtow_tpu_torch.tools import repro_nb_slice as rs
+
+    for width in rs.WIDTHS:
+        for nb in (1, 300) + rs.DEFAULT_NB:
+            tbl = torch.rand((nb, 16, width), device=dev)
+            want = rs.nb_slice_ordered(tbl)
+            before = rs.nb_slice.launches
+            for _ in range(3):
+                assert torch.equal(rs.nb_slice(tbl), want), (nb, width)
+            assert rs.nb_slice.launches == before + 3
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got = rs.nb_slice(tbl)  # also makes the side stream's scratch
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [rs.nb_slice(tbl) for _ in range(4)]
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, want) for o in outs)
 
 
 def _grad_tape(dev, depth=8):

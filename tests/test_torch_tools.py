@@ -166,3 +166,60 @@ def test_nb_slice_wrapper_and_main(capsys):
                    for nb in (3, 5)]
     assert repro_nb_slice.partial_ctas(1408) == 264
     assert repro_nb_slice.partial_ctas(100) == 100
+
+
+@pytest.mark.parametrize("width", [128, 256])
+@pytest.mark.parametrize("nb", [1, 300, 1408])
+def test_nb_slice_kernel_order_matches_jax(jax_repro, nb, width):
+    """``nb_slice_ordered``, the kernel's order of the sums (the oracle
+    the card holds the kernel to bit for bit), against the JAX kernel:
+    exact on ones, within 1e-5 relative on uniform data."""
+    ones = np.ones((nb, 16, width), np.float32)
+    rand = np.random.default_rng(nb * width).random((nb, 16, width),
+                                                    dtype=np.float32)
+    for tbl, rtol in ((ones, 0.0), (rand, 1e-5)):
+        with pltpu.force_tpu_interpret_mode():
+            want = np.asarray(jax_repro.make_kernel(nb, width)(
+                jnp.asarray(tbl)))
+        got = repro_nb_slice.nb_slice_ordered(torch.from_numpy(tbl)).numpy()
+        assert got.shape == (8, 128) and (got == got[0, 0]).all()
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=0.0)
+
+
+def test_time_t2_needs_a_card():
+    """``python -m rtow_tpu_torch.time_t2`` times T2 on the card only."""
+    from rtow_tpu_torch import time_t2
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(SystemExit, match="needs an NVIDIA GPU"):
+        time_t2.main(["--runs", "1"])
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    """``ptxas_report.entries`` on a ptxas verbose report: each entry's
+    registers, spill stores and loads, the anonymous namespace's hash
+    taken out of its name."""
+    from rtow_tpu_torch import ptxas_report
+
+    log = "\n".join([
+        "ptxas info    : 24 bytes gmem",
+        "ptxas info    : Compiling entry function "
+        "'_ZN44_GLOBAL__N__47293412_11_k_cu_1a2b3c4fooEv' for 'sm_90a'",
+        "ptxas info    : Function properties for "
+        "_ZN44_GLOBAL__N__47293412_11_k_cu_1a2b3c4fooEv",
+        "    88 bytes stack frame, 56 bytes spill stores, 60 bytes spill "
+        "loads",
+        "ptxas info    : Used 80 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN44_GLOBAL__N__47293412_11_k_cu_1a2b3c3barEv' for 'sm_90a'",
+        "ptxas info    : Function properties for "
+        "_ZN44_GLOBAL__N__47293412_11_k_cu_1a2b3c3barEv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers",
+    ])
+    assert ptxas_report.entries(log) == {
+        "_ZN44_11_k_cu_1a2b3c4fooEv": [80, 56, 60],
+        "_ZN44_11_k_cu_1a2b3c3barEv": [32, 0, 0]}
+    with pytest.raises(SystemExit):
+        ptxas_report.main(["no-such-source"])

@@ -280,3 +280,32 @@ def test_wrapper_rejects_other_devices_and_bad_inputs():
         fb.bounce_step(st[:15].contiguous(), 0, 0, 2, tables)
     with pytest.raises(ValueError, match="stats"):
         fb.bounce_step(st, 0, 0, 2, tables, stats=torch.zeros(2))
+    for live in (-1, mk.TILE + 1):
+        with pytest.raises(ValueError, match="live"):
+            fb.bounce_step(st, 0, 0, 2, tables, live=live)
+
+
+def test_trace_lanes_picks_k3_form_by_live_count(monkeypatch):
+    """``trace_lanes`` hands each bounce's live-lane count to
+    ``bounce_step`` (K3's form is picked from it on the card); on the
+    CPU a count changes nothing and launches no kernel."""
+    _, scene = _knot_scenes(16, 12)
+    tables, bmin, inv_ext = wf.scene_tables(scene)
+    st = torch.from_numpy(_camera_state(2 * mk.TILE, 300, seed=2))
+    seen, step = [], fb.bounce_step
+
+    def spy(state, *a, live=None, **k):
+        seen.append((int((state[13] > 0).sum()), live))
+        return step(state, *a, live=live, **k)
+
+    monkeypatch.setattr(wf, "bounce_step", spy)
+    wf.trace_lanes(st, 3, max_depth=6, tables=tables, bmin=bmin,
+                   inv_ext=inv_ext)
+    assert len(seen) > 2 and seen[0] == (2 * mk.TILE - 300,) * 2
+    assert all(n == live for n, live in seen)
+    before = (fb.bounce_step.launches, fb.bounce_step.warp_launches)
+    want = fb.bounce_step_reference(st, 0, 3, 6, tables)
+    for live in (None, 0, st.shape[1]):
+        out = fb.bounce_step(st, 0, 3, 6, tables, live=live)
+        assert torch.equal(out, want)
+    assert (fb.bounce_step.launches, fb.bounce_step.warp_launches) == before
