@@ -9,7 +9,9 @@ It builds the port's CUDA kernels from ``rtow_tpu_torch/csrc`` with
 nvcc (one process per source, started together), holds each against its
 plain PyTorch version on the card, and drives the port's three paths:
 the render (the cover through ``rtow_tpu_torch.cli.main`` at 1200x675,
-128 samples per pixel, depth 50; kernel K1), the trainer (three SGD
+128 samples per pixel, depth 50; kernel K1, one launch a frame with the
+scanline ticker, every K1 frame held bit for bit with equal counters
+against its plain version), the trainer (three SGD
 steps of the cover's albedos at 400x267, 16 samples per pixel, depth 8,
 the JAX package's bench grad leg; kernels K4 and K5) and the mesh path
 (``cli.main -l`` on the 65,536-triangle knot at 400x400, 64 samples per
@@ -20,14 +22,16 @@ instances against their plain version on the five lit scenes, then
 ``cli.main --cornell``, ``--smoke``, ``--lights`` and ``--textures`` at
 400x400, 512 samples per pixel, depth 8, and ``--checker`` and
 ``--russian-roulette`` on the cover at the render's size, the latter
-held against the unbiased render; the middle band of each of these
-renders is launched again as ``cli.main`` launched it and held bit for
-bit against the plain version) and mesh inverse rendering (K4's and K5's
-triangle instances against their plain versions on the 4,096- and
+held against the unbiased render; a middle tenth of each of these
+renders' tiles is launched again with ``cli.main``'s inputs and held bit
+for bit against the plain version) and mesh inverse rendering (K4's and
+K5's triangle instances against their plain versions on the 4,096- and
 65,536-triangle knots, flat and down the hierarchy; three
 ``diff.build_train_step`` steps on the 65k knot at 256x256, 16 samples
 per pixel, depth 8, with the lanes sorted; the forward and
-forward+backward times of both bench knots) and lit inverse rendering
+forward+backward times of both bench knots; each K4 and K5 launch timed
+alone, K5's thread and warp forms in turns and held to each other) and
+lit inverse rendering
 (K4's and K5's lit instances against their plain versions on the Cornell
 box and ``light_scene`` with NEE, ``textures_scene`` and the checker
 cover; three ``diff.build_train_step(nee=True)`` steps on the Cornell box
@@ -82,16 +86,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 W_MAIN, H_MAIN = 1200, 675
 ASPECT = 16.0 / 9.0
-#: Kernel vs plain version on the card: both round every float32
-#: operation alike (-fmad=false, IEEE division and sqrt) and use the same
-#: CUDA math library, so a pixel may differ only where a last-bit
-#: difference flips a discrete choice (a reflection or a hit on the
-#: r=1000 ground sphere, whose |oc|^2 - r^2 cancels).  Allowed: at most
-#: FLIP_SHARE of pixels off by more than PIXEL_TOL in mean radiance, and
-#: a mean |difference| of at most MEAN_TOL.
-PIXEL_TOL = 1e-4
-FLIP_SHARE = 0.01
-MEAN_TOL = 1e-3
+# K1 against its plain version on the card: both round every float32
+# operation alike (-fmad=false, IEEE division and sqrt) and use the same
+# CUDA math library, so every K1 frame is held bit for bit, with equal
+# counters (k1_held).
 
 #: The trainer: bench.py's grad leg (bench.py:249-261).
 W_GRAD, H_GRAD, SPP_GRAD, DEPTH_GRAD = 400, 267, 16, 8
@@ -360,9 +358,13 @@ def main() -> None:
     for name, label in (("grad_fwd", "K4"), ("grad_bwd", "K5")):
         inst = {}
         for entry, v in ptxas_entries(builds[name].log).items():
-            bits = re.search(name + r"ILb(\d)ELb(\d)E", entry).groups()
-            inst[" ".join(w for w, b in zip(("triangles", "lit"), bits)
-                          if b == "1") or "spheres"] = v
+            # K5's warp form: grad_bwd_warp<kLit>, its triangles implied.
+            warp, a, b = re.search(name + r"(_warp)?ILb(\d)E(?:Lb(\d)E)?",
+                                   entry).groups()
+            bits = ("1", a) if warp else (a, b)
+            inst[("warp " if warp else "") + (" ".join(
+                w for w, x in zip(("triangles", "lit"), bits) if x == "1")
+                or "spheres")] = v
         say("1", f"{label}'s instances (ptxas): " + "; ".join(
             f"{k} {regs} registers, {spill} B spilled"
             for k, (regs, spill, _) in sorted(inst.items())))
@@ -372,44 +374,27 @@ def main() -> None:
         for k, (regs, spill, _) in ptxas_entries(builds[name].log).items()))
     say("1", f"six builds in parallel: {wall:.1f} s wall")
 
-    def frame(scene, cam, width, height, spp, depth, *, plain=False,
-              seed=0):
-        """(H*W, 3) mean radiance of one frame, kernel or plain."""
+    def sphere_args(scene, cam, width, height, spp, depth):
         tbl, _ = mk.build_sphere_table(scene)
-        args = (tbl, mk.pack_camera(cam),
-                mk.pack_meta(seed, width=width, height=height, spp=spp,
+        return (tbl, mk.pack_camera(cam),
+                mk.pack_meta(0, width=width, height=height, spp=spp,
                              max_depth=depth),
                 mk.n_tiles_for(width, height))
-        fn = mk.render_blocks_reference if plain else mk.render_blocks
-        r, g, b = fn(*args, background=scene.background, pool=False)
-        torch.cuda.synchronize()
-        return mk.unblock_image(r, g, b, width=width, height=height) / spp
-
-    def agreement(kern, plain):
-        diff = (kern - plain).abs().amax(dim=1)
-        check(bool(torch.isfinite(kern).all()), "kernel output not finite")
-        return (float(diff.max()), float(diff.mean()),
-                float((diff > PIXEL_TOL).float().mean()))
 
     # ---- (2) kernel vs plain version on the card -----------------------
     three = three_sphere_scene(ASPECT, device=dev)
-    k3 = frame(*three, 400, 225, 4, 50)
-    p3 = frame(*three, 400, 225, 4, 50, plain=True)
-    mx3, _, _ = agreement(k3, p3)
-    check(mx3 <= PIXEL_TOL, f"three_sphere: max |d| {mx3} > {PIXEL_TOL}")
     cover = cover_scene(Config(image_width=400, aspect_ratio=ASPECT),
                         device=dev)
-    kc = frame(*cover, 400, 225, 4, 50)
-    pc = frame(*cover, 400, 225, 4, 50, plain=True)
-    mxc, meanc, flipc = agreement(kc, pc)
-    check(flipc <= FLIP_SHARE and meanc <= MEAN_TOL,
-          f"cover 400x225: {flipc:.4%} of pixels off by > {PIXEL_TOL}, "
-          f"mean |d| {meanc}")
-    say("2", f"kernel vs plain: three_sphere 400x225 spp4 depth50 max |d| "
-             f"{mx3:.3g} (allowed {PIXEL_TOL}); cover 400x225 spp4 depth50 "
-             f"{flipc:.4%} of pixels off by > {PIXEL_TOL} (allowed "
-             f"{FLIP_SHARE:.0%}), mean |d| {meanc:.3g} (allowed {MEAN_TOL}),"
-             f" max |d| {mxc:.3g}")
+    lines2 = []
+    for name, (scene, cam) in (("three_sphere", three), ("cover", cover)):
+        k2, c2 = k1_held(torch, mk, dev, f"{name} 400x225",
+                         sphere_args(scene, cam, 400, 225, 4, 50),
+                         dict(background=scene.background, pool=False))
+        lines2.append(f"{name} {c2}")
+    kc = k2
+    say("2", f"kernel vs plain (classic scheduler), 400x225 spp4 depth50: "
+             f"bit-identical with equal counters ({K1_COUNTERS}): "
+             + "; ".join(lines2))
 
     # ---- (3) exact sample accounting -------------------------------------
     cam = make_camera(lookfrom=(0.0, 0.0, 1.0), lookat=(0.0, 0.0, 0.0),
@@ -426,7 +411,9 @@ def main() -> None:
              "and 24 (white background, empty scene)")
 
     # ---- (4) determinism -------------------------------------------------
-    again = frame(*cover, 400, 225, 4, 50)
+    again = torch.stack(mk.render_blocks(
+        *sphere_args(*cover, 400, 225, 4, 50), background=cover[0].background,
+        pool=False))
     check(torch.equal(kc, again), "two kernel runs differ")
     say("4", "two kernel runs of the cover 400x225 are bit-identical")
 
@@ -448,9 +435,9 @@ def main() -> None:
             wall = time.perf_counter() - t0
             n = (mk.render_blocks.launches, mk.render_blocks.pool_launches)
             check(rc == 0, f"cli.main ({label}) returned {rc}")
-            check(n[0] > 0 and n[1] == (n[0] if label == "pool" else 0),
-                  f"cli.main ({label}): {n[1]} of {n[0]} launches ran the "
-                  f"pool")
+            check(n[0] == 1 and n[1] == (n[0] if label == "pool" else 0),
+                  f"cli.main ({label}): {n[0]} K1 launches ({n[1]} of them "
+                  f"the pool), not one a frame")
             with open(ppm_path) as f:
                 img = read_ppm(f)
         check(img.shape == (H_MAIN, W_MAIN, 3), f"PPM shape {img.shape}")
@@ -460,10 +447,17 @@ def main() -> None:
         check(top[2] > top[0], f"top rows are not sky-blue (mean rgb {top})")
         stats = [ln for ln in log.getvalue().splitlines()
                  if ln.startswith("Done")]
+        # The ticker from the one launch: each count the host read, then 0.
+        ticks = [int(x) for x in re.findall(r"Scanlines remaining: (\d+)",
+                                            log.getvalue())]
+        check(len(ticks) >= 2 and ticks[-1] == 0 and 0 < ticks[0] <= H_MAIN
+              and ticks == sorted(ticks, reverse=True),
+              f"cli.main ({label}): the ticker printed {ticks}")
         runs5[label] = (n[0], wall, kept[0])
         say("5", f"cli.main -w {W_MAIN} -a {ASPECT!r} -s {spp_main} -c 50 "
                  f"({label} scheduler{'' if env is None else ', RTOW_POOL=0'}"
-                 f"): {n[0]} launches, {n[1]} of them the pool, {wall:.2f} s "
+                 f"): {n[0]} launch, {n[1]} of them the pool; ticker "
+                 f"{ticks[:-1]} then 0; {wall:.2f} s "
                  f"end to end ({W_MAIN * H_MAIN * spp_main / wall / 1e6:.2f} "
                  f"Mprimary-rays/s incl. scene build and PPM write); render: "
                  f"{stats[-1]}")
@@ -480,22 +474,33 @@ def main() -> None:
                          max_depth=50),
             mk.n_tiles_for(W_MAIN, H_MAIN))
     n_sph = big[0].n_spheres
+    width_g = mk.SPHERE_GROUP
 
     def k1_counts(spp, pool):
-        """(ray steps, lane slots) of a stats launch (not timed)."""
-        steps, slots = (torch.zeros(1, dtype=torch.int64, device=dev)
-                        for _ in range(2))
+        """K1_COUNTERS of a kernel launch at ``spp`` (not timed)."""
+        c = [torch.zeros(n, dtype=torch.int64, device=dev)
+             for n in (1, 2, 1, 1, 2)]
         mk.render_blocks(*args[:2], mk.pack_meta(0, width=W_MAIN,
                                                  height=H_MAIN, spp=spp,
                                                  max_depth=50),
-                         args[3], steps=steps, slots=slots, pool=pool)
-        return int(steps), int(slots)
+                         args[3], steps=c[0], tests=c[1], shadows=c[2],
+                         slots=c[3], spheres=c[4], pool=pool)
+        return [int(x) for t in c for x in t.tolist()]
 
-    def k1_bound_ms(steps):
-        # The sweep's and the step's float32 operations over the card's
-        # peak; the sweep counted over the scene's spheres, not the
-        # table's padding.
-        return steps * (OPS_PER_STEP + OPS_PER_ROW * n_sph) / PEAK_F32 * 1e3
+    def bound_line(c, ms):
+        """The culled bound, the brute-force one, and the ground group's
+        share of the rows swept, from counters ``c`` and a kernel time."""
+        b, brute = (x / PEAK_F32 * 1e3 for x in (k1_ops(c),
+                                                 k1_brute_ops(c, n_sph)))
+        per_sweep = c[6] / (c[0] + c[3])
+        ground = width_g * (c[0] + c[3]) / c[6]
+        return b, (f"bound {b:.2f} ms = {b / ms:.1%} of {ms:.2f} ms "
+                   f"(float32 ops {OPS_PER_STEP + OPS_INV_DIR} per step + "
+                   f"{OPS_PER_BOX} x {c[5]} group boxes + {OPS_PER_ROW} x "
+                   f"{c[6]} rows swept, {per_sweep:.1f} rows a sweep of "
+                   f"{tbl.shape[0]}; the ground sphere's group of "
+                   f"{width_g} rows at most {ground:.1%} of them), "
+                   f"brute-force bound {brute:.2f} ms = {brute / ms:.1%}")
 
     meta128 = mk.pack_meta(0, width=W_MAIN, height=H_MAIN, spp=spp_main,
                            max_depth=50)
@@ -507,41 +512,31 @@ def main() -> None:
         timed(mk.render_blocks)  # warm-up
         runs = [timed(mk.render_blocks) for _ in range(3)]
         kernel_ms = statistics.median(ms for ms, _ in runs)
-        plain_ms, plain_out = timed(mk.render_blocks_reference)
-        kern = mk.unblock_image(*runs[0][1], width=W_MAIN,
-                                height=H_MAIN) / 16
-        plain = mk.unblock_image(*plain_out, width=W_MAIN, height=H_MAIN) / 16
-        mx6, mean6, flip6 = agreement(kern, plain)
-        check(flip6 <= FLIP_SHARE and mean6 <= MEAN_TOL,
-              f"cover {W_MAIN}x{H_MAIN} ({label}): {flip6:.4%} of pixels off "
-              f"by > {PIXEL_TOL}, mean |d| {mean6}")
+        times = []
+        _, c16 = k1_held(torch, mk, dev, f"cover {W_MAIN}x{H_MAIN} "
+                         f"({label})", args, dict(pool=pool), times)
+        plain_ms = times[1]
+        k1_bound, line16 = bound_line(c16, kernel_ms)
         say("6", f"cover {W_MAIN}x{H_MAIN} spp16 depth50, {label} "
-                 f"scheduler, on {card}: kernel {kernel_ms:.2f} ms (median "
-                 f"of 3: {', '.join(f'{ms:.2f}' for ms, _ in runs)}), plain "
-                 f"{plain_ms:.2f} ms; kernel vs plain {flip6:.4%} of pixels "
-                 f"off by > {PIXEL_TOL}, mean |d| {mean6:.3g}, max |d| "
-                 f"{mx6:.3g}")
-        steps16, slots16 = k1_counts(16, pool)
-        k1_bound = k1_bound_ms(steps16)
+                 f"scheduler, sphere groups of {width_g} rows, on {card}: "
+                 f"kernel {kernel_ms:.2f} ms (median of 3: "
+                 f"{', '.join(f'{ms:.2f}' for ms, _ in runs)}), plain "
+                 f"{plain_ms:.2f} ms; kernel vs plain bit-identical with "
+                 f"equal counters ({K1_COUNTERS}) {c16}; {line16}")
         ms128 = statistics.median(
             event_ms(torch, lambda: mk.render_blocks(
                 *args[:2], meta128, args[3], pool=pool))[0]
             for _ in range(3))
-        steps128, slots128 = k1_counts(spp_main, pool)
-        say("6", f"K1 ({label}) ray steps: spp16 {steps16}, spp{spp_main} "
-                 f"{steps128}; lane slots {slots16}, {slots128} (occupancy "
-                 f"{steps16 / slots16:.1%}, {steps128 / slots128:.1%}); bound "
-                 f"(float32 ops {OPS_PER_STEP} + {OPS_PER_ROW} x {n_sph} per "
-                 f"step / 67 TFLOP/s): spp16 {k1_bound:.2f} ms = "
-                 f"{k1_bound / kernel_ms:.1%} of {kernel_ms:.2f} ms; "
-                 f"spp{spp_main} {k1_bound_ms(steps128):.2f} ms = "
-                 f"{k1_bound_ms(steps128) / ms128:.1%} of {ms128:.2f} ms "
-                 f"(one whole-frame launch, median of 3)")
-        k1_rows[label] = dict(ms=kernel_ms, plain_ms=plain_ms, err=mx6,
+        c128 = k1_counts(spp_main, pool)
+        say("6", f"K1 ({label}) spp{spp_main}, one whole-frame launch "
+                 f"(median of 3): {ms128:.2f} ms; ray steps {c128[0]}, lane "
+                 f"slots {c128[4]} (occupancy {c128[0] / c128[4]:.1%}); "
+                 + bound_line(c128, ms128)[1])
+        k1_rows[label] = dict(ms=kernel_ms, plain_ms=plain_ms, err=0.0,
                               bound=k1_bound)
 
     grad = grad_phases(torch, dev, card, say)
-    mesh = mesh_phases(torch, dev, card, say, event_ms, agreement)
+    mesh = mesh_phases(torch, dev, card, say, event_ms)
     lit = lit_phases(torch, dev, card, say, event_ms, cover_radiance)
     mesh_grad = mesh_grad_phases(torch, dev, card, say, event_ms)
     lit_grad = lit_grad_phases(torch, dev, card, say, event_ms)
@@ -969,7 +964,7 @@ def split_device_time(dev_ms, kernels=(("K3", "flat_bounce"),)):
     return parts
 
 
-def mesh_phases(torch, dev, card, say, event_ms, agreement):
+def mesh_phases(torch, dev, card, say, event_ms):
     """Phases 10-13: K1 with triangles against its plain version on the
     frame ``cli.main -l samples/knot_small.obj`` renders, the mesh path
     through ``cli.main -l`` (K3 and K1), bench.py's knots through
@@ -1004,46 +999,26 @@ def mesh_phases(torch, dev, card, say, event_ms, agreement):
                              max_depth=DEPTH_MESH),
                 mk.n_tiles_for(W_MESH, W_MESH))
 
-    def k1_frame(fn, tests=None):
-        r, g, b = fn(*k1_args(SPP_MESH), tris=tris, tests=tests, pool=False)
-        torch.cuda.synchronize()
-        return mk.unblock_image(r, g, b, width=W_MESH,
-                                height=W_MESH) / SPP_MESH
+    # The frame cli.main -l renders (spp 64): the kernel timed, then held
+    # bit for bit with equal counters against the plain version.
+    def k1_launch():
+        return mk.render_blocks(*k1_args(SPP_MESH), tris=tris, pool=False)
 
-    # The frame cli.main -l renders (spp 64), timed and compared whole.
-    k1_runs = [event_ms(torch, lambda: k1_frame(mk.render_blocks))
-               for _ in range(4)][1:]
-    k1_ms = statistics.median(ms for ms, _ in k1_runs)
-    kern = k1_runs[-1][1]
-    pt = torch.zeros(2, dtype=torch.int64, device=dev)
-    k1_plain, plain = event_ms(torch, lambda: k1_frame(
-        mk.render_blocks_reference, pt))
-    mx, mean, flip = agreement(kern, plain)
-    check(flip <= FLIP_SHARE and mean <= MEAN_TOL,
-          f"K1 knot_small: {flip:.4%} of pixels off by > {PIXEL_TOL}, mean "
-          f"|d| {mean}")
-    same = torch.equal(kern, plain)
-    steps = torch.zeros(1, dtype=torch.int64, device=dev)
-    kt = torch.zeros(2, dtype=torch.int64, device=dev)
-    mk.render_blocks(*k1_args(SPP_MESH), tris=tris, steps=steps, tests=kt,
-                     pool=False)
-    check(torch.equal(kt, pt) or not same,
-          f"K1 knot_small: kernel and plain counted {kt.tolist()} / "
-          f"{pt.tolist()} tests for the same frame")
-    n_steps, (n_box, n_tri) = int(steps), kt.tolist()
-    k1_ops = (n_steps * (OPS_PER_STEP + OPS_INV_DIR) + n_box * OPS_PER_BOX
-              + n_tri * OPS_PER_TRI)
-    k1_bound = k1_ops / PEAK_F32 * 1e3
+    k1_runs = [event_ms(torch, k1_launch)[0] for _ in range(4)][1:]
+    k1_ms = statistics.median(k1_runs)
+    times = []
+    _, c10 = k1_held(torch, mk, dev, "knot_small", k1_args(SPP_MESH),
+                     dict(tris=tris, pool=False), times)
+    k1_plain = times[1]
+    k1_bound = k1_ops(c10) / PEAK_F32 * 1e3
     say("10", f"K1 on samples/knot_small.obj ({scene.n_triangles} "
               f"triangles, {tris.n_blocks} blocks) {W_MESH}x{W_MESH} "
               f"spp{SPP_MESH} depth {DEPTH_MESH} on {card}: kernel vs plain "
-              f"{'bit-identical' if same else 'not bit-identical'}, "
-              f"{flip:.4%} of pixels off by > {PIXEL_TOL}, mean |d| "
-              f"{mean:.3g}, max |d| {mx:.3g}; box/triangle tests kernel "
-              f"{kt.tolist()}, plain {pt.tolist()}; kernel {k1_ms:.2f} ms "
-              f"(median of {', '.join(f'{x:.2f}' for x, _ in k1_runs)}), "
-              f"plain {k1_plain:.1f} ms; {n_steps} ray steps; bound "
-              f"{k1_bound:.3f} ms (operations) = {k1_bound / k1_ms:.1%}")
+              f"bit-identical with equal counters ({K1_COUNTERS}) {c10}; "
+              f"kernel {k1_ms:.2f} ms (median of "
+              f"{', '.join(f'{x:.2f}' for x in k1_runs)}), plain "
+              f"{k1_plain:.1f} ms; bound {k1_bound:.3f} ms (operations) = "
+              f"{k1_bound / k1_ms:.1%}")
 
     bench_cam = make_camera(lookfrom=(0.0, 0.0, 3.0),
                             lookat=(0.0, 0.0, 0.0), fov_degrees=45.0,
@@ -1386,22 +1361,68 @@ def lit_knot(SceneBuilder, verts, faces, device, reverse=False):
     return b.build(background=(0.0, 0.0, 0.0), device=device)
 
 
-def k1_pair(torch, mk, dev, args, kw):
+#: The counters k1_pair reads, in its order.
+K1_COUNTERS = ("steps, box tests, triangle tests, shadow rays, lane slots, "
+               "sphere-group box tests, sphere rows swept")
+
+
+def k1_pair(torch, mk, dev, args, kw, times=None):
     """One launch of K1 and one of its plain version on the same inputs:
     ((kernel planes, kernel counters), (plain planes, plain counters)),
-    the three radiance planes stacked and the counters as [steps, box
-    tests, triangle tests, shadow rays, lane slots]."""
+    the three radiance planes stacked and the counters as K1_COUNTERS
+    lists them.  ``times``, a list, gets each call's milliseconds (CUDA
+    events) appended."""
     out = []
     for fn in (mk.render_blocks, mk.render_blocks_reference):
-        steps, tests, shadows, slots = (
+        steps, tests, shadows, slots, spheres = (
             torch.zeros(n, dtype=torch.int64, device=dev)
-            for n in (1, 2, 1, 1))
-        planes = torch.stack(fn(*args, **kw, steps=steps, tests=tests,
-                                shadows=shadows, slots=slots))
-        torch.cuda.synchronize()
+            for n in (1, 2, 1, 1, 2))
+        ms, planes = event_ms(torch, lambda: torch.stack(fn(
+            *args, **kw, steps=steps, tests=tests, shadows=shadows,
+            slots=slots, spheres=spheres)))
+        if times is not None:
+            times.append(ms)
         out.append((planes, steps.tolist() + tests.tolist()
-                    + shadows.tolist() + slots.tolist()))
+                    + shadows.tolist() + slots.tolist() + spheres.tolist()))
     return out
+
+
+def k1_held(torch, mk, dev, what, args, kw, times=None):
+    """k1_pair, checked: the kernel's planes finite and bit-identical to
+    the plain version's, the counters equal.  Returns (kernel planes,
+    counters)."""
+    (k, kc), (p, pc) = k1_pair(torch, mk, dev, args, kw, times)
+    check(bool(torch.isfinite(k).all()), f"K1 {what}: output not finite")
+    check(torch.equal(k, p), f"K1 {what}: not bit-identical to the plain "
+                             f"version (max |d| {float((k - p).abs().max())})")
+    check(kc == pc, f"K1 {what}: kernel counted {kc}, plain {pc} "
+                    f"({K1_COUNTERS})")
+    return k, kc
+
+
+def k1_ops(counts, n_vol=0):
+    """float32 operations of the work a K1 launch's counters (K1_COUNTERS)
+    say it did: per step the shade's (OPS_PER_STEP) and the rays' inverse
+    directions; per sphere-group box test OPS_PER_BOX and per sphere row
+    swept OPS_PER_ROW; the triangle sweep's box and triangle tests; NEE and
+    its own inverse directions per shadow ray; each volume per step and
+    per shadow ray.  The brute-force sweep this replaced: OPS_PER_ROW for
+    each of the scene's spheres per step and per shadow ray
+    (k1_brute_ops)."""
+    steps, n_box, n_tri, n_shadow, _slots, sph_box, sph_rows = counts
+    return (steps * (OPS_PER_STEP + OPS_INV_DIR) + sph_box * OPS_PER_BOX
+            + sph_rows * OPS_PER_ROW + n_box * OPS_PER_BOX
+            + n_tri * OPS_PER_TRI + n_shadow * (OPS_NEE + OPS_INV_DIR)
+            + n_vol * OPS_PER_VOL * (steps + n_shadow))
+
+
+def k1_brute_ops(counts, n_sph, n_vol=0):
+    """k1_ops with the sphere sweep of every scene sphere in place of the
+    culled one (the bound PRs 1-10 stated)."""
+    steps, _box, _tri, n_shadow = counts[:4]
+    return (k1_ops(counts, n_vol) - counts[5] * OPS_PER_BOX
+            - counts[6] * OPS_PER_ROW
+            + (steps + n_shadow) * n_sph * OPS_PER_ROW)
 
 
 def moved(obj, device):
@@ -1519,9 +1540,8 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
         check(same, f"lit K1 {name}: not bit-identical to the plain version "
                     f"(max |d| {err:.3g})")
         check(kc == pc,
-              f"lit K1 {name}: kernel counted {kc}, plain {pc} (steps, box "
-              f"tests, triangle tests, shadow rays, lane slots) for the same "
-              f"launch")
+              f"lit K1 {name}: kernel counted {kc}, plain {pc} "
+              f"({K1_COUNTERS}) for the same launch")
 
     def compared(name, args, kw):
         """held() on one launch of each here.  Returns the counters."""
@@ -1549,8 +1569,7 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
         lines.append(f"{name} {counts}")
     say("14", f"lit K1 vs plain at {W_LIT}x{W_LIT} spp2 (depth {DEPTH_LIT}, "
               f"the covers 50) on {card}: bit-identical with equal counters "
-              f"(steps, box tests, triangle tests, shadow rays, lane slots): "
-              + "; ".join(lines))
+              f"({K1_COUNTERS}): " + "; ".join(lines))
 
     # ---- (15) the light-driven path through cli.main at full size --------
     def refuse(*_a, **_k):
@@ -1564,7 +1583,8 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
         launched = []
 
         def record(*a, **k):
-            launched.append((a, k))
+            launched.append((a, {n: v for n, v in k.items()
+                                 if n != "progress"}))
             return kernel(*a, **k)
 
         mk.render_blocks_reference, pipeline.render_blocks = refuse, record
@@ -1592,12 +1612,18 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
                 if ln.startswith("Done")]
         return img, kept[0], wall, launches[1], done[-1], launched
 
-    # The middle band of each render, as cli.main launched it: (its index,
-    # the number of bands, the launch's (args, kwargs)).
+    # A middle tile range of each render, relaunched with cli.main's
+    # inputs (one launch a frame): the sixth tenth of its tiles.  (the
+    # range's first tile, its tiles, the launch's (args, kwargs)).
     bands = {}
 
     def middle(launched):
-        return len(launched) // 2, len(launched), launched[len(launched) // 2]
+        check(len(launched) == 1, f"{len(launched)} K1 launches a frame")
+        (tbl, cam, meta, n_tiles), kw = launched[0]
+        band = -(-n_tiles // 10)
+        tile0 = 5 * band
+        meta = meta[:4] + (tile0,) + meta[5:]
+        return tile0, band, ((tbl, cam, meta, band), kw)
 
     box_flags = ["-w", str(W_LIT), "-a", "1", "-s", str(SPP_LIT), "-c",
                  str(DEPTH_LIT)]
@@ -1648,26 +1674,25 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
               f"{RR_SIGMAS})")
     bands["--russian-roulette"] = middle(launched)
 
-    # ---- (17) each render's middle band against the plain version --------
+    # ---- (17) a middle tile range of each render against plain ----------
     # The plain version at the renders' spp takes one to two minutes a
-    # band, bound by the host's dispatch of its small ops: one worker
-    # process per band, all at once (nothing is timed meanwhile).
+    # tenth of a frame, bound by the host's dispatch of its small ops: one
+    # worker process per range, all at once (nothing is timed meanwhile).
     t0 = time.perf_counter()
     results = band_checks({flag: moved(launch, "cpu")
                            for flag, (_, _, launch) in bands.items()})
     lines = []
-    for flag, (i, n, ((_, _, meta, n_tiles), _)) in bands.items():
+    for flag, (tile0, n_tiles, ((_, _, meta, _), _)) in bands.items():
         finite, same, err, kc, pc, seconds = results[flag]
-        held(f"{flag}, band {i}", finite, same, err, kc, pc)
-        lines.append(f"{flag} band {i} of {n} (tile0 {meta[4]}, {n_tiles} "
-                     f"tiles, spp {meta[5]}, depth {meta[6]}): counters {kc}"
-                     f", {seconds:.1f} s")
-    say("17", f"the middle band of each render above, launched again as "
-              f"cli.main launched it, kernel vs plain on {card} "
+        held(f"{flag}, tiles {tile0}..", finite, same, err, kc, pc)
+        lines.append(f"{flag} (tile0 {tile0}, {n_tiles} tiles, spp "
+                     f"{meta[5]}, depth {meta[6]}): counters {kc}, "
+                     f"{seconds:.1f} s")
+    say("17", f"a middle tenth of each render above's tiles, launched again "
+              f"with cli.main's inputs, kernel vs plain on {card} "
               f"({len(bands)} worker processes, "
               f"{time.perf_counter() - t0:.1f} s wall): bit-identical with "
-              f"equal counters (steps, box tests, triangle tests, shadow "
-              f"rays, lane slots): " + "; ".join(lines))
+              f"equal counters ({K1_COUNTERS}): " + "; ".join(lines))
 
     # ---- (18) the lit instance's times and bound, spp 16 -----------------
     rows = {}
@@ -1680,19 +1705,14 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
         k_ms = statistics.median(k_runs)
         p_ms, _ = event_ms(torch, lambda: mk.render_blocks_reference(
             *args, **kw))
-        steps, n_box, n_tri, n_shadow, _ = compared(f"{name} spp16", args,
-                                                     kw)
-        # The work this frame needs: the sphere sweep over the scene's
-        # spheres (not the table's padding), once per step and once per
-        # shadow ray; the counted box and triangle tests; NEE per shadow
-        # ray; each volume per step and per shadow ray.  Bytes: the scene's
-        # rows and boxes read once, the three planes written once.
+        c18 = compared(f"{name} spp16", args, kw)
+        steps, n_box, n_tri, n_shadow = c18[:4]
+        # The work this frame's counters say it needs (k1_ops).  Bytes:
+        # the scene's rows and boxes read once, the three planes written
+        # once.
         tris, lit = kw["tris"], kw["lit"]
         n_sph, n_vol = scene.n_spheres, len(lit.vol_kinds)
-        ops = (steps * (OPS_PER_STEP + OPS_PER_ROW * n_sph + OPS_INV_DIR)
-               + n_box * OPS_PER_BOX + n_tri * OPS_PER_TRI
-               + n_shadow * (OPS_NEE + OPS_PER_ROW * n_sph + OPS_INV_DIR)
-               + n_vol * OPS_PER_VOL * (steps + n_shadow))
+        ops = k1_ops(c18, n_vol)
         nbytes = (n_sph * 64 + tris.count * 64 + tris.n_blocks * 32
                   + lit.rows.numel() * 4 + 3 * 4 * args[3] * 1024)
         ops_ms, bytes_ms = ops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -1704,7 +1724,8 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
                   f"{', '.join(f'{x:.3f}' for x in k_runs)}), plain "
                   f"{p_ms:.1f} ms; kernel vs plain bit-identical, counters "
                   f"equal; {steps} ray steps, {n_shadow} shadow rays, "
-                  f"{n_box} box and {n_tri} triangle tests, {n_sph} spheres; "
+                  f"{n_box} box and {n_tri} triangle tests, {n_sph} spheres "
+                  f"({c18[5]} group box tests, {c18[6]} rows swept); "
                   f"bound {bound:.4f} ms ({by}: {ops:.4g} float32 "
                   f"operations, {nbytes} bytes) = {bound / k_ms:.1%} of the "
                   f"kernel time")
@@ -1764,7 +1785,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
                          b.add_metal((0.5, 0.5, 0.5), 0.1))
         return b.build(device=dev)
 
-    def tape_of(scene, flat, seed=7):
+    def tape_of(scene, flat, seed=7, nee=False):
         """The sorted input states of one forward at the trainer's size
         through K4, as render_rays_kernel hands them to each bounce, and
         the tables."""
@@ -1783,7 +1804,8 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
                 G.render_rays_kernel(scene, camera_rays(cam, gen, s, t),
                                      n_pixels=pix.numel(), spp=1,
                                      max_depth=DEPTH_GRAD, seed=0,
-                                     sort_lanes=True, force_flat=flat)
+                                     sort_lanes=True, force_flat=flat,
+                                     nee=nee)
         finally:
             G.bounce_grad = bounce
         tbl, _ = mk.build_sphere_table(scene)
@@ -1904,6 +1926,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
     try:
         losses, cur, per_step = [], start, []
         G.bounce_fwd.launches = G.bounce_bwd.launches = 0
+        G.bounce_bwd.warp_launches = 0
         t0 = time.perf_counter()
         for _ in range(3):
             cur, loss = step(cur, torch.Generator(dev).manual_seed(7), target)
@@ -1912,7 +1935,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
                              sorts[0]))
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        main_launches = per_step[-1][:2]
+        main_launches = per_step[-1][:2] + (G.bounce_bwd.warp_launches,)
         _, grads = G.loss_and_grad_kernel(
             start, cam, torch.Generator(dev).manual_seed(7), target, pix,
             **kw)
@@ -1922,6 +1945,9 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
     check(per_step == want,
           f"K4 / K5 launches and sorts after each mesh train step "
           f"{per_step}, not {want}")
+    check(main_launches[2] == main_launches[1],
+          f"K5 issued its warp form {main_launches[2]} times in "
+          f"{main_launches[1]} launches")
     check(all(np.isfinite(losses)) and losses[0] > losses[1] > losses[2],
           f"mesh trainer: loss did not fall over the steps: {losses}")
     gv = grads.triangles.verts
@@ -1934,7 +1960,8 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
               f"lanes sorted (lr {LR_MESH}, albedo mask): loss "
               f"{', '.join(f'{x:.6g}' for x in losses)}; albedo mean |error| "
               f"{err0:.6g} -> {err3:.6g}; K4 {main_launches[0]} and K5 "
-              f"{main_launches[1]} launches, {per_step[-1][2]} sorts, no "
+              f"{main_launches[1]} launches (the warp form issued in "
+              f"{main_launches[2]}), {per_step[-1][2]} sorts, no "
               f"plain version; {train_s:.2f} s; vertex gradient max |g| "
               f"{float(gv.abs().max()):.3g}")
 
@@ -2033,6 +2060,89 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
             "bound_by": by,
             "library_ms": None,
         })
+
+    # K4 and K5 launch by launch: each of the 9 launches of phase 19's
+    # tape of the 65k knot, and of the 65k knot under two square lamps
+    # with NEE, timed alone by CUDA events (K5's two forms in turns:
+    # thread, warp, warp, thread; then as picked on the card), beside its
+    # live lanes; the forms held to each other at every launch: cot_in
+    # bit for bit, equal counters, g_tbl / g_tri / g_rows within GRAD_TOL
+    # of the column's largest |thread form|.
+    lit_scene = lit_knot(SceneBuilder, *make_knot(*KNOTS["65k"]), dev)
+    lit_tbl, lit_tris, lit_tape = tape_of(lit_scene, False, nee=True)
+    tapes = {"65k knot": (tbl, tris, tape, mk.Lit()),
+             "lit 65k knot": (lit_tbl, lit_tris, lit_tape,
+                              G.grad_lit(lit_scene, nee=True))}
+    k5_forms = {}
+    for tname, (t_tbl, t_tris, t_tape, t_lit) in tapes.items():
+        launches, sums = [], {"K4": 0.0, "thread": 0.0, "warp": 0.0,
+                              "auto": 0.0}
+        for it, (c, i) in enumerate(t_tape):
+            a = dict(it=it, seed=0, max_depth=DEPTH_GRAD, lit=t_lit)
+            ct = torch.from_numpy(rng.standard_normal((13, c.shape[1]))
+                                  .astype(np.float32)).to(dev)
+            res, st = {}, {}
+            for form in G.BWD_FORMS:
+                st[form] = counters()
+                res[form] = G.bounce_bwd(c, i, ct, t_tbl, t_tris,
+                                         stats=st[form], form=form, **a)
+            ref = res["thread"]
+            for form in ("warp", "auto"):
+                what = f"K5 {form} form, {tname}, launch {it}"
+                check(torch.equal(res[form][0], ref[0]),
+                      f"{what}: cot_in not bit-identical to the thread form")
+                check(torch.equal(st[form], st["thread"]),
+                      f"{what}: counted {st[form].tolist()}, the thread "
+                      f"form {st['thread'].tolist()}")
+                for part, k_, t_ in zip(("g_tbl", "g_tri", "g_rows"),
+                                        res[form][1:], ref[1:]):
+                    if t_ is None or not t_.numel():
+                        continue
+                    scale = t_.abs().amax(dim=0, keepdim=True)
+                    check(bool(((k_ - t_).abs() <= GRAD_TOL * scale).all()),
+                          f"{what}: {part} off the thread form's by more "
+                          f"than {GRAD_TOL} of the column's scale")
+            ms = {"K4": per_launch_ms(torch, lambda: G.bounce_fwd(
+                c, i, t_tbl, t_tris, **a), 3)}
+            turns = {"thread": [], "warp": []}
+            for form in ("thread", "warp", "warp", "thread"):
+                turns[form].append(per_launch_ms(torch, lambda: G.bounce_bwd(
+                    c, i, ct, t_tbl, t_tris, form=form, **a), 3))
+            ms.update({f: statistics.mean(v) for f, v in turns.items()})
+            ms["auto"] = per_launch_ms(torch, lambda: G.bounce_bwd(
+                c, i, ct, t_tbl, t_tris, **a), 3)
+            for k_, v in ms.items():
+                sums[k_] += v
+            live = int(st["thread"][2])
+            launches.append(
+                f"{live} live: K4 {ms['K4']:.3f}, K5 thread "
+                f"{'/'.join(f'{x:.3f}' for x in turns['thread'])}, warp "
+                f"{'/'.join(f'{x:.3f}' for x in turns['warp'])}, picked "
+                f"{ms['auto']:.3f}")
+        k5_forms[tname] = sums
+        say("20", f"K4 / K5 per launch on the {tname} ({W_MESH_GRAD}x"
+                  f"{W_MESH_GRAD} spp{SPP_GRAD}, {t_tape[0][0].shape[1]} "
+                  f"lanes, sorted) on {card}, ms each launch alone (K5's "
+                  f"forms in turns thread, warp, warp, thread, the picked "
+                  f"form with WARP_MAX_LIVE {G.WARP_MAX_LIVE}); both forms' "
+                  f"cot_in bit-identical, counters equal, table gradients "
+                  f"within {GRAD_TOL}: " + "; ".join(launches)
+                  + f"; sums: K4 {sums['K4']:.3f}, K5 thread "
+                  f"{sums['thread']:.3f}, warp {sums['warp']:.3f}, picked "
+                  f"{sums['auto']:.3f}")
+    rows.append({
+        "name": "grad_bwd_tris_warp",
+        "route": "cuda",
+        "source": "rtow_tpu_torch/csrc/grad_bwd.cu",
+        "replaces": "rtow_tpu/ops/pallas_grad.py:224",
+        "launches": main_launches[2],
+        "max_abs_err": 0.0,
+        "ms": k5_forms["65k knot"]["warp"],
+        "plain_ms": plain_ms[1],
+        "bound_ms": rows[1]["bound_ms"],
+        "bound_by": rows[1]["bound_by"],
+        "library_ms": None,
+    })
 
     # Where a mesh train step's time goes: torch.profiler over one step.
     step_ms, dev_ms = profile_ms(torch, lambda: step(
@@ -2709,14 +2819,11 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
     event_ms(torch, two_sided)  # warm-up
     k1_ms = statistics.median(event_ms(torch, two_sided)[0]
                               for _ in range(3))
-    (k, kc), (p, pc) = k1_pair(torch, mk, dev, args, dict(kw, cull=False))
-    k1_plain_ms, _ = event_ms(torch, lambda: mk.render_blocks_reference(
-        *args, **kw, cull=False))
+    times = []
+    k, kc = k1_held(torch, mk, dev, "two-sided", args, dict(kw, cull=False),
+                    times)
+    k1_plain_ms = times[1]
     culled = torch.stack(mk.render_blocks(*args, **kw))
-    check(bool(torch.isfinite(k).all()) and torch.equal(k, p) and kc == pc,
-          f"two-sided K1: bit-identical {torch.equal(k, p)}, counters "
-          f"{kc} / {pc} (steps, box tests, triangle tests, shadow rays, lane "
-          f"slots)")
     check(not torch.equal(k, culled) and float(k.mean()) > 0,
           "two-sided K1: the render equals the culled one, or is black")
     rev_scene = lit_knot(SceneBuilder, verts, faces, dev, reverse=True)
@@ -2730,9 +2837,8 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
     say("27", f"two-sided triangles (cull=False), the lit knot wound away "
               f"from the camera, on {card}: K1 on the 4,096-triangle knot "
               f"{W_MESH}x{W_MESH} spp2 depth {DEPTH_KNOT_LIT}: kernel and "
-              f"plain bit-identical, counters equal {kc} (steps, box tests, "
-              f"triangle tests, shadow rays, lane slots), the culled render "
-              f"differs; "
+              f"plain bit-identical, counters equal {kc} ({K1_COUNTERS}), "
+              f"the culled render differs; "
               f"kernel {k1_ms:.3f} ms (median of 3), plain {k1_plain_ms:.1f} "
               f"ms.  K3 on chunk {g_mid} of the 65k knot ({len(tape)} "
               f"launches): both forms bit-identical at every launch, "
@@ -2812,9 +2918,8 @@ def pool_phases(torch, dev, card, say, event_ms):
         lines.append(f"{name} {w}x{h} depth {depth}: {kc}")
     say("28", f"the pool instances of K1 vs the plain pool at spp{POOL_SPP} "
               f"(chunk 16, hand-out every 4 iterations; partial tile "
-              f"columns) on {card}: bit-identical with equal counters (steps, "
-              f"box tests, triangle tests, shadow rays, lane slots): "
-              + "; ".join(lines)
+              f"columns) on {card}: bit-identical with equal counters "
+              f"({K1_COUNTERS}): " + "; ".join(lines)
               + f" ({time.perf_counter() - t0:.1f} s)")
 
     # ---- (29) accounting, the estimator, and the A/B of the schedulers ---
@@ -2824,12 +2929,17 @@ def pool_phases(torch, dev, card, say, event_ms):
     b = SceneBuilder()
     b.add_sphere((0.0, 0.0, -99999.0), 1.0, b.add_lambertian((0.5,) * 3))
     white = b.build(background=(1.0, 1.0, 1.0), device=dev)
+    held29 = []
     for spp in (128, 17):
-        sums = mk.render_spheres(white, cam, 0, width=W_MAIN, height=H_MAIN,
-                                 spp=spp, max_depth=50, pool=True)
+        args, kw = launch_args(white, cam, W_MAIN, H_MAIN, spp, 50,
+                               pool=True)
+        planes, c29 = k1_held(torch, mk, dev, f"pool accounting spp {spp}",
+                              args, kw)
+        sums = mk.unblock_image(*planes, width=W_MAIN, height=H_MAIN)
         check(bool((sums == spp).all()),
               f"pool sample accounting {W_MAIN}x{H_MAIN} spp {spp}: sums "
               f"{float(sums.min())}..{float(sums.max())}")
+        held29.append(f"spp{spp} {c29}")
     big = cover(W_MAIN, H_MAIN)
     frames = {}
     for label, pool, seed in (("c0", False, 0), ("c1", False, 123),
@@ -2846,7 +2956,9 @@ def pool_phases(torch, dev, card, say, event_ms):
           f"{noise:.4g}), frame means differ by {d_mean:.4g}")
     say("29", f"the pool's sample accounting at {W_MAIN}x{H_MAIN} spp128 and "
               f"spp17 (white background) on {card}: every pixel's sums == "
-              f"spp; the cover {W_MAIN}x{H_MAIN} spp128 depth 50, pool vs "
+              f"spp, kernel vs plain pool bit-identical with equal counters "
+              f"({K1_COUNTERS}) " + ", ".join(held29) + f"; the cover "
+              f"{W_MAIN}x{H_MAIN} spp128 depth 50, pool vs "
               f"classic (seed 0): mean |d| {d_pool:.5f} against the classic "
               f"scheduler's seed-to-seed {noise:.5f} (allowed 1.5x), frame "
               f"means {float(p0.mean()):.6f} / {float(c0.mean()):.6f}")

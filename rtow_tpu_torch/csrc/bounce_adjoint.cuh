@@ -14,7 +14,8 @@
 // scatter's (pallas_grad.py:317-337: the event's distance, a function of
 // the volume's density and boundary and of the ray, and its albedo).  The
 // replay calls the forward's own functions -- nearest_sphere, then
-// nearest_triangle where the scene has triangles, volume_event,
+// nearest_triangle (or, in K5's warp form, nearest_triangle_warp, the same
+// winner bit for bit) where the scene has triangles, volume_event,
 // sample_light, the shadow sweep, light_pdf_toward -- so every discrete
 // decision (the winner, hit or miss, which root, the face, TIR and
 // Schlick's choice, k > 0, the material, the picked light, the shadow ray's
@@ -322,19 +323,21 @@ RTOW_HD void triangle_hit_adjoint(const float4* tri, int k, const Hit& e,
 // ---- the lit features' adjoints -------------------------------------------
 
 // Adds v to a light-row cotangent: the block's shared accumulator on the
-// card (atomically: every lane of the block adds to it), the lane's own
-// rows in a host build.
+// card (atomically: every lane of the block adds to it; in the warp form
+// one thread of the lane's warp), the lane's own rows in a host build.
+template <Sweep kSweep = Sweep::kThread>
 RTOW_HD void add_row(float* g, float v) {
 #ifdef __CUDA_ARCH__
-  if (v != 0.0f) atomicAdd(g, v);
+  if (v != 0.0f && writes_lane<kSweep>()) atomicAdd(g, v);
 #else
   *g += v;
 #endif
 }
 
 // Adds a row's 14 local cotangents q to its accumulator g.
+template <Sweep kSweep = Sweep::kThread>
 RTOW_HD void add_rows(float* g, const float* q) {
-  for (int c = 0; c < kLitCols; ++c) add_row(g + c, q[c]);
+  for (int c = 0; c < kLitCols; ++c) add_row<kSweep>(g + c, q[c]);
 }
 
 // c = a x b: ga += b x gc, gb += gc x a.
@@ -550,6 +553,7 @@ RTOW_HD void sample_light_adjoint(const Lit& L, int k, float u1, float u2,
 // g_pdf to the ray's origin g_o, direction g_d and time *g_tm (all added)
 // and the matching lights' rows (g_lrows, (n_lights, 14)).  t_hit enters
 // only the matching test, which is discrete.
+template <Sweep kSweep = Sweep::kThread>
 RTOW_HD void light_pdf_adjoint(const Lit& L, const Ray& r, float t_hit,
                                float g_pdf, float* g_o, float* g_d,
                                float* g_tm, float* g_lrows) {
@@ -657,7 +661,7 @@ RTOW_HD void light_pdf_adjoint(const Lit& L, const Ray& r, float t_hit,
         gq[7 + i] += g_e2[i];
       }
     }
-    add_rows(g_lrows + kLitCols * k, gq);
+    add_rows<kSweep>(g_lrows + kLitCols * k, gq);
   }
   // u = d / sqrt(at_least(|d|^2, 1e-24))
   const float g_inv = dot3(g_u, d);
@@ -899,6 +903,7 @@ RTOW_HD void len_adjoint(const float* d, float g_len, float* g_d) {
 // over the volumes the ray crosses: from T's cotangent g_T to the ray's
 // origin g_o and direction g_d, t_max's *g_tmax (all added) and the volume
 // rows' g_lrows (from row vol_row0 on).
+template <Sweep kSweep = Sweep::kThread>
 RTOW_HD void transmittance_adjoint(const Lit& L, const Ray& r, float t_max,
                                    float T, float g_T, float* g_o,
                                    float* g_d, float* g_tmax,
@@ -925,7 +930,7 @@ RTOW_HD void transmittance_adjoint(const Lit& L, const Ray& r, float t_max,
     min_adjoint(t1, t_max, g_ov, &g_t1, g_tmax);
     vol_interval_adjoint(L, k, o, d, t0 >= 0.0f ? -g_ov : 0.0f, g_t1, g_o,
                          g_d, gq);
-    add_rows(g_lrows + kLitCols * (L.vol_row0 + k), gq);
+    add_rows<kSweep>(g_lrows + kLitCols * (L.vol_row0 + k), gq);
   }
   len_adjoint(d, g_len, g_d);
 }
@@ -960,7 +965,8 @@ RTOW_HD void free_flight_adjoint(const Lit& L, int k, const Ray& r,
 // to the throughput's gin[7..9], the point's, the normal's and the
 // albedo's (g), the time's (*g_tm), the picked light's row and, through
 // the shadow ray's transmittance, the volume rows (g_lrows), all added.
-template <bool kTris>
+// kSweep: how the shadow ray sweeps the triangles, as in next_event.
+template <bool kTris, Sweep kSweep = Sweep::kThread>
 RTOW_HD void next_event_adjoint(const float4* tbl, int npad, const Tris& tris,
                                 const Lit& L, const float* s, float px,
                                 float py, float pz, float nx, float ny,
@@ -988,7 +994,8 @@ RTOW_HD void next_event_adjoint(const float4* tbl, int npad, const Tris& tris,
   float st;
   int sk;
   nearest_sphere(tbl, npad, sr, la, 1.0f / la, thresh, &st, &sk);
-  if constexpr (kTris) nearest_triangle(tris, sr, npad, &st, &sk, tally);
+  if constexpr (kTris)
+    nearest_triangle_by<kSweep>(tris, sr, npad, &st, &sk, tally);
   if (!(st >= thresh)) return;  // blocked: nothing was added
   const float T = L.n_vol > 0 ? transmittance(L, sr, ls.t) : 1.0f;
   const float factor = f0 * T;
@@ -1021,8 +1028,8 @@ RTOW_HD void next_event_adjoint(const float4* tbl, int npad, const Tris& tris,
   float gp[3] = {0.0f, 0.0f, 0.0f}, g_dir[3] = {0.0f, 0.0f, 0.0f};
   float g_t = 0.0f;
   if (L.n_vol > 0)
-    transmittance_adjoint(L, sr, ls.t, T, g_factor * f0, gp, g_dir, &g_t,
-                          g_lrows);
+    transmittance_adjoint<kSweep>(L, sr, ls.t, T, g_factor * f0, gp, g_dir,
+                                  &g_t, g_lrows);
   const float g_dot = dot >= 0.0f ? g_cos : 0.0f;
   g->nx += g_dot * ls.dx;
   g->ny += g_dot * ls.dy;
@@ -1037,7 +1044,7 @@ RTOW_HD void next_event_adjoint(const float4* tbl, int npad, const Tris& tris,
   g->px += gp[0];
   g->py += gp[1];
   g->pz += gp[2];
-  add_rows(g_lrows + kLitCols * k, gq);
+  add_rows<kSweep>(g_lrows + kLitCols * k, gq);
 }
 
 // The adjoint of an emissive hit's radiance, rad' = rad + tp al w_emit
@@ -1047,6 +1054,7 @@ RTOW_HD void next_event_adjoint(const float4* tbl, int npad, const Tris& tris,
 // p_b = |d| / (2 pi) and p_l = light_pdf_toward(L, r, t_hit), adds to the
 // direction's gin[3..5], the origin's gin[0..2], the time's *g_tm and the
 // light rows' g_lrows.
+template <Sweep kSweep = Sweep::kThread>
 RTOW_HD void emission_adjoint(const Lit& L, const Ray& r, float a,
                               float t_hit, const Material& m, bool mis,
                               const float* s, const float* G, float* gin,
@@ -1077,7 +1085,7 @@ RTOW_HD void emission_adjoint(const Lit& L, const Ray& r, float a,
   gin[3] += 2.0f * r.dx * g_a;
   gin[4] += 2.0f * r.dy * g_a;
   gin[5] += 2.0f * r.dz * g_a;
-  light_pdf_adjoint(L, r, t_hit, g_pl, gin, gin + 3, g_tm, g_lrows);
+  light_pdf_adjoint<kSweep>(L, r, t_hit, g_pl, gin, gin + 3, g_tm, g_lrows);
 }
 
 // The adjoint of a volume scatter (the volume branch of bounce_lane_t)
@@ -1087,7 +1095,7 @@ RTOW_HD void emission_adjoint(const Lit& L, const Ray& r, float a,
 // gin[0..5] and gin[7..9], adds to gin[6] (a moving light's time) and the
 // rows' g_lrows: the volume's density, albedo and boundary, the picked
 // light's, and every volume's the shadow ray crosses.
-template <bool kTris>
+template <bool kTris, Sweep kSweep = Sweep::kThread>
 RTOW_HD void volume_adjoint(const float4* tbl, int npad, const Tris& tris,
                             const Lit& L, const float* s, const Ray& r,
                             int kv, float v_t, const float* v_alb, bool nee,
@@ -1107,9 +1115,10 @@ RTOW_HD void volume_adjoint(const float4* tbl, int npad, const Tris& tris,
   }
   float g_tm = 0.0f;
   if (nee)
-    next_event_adjoint<kTris>(tbl, npad, tris, L, s, p[0], p[1], p[2], 0.0f,
-                              0.0f, 0.0f, v_alb[0], v_alb[1], v_alb[2], true,
-                              lane, salt, G, gin, &g, &g_tm, g_lrows, tally);
+    next_event_adjoint<kTris, kSweep>(tbl, npad, tris, L, s, p[0], p[1], p[2],
+                                      0.0f, 0.0f, 0.0f, v_alb[0], v_alb[1],
+                                      v_alb[2], true, lane, salt, G, gin, &g,
+                                      &g_tm, g_lrows, tally);
   gq[8] += g.alr;
   gq[9] += g.alg;
   gq[10] += g.alb;
@@ -1123,7 +1132,7 @@ RTOW_HD void volume_adjoint(const float4* tbl, int npad, const Tris& tris,
     gin[3 + i] = g_d[i];
   }
   gin[6] += g_tm;
-  add_rows(g_lrows + kLitCols * (L.vol_row0 + kv), gq);
+  add_rows<kSweep>(g_lrows + kLitCols * (L.vol_row0 + kv), gq);
 }
 
 // Replays bounce_lane_t<kTris, kLit> for a live lane from its saved input
@@ -1139,8 +1148,11 @@ RTOW_HD void volume_adjoint(const float4* tbl, int npad, const Tris& tris,
 // before the surface, emission, NEE toward L.n_lights lights with the
 // shadow ray's transmittance, the textures; from_diffuse is the input alive
 // code 2) and adds the rows' cotangent to g_lrows (the light rows, then the
-// volume rows from L.vol_row0: all of L's rows x 14).
-template <bool kTris, bool kLit = false>
+// volume rows from L.vol_row0: all of L's rows x 14).  kSweep: the
+// triangle sweeps one thread alone, or the 32 threads of a warp on the same
+// lane (K5's warp form: every thread runs the adjoint on the same inputs
+// and ends with the same cotangents; only lane 0 adds to g_lrows).
+template <bool kTris, bool kLit = false, Sweep kSweep = Sweep::kThread>
 RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
                                   const Tris& tris, const float* s,
                                   int bounce, uint32_t lane, uint32_t salt,
@@ -1156,7 +1168,8 @@ RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
   float best_t;
   int best_k;
   nearest_sphere(tbl, npad, r, a, inv_a, &best_t, &best_k);
-  if constexpr (kTris) nearest_triangle(tris, r, npad, &best_t, &best_k, tally);
+  if constexpr (kTris)
+    nearest_triangle_by<kSweep>(tris, r, npad, &best_t, &best_k, tally);
   const bool nee = kLit && L.n_lights > 0;
 
   if constexpr (kLit) {
@@ -1166,8 +1179,8 @@ RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
                        : -1;
     if (kv >= 0) {  // before the miss: a ray under the sky still scatters
       if (bounce >= max_depth) return -1;  // absorbed: the identity
-      volume_adjoint<kTris>(tbl, npad, tris, L, s, r, kv, v_t, v_alb, nee,
-                            lane, salt, G, gin, g_lrows, tally);
+      volume_adjoint<kTris, kSweep>(tbl, npad, tris, L, s, r, kv, v_t, v_alb,
+                                    nee, lane, salt, G, gin, g_lrows, tally);
       return -1;
     }
   }
@@ -1217,8 +1230,8 @@ RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
   if constexpr (kLit) {
     if (L.emissive && m.kind == kEmissive) {  // at any depth; no scatter
       float g_al[3];
-      emission_adjoint(L, r, a, e.t, m, nee && from_diffuse, s, G, gin, g_al,
-                       &g_tm, g_lrows);
+      emission_adjoint<kSweep>(L, r, a, e.t, m, nee && from_diffuse, s, G,
+                               gin, g_al, &g_tm, g_lrows);
       gin[6] += g_tm;
       const int c0 = is_tri ? 9 : 7;  // the albedo columns
       for (int c = 0; c < 3; ++c) gw[c0 + c] = g_al[c];
@@ -1230,9 +1243,10 @@ RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
   const Scatter sc = scatter(m, e, r, a, w);
   ShadeGrad g = shade_adjoint(e, m, sc, w, r, s, G, gin);
   if (nee && is_diffuse(m.kind))
-    next_event_adjoint<kTris>(tbl, npad, tris, L, s, e.px, e.py, e.pz, e.nx,
-                              e.ny, e.nz, m.alr, m.alg, m.alb, false, lane,
-                              salt, G, gin, &g, &g_tm, g_lrows, tally);
+    next_event_adjoint<kTris, kSweep>(tbl, npad, tris, L, s, e.px, e.py,
+                                      e.pz, e.nx, e.ny, e.nz, m.alr, m.alg,
+                                      m.alb, false, lane, salt, G, gin, &g,
+                                      &g_tm, g_lrows, tally);
   if (tex) texture_adjoint(tbl, best_k, m0, e, &g, gw);
   if (is_tri)
     triangle_hit_adjoint(tris.tbl, best_k - npad, e, r, g, gin, gw);

@@ -41,6 +41,18 @@
 // on the same few triangles, so these atomics contend; warp aggregation is
 // later work.  The order of the atomics changes from run to run, so g_tbl,
 // g_tri and g_rows are reproducible only to float32 rounding of the sums.
+//
+// The drain.  The mesh trainer sorts dead lanes last, and after the first
+// bounces only a few warps at the head of a launch are live: in the thread
+// form each of them walks its lane's triangle hierarchy alone while the
+// card is mostly empty (the shape K3 had before its warp form).  The
+// triangle instances therefore have a warp form too, grad_bwd_warp: one
+// warp per live lane, its 32 threads sweeping the lane's triangles
+// together (nearest_triangle_warp, as K3's warp form) and running the
+// adjoint on the same inputs, lane 0 alone writing.  Which form runs is
+// decided on the card: the launcher issues both, each block reads a device
+// count of the live lanes, and the form that does not run exits at once,
+// so the host needs no sync.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,6 +64,15 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// Where `live` (a device count of the live lanes, or null) is at most
+// `cut`, the warp form (grad_bwd_warp) runs the launch and the thread
+// form's blocks exit at once; a uniform branch, so the host never reads
+// the count.
+__device__ __forceinline__ bool warp_form_runs(const long long* live,
+                                               int cut) {
+  return live != nullptr && *live <= cut;
+}
+
 template <bool kTris, bool kLit>
 __global__ void __launch_bounds__(kThreads)
     grad_bwd(const float4* __restrict__ table, int npad, rtow::Tris tris,
@@ -61,7 +82,10 @@ __global__ void __launch_bounds__(kThreads)
              float* __restrict__ g_tbl, float* __restrict__ g_tri,
              float* __restrict__ g_rows,
              unsigned long long* __restrict__ stats, rtow::Lit lit,
-             int lit_rows) {
+             int lit_rows, const long long* live_count, int cut) {
+  if constexpr (kTris) {
+    if (warp_form_runs(live_count, cut)) return;
+  }
   // One-sided triangles, as JAX's gradient (pallas_grad.py:910), fixed at
   // compile time: the sweep's side test then costs what the cull alone does.
   tris.side_mask = rtow::kKeepSign;
@@ -144,25 +168,171 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The warp form of the triangle instances, for a launch whose live lanes
+// are few (the sorted drain): one warp per live lane.  The grid holds the
+// warps the card runs at once; its threads first copy the dead lanes'
+// cotangents through, then warp w takes lanes w, w + n_warps, ... and for
+// each live one the 32 threads replay it together, sweeping its triangles
+// as one (nearest_triangle_warp, bit-identical to the serial sweep) and
+// running the adjoint on the same inputs, so its branches are uniform.
+// Lane 0 alone writes the lane's cot_in, adds its row cotangent to the
+// shared g_tbl copy or to g_tri, adds to the light rows' sums and counts
+// the lane's work.
+template <bool kLit>
+__global__ void __launch_bounds__(kThreads)
+    grad_bwd_warp(const float4* __restrict__ table, int npad, rtow::Tris tris,
+                  const float* __restrict__ cont, const int* __restrict__ ints,
+                  const float* __restrict__ cot_out, int n, uint32_t salt,
+                  int max_depth, rtow::Background bg,
+                  float* __restrict__ cot_in, float* __restrict__ g_tbl,
+                  float* __restrict__ g_tri, float* __restrict__ g_rows,
+                  unsigned long long* __restrict__ stats, rtow::Lit lit,
+                  int lit_rows, const long long* live_count, int cut) {
+  if (!warp_form_runs(live_count, cut)) return;
+  tris.side_mask = rtow::kKeepSign;
+  extern __shared__ float4 smem[];
+  float4* tbl = smem;
+  float* acc = reinterpret_cast<float*>(smem + 4 * npad);
+  float* lacc = acc + npad * rtow::kCols;
+  for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) tbl[i] = table[i];
+  for (int i = threadIdx.x; i < npad * rtow::kCols; i += blockDim.x)
+    acc[i] = 0.0f;
+  if constexpr (kLit) {
+    float* rows = lacc + lit_rows * rtow::kLitCols;
+    for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x) {
+      rows[i] = lit.rows[i];
+      lacc[i] = 0.0f;
+    }
+    lit.rows = rows;
+  }
+  __syncthreads();
+
+  constexpr int kSphCols = kLit ? rtow::kTexParamGrads : rtow::kParamGrads;
+  const bool lead = (threadIdx.x & 31) == 0;
+  const int n_threads = gridDim.x * kThreads;
+  const int n_warps = n_threads / 32;
+  const size_t stride = static_cast<size_t>(n);
+  // Dead lanes pass their cotangents through, each thread its own lanes.
+  for (int g = blockIdx.x * kThreads + threadIdx.x; g < n; g += n_threads) {
+    if (ints[g] > 0) continue;
+#pragma unroll
+    for (int j = 0; j < rtow::kCont; ++j)
+      cot_in[j * stride + g] = cot_out[j * stride + g];
+  }
+  // Each live lane to one warp: warp w takes lanes w, w + n_warps, ...
+  // (sorted lanes put the live ones at the head, spread over the warps),
+  // its 32 threads reading 32 of them at once and the warp replaying the
+  // live ones among them one after another.
+  const int wl = threadIdx.x & 31;
+  rtow::Tally tally;
+  unsigned long long live = 0;
+  for (int base = (blockIdx.x * kThreads + threadIdx.x) / 32; base < n;
+       base += 32 * n_warps) {
+    const int mine = base + wl * n_warps;
+    const bool mine_live = mine < n && ints[mine] > 0;
+    for (unsigned m = __ballot_sync(0xFFFFFFFFu, mine_live); m != 0u;
+         m &= m - 1u) {
+      const int g = base + (__ffs(static_cast<int>(m)) - 1) * n_warps;
+      const int alive = ints[g];
+      float s[rtow::kCont], G[rtow::kCont], gin[rtow::kCont];
+      float gw[rtow::kCols] = {};
+#pragma unroll
+      for (int j = 0; j < rtow::kCont; ++j) {
+        s[j] = cont[j * stride + g];
+        G[j] = cot_out[j * stride + g];
+      }
+      const int bounce = ints[stride + g];
+      const uint32_t lid = static_cast<uint32_t>(ints[2 * stride + g]);
+      constexpr auto kWarp = rtow::Sweep::kWarp;
+      const int k = rtow::bounce_lane_adjoint_t<true, kLit, kWarp>(
+          tbl, npad, tris, s, bounce, rtow::lane_hash(lid), salt, max_depth,
+          bg, G, gin, gw, &tally, lit, alive > 1, lacc);
+      if (lead) {
+        ++live;
+#pragma unroll
+        for (int j = 0; j < rtow::kCont; ++j) cot_in[j * stride + g] = gin[j];
+        if (k >= npad) {
+          float* row = g_tri + static_cast<size_t>(k - npad) * rtow::kCols;
+#pragma unroll
+          for (int col = 0; col < rtow::kTriParamGrads; ++col) {
+            if (gw[col] != 0.0f) atomicAdd(&row[col], gw[col]);
+          }
+        } else if (k >= 0) {
+#pragma unroll
+          for (int col = 0; col < kSphCols; ++col) {
+            if (gw[col] != 0.0f)
+              atomicAdd(&acc[k * rtow::kCols + col], gw[col]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < npad * rtow::kCols; i += blockDim.x) {
+    const float v = acc[i];
+    if (v != 0.0f) atomicAdd(&g_tbl[i], v);
+  }
+  if constexpr (kLit) {
+    for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x) {
+      const float v = lacc[i];
+      if (v != 0.0f) atomicAdd(&g_rows[i], v);
+    }
+  }
+  if (stats != nullptr) {  // the lanes' work, counted by lane 0 alone
+    rtow::warp_add(lead ? tally.boxes : 0ull, stats);
+    rtow::warp_add(lead ? tally.tris : 0ull, stats + 1);
+    rtow::warp_add(live, stats + 2);
+    if constexpr (kLit) rtow::warp_add(lead ? tally.shadows : 0ull, stats + 3);
+  }
+}
+
+// Launches grad_bwd<kTris, kLit> over n lanes and, for the triangle
+// instances where `live` is given, grad_bwd_warp<kLit> over the warps the
+// card holds at once; each runs the lanes where the other exits (`cut`:
+// the warp form takes launches of at most `cut` live lanes; cut >= n
+// launches the warp form alone).
 template <bool kTris, bool kLit>
 int launch(const float* table, int npad, const rtow::Tris& tris,
            const float* cont, const int* ints, const float* cot_out, int n,
            int it, int seed, int max_depth, const rtow::Background& bg,
            float* cot_in, float* g_tbl, float* g_tri, float* g_rows,
            unsigned long long* stats, const rtow::Lit& lit, int lit_rows,
-           cudaStream_t stream) {
-  auto kernel = grad_bwd<kTris, kLit>;
+           const long long* live, int cut, cudaStream_t stream) {
   const int smem = 2 * (npad * rtow::kCols +
                         (kLit ? lit_rows * rtow::kLitCols : 0)) *
                    static_cast<int>(sizeof(float));
+  const int blocks = (n + kThreads - 1) / kThreads;
+  const uint32_t salt = rtow::salt_of(seed, static_cast<uint32_t>(it));
+  const bool warp = kTris && live != nullptr;
+  if (!warp || cut < n) {
+    auto kernel = grad_bwd<kTris, kLit>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks, kThreads, smem, stream>>>(
+        reinterpret_cast<const float4*>(table), npad, tris, cont, ints,
+        cot_out, n, salt, max_depth, bg, cot_in, g_tbl, g_tri, g_rows, stats,
+        lit, lit_rows, warp ? live : nullptr, cut);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || !warp) return static_cast<int>(err);
+  }
+  auto kernel = grad_bwd_warp<kLit>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int per_sm = 0, device = 0, sms = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (n + kThreads - 1) / kThreads;
-  kernel<<<blocks, kThreads, smem, stream>>>(
+  const int resident = per_sm * sms;
+  kernel<<<resident < blocks ? resident : blocks, kThreads, smem, stream>>>(
       reinterpret_cast<const float4*>(table), npad, tris, cont, ints, cot_out,
-      n, rtow::salt_of(seed, static_cast<uint32_t>(it)), max_depth, bg,
-      cot_in, g_tbl, g_tri, g_rows, stats, lit, lit_rows);
+      n, salt, max_depth, bg, cot_in, g_tbl, g_tri, g_rows, stats, lit,
+      lit_rows, live, cut);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -172,10 +342,12 @@ int dispatch(bool any_lit, const float* table, int npad,
              const float* cot_out, int n, int it, int seed, int max_depth,
              const rtow::Background& bg, float* cot_in, float* g_tbl,
              float* g_tri, float* g_rows, unsigned long long* stats,
-             const rtow::Lit& lit, int lit_rows, cudaStream_t stream) {
+             const rtow::Lit& lit, int lit_rows, const long long* live,
+             int cut, cudaStream_t stream) {
   auto run = any_lit ? launch<kTris, true> : launch<kTris, false>;
   return run(table, npad, tris, cont, ints, cot_out, n, it, seed, max_depth,
-             bg, cot_in, g_tbl, g_tri, g_rows, stats, lit, lit_rows, stream);
+             bg, cot_in, g_tbl, g_tri, g_rows, stats, lit, lit_rows, live,
+             cut, stream);
 }
 
 }  // namespace
@@ -188,8 +360,11 @@ extern "C" {
 // (13, n) float32; ints: (3, n) int32; g_tbl: (npad, 16), g_tri
 // (n_blocks * tri_block, 16) and g_rows (n_rows, 14) float32, zeroed by the
 // caller (g_tri unused without triangles, g_rows without rows);
-// stats and the lit features: as for rtow_grad_fwd.  Returns the
-// cudaError_t of the launch.
+// stats and the lit features: as for rtow_grad_fwd.  live: null (the
+// thread form), or for the triangle instances a device int64 holding the
+// count of live lanes: the warp form then runs where it is at most cut
+// (cut >= n: the warp form alone).  Returns the cudaError_t of the
+// launches.
 int rtow_grad_bwd(const float* table, int npad, const float* tri,
                   const float* boxes, const float* supers,
                   const float* hypers, int n_blocks, int n_super,
@@ -201,7 +376,7 @@ int rtow_grad_bwd(const float* table, int npad, const float* tri,
                   unsigned long long* stats, const float* lit_rows,
                   int n_rows, int emissive, int n_lights, int light_kinds,
                   int checker, int n_vol, int vol_kinds, int vol_row0,
-                  int device, void* stream) {
+                  const long long* live, int cut, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const rtow::Tris tris{reinterpret_cast<const float4*>(tri),
@@ -218,10 +393,10 @@ int rtow_grad_bwd(const float* table, int npad, const float* tri,
   if (tri == nullptr)
     return dispatch<false>(any_lit, table, npad, tris, cont, ints, cot_out, n,
                            it, seed, max_depth, bg, cot_in, g_tbl, nullptr,
-                           g_rows, stats, lit, n_rows, st);
+                           g_rows, stats, lit, n_rows, nullptr, cut, st);
   return dispatch<true>(any_lit, table, npad, tris, cont, ints, cot_out, n,
                         it, seed, max_depth, bg, cot_in, g_tbl, g_tri, g_rows,
-                        stats, lit, n_rows, st);
+                        stats, lit, n_rows, live, cut, st);
 }
 
 const char* rtow_cuda_error_string(int err) {

@@ -1,6 +1,7 @@
 // A host build of the kernels' per-lane code: K4's bounce
-// (rtow::bounce_lane_t) and K5's adjoint (rtow::bounce_lane_adjoint_t) in
-// plain loops over lanes, and the triangle sweep of K3's two forms
+// (rtow::bounce_lane_t) and K5's adjoint (rtow::bounce_lane_adjoint_t, in
+// its thread and warp forms) in plain loops over lanes, and the triangle
+// sweep of K3's two forms
 // (rtow::nearest_triangle, and rtow::nearest_triangle_warp with the warp's
 // 32 lanes played one after another), for the CPU.
 //
@@ -14,8 +15,9 @@
 // plain PyTorch versions in rtow_tpu_torch/ops/grad.py: K4's outputs lane
 // by lane, and K5's input cotangents and row cotangents (sphere, triangle,
 // light and volume) lane by lane, where the card's K5 sums the row
-// cotangents with atomics before anything can compare them; and
-// tests/test_torch_k3_warp.py holds the warp's sweep to the serial one.
+// cotangents with atomics before anything can compare them;
+// tests/test_torch_k3_warp.py holds the warp's sweep to the serial one, and
+// tests/test_torch_k5_warp.py K5's warp form to its thread form.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o lanes.so host_lanes.cpp
 
@@ -72,7 +74,7 @@ void fwd_lanes(const float4* tbl, int npad, const rtow::Tris& tris,
   stats[3] += tally.shadows;
 }
 
-template <bool kTris, bool kLit>
+template <bool kTris, bool kLit, rtow::Sweep kSweep>
 void bwd_lanes(const float4* tbl, int npad, const rtow::Tris& tris,
                const float* cont, const int* ints, const float* cot_out,
                int n, uint32_t salt, int max_depth, const rtow::Background& bg,
@@ -92,7 +94,7 @@ void bwd_lanes(const float4* tbl, int npad, const rtow::Tris& tris,
     int k = -1;
     if (ints[g] > 0) {
       ++live;
-      k = rtow::bounce_lane_adjoint_t<kTris, kLit>(
+      k = rtow::bounce_lane_adjoint_t<kTris, kLit, kSweep>(
           tbl, npad, tris, s, ints[n + g],
           rtow::lane_hash(static_cast<uint32_t>(ints[2 * n + g])), salt,
           max_depth, bg, G, gin, w, &tally, L, ints[g] > 1,
@@ -145,7 +147,45 @@ void rtow_host_fwd(const float* table, int npad, const float* tri,
 // (13, n); winner (n,): the winner id whose row the lane's cotangent gw
 // (n, 16) belongs to (spheres 0 .. npad - 1, triangles npad + row), or -1;
 // g_rows (n, n_rows, 14): the lane's cotangent of the light and volume
-// rows, zeroed by the caller.  The other arguments as for rtow_host_fwd.
+// rows, zeroed by the caller.  The other arguments as for rtow_host_fwd;
+// warp 1 runs K5's warp form (bounce_lane_adjoint_t under Sweep::kWarp,
+// the warp's 32 lanes played in this one thread), 0 the thread form; cull
+// 1 one-sided triangles, 0 two-sided.
+void rtow_host_bwd_by(const float* table, int npad, const float* tri,
+                      const float* boxes, const float* supers,
+                      const float* hypers, int n_blocks, int n_super,
+                      int n_hyper, int tri_block, int tri_count,
+                      const float* cont, const int* ints,
+                      const float* cot_out, int n, int it, int seed,
+                      int max_depth, int use_sky, float bgr, float bgg,
+                      float bgb, float* cot_in, int* winner, float* gw,
+                      float* g_rows, unsigned long long* stats,
+                      const float* lit_rows, int n_rows, int emissive,
+                      int n_lights, int light_kinds, int checker, int n_vol,
+                      int vol_kinds, int vol_row0, int warp, int cull) {
+  rtow::Tris tris = tris_of(tri, boxes, supers, hypers, n_blocks, n_super,
+                            n_hyper, tri_block, tri_count);
+  tris.side_mask = cull ? rtow::kKeepSign : rtow::kDropSign;
+  const rtow::Background bg{use_sky, bgr, bgg, bgb};
+  const rtow::Lit L{lit_rows, emissive, n_lights, checker, n_vol, vol_row0,
+                    0, static_cast<uint32_t>(light_kinds),
+                    static_cast<uint32_t>(vol_kinds)};
+  const bool lit = emissive || n_lights > 0 || checker || n_vol > 0;
+  const auto* tbl = reinterpret_cast<const float4*>(table);
+  const uint32_t salt = rtow::salt_of(seed, static_cast<uint32_t>(it));
+  constexpr auto kT = rtow::Sweep::kThread;
+  constexpr auto kW = rtow::Sweep::kWarp;
+  auto run = tri == nullptr ? (lit ? bwd_lanes<false, true, kT>
+                                   : bwd_lanes<false, false, kT>)
+                            : (lit ? bwd_lanes<true, true, kT>
+                                   : bwd_lanes<true, false, kT>);
+  if (tri != nullptr && warp)
+    run = lit ? bwd_lanes<true, true, kW> : bwd_lanes<true, false, kW>;
+  run(tbl, npad, tris, cont, ints, cot_out, n, salt, max_depth, bg, L, n_rows,
+      cot_in, winner, gw, g_rows, stats);
+}
+
+// rtow_host_bwd_by's thread form on one-sided triangles.
 void rtow_host_bwd(const float* table, int npad, const float* tri,
                    const float* boxes, const float* supers,
                    const float* hypers, int n_blocks, int n_super,
@@ -157,21 +197,12 @@ void rtow_host_bwd(const float* table, int npad, const float* tri,
                    unsigned long long* stats, const float* lit_rows,
                    int n_rows, int emissive, int n_lights, int light_kinds,
                    int checker, int n_vol, int vol_kinds, int vol_row0) {
-  const rtow::Tris tris = tris_of(tri, boxes, supers, hypers, n_blocks,
-                                  n_super, n_hyper, tri_block, tri_count);
-  const rtow::Background bg{use_sky, bgr, bgg, bgb};
-  const rtow::Lit L{lit_rows, emissive, n_lights, checker, n_vol, vol_row0,
-                    0, static_cast<uint32_t>(light_kinds),
-                    static_cast<uint32_t>(vol_kinds)};
-  const bool lit = emissive || n_lights > 0 || checker || n_vol > 0;
-  const auto* tbl = reinterpret_cast<const float4*>(table);
-  const uint32_t salt = rtow::salt_of(seed, static_cast<uint32_t>(it));
-  auto run = tri == nullptr ? (lit ? bwd_lanes<false, true>
-                                   : bwd_lanes<false, false>)
-                            : (lit ? bwd_lanes<true, true>
-                                   : bwd_lanes<true, false>);
-  run(tbl, npad, tris, cont, ints, cot_out, n, salt, max_depth, bg, L, n_rows,
-      cot_in, winner, gw, g_rows, stats);
+  rtow_host_bwd_by(table, npad, tri, boxes, supers, hypers, n_blocks,
+                   n_super, n_hyper, tri_block, tri_count, cont, ints,
+                   cot_out, n, it, seed, max_depth, use_sky, bgr, bgg, bgb,
+                   cot_in, winner, gw, g_rows, stats, lit_rows, n_rows,
+                   emissive, n_lights, light_kinds, checker, n_vol,
+                   vol_kinds, vol_row0, 0, 1);
 }
 
 // The triangle sweep alone for n rays: rays (7, n) float32 ox oy oz dx dy

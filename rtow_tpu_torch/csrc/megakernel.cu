@@ -12,11 +12,18 @@
 // What bounds it on Hopper: float32 ALU work and warp divergence, not bytes.
 // The cover's table is 512 rows x 64 B = 32 KB, read once per block, and a
 // bounce moves no lane state through memory: each sweep is ~25 float32
-// operations per sphere per ray, and lanes of a warp run paths of different
-// lengths.  The design answers that with lane-private state in registers, a
-// per-thread loop (a warp retires when its slowest pixel is done, as a TPU
-// tile does), and the sphere table served from shared memory as broadcast
-// 16-byte loads (every thread of a warp reads the same sphere).  The
+// operations per sphere row tested per ray (built with -fmad=false, each
+// multiply and add its own instruction), and lanes of a warp run paths of
+// different lengths.  The design answers that with lane-private state in
+// registers, a per-thread loop (a warp retires when its slowest pixel is
+// done, as a TPU tile does), and the sphere table served from shared memory
+// as broadcast 16-byte loads.  Since the instructions run near their
+// ceiling, the sweep tests fewer rows: each thread slab-tests the boxes of
+// the table's Morton-ordered row groups (SphereGroups, 16-128 rows each,
+// staged in shared memory behind the table; the JAX kernel culls 128-row
+// blocks per tile, _sweep_all :390) and sweeps only the groups its ray
+// enters before its current best t (the shadow sweep's threshold), so the
+// winner is the brute-force sweep's, bit for bit.  The
 // triangle table (up to 16,384 rows x 64 B = 1 MB) does not fit shared
 // memory: it stays in global memory, read through the read-only path and
 // held in L2, and each thread slab-tests every 128-row block's box and
@@ -69,12 +76,16 @@
 // pix = tile * 1024 + row * 128 + col over 8x128-pixel tiles, salt
 // mix(seed + it * 40503) with `it` the lane's own step count (classic) or
 // the row's iteration count (pool).  The sweep
-// tests every sphere (no block cull; culling never changes the winner) and
 // keeps the JAX tie rule: the first minimal t in table order wins.  Stats:
 // ray steps (live lane-iterations), lane slots (32 x each warp's longest
 // loop under the classic scheduler, 128 x each row's iterations under the
-// pool: steps / slots is the occupancy), and the triangle sweep's box and
-// triangle tests.
+// pool: steps / slots is the occupancy), the sphere groups' box tests and
+// rows swept, and the triangle sweep's box and triangle tests.
+//
+// The ticker (pipeline.render_megakernel(progress=True)): one whole-frame
+// launch, each block adding its two finished tile rows to a counter in
+// mapped, pinned host memory (a system-scope atomic after
+// __threadfence_system) that the host polls while the launch runs.
 //
 // Numbers: float32 throughout with IEEE division and square root, built with
 // -fmad=false, so every operation rounds as in the plain version.
@@ -90,6 +101,8 @@ constexpr int kTileRows = 8;
 constexpr int kLanes = 128;
 constexpr int kTile = kTileRows * kLanes;
 constexpr int kThreads = 256;
+// Every instance sweeps the spheres group by group.
+constexpr auto kCull = rtow::SphereCull::kGroups;
 
 struct Cam {
   float ox, oy, oz, ux, uy, uz, vx, vy, vz, llx, lly, llz;
@@ -164,20 +177,28 @@ __device__ __forceinline__ void camera_ray(const Cam& c, uint32_t lane,
 // kPool: the work pool's scheduler, else the classic one.
 template <bool kTris, bool kLit, bool kTwoSided, bool kPool>
 __global__ void __launch_bounds__(kThreads)
-    megakernel(const float4* __restrict__ table, int npad, rtow::Tris tris,
+    megakernel(const float4* __restrict__ table, int npad,
+               rtow::SphereGroups sg, rtow::Tris tris,
                const float* __restrict__ cam_vec, int seed, int width,
                int height, int tile0, int spp, int max_depth,
                rtow::Background bg, float* __restrict__ out_r,
                float* __restrict__ out_g, float* __restrict__ out_b,
                unsigned long long* __restrict__ steps,
                unsigned long long* __restrict__ tests,
-               unsigned long long* __restrict__ shadows, rtow::Lit lit,
-               int lit_rows, Pool P, unsigned long long* __restrict__ slots) {
+               unsigned long long* __restrict__ shadows,
+               unsigned long long* __restrict__ spheres, rtow::Lit lit,
+               int lit_rows, Pool P, unsigned long long* __restrict__ slots,
+               unsigned int* progress) {
   tris.side_mask = kTwoSided ? rtow::kDropSign : rtow::kKeepSign;
-  extern __shared__ float4 tbl[];  // npad rows x 4 float4, then lit rows
+  // npad rows x 4 float4, the group boxes (2 float4 each), then lit rows
+  extern __shared__ float4 tbl[];
   for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) tbl[i] = table[i];
+  float4* boxes = tbl + npad * 4;
+  for (int i = threadIdx.x; i < sg.count * 2; i += blockDim.x)
+    boxes[i] = sg.boxes[i];
+  sg.boxes = boxes;
   if constexpr (kLit) {
-    float* rows = reinterpret_cast<float*>(tbl + npad * 4);
+    float* rows = reinterpret_cast<float*>(boxes + sg.count * 2);
     for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x)
       rows[i] = lit.rows[i];
     lit.rows = rows;
@@ -221,9 +242,10 @@ __global__ void __launch_bounds__(kThreads)
           ++started;
         }
         // ---- one bounce (bounce.cuh) -----------------------------------
-        code = rtow::bounce_lane_t<kTris, kLit>(tbl, npad, tris, s, &bounce,
-                                                lane, salt, max_depth, bg,
-                                                &tally, lit, from_diffuse);
+        code = rtow::bounce_lane_t<kTris, kLit, rtow::Sweep::kThread,
+                                   kCull>(tbl, npad, tris, s, &bounce, lane,
+                                          salt, max_depth, bg, &tally, lit,
+                                          from_diffuse, sg);
       }
     }
     n_steps = it;
@@ -296,10 +318,10 @@ __global__ void __launch_bounds__(kThreads)
           --rem;
         }
         if (code != 0 || need) {
-          code = rtow::bounce_lane_t<kTris, kLit>(tbl, npad, tris, s,
-                                                  &bounce, lane, salt,
-                                                  max_depth, bg, &tally, lit,
-                                                  from_diffuse);
+          code = rtow::bounce_lane_t<kTris, kLit, rtow::Sweep::kThread,
+                                     kCull>(tbl, npad, tris, s, &bounce,
+                                            lane, salt, max_depth, bg,
+                                            &tally, lit, from_diffuse, sg);
           ++n_steps;
           last_live = it + 1;
         }
@@ -335,29 +357,41 @@ __global__ void __launch_bounds__(kThreads)
   }
   if (kLit && shadows != nullptr)  // stats: NEE shadow rays
     rtow::warp_add(tally.shadows, shadows);
+  if (spheres != nullptr) {  // stats: the sphere groups' box and row tests
+    rtow::warp_add(tally.sph_boxes, spheres);
+    rtow::warp_add(tally.sph_rows, spheres + 1);
+  }
+  if (progress != nullptr) {  // the ticker: the block's two rows are done
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence_system();
+      atomicAdd_system(progress, kThreads / kLanes);
+    }
+  }
 }
 
 template <bool kTris, bool kLit, bool kTwoSided, bool kPool>
-int launch(const float* table, int npad, const rtow::Tris& tris,
-           const float* cam, int seed, int width, int height, int tile0,
-           int spp, int max_depth, int n_tiles, const rtow::Background& bg,
-           float* out_r, float* out_g, float* out_b,
-           unsigned long long* steps, unsigned long long* tests,
-           unsigned long long* shadows, const rtow::Lit& lit, int lit_rows,
-           const Pool& pool, unsigned long long* slots,
+int launch(const float* table, int npad, const rtow::SphereGroups& sg,
+           const rtow::Tris& tris, const float* cam, int seed, int width,
+           int height, int tile0, int spp, int max_depth, int n_tiles,
+           const rtow::Background& bg, float* out_r, float* out_g,
+           float* out_b, unsigned long long* steps, unsigned long long* tests,
+           unsigned long long* shadows, unsigned long long* spheres,
+           const rtow::Lit& lit, int lit_rows, const Pool& pool,
+           unsigned long long* slots, unsigned int* progress,
            cudaStream_t stream) {
   auto kernel = megakernel<kTris, kLit, kTwoSided, kPool>;
-  const int smem = (npad * rtow::kCols + (kLit ? lit_rows * rtow::kLitCols
-                                               : 0)) *
+  const int smem = (npad * rtow::kCols + sg.count * 8 +
+                    (kLit ? lit_rows * rtow::kLitCols : 0)) *
                    static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = n_tiles * (kTile / kThreads);
   kernel<<<blocks, kThreads, smem, stream>>>(
-      reinterpret_cast<const float4*>(table), npad, tris, cam, seed, width,
-      height, tile0, spp, max_depth, bg, out_r, out_g, out_b, steps, tests,
-      shadows, lit, lit_rows, pool, slots);
+      reinterpret_cast<const float4*>(table), npad, sg, tris, cam, seed,
+      width, height, tile0, spp, max_depth, bg, out_r, out_g, out_b, steps,
+      tests, shadows, spheres, lit, lit_rows, pool, slots, progress);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -366,22 +400,24 @@ int launch(const float* table, int npad, const rtow::Tris& tris,
 // pool's scheduler where pool.k > 0.
 template <bool kTris, bool kPool>
 int dispatch(bool any_lit, const float* table, int npad,
-             const rtow::Tris& tris, const float* cam, int seed, int width,
-             int height, int tile0, int spp, int max_depth, int n_tiles,
-             const rtow::Background& bg, float* out_r, float* out_g,
-             float* out_b, unsigned long long* steps,
-             unsigned long long* tests, unsigned long long* shadows,
+             const rtow::SphereGroups& sg, const rtow::Tris& tris,
+             const float* cam, int seed, int width, int height, int tile0,
+             int spp, int max_depth, int n_tiles, const rtow::Background& bg,
+             float* out_r, float* out_g, float* out_b,
+             unsigned long long* steps, unsigned long long* tests,
+             unsigned long long* shadows, unsigned long long* spheres,
              const rtow::Lit& lit, int lit_rows, const Pool& pool,
-             unsigned long long* slots, cudaStream_t stream) {
+             unsigned long long* slots, unsigned int* progress,
+             cudaStream_t stream) {
   const bool two_sided = kTris && tris.side_mask == rtow::kDropSign;
   auto run = any_lit ? launch<kTris, true, false, kPool>
                      : launch<kTris, false, false, kPool>;
   if (two_sided)
     run = any_lit ? launch<kTris, true, kTris, kPool>
                   : launch<kTris, false, kTris, kPool>;
-  return run(table, npad, tris, cam, seed, width, height, tile0, spp,
+  return run(table, npad, sg, tris, cam, seed, width, height, tile0, spp,
              max_depth, n_tiles, bg, out_r, out_g, out_b, steps, tests,
-             shadows, lit, lit_rows, pool, slots, stream);
+             shadows, spheres, lit, lit_rows, pool, slots, progress, stream);
 }
 
 }  // namespace
@@ -389,36 +425,48 @@ int dispatch(bool any_lit, const float* table, int npad,
 extern "C" {
 
 // Launches the kernel over tiles tile0 .. tile0 + n_tiles - 1 on `stream`.
-// table: (npad, 16) float32, 16-byte aligned (npad may be 0); tri: null, or
+// table: (npad, 16) float32, 16-byte aligned (npad may be 0); sph_boxes:
+// (n_groups, 8) float32 boxes of the table's groups of sph_group rows
+// (n_groups * sph_group = npad); tri: null, or
 // (tri_blocks * tri_block, 16) float32 rows with (tri_blocks, 8) block boxes
 // tri_boxes, of which the first tri_count rows are triangles; cam: (21,)
 // float32; outputs: (n_tiles * 8, 128) float32 each; steps: null, or one
 // uint64 that the launch adds its ray steps to; tests: null, or two uint64
 // that it adds its box and triangle tests to; shadows: null, or one uint64
-// that it adds its NEE shadow rays to.  The lit features: lit_rows,
+// that it adds its NEE shadow rays to; spheres: null, or two uint64 that it
+// adds its sphere-group box tests and sphere rows swept to.  The lit
+// features: lit_rows,
 // the (vol_row0 + n_vol or n_lights) x 14 float32 light then volume rows;
 // emissive, checker, roulette flags; n_lights lights of kinds light_kinds
 // and n_vol volumes of kinds vol_kinds (2 bits each, row 0 lowest); cull:
 // 1 one-sided triangles, 0 two-sided.  pool: 1 the work pool with items
 // of pool_chunk samples handed out every pool_k iterations, 0 the classic
 // scheduler; slots: null, or one uint64 that the launch adds its lane
-// slots to.  Returns the cudaError_t of the launch.
-int rtow_megakernel(const float* table, int npad, const float* tri,
+// slots to; progress: null, or a device pointer to one uint32 (mapped host
+// memory from rtow_progress_alloc) that each block adds its two finished
+// tile rows to.  Returns the cudaError_t of the launch.
+int rtow_megakernel(const float* table, int npad, const float* sph_boxes,
+                    int sph_group, int n_groups, const float* tri,
                     const float* tri_boxes, int tri_blocks, int tri_block,
                     int tri_count, const float* cam, int seed, int width,
                     int height, int tile0, int spp, int max_depth, int n_tiles,
                     int use_sky, float bgr, float bgg, float bgb, float* out_r,
                     float* out_g, float* out_b, unsigned long long* steps,
                     unsigned long long* tests, unsigned long long* shadows,
-                    const float* lit_rows,
+                    unsigned long long* spheres, const float* lit_rows,
                     int emissive, int n_lights, int light_kinds, int checker,
                     int n_vol, int vol_kinds, int vol_row0, int roulette,
                     int cull, int pool, int pool_chunk, int pool_k,
-                    unsigned long long* slots, int device, void* stream) {
+                    unsigned long long* slots, unsigned int* progress,
+                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (pool && (pool_chunk < 1 || pool_k < 1))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (n_groups * sph_group != npad)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const rtow::SphereGroups sg{reinterpret_cast<const float4*>(sph_boxes),
+                              sph_group, n_groups};
   const rtow::Tris tris{reinterpret_cast<const float4*>(tri),
                         reinterpret_cast<const float4*>(tri_boxes),
                         nullptr, nullptr, tri_blocks, 0, 0, tri_block,
@@ -437,9 +485,24 @@ int rtow_megakernel(const float* table, int npad, const float* tri,
                                     : dispatch<true, false>)
                             : (pool ? dispatch<false, true>
                                     : dispatch<false, false>);
-  return run(any_lit, table, npad, tris, cam, seed, width, height, tile0, spp,
-             max_depth, n_tiles, bg, out_r, out_g, out_b, steps, tests,
-             shadows, lit, rows, P, slots, st);
+  return run(any_lit, table, npad, sg, tris, cam, seed, width, height, tile0,
+             spp, max_depth, n_tiles, bg, out_r, out_g, out_b, steps, tests,
+             shadows, spheres, lit, rows, P, slots, progress, st);
+}
+
+// One uint32 of mapped, pinned host memory for the ticker's counter:
+// *host is its host address, *dev the address the kernel adds to.
+// Returns the cudaError_t of the allocation.
+int rtow_progress_alloc(int device, unsigned int** host, unsigned int** dev) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaHostAlloc(reinterpret_cast<void**>(host), sizeof(unsigned int),
+                        cudaHostAllocMapped);
+  if (err == cudaSuccess) {
+    **host = 0u;
+    err = cudaHostGetDevicePointer(reinterpret_cast<void**>(dev), *host, 0);
+  }
+  return static_cast<int>(err);
 }
 
 const char* rtow_cuda_error_string(int err) {

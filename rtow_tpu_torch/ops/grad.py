@@ -436,12 +436,20 @@ bounce_fwd.lit_launches = 0
 bounce_fwd.vol_launches = 0
 
 
+#: K5's warp form (``grad_bwd_warp``) runs a triangle launch of at most
+#: this many live lanes; the thread form runs the rest.
+WARP_MAX_LIVE = 240000
+#: K5's forms: the one picked on the card from the live count, or one of
+#: the two forced.
+BWD_FORMS = ("auto", "thread", "warp")
+
+
 def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
                tbl: torch.Tensor, tris: Optional[TriTable] = None, *,
                it: int, seed: int, max_depth: int,
                background: Union[str, tuple] = "sky", flat: bool = False,
                stats: Optional[torch.Tensor] = None, lit: Lit = Lit(),
-               cull: bool = True):
+               cull: bool = True, form: str = "auto"):
     """One backward bounce (``_bounce_grad_bwd``, :639) from the bounce's
     saved input state -> (cot_in (13, L), g_tbl (Npad, 16), g_tri (Mpad,
     16) or None without ``tris``, g_rows (R, 14) or None without light or
@@ -451,7 +459,18 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
     A CUDA ``tbl`` launches ``csrc/grad_bwd.cu`` (counted in
     ``bounce_bwd.launches``, ``lit_launches`` and ``vol_launches``, as for
     :func:`bounce_fwd`); a CPU ``tbl`` runs
-    :func:`bounce_bwd_reference`; any other device raises."""
+    :func:`bounce_bwd_reference`; any other device raises.  With
+    triangles, ``form`` "auto" issues both of K5's forms, and the card
+    runs the warp form (one warp per live lane) where the launch has at
+    most ``WARP_MAX_LIVE`` live lanes, from a count it keeps on the card,
+    the thread form elsewhere; "thread" and "warp" force one.  Launches
+    that issue the warp form are also counted in
+    ``bounce_bwd.warp_launches``.  Both forms give the same cot_in and
+    counters, and table gradients that differ only by the atomics'
+    order."""
+    if form not in BWD_FORMS or (form == "warp" and tris is None):
+        raise ValueError(f"form {form!r}: one of {BWD_FORMS}, and the warp "
+                         f"form needs triangles")
     it, seed, max_depth = _check("grad_bwd kernel", tbl, tris, cont, ints,
                                  cot_out, stats, lit, cull, it=it,
                                  seed=seed, max_depth=max_depth)
@@ -466,6 +485,9 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
     g_tbl = torch.zeros_like(tbl)
     g_tri = None if tris is None else torch.zeros_like(tris.tbl)
     g_rows = None if lit.rows is None else torch.zeros_like(lit.rows)
+    n = cont.shape[1]
+    warp = tris is not None and form != "thread"
+    live = torch.count_nonzero(ints[0]) if warp else None
     err = lib.rtow_grad_bwd(
         tbl.data_ptr(), tbl.shape[0], *_tri_args(tris, flat),
         cont.data_ptr(), ints.data_ptr(), cot_out.data_ptr(), cont.shape[1],
@@ -473,19 +495,23 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
         g_tbl.data_ptr(), None if g_tri is None else g_tri.data_ptr(),
         None if g_rows is None else g_rows.data_ptr(),
         None if stats is None else stats.data_ptr(), *_lit_args(lit),
-        *_cuda.device_args(tbl))
+        None if live is None else live.data_ptr(),
+        n if form == "warp" else WARP_MAX_LIVE, *_cuda.device_args(tbl))
     _cuda.check_launch(lib, err, "grad_bwd")
     bounce_bwd.launches += 1
     bounce_bwd.lit_launches += lit.any
     bounce_bwd.vol_launches += bool(lit.vol_kinds)
+    bounce_bwd.warp_launches += warp
     return cot_in, g_tbl, g_tri, g_rows
 
 
 #: Kernel launches made by :func:`bounce_bwd` in this process, those of
-#: them that ran a lit instance, and those of these that ran media.
+#: them that ran a lit instance, those of these that ran media, and those
+#: that issued the warp form.
 bounce_bwd.launches = 0
 bounce_bwd.lit_launches = 0
 bounce_bwd.vol_launches = 0
+bounce_bwd.warp_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -502,7 +528,7 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.rtow_grad_fwd.restype = i
     else:
         lib.rtow_grad_bwd.argtypes = [p, i, *tri, p, p, p, i, i, i, i, i, f,
-                                      f, f, p, p, p, p, p, *lit, i, p]
+                                      f, f, p, p, p, p, p, *lit, p, i, i, p]
         lib.rtow_grad_bwd.restype = i
     return lib
 

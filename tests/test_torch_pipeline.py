@@ -20,7 +20,7 @@ from rtow_tpu import cli as jax_cli
 from rtow_tpu.config import Config as JaxConfig
 from rtow_tpu.models.builders import scene_for_config as jax_scene_for_config
 from rtow_tpu.pipeline import render_pallas
-from rtow_tpu_torch import cli
+from rtow_tpu_torch import cli, pipeline
 from rtow_tpu_torch.config import Config
 from rtow_tpu_torch.models.builders import scene_for_config
 from rtow_tpu_torch.ops import megakernel as mk
@@ -46,18 +46,28 @@ def test_slice_matches_render_pallas():
     assert np.abs(got - want).mean() <= 5e-3
 
 
-def test_banded_progress_path_bit_identical(capsys):
-    """The 10-band ticker path (tile0 > 0 launches) renders the same
-    image as the whole-frame launch."""
+def test_banded_progress_path_bit_identical(capsys, monkeypatch):
+    """The ticker path renders the same image as the whole-frame render,
+    in one call of K1's plain version (a frame of 20 tiles, which the
+    ticker once cut into 10 bands), and ends the ticker at 0."""
     cfg = Config(device="cpu", image_width=130, aspect_ratio=130 / 80,
                  samples_per_pixel=1, max_child_rays=3, seed=5)
     assert mk.n_tiles_for(cfg.image_width, cfg.image_height) == 20
     scene, cam = scene_for_config(cfg)
     whole = render_megakernel(scene, cam, cfg)
+    calls = []
+
+    def counted(*args, **kw):
+        calls.append(args[3])
+        return mk.render_blocks(*args, **kw)
+
+    monkeypatch.setattr(pipeline, "render_blocks", counted)
     banded = render_megakernel(scene, cam, cfg, progress=True)
     np.testing.assert_array_equal(banded, whole)
+    assert calls == [20]
     err = capsys.readouterr().err
-    assert "Scanlines remaining: 0" in err
+    assert err.count("Scanlines remaining:") == 1
+    assert "Scanlines remaining: 0   \n" in err
     assert "10400px x 1spp, depth 3, cpu)" in err
 
 
