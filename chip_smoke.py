@@ -26,7 +26,8 @@ held against the unbiased render; a middle tenth of each of these
 renders' tiles is launched again with ``cli.main``'s inputs and held bit
 for bit against the plain version) and mesh inverse rendering (K4's and
 K5's triangle instances against their plain versions on the 4,096- and
-65,536-triangle knots, flat and down the hierarchy; three
+65,536-triangle knots, flat and down the hierarchy, K5 as picked and in
+its warp form; three
 ``diff.build_train_step`` steps on the 65k knot at 256x256, 16 samples
 per pixel, depth 8, with the lanes sorted; the forward and
 forward+backward times of both bench knots; each K4 and K5 launch timed
@@ -298,7 +299,7 @@ def main() -> None:
         raise SystemExit(f"chip_smoke: imported rtow_tpu_torch from "
                          f"{pkg_dir}, not from beside this script")
 
-    from rtow_tpu_torch import cli
+    from rtow_tpu_torch import cli, pipeline
     from rtow_tpu_torch.config import Config
     from rtow_tpu_torch.models.builders import cover_scene, three_sphere_scene
     from rtow_tpu_torch.models.camera import make_camera
@@ -463,6 +464,28 @@ def main() -> None:
                  f"{stats[-1]}")
     launches, pool_launches = runs5["classic"][0], runs5["pool"][0]
     cover_radiance = runs5["pool"][2]
+    # What the ticker costs the render: render_megakernel with and without
+    # it, in turns (ticker, none, none, ticker), the same image bit for bit.
+    cfg5 = Config(image_width=W_MAIN, aspect_ratio=ASPECT,
+                  samples_per_pixel=spp_main, max_child_rays=50)
+    scene5, cam5 = cover_scene(cfg5, device=dev)
+    walls, imgs = {True: [], False: []}, {}
+    for prog in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            imgs[prog] = pipeline.render_megakernel(scene5, cam5, cfg5,
+                                                    progress=prog)
+        walls[prog].append((time.perf_counter() - t0) * 1e3)
+    check(bool((imgs[True] == imgs[False]).all()),
+          "render_megakernel: the ticker's image differs from the render "
+          "without it")
+    tick_ms = statistics.mean(walls[True]) - statistics.mean(walls[False])
+    say("5", f"render_megakernel on the cover {W_MAIN}x{H_MAIN} spp"
+             f"{spp_main} d50 (pool) on {card}, ms in turns: with the ticker "
+             f"{', '.join(f'{x:.2f}' for x in walls[True])}, without "
+             f"{', '.join(f'{x:.2f}' for x in walls[False])}; the ticker "
+             f"costs {tick_ms:.2f} ms; the same image bit for bit")
 
     # ---- (6) kernel and plain times at the main path's shape -----------
     # The classic scheduler, as every earlier PR timed it, then the pool.
@@ -873,6 +896,18 @@ def plant_faults(torch, k, p, sums, what, vol_row0=None) -> str:
         seen.append(f"{fault} max |d| / scale {r[1]:.3g}, coherent entries "
                     f"off {r[2]:.3g}")
     return f"{what} (" + "; ".join(seen) + ")"
+
+
+@contextlib.contextmanager
+def k5_form(G, form):
+    """K5 forced to its "thread" or "warp" form, or left to pick ("auto"),
+    through its cut-over ``G.WARP_MAX_LIVE``."""
+    keep = G.WARP_MAX_LIVE
+    G.WARP_MAX_LIVE = {"thread": -1, "warp": 1 << 30, "auto": keep}[form]
+    try:
+        yield
+    finally:
+        G.WARP_MAX_LIVE = keep
 
 
 def check_k5(torch, kern, plain, what, sums=None):
@@ -1820,7 +1855,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
     # the 4,096-triangle knot over a ground sphere, flat and hierarchy.
     knots = {"4k": knot(64, 32, ground=True),
              "65k": knot(*KNOTS["65k"]), "360k": knot(*KNOTS["360k"])}
-    lines, errs = [], []
+    lines, errs, errs_warp = [], [], []
     for name in ("4k", "65k"):
         for flat in (False, True):
             tbl, tris, tape = tape_of(knots[name], flat)
@@ -1866,6 +1901,19 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
                 check(torch.equal(kb, ks) and torch.equal(pb, ps),
                       f"K5 {name} knot, bounce {it}: its replay counted "
                       f"{kb.tolist()} / {pb.tolist()}, K4 {ks.tolist()}")
+                # The warp form forced at every bounce, held to the same
+                # plain version by the same rule.
+                kw_ = counters()
+                with k5_form(G, "warp"):
+                    warp = G.bounce_bwd(cont, ints, cot, tbl, tris,
+                                        stats=kw_, **a)
+                res_w = check_k5(torch, warp, plain,
+                                 f"{name} knot, flat={flat}, bounce {it}, "
+                                 f"warp form", sums=sums)
+                check(torch.equal(kw_, ks),
+                      f"K5's warp form {name} knot, bounce {it}: counted "
+                      f"{kw_.tolist()}, K4 {ks.tolist()}")
+                errs_warp.extend(r[0] for r in res_w.values())
                 for part, r in res.items():
                     worst[part] = max(worst.get(part, 0.0), r[1])
                     errs.append(r[0])
@@ -1895,7 +1943,8 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
               f"counters (box tests, triangle tests, live lanes), K5's "
               f"replay counting the same, K5 within {GRAD_TOL} of the scale "
               f"(cot_in: its row's max |plain|; g_tbl, g_tri: the column's "
-              f"largest sum of |terms|); " + "; ".join(lines))
+              f"largest sum of |terms|), as picked and in the warp form "
+              f"forced (max |d| {max(errs_warp):.3g}); " + "; ".join(lines))
 
     # ---- (20) mesh inverse rendering at full size ------------------------
     scene = knots["65k"]
@@ -2082,10 +2131,11 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
             ct = torch.from_numpy(rng.standard_normal((13, c.shape[1]))
                                   .astype(np.float32)).to(dev)
             res, st = {}, {}
-            for form in G.BWD_FORMS:
+            for form in ("auto", "thread", "warp"):
                 st[form] = counters()
-                res[form] = G.bounce_bwd(c, i, ct, t_tbl, t_tris,
-                                         stats=st[form], form=form, **a)
+                with k5_form(G, form):
+                    res[form] = G.bounce_bwd(c, i, ct, t_tbl, t_tris,
+                                             stats=st[form], **a)
             ref = res["thread"]
             for form in ("warp", "auto"):
                 what = f"K5 {form} form, {tname}, launch {it}"
@@ -2106,8 +2156,10 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
                 c, i, t_tbl, t_tris, **a), 3)}
             turns = {"thread": [], "warp": []}
             for form in ("thread", "warp", "warp", "thread"):
-                turns[form].append(per_launch_ms(torch, lambda: G.bounce_bwd(
-                    c, i, ct, t_tbl, t_tris, form=form, **a), 3))
+                with k5_form(G, form):
+                    turns[form].append(per_launch_ms(
+                        torch, lambda: G.bounce_bwd(c, i, ct, t_tbl, t_tris,
+                                                    **a), 3))
             ms.update({f: statistics.mean(v) for f, v in turns.items()})
             ms["auto"] = per_launch_ms(torch, lambda: G.bounce_bwd(
                 c, i, ct, t_tbl, t_tris, **a), 3)
@@ -2136,7 +2188,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
         "source": "rtow_tpu_torch/csrc/grad_bwd.cu",
         "replaces": "rtow_tpu/ops/pallas_grad.py:224",
         "launches": main_launches[2],
-        "max_abs_err": 0.0,
+        "max_abs_err": max(errs_warp),
         "ms": k5_forms["65k knot"]["warp"],
         "plain_ms": plain_ms[1],
         "bound_ms": rows[1]["bound_ms"],

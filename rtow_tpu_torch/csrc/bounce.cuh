@@ -314,6 +314,7 @@ struct Tris {
 // The sweep's work, counted per thread for the kernels' stats.
 struct Tally {
   unsigned long long boxes = 0, tris = 0, shadows = 0;
+  unsigned long long sph_boxes = 0, sph_rows = 0;  // K1's culled sweep
 };
 
 #ifdef __CUDACC__
@@ -346,6 +347,74 @@ RTOW_HD bool box_entered(const float4* box, int b, const Ray& r, float idx,
   const float exit = fminf(fminf(fmaxf(tx0, tx1), fmaxf(ty0, ty1)),
                            fminf(fmaxf(tz0, tz1), best_t));
   return exit > enter;
+}
+
+// ---- K1's culled sphere sweep --------------------------------------------
+
+// How a ray sweeps the sphere table: every row (K3, K4, K5), or only the
+// row groups whose box it enters (K1).  A compile-time policy of
+// bounce_lane_t and next_event, as Sweep is, so the instances that test
+// every row compile as they did before the cull existed.
+enum class SphereCull { kNone, kGroups };
+
+// Rows per group of K1's sphere cull (megakernel.SPHERE_GROUP): the
+// fastest of 16, 32, 64 and 128 on every sphere scene timed (PERF.md).
+constexpr int kSphereGroup = 16;
+
+// The sphere table's row groups: `count` groups of kSphereGroup consecutive
+// rows in table (Morton) order, each with the box of its rows' swept bounds
+// (8 floats a box, as a triangle block's: min xyz, max xyz, 0, 0), padded as
+// build_sphere_table pads the JAX kernel's blocks.  The boxes stay in global
+// memory, read through the read-only cache (every thread of a warp reads the
+// same box), so the shared memory holds as large a sphere table as it did
+// before the cull.
+struct SphereGroups {
+  const float4* boxes = nullptr;
+  int count = 0;
+};
+
+RTOW_HD float4 load_read_only(const float4* p) {
+#ifdef __CUDA_ARCH__
+  return __ldg(p);
+#else
+  return *p;
+#endif
+}
+
+// nearest_sphere over the groups whose box the ray enters under its
+// current best t (the shadow sweep's threshold at first), in table order.
+// Inside a group the rows and the strict `<` are nearest_sphere's, and a
+// group skipped holds no row hit below the best t (every row's swept bound
+// lies in its box), so (t, k) is the brute-force sweep's, bit for bit.
+// tally gets the box tests and the rows swept.
+RTOW_HD void nearest_sphere_culled(const float4* tbl, const SphereGroups& G,
+                                   const Ray& r, float a, float inv_a,
+                                   float t_init, float* best_t, int* best_k,
+                                   Tally* tally) {
+  const float idx = 1.0f / r.dx;
+  const float idy = 1.0f / r.dy;
+  const float idz = 1.0f / r.dz;
+  float bt = t_init;
+  int bk = 0;
+  tally->sph_boxes += static_cast<unsigned long long>(G.count);
+  for (int g = 0; g < G.count; ++g) {
+    const float4 box[2] = {load_read_only(G.boxes + 2 * g),
+                           load_read_only(G.boxes + 2 * g + 1)};
+    if (!box_entered(box, 0, r, idx, idy, idz, bt)) continue;
+    tally->sph_rows += static_cast<unsigned long long>(kSphereGroup);
+    float gt;
+    int gk;
+    // The group's rows: nearest_sphere over a table that starts at row
+    // g * kSphereGroup, from the best t so far.
+    nearest_sphere(tbl + 4 * g * kSphereGroup, kSphereGroup, r, a, inv_a, bt,
+                   &gt, &gk);
+    if (gt < bt) {
+      bt = gt;
+      bk = g * kSphereGroup + gk;
+    }
+  }
+  *best_t = bt;
+  *best_k = bk;
 }
 
 // Moller-Trumbore in the reference's determinant form with its backface cull
@@ -491,6 +560,18 @@ struct Warp {
 #endif
   }
 };
+
+// Whether the calling thread writes its lane's shared results (sums into
+// shared or global memory, a lane's outputs, counters): every thread of a
+// per-thread form; in the warp form, where the 32 threads hold the same
+// results, lane 0 alone; a host build's one thread.
+template <Sweep kSweep>
+RTOW_HD bool writes_lane() {
+#ifdef __CUDA_ARCH__
+  if constexpr (kSweep == Sweep::kWarp) return (threadIdx.x & 31u) == 0u;
+#endif
+  return true;
+}
 
 RTOW_HD int lowest_bit(uint32_t m) {
 #ifdef __CUDA_ARCH__
@@ -1020,13 +1101,15 @@ RTOW_HD int volume_event(const Lit& L, const Ray& r, uint32_t lane,
 // ray's medium transmittance, and the shadow sweep from t_init = the
 // light's distance less 0.1%.  Adds the contribution to s[10..12] where
 // the shadow ray gets through; tally counts the shadow ray.  kSweep: how the
-// shadow ray sweeps the triangles.
-template <bool kTris, Sweep kSweep = Sweep::kThread>
+// shadow ray sweeps the triangles; kCull: how it sweeps the spheres (the
+// groups sg under SphereCull::kGroups).
+template <bool kTris, Sweep kSweep = Sweep::kThread,
+          SphereCull kCull = SphereCull::kNone>
 RTOW_HD void next_event(const float4* tbl, int npad, const Tris& tris,
                         const Lit& L, float* s, float px, float py, float pz,
                         float nx, float ny, float nz, float nar, float nag,
                         float nab, bool volume, uint32_t lane, uint32_t salt,
-                        Tally* tally) {
+                        Tally* tally, SphereGroups sg = SphereGroups{}) {
   const float pick = uniform(lane, salt, 8);
   const float u1 = uniform(lane, salt, 9);
   const float u2 = uniform(lane, salt, 10);
@@ -1048,7 +1131,11 @@ RTOW_HD void next_event(const float4* tbl, int npad, const Tris& tris,
   ++tally->shadows;
   float st;
   int sk;
-  nearest_sphere(tbl, npad, sr, la, 1.0f / la, thresh, &st, &sk);
+  if constexpr (kCull == SphereCull::kGroups)
+    nearest_sphere_culled(tbl, sg, sr, la, 1.0f / la, thresh, &st, &sk,
+                          tally);
+  else
+    nearest_sphere(tbl, npad, sr, la, 1.0f / la, thresh, &st, &sk);
   if constexpr (kTris)
     nearest_triangle_by<kSweep>(tris, sr, npad, &st, &sk, tally);
   if (st >= thresh) {
@@ -1097,18 +1184,25 @@ RTOW_HD bool roulette(const Lit& L, float* s, int bounce, uint32_t lane,
 // kSweep: the triangle sweeps (the main one and the shadow rays') one
 // thread alone, or the 32 threads of a warp on the same lane (K3's warp
 // form: every thread of the warp runs the whole bounce on the same inputs
-// and ends with the same s, bounce and tally).
-template <bool kTris, bool kLit = false, Sweep kSweep = Sweep::kThread>
+// and ends with the same s, bounce and tally).  kCull: the sphere sweeps
+// over every row, or over the groups sg whose box the ray enters (K1).
+template <bool kTris, bool kLit = false, Sweep kSweep = Sweep::kThread,
+          SphereCull kCull = SphereCull::kNone>
 RTOW_HD int bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
                           float* s, int* bounce, uint32_t lane, uint32_t salt,
                           int max_depth, const Background& bg, Tally* tally,
-                          const Lit& L = Lit{}, bool from_diffuse = false) {
+                          const Lit& L = Lit{}, bool from_diffuse = false,
+                          SphereGroups sg = SphereGroups{}) {
   const Ray r{s[0], s[1], s[2], s[3], s[4], s[5], s[6]};
   const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
   const float inv_a = 1.0f / a;
   float best_t;
   int best_k;
-  nearest_sphere(tbl, npad, r, a, inv_a, &best_t, &best_k);
+  if constexpr (kCull == SphereCull::kGroups)
+    nearest_sphere_culled(tbl, sg, r, a, inv_a, kBig, &best_t, &best_k,
+                          tally);
+  else
+    nearest_sphere(tbl, npad, r, a, inv_a, &best_t, &best_k);
   if constexpr (kTris)
     nearest_triangle_by<kSweep>(tris, r, npad, &best_t, &best_k, tally);
   const bool nee = kLit && L.n_lights > 0;
@@ -1121,9 +1215,10 @@ RTOW_HD int bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
       const float vpy = r.oy + v_t * r.dy;
       const float vpz = r.oz + v_t * r.dz;
       if (nee)
-        next_event<kTris, kSweep>(tbl, npad, tris, L, s, vpx, vpy, vpz, 0.0f,
-                                  0.0f, 0.0f, v_alb[0], v_alb[1], v_alb[2],
-                                  true, lane, salt, tally);
+        next_event<kTris, kSweep, kCull>(tbl, npad, tris, L, s, vpx, vpy,
+                                         vpz, 0.0f, 0.0f, 0.0f, v_alb[0],
+                                         v_alb[1], v_alb[2], true, lane, salt,
+                                         tally, sg);
       const Draws w = draw_scatter(lane, salt);
       s[0] = vpx;
       s[1] = vpy;
@@ -1182,9 +1277,9 @@ RTOW_HD int bounce_lane_t(const float4* tbl, int npad, const Tris& tris,
     if (*bounce >= max_depth) return 0;
     diffuse = is_diffuse(m.kind);
     if (nee && diffuse)
-      next_event<kTris, kSweep>(tbl, npad, tris, L, s, e.px, e.py, e.pz,
-                                e.nx, e.ny, e.nz, m.alr, m.alg, m.alb, false,
-                                lane, salt, tally);
+      next_event<kTris, kSweep, kCull>(tbl, npad, tris, L, s, e.px, e.py,
+                                       e.pz, e.nx, e.ny, e.nz, m.alr, m.alg,
+                                       m.alb, false, lane, salt, tally, sg);
   }
   advance(s, bounce, e, scatter(m, e, r, a, draw_scatter(lane, salt)));
   if constexpr (kLit) {

@@ -19,11 +19,12 @@
 // done, as a TPU tile does), and the sphere table served from shared memory
 // as broadcast 16-byte loads.  Since the instructions run near their
 // ceiling, the sweep tests fewer rows: each thread slab-tests the boxes of
-// the table's Morton-ordered row groups (SphereGroups, 16-128 rows each,
-// staged in shared memory behind the table; the JAX kernel culls 128-row
-// blocks per tile, _sweep_all :390) and sweeps only the groups its ray
-// enters before its current best t (the shadow sweep's threshold), so the
-// winner is the brute-force sweep's, bit for bit.  The
+// the table's Morton-ordered row groups (SphereGroups, kSphereGroup = 16
+// rows each, the boxes read from global memory through the read-only
+// cache; the JAX kernel culls 128-row blocks per tile, _sweep_all :390)
+// and sweeps only the groups its ray enters before its current best t (the
+// shadow sweep's threshold), so the winner is the brute-force sweep's, bit
+// for bit.  The
 // triangle table (up to 16,384 rows x 64 B = 1 MB) does not fit shared
 // memory: it stays in global memory, read through the read-only path and
 // held in L2, and each thread slab-tests every 128-row block's box and
@@ -190,15 +191,10 @@ __global__ void __launch_bounds__(kThreads)
                int lit_rows, Pool P, unsigned long long* __restrict__ slots,
                unsigned int* progress) {
   tris.side_mask = kTwoSided ? rtow::kDropSign : rtow::kKeepSign;
-  // npad rows x 4 float4, the group boxes (2 float4 each), then lit rows
-  extern __shared__ float4 tbl[];
+  extern __shared__ float4 tbl[];  // npad rows x 4 float4, then lit rows
   for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) tbl[i] = table[i];
-  float4* boxes = tbl + npad * 4;
-  for (int i = threadIdx.x; i < sg.count * 2; i += blockDim.x)
-    boxes[i] = sg.boxes[i];
-  sg.boxes = boxes;
   if constexpr (kLit) {
-    float* rows = reinterpret_cast<float*>(boxes + sg.count * 2);
+    float* rows = reinterpret_cast<float*>(tbl + npad * 4);
     for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x)
       rows[i] = lit.rows[i];
     lit.rows = rows;
@@ -381,8 +377,8 @@ int launch(const float* table, int npad, const rtow::SphereGroups& sg,
            unsigned long long* slots, unsigned int* progress,
            cudaStream_t stream) {
   auto kernel = megakernel<kTris, kLit, kTwoSided, kPool>;
-  const int smem = (npad * rtow::kCols + sg.count * 8 +
-                    (kLit ? lit_rows * rtow::kLitCols : 0)) *
+  const int smem = (npad * rtow::kCols + (kLit ? lit_rows * rtow::kLitCols
+                                               : 0)) *
                    static_cast<int>(sizeof(float));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -426,8 +422,8 @@ extern "C" {
 
 // Launches the kernel over tiles tile0 .. tile0 + n_tiles - 1 on `stream`.
 // table: (npad, 16) float32, 16-byte aligned (npad may be 0); sph_boxes:
-// (n_groups, 8) float32 boxes of the table's groups of sph_group rows
-// (n_groups * sph_group = npad); tri: null, or
+// (n_groups, 8) float32 boxes of the table's groups of kSphereGroup rows
+// (n_groups * kSphereGroup = npad); tri: null, or
 // (tri_blocks * tri_block, 16) float32 rows with (tri_blocks, 8) block boxes
 // tri_boxes, of which the first tri_count rows are triangles; cam: (21,)
 // float32; outputs: (n_tiles * 8, 128) float32 each; steps: null, or one
@@ -446,7 +442,7 @@ extern "C" {
 // memory from rtow_progress_alloc) that each block adds its two finished
 // tile rows to.  Returns the cudaError_t of the launch.
 int rtow_megakernel(const float* table, int npad, const float* sph_boxes,
-                    int sph_group, int n_groups, const float* tri,
+                    int n_groups, const float* tri,
                     const float* tri_boxes, int tri_blocks, int tri_block,
                     int tri_count, const float* cam, int seed, int width,
                     int height, int tile0, int spp, int max_depth, int n_tiles,
@@ -463,10 +459,10 @@ int rtow_megakernel(const float* table, int npad, const float* sph_boxes,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (pool && (pool_chunk < 1 || pool_k < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_groups * sph_group != npad)
+  if (n_groups * rtow::kSphereGroup != npad)
     return static_cast<int>(cudaErrorInvalidValue);
   const rtow::SphereGroups sg{reinterpret_cast<const float4*>(sph_boxes),
-                              sph_group, n_groups};
+                              n_groups};
   const rtow::Tris tris{reinterpret_cast<const float4*>(tri),
                         reinterpret_cast<const float4*>(tri_boxes),
                         nullptr, nullptr, tri_blocks, 0, 0, tri_block,

@@ -65,7 +65,7 @@ import torch
 
 from ..models.camera import Camera, Rays, camera_rays, pixel_coords
 from ..models.scene import IMAGE, Scene
-from . import _cuda
+from . import _cuda, flat_bounce
 from .lights import LIGHT_COLS, build_light_table
 from .megakernel import (
     BIG, TBL_COLS, TRI_PARAMS, Lit, TriTable, _kind_bits, background_args,
@@ -437,11 +437,15 @@ bounce_fwd.vol_launches = 0
 
 
 #: K5's warp form (``grad_bwd_warp``) runs a triangle launch of at most
-#: this many live lanes; the thread form runs the rest.
-WARP_MAX_LIVE = 240000
-#: K5's forms: the one picked on the card from the live count, or one of
-#: the two forced.
-BWD_FORMS = ("auto", "thread", "warp")
+#: this many live lanes; the thread form runs the rest.  It is K3's cut,
+#: measured on K3's launches (:data:`.flat_bounce.WARP_MAX_LIVE`).  K5's
+#: own launches, timed alone in both forms on the 65k knot and the lit 65k
+#: knot (``chip_smoke.py`` phase 20), put its cut between 235,170 live
+#: lanes (the warp form wins) and 1,048,576 (it loses); those tapes have no
+#: launch in between, so any cut there picks the same forms.  Read at each
+#: call: a launch's lane count or more runs the warp form alone, below 0
+#: the thread form runs every launch.
+WARP_MAX_LIVE = flat_bounce.WARP_MAX_LIVE
 
 
 def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
@@ -449,7 +453,7 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
                it: int, seed: int, max_depth: int,
                background: Union[str, tuple] = "sky", flat: bool = False,
                stats: Optional[torch.Tensor] = None, lit: Lit = Lit(),
-               cull: bool = True, form: str = "auto"):
+               cull: bool = True):
     """One backward bounce (``_bounce_grad_bwd``, :639) from the bounce's
     saved input state -> (cot_in (13, L), g_tbl (Npad, 16), g_tri (Mpad,
     16) or None without ``tris``, g_rows (R, 14) or None without light or
@@ -460,17 +464,13 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
     ``bounce_bwd.launches``, ``lit_launches`` and ``vol_launches``, as for
     :func:`bounce_fwd`); a CPU ``tbl`` runs
     :func:`bounce_bwd_reference`; any other device raises.  With
-    triangles, ``form`` "auto" issues both of K5's forms, and the card
-    runs the warp form (one warp per live lane) where the launch has at
-    most ``WARP_MAX_LIVE`` live lanes, from a count it keeps on the card,
-    the thread form elsewhere; "thread" and "warp" force one.  Launches
-    that issue the warp form are also counted in
-    ``bounce_bwd.warp_launches``.  Both forms give the same cot_in and
-    counters, and table gradients that differ only by the atomics'
-    order."""
-    if form not in BWD_FORMS or (form == "warp" and tris is None):
-        raise ValueError(f"form {form!r}: one of {BWD_FORMS}, and the warp "
-                         f"form needs triangles")
+    triangles, it issues both of K5's forms, and the card runs the warp
+    form (one warp per live lane) where the launch has at most
+    ``WARP_MAX_LIVE`` live lanes, from a count it keeps on the card, the
+    thread form elsewhere.  Launches that issue the warp form are also
+    counted in ``bounce_bwd.warp_launches``.  Both forms give the same
+    cot_in and counters, and table gradients that differ only by the
+    atomics' order."""
     it, seed, max_depth = _check("grad_bwd kernel", tbl, tris, cont, ints,
                                  cot_out, stats, lit, cull, it=it,
                                  seed=seed, max_depth=max_depth)
@@ -485,8 +485,7 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
     g_tbl = torch.zeros_like(tbl)
     g_tri = None if tris is None else torch.zeros_like(tris.tbl)
     g_rows = None if lit.rows is None else torch.zeros_like(lit.rows)
-    n = cont.shape[1]
-    warp = tris is not None and form != "thread"
+    warp = tris is not None
     live = torch.count_nonzero(ints[0]) if warp else None
     err = lib.rtow_grad_bwd(
         tbl.data_ptr(), tbl.shape[0], *_tri_args(tris, flat),
@@ -496,7 +495,7 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
         None if g_rows is None else g_rows.data_ptr(),
         None if stats is None else stats.data_ptr(), *_lit_args(lit),
         None if live is None else live.data_ptr(),
-        n if form == "warp" else WARP_MAX_LIVE, *_cuda.device_args(tbl))
+        WARP_MAX_LIVE, *_cuda.device_args(tbl))
     _cuda.check_launch(lib, err, "grad_bwd")
     bounce_bwd.launches += 1
     bounce_bwd.lit_launches += lit.any

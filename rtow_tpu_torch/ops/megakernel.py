@@ -41,8 +41,9 @@ table its median-split order, so the nearest hit resolves ties the same
 way: the winner is the first minimal ``t`` in table order, spheres
 before triangles (winner ids: spheres ``0 .. Npad - 1``, triangles from
 ``Npad``).  Each lane slab-tests a triangle block's box before it sweeps
-the block; the TPU culls per tile.  A culled block holds no triangle the
-ray can hit, so the winner does not change.
+the block, and K1 each sphere group's box (:func:`sphere_groups`,
+:func:`nearest_sphere_culled`); the TPU culls per tile.  A culled block
+or group holds nothing the ray can hit, so the winner does not change.
 
 The plain bounce is shared with the other kernels' plain versions
 (``ops/grad.py``, ``ops/flat_bounce.py``), as ``csrc/bounce.cuh`` is
@@ -57,6 +58,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import os
 from typing import NamedTuple, Optional, Tuple, Union
 
@@ -71,6 +73,9 @@ LANES = 128
 TILE = TILE_ROWS * LANES
 #: Spheres per Morton block (table rows are padded to a multiple).
 SPHERE_BLOCK = 128
+#: K1's sphere cull: rows per group of the table (:func:`sphere_groups`;
+#: ``kSphereGroup`` in ``csrc/bounce.cuh``, fixed at compile time).
+SPHERE_GROUP = 16
 
 # Sphere-table columns.
 (_C0X, _C0Y, _C0Z, _DCX, _DCY, _DCZ, _R, _ALR, _ALG, _ALB, _FUZZ, _IR,
@@ -255,8 +260,9 @@ def build_sphere_table(scene) -> Tuple[torch.Tensor, torch.Tensor]:
 
     Rows are in Morton order of the spheres' motion-swept bounds;
     padding rows have r = 0 and a far-away center, so they are never
-    hit.  The block boxes are the JAX kernel's culling boxes; the CUDA
-    kernel sweeps every row and does not read them.  A scene without
+    hit.  The block boxes are the JAX kernel's culling boxes; K1 culls
+    by the finer groups of :func:`sphere_groups` instead, and K3, K4 and
+    K5 sweep every row.  A scene without
     spheres gets empty tables (the JAX kernels' ``n_blocks = 0``)."""
     sp = scene.spheres
     mats = scene.materials
@@ -287,7 +293,7 @@ def build_sphere_table(scene) -> Tuple[torch.Tensor, torch.Tensor]:
         mats.albedo2[mid, 0], mats.albedo2[mid, 1], mats.albedo2[mid, 2],
     ], dim=1).to(_F32)
     pad = torch.zeros((npad - n, TBL_COLS), dtype=_F32, device=dev)
-    pad[:, _C0X] = 1.0e9
+    pad[:, _C0X] = _PAD_CENTER
     tbl = torch.cat([tbl, pad])
 
     big = 1.0e30
@@ -300,6 +306,52 @@ def build_sphere_table(scene) -> Tuple[torch.Tensor, torch.Tensor]:
     boxes = torch.cat([blk_min - pad_eps, blk_max + pad_eps,
                        torch.zeros((nb, 2), dtype=_F32, device=dev)], dim=1)
     return tbl, boxes.to(_F32)
+
+
+#: A padding row's centre x (its radius is 0).
+_PAD_CENTER = 1.0e9
+
+
+def sphere_groups(tbl: torch.Tensor,
+                  shutter: Tuple[float, float] = (0.0, 1.0)) -> torch.Tensor:
+    """The boxes of sphere table ``tbl``'s groups of ``SPHERE_GROUP``
+    rows in table (Morton) order, (npad / SPHERE_GROUP, 8) float32 (min
+    xyz, max xyz, 0, 0) on ``tbl``'s device: K1's sphere cull, the port's
+    counterpart of the JAX kernel's 128-row block boxes.
+
+    A group's box holds each of its rows' bounds swept over the times
+    [min(t0, 0), max(t1, 1)] of ``shutter`` = (t0, t1) (the centre moves
+    linearly, so its two ends bound it), padded as
+    :func:`build_sphere_table` pads its blocks (1e-4 + 1e-4 x extent), so
+    a ray that hits a row below its best t enters the row's box first.
+    Padding rows (radius 0, centre at 1e9) are never hit and are left
+    out: a group of padding only gets a box at +infinity, never entered."""
+    t_lo, t_hi = min(float(shutter[0]), 0.0), max(float(shutter[1]), 1.0)
+    c0, dc = tbl[:, _C0X:_DCX], tbl[:, _DCX:_R]
+    ca, cb = c0 + t_lo * dc, c0 + t_hi * dc
+    r_abs = tbl[:, _R:_R + 1].abs()
+    pad = ((tbl[:, _R] == 0.0) & (tbl[:, _C0X] == _PAD_CENTER))[:, None]
+    big = 1.0e30
+    smin = torch.where(pad, big, torch.minimum(ca, cb) - r_abs)
+    smax = torch.where(pad, -big, torch.maximum(ca, cb) + r_abs)
+    ng = tbl.shape[0] // SPHERE_GROUP
+    gmin = smin.reshape(ng, SPHERE_GROUP, 3).amin(dim=1)
+    gmax = smax.reshape(ng, SPHERE_GROUP, 3).amax(dim=1)
+    pad_eps = 1e-4 + 1e-4 * (gmax - gmin).abs()
+    lo, hi = gmin - pad_eps, gmax + pad_eps
+    # A group of padding only: a box at infinity, which no ray enters (an
+    # inverted box would pass the slab test, whose min / max swap it).
+    empty = (gmin > gmax).any(dim=1, keepdim=True)
+    lo, hi = torch.where(empty, math.inf, lo), torch.where(empty, math.inf, hi)
+    boxes = torch.cat([lo, hi, torch.zeros((ng, 2), dtype=_F32,
+                                           device=tbl.device)], dim=1)
+    return boxes.to(_F32).contiguous()
+
+
+def camera_shutter(cam: torch.Tensor) -> Tuple[float, float]:
+    """(t0, t1) of a camera vector from :func:`pack_camera`."""
+    t0, dt = cam[19:21].tolist()
+    return t0, t0 + dt
 
 
 class TriTable(NamedTuple):
@@ -574,21 +626,28 @@ def render_blocks_reference(
     pool_chunk: Optional[int] = None,
     pool_k: Optional[int] = None,
     slots: Optional[torch.Tensor] = None,
+    spheres: Optional[torch.Tensor] = None,
+    progress: Optional["ProgressCounter"] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the megakernel, on ``tbl``'s device.
 
     The classic scheduler runs the per-lane loop vectorised over a chunk
     of lanes at a time, dropping lanes as they finish; the pool runs the
-    per-row loop vectorised over every row (:func:`_trace_pool`).  Same
-    inputs and outputs as :func:`render_blocks`."""
+    per-row loop vectorised over every row (:func:`_trace_pool`).  Both
+    sweep the spheres group by group, as the kernel does
+    (:func:`nearest_sphere_culled`).  Same inputs and outputs as
+    :func:`render_blocks`; ``progress`` gets every tile row at the end."""
     knobs = pool_knobs(pool, pool_chunk, pool_k)
     seed, width, height, _n_pixels, tile0, spp, max_depth = meta
     dev = tbl.device
     cam_f = [float(x) for x in cam.detach().cpu()]
-    tally = [0, 0, 0]  # box tests, triangle tests, shadow rays
+    groups = sphere_groups(tbl, (cam_f[19], cam_f[19] + cam_f[20]))
+    # box tests, triangle tests, shadow rays, sphere-group box tests,
+    # sphere rows swept
+    tally = [0, 0, 0, 0, 0]
     kw = dict(seed=seed, width=width, height=height, spp=spp,
               max_depth=max_depth, background=background, tris=tris,
-              tally=tally, lit=lit, cull=cull)
+              tally=tally, lit=lit, cull=cull, groups=groups)
     if knobs.on:
         out, n_steps, n_slots = _trace_pool(tbl, cam_f, n_tiles, tile0,
                                             knobs, **kw)
@@ -603,12 +662,16 @@ def render_blocks_reference(
         tests += torch.tensor(tally[:2], device=dev)
     if shadows is not None:
         shadows += tally[2]
+    if spheres is not None:
+        spheres += torch.tensor(tally[3:], device=dev)
+    if progress is not None:
+        progress.add(n_tiles * TILE_ROWS)
     planes = out.view(3, n_tiles * TILE_ROWS, LANES)
     return planes[0], planes[1], planes[2]
 
 
 def _trace_classic(tbl, cam, n_tiles, tile0, *, seed, width, height, spp,
-                   max_depth, background, tris, tally, lit, cull):
+                   max_depth, background, tris, tally, lit, cull, groups):
     """The classic scheduler: (radiance sums (3, n_tiles * 1024), ray
     steps, lane slots = 32 x each warp's longest loop)."""
     dev = tbl.device
@@ -636,14 +699,14 @@ def _trace_classic(tbl, cam, n_tiles, tile0, *, seed, width, height, spp,
             tbl, cam, pix[idx], prow[idx], pcol[idx], seed=seed,
             width=width, height=height, spp=spp, max_depth=max_depth,
             background=background, tris=tris, tally=tally, lit=lit,
-            cull=cull)
+            cull=cull, groups=groups)
         n_steps += n
     n_slots = 32 * int(its.view(-1, 32).amax(dim=1).sum())
     return out, n_steps, n_slots
 
 
 def _trace_lanes(tbl, cam, pix, prow, pcol, *, seed, width, height, spp,
-                 max_depth, background, tris, tally, lit, cull):
+                 max_depth, background, tris, tally, lit, cull, groups):
     """(radiance sums (3, L) of lanes ``pix`` after ``spp`` samples, each
     lane's step count, ray steps taken)."""
     dev = tbl.device
@@ -694,7 +757,8 @@ def _trace_lanes(tbl, cam, pix, prow, pcol, *, seed, width, height, spp,
         state, code, bounce = bounce_lanes(
             tbl, tris, (ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb, rr, rg,
                         rb), lane, salt, bounce, max_depth, background,
-            lit=lit, from_diffuse=from_diffuse, tally=tally, cull=cull)
+            lit=lit, from_diffuse=from_diffuse, tally=tally, cull=cull,
+            groups=groups)
         (ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb, rr, rg, rb) = state
         code = code.to(torch.int32)
         it += 1
@@ -759,7 +823,8 @@ def _pool_flush(acc, rad, cur, take):
 
 
 def _trace_pool(tbl, cam, n_tiles, tile0, knobs: Pool, *, seed, width,
-                height, spp, max_depth, background, tris, tally, lit, cull):
+                height, spp, max_depth, background, tris, tally, lit, cull,
+                groups):
     """The work pool (``_kernel`` with ``RTOW_POOL=1``, :1492-1615,
     :1689-1726), one loop over all rows at once: (radiance sums (3,
     n_tiles * 1024), ray steps, lane slots = 128 x each row's
@@ -861,7 +926,8 @@ def _trace_pool(tbl, cam, n_tiles, tile0, knobs: Pool, *, seed, width,
             new, new_code, new_bounce = bounce_lanes(
                 tbl, tris, tuple(v[live] for v in state), lane[live], salt,
                 bounce[live], max_depth, background, lit=lit,
-                from_diffuse=from_diffuse, tally=tally, cull=cull)
+                from_diffuse=from_diffuse, tally=tally, cull=cull,
+                groups=groups)
             for j, v in enumerate(new):
                 state[j] = state[j].index_put((live,), v)
             code = code.index_put((live,), new_code.to(torch.int32))
@@ -875,7 +941,8 @@ def _trace_pool(tbl, cam, n_tiles, tile0, knobs: Pool, *, seed, width,
 
 def bounce_lanes(tbl, tris, state, lane, salt, bounce, max_depth, background,
                  *, lit: Lit = Lit(), from_diffuse=None, tally=None,
-                 flat: bool = True, cull: bool = True):
+                 flat: bool = True, cull: bool = True,
+                 groups: Optional[torch.Tensor] = None):
     """One bounce of live lanes in ``_bounce_core``'s order (:1358-1430):
     the sweep; the volume event; next-event estimation with its shadow
     sweep (from ``t_init`` = the light's distance less 0.1%, counted in
@@ -884,12 +951,21 @@ def bounce_lanes(tbl, tris, state, lane, salt, bounce, max_depth, background,
     previous bounce's diffuse flags (with NEE).  Both triangle sweeps go
     down the table's hierarchy unless ``flat`` (K1 sweeps flat, K3
     descends: :func:`nearest_triangle`); ``cull`` False makes triangles
-    two-sided.  Returns (new 13-tuple, alive code, bounce)."""
+    two-sided.  Both sphere sweeps test every row, or with ``groups``,
+    the boxes from :func:`sphere_groups` (K1), only the groups each ray
+    enters (:func:`nearest_sphere_culled`,
+    counted in ``tally``).  Returns (new 13-tuple, alive code, bounce)."""
     ox, oy, oz, dx, dy, dz, tm, tpr, tpg, tpb, rr, rg, rb = state
+
+    def spheres(*ray, t_init=None):
+        if groups is None:
+            return nearest_sphere(tbl, *ray, t_init=t_init)
+        return nearest_sphere_culled(tbl, groups, *ray, t_init=t_init,
+                                     tally=tally)
+
     a = dx * dx + dy * dy + dz * dz
     npad = tbl.shape[0]
-    best_t, best_k = nearest_sphere(tbl, ox, oy, oz, dx, dy, dz, tm, a,
-                                    1.0 / a)
+    best_t, best_k = spheres(ox, oy, oz, dx, dy, dz, tm, a, 1.0 / a)
     if tris is not None:
         best_t, best_k = nearest_triangle(
             tris, ox, oy, oz, dx, dy, dz, best_t, best_k, npad, flat=flat,
@@ -913,8 +989,8 @@ def bounce_lanes(tbl, tris, state, lane, salt, bounce, max_depth, background,
             sx, sy, sz, lx, ly, lz = (v[sub] for v in (px, py, pz, ldx, ldy,
                                                        ldz))
             la = lx * lx + ly * ly + lz * lz
-            s_t, s_k = nearest_sphere(tbl, sx, sy, sz, lx, ly, lz, tm[sub], la,
-                                      1.0 / la, t_init=thresh[sub])
+            s_t, s_k = spheres(sx, sy, sz, lx, ly, lz, tm[sub], la, 1.0 / la,
+                               t_init=thresh[sub])
             if tris is not None:
                 s_t, _ = nearest_triangle(tris, sx, sy, sz, lx, ly, lz, s_t,
                                           s_k, npad, flat=flat, cull=cull,
@@ -983,6 +1059,86 @@ def nearest_sphere(tbl, ox, oy, oz, dx, dy, dz, tm, a, inv_a, t_init=None):
     return best_t, best_k
 
 
+def box_entered(box, org, inv, best_t, idx):
+    """Lanes of ``idx`` whose ray (origins ``org``, inverse directions
+    ``inv``, each an xyz triple of (L,) tensors) enters ``box`` (8 floats:
+    min xyz, max xyz) inside [T_MIN, best_t] (``_box_enter_exit``, :444;
+    fmin / fmax ignore a NaN from 0 * inf, as the kernels' fminf / fmaxf
+    do)."""
+    return idx[box_enters(box, [o[idx] for o in org], [i[idx] for i in inv],
+                          best_t[idx])]
+
+
+def box_enters(box, org, inv, best_t) -> torch.Tensor:
+    """:func:`box_entered` as a mask over every lane of ``org``."""
+    t0 = [(box[a] - org[a]) * inv[a] for a in range(3)]
+    t1 = [(box[3 + a] - org[a]) * inv[a] for a in range(3)]
+    lo = [torch.fmin(p, q) for p, q in zip(t0, t1)]
+    hi = [torch.fmax(p, q) for p, q in zip(t0, t1)]
+    t_min = torch.tensor(T_MIN, dtype=_F32, device=best_t.device)
+    enter = torch.fmax(torch.fmax(lo[0], lo[1]), torch.fmax(lo[2], t_min))
+    exit_ = torch.fmin(torch.fmin(hi[0], hi[1]), torch.fmin(hi[2], best_t))
+    return exit_ > enter
+
+
+def nearest_sphere_culled(tbl, groups: torch.Tensor, ox, oy, oz, dx, dy,
+                          dz, tm, a, inv_a, t_init=None,
+                          tally: Optional[list] = None):
+    """:func:`nearest_sphere` over the row groups each ray enters (K1's
+    cull, ``nearest_sphere_culled`` in ``csrc/bounce.cuh``), ``groups``
+    the boxes from :func:`sphere_groups`: group by
+    group in table order, a lane slab-tests the group's box with its
+    current best t and takes the group's rows only where its ray enters
+    the box, the first minimal t winning inside a group and only a
+    strictly smaller one across groups.  Every row's swept bound lies in
+    its group's box, so (best_t, best_k) is the brute-force sweep's, bit
+    for bit.  Vectorised over the lanes: each row's hit t (the kernel's
+    row test before its compare with the best t) and each group's first
+    minimum are computed for every lane up front, then the groups are
+    walked in order.  ``tally`` (a list of at least 5 counts) gets the
+    box tests added to entry 3 and the rows swept to entry 4, as the
+    kernel counts them."""
+    n, w = ox.shape[0], SPHERE_GROUP
+    best_t = torch.full_like(ox, BIG) if t_init is None else t_init.clone()
+    best_k = torch.zeros(ox.shape, dtype=torch.int64, device=ox.device)
+    if not tbl.shape[0]:  # no spheres: no groups
+        return best_t, best_k
+    o3x, o3y, o3z = ox[:, None], oy[:, None], oz[:, None]
+    d3x, d3y, d3z = dx[:, None], dy[:, None], dz[:, None]
+    tm3, a3, inva3 = tm[:, None], a[:, None], inv_a[:, None]
+    g_t, g_k = [], []
+    for b0 in range(0, tbl.shape[0], SPHERE_BLOCK):
+        blk = tbl[b0:b0 + SPHERE_BLOCK]
+        ocx = o3x - (blk[:, _C0X] + tm3 * blk[:, _DCX])
+        ocy = o3y - (blk[:, _C0Y] + tm3 * blk[:, _DCY])
+        ocz = o3z - (blk[:, _C0Z] + tm3 * blk[:, _DCZ])
+        r_ = blk[:, _R]
+        h = ocx * d3x + ocy * d3y + ocz * d3z
+        cc = ocx * ocx + ocy * ocy + ocz * ocz - r_ * r_
+        disc = h * h - a3 * cc
+        pos = disc > 0.0
+        sq = torch.sqrt(torch.where(pos, disc, 1.0))
+        near = (-h - sq) * inva3
+        v = torch.where(near >= T_MIN, near, (-h + sq) * inva3)
+        t = torch.where(pos & (v >= T_MIN), v, BIG)
+        t, k = t.view(n, -1, w).min(dim=2)
+        g_t.append(t)
+        g_k.append(k)
+    g_t, g_k = torch.cat(g_t, dim=1), torch.cat(g_k, dim=1)
+    org, inv = (ox, oy, oz), (1.0 / dx, 1.0 / dy, 1.0 / dz)
+    rows = torch.zeros((), dtype=torch.int64, device=ox.device)
+    for g, box in enumerate(groups.tolist()):
+        enters = box_enters(box, org, inv, best_t)
+        rows += enters.sum()
+        upd = enters & (g_t[:, g] < best_t)
+        best_t = torch.where(upd, g_t[:, g], best_t)
+        best_k = torch.where(upd, g_k[:, g] + g * w, best_k)
+    if tally is not None:
+        tally[3] += n * groups.shape[0]
+        tally[4] += int(rows) * w
+    return best_t, best_k
+
+
 def nearest_triangle(tris: TriTable, ox, oy, oz, dx, dy, dz, best_t, best_k,
                      base: int, *, flat: bool = False, cull: bool = True,
                      tally: Optional[list] = None):
@@ -1004,7 +1160,6 @@ def nearest_triangle(tris: TriTable, ox, oy, oz, dx, dy, dz, best_t, best_k,
     best_t, best_k = best_t.clone(), best_k.clone()
     inv = (1.0 / dx, 1.0 / dy, 1.0 / dz)
     org = (ox, oy, oz)
-    t_min = torch.tensor(T_MIN, dtype=_F32, device=ox.device)
     tb = tris.block
     if flat or not tris.n_super:
         levels = [tris.boxes.tolist()]
@@ -1015,19 +1170,9 @@ def nearest_triangle(tris: TriTable, ox, oy, oz, dx, dy, dz, best_t, best_k,
         levels = [tris.supers.tolist(), tris.boxes.tolist()]
 
     def entered(box, idx):
-        """Lanes of ``idx`` whose ray enters ``box`` (``_box_enter_exit``,
-        :444; fmin / fmax ignore a NaN from 0 * inf, as the kernels'
-        fminf / fmaxf do)."""
-        t0 = [(box[a] - org[a][idx]) * inv[a][idx] for a in range(3)]
-        t1 = [(box[3 + a] - org[a][idx]) * inv[a][idx] for a in range(3)]
-        lo = [torch.fmin(p, q) for p, q in zip(t0, t1)]
-        hi = [torch.fmax(p, q) for p, q in zip(t0, t1)]
-        enter = torch.fmax(torch.fmax(lo[0], lo[1]), torch.fmax(lo[2], t_min))
-        exit_ = torch.fmin(torch.fmin(hi[0], hi[1]),
-                           torch.fmin(hi[2], best_t[idx]))
         if tally is not None:
             tally[0] += idx.numel()
-        return idx[exit_ > enter]
+        return box_entered(box, org, inv, best_t, idx)
 
     def sweep(b, idx):
         rows = min(tb, tris.count - b * tb)
@@ -1538,6 +1683,8 @@ def render_blocks(
     pool_chunk: Optional[int] = None,
     pool_k: Optional[int] = None,
     slots: Optional[torch.Tensor] = None,
+    spheres: Optional[torch.Tensor] = None,
+    progress: Optional["ProgressCounter"] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Radiance sums of tiles ``tile0 .. tile0 + n_tiles - 1`` as three
     (n_tiles * 8, 128) float32 planes (``render_blocks_pallas``, :2004).
@@ -1565,7 +1712,16 @@ def render_blocks(
     ``render_blocks.pool_launches``.  ``slots`` (1,) gets the lane slots
     added to it, the lane-iterations a launch holds lanes for: 128 x
     each row's iterations under the pool, 32 x each warp's longest loop
-    under the classic scheduler; ``steps / slots`` is the occupancy."""
+    under the classic scheduler; ``steps / slots`` is the occupancy.
+
+    The spheres are swept group by group: each ray slab-tests the boxes
+    of the table's groups of ``SPHERE_GROUP`` rows (:func:`sphere_groups`,
+    swept over the camera's shutter)
+    and sweeps the groups it enters, which leaves every winner as the
+    brute-force sweep finds it.  ``spheres`` (2,) gets the group box
+    tests and the sphere rows swept added to it.  ``progress``, a
+    :class:`ProgressCounter` (CUDA only), gets each 128-pixel tile row
+    added as its block finishes, while the launch runs."""
     knobs = pool_knobs(pool, pool_chunk, pool_k)
     check_lit(lit, tbl)
     check_table(tbl, "megakernel",
@@ -1583,6 +1739,7 @@ def render_blocks(
     check_counter(steps, 1, tbl, "steps")
     check_counter(shadows, 1, tbl, "shadows")
     check_counter(slots, 1, tbl, "slots")
+    check_counter(spheres, 2, tbl, "spheres")
     seed, width, height, _n_pixels, tile0, spp, max_depth = meta
     if knobs.on and -(-spp // knobs.chunk) * LANES >= 1 << 31:
         raise ValueError(f"spp {spp} makes more pool items than int32 holds")
@@ -1591,13 +1748,14 @@ def render_blocks(
             tbl, cam, meta, n_tiles, background=background, steps=steps,
             tris=tris, tests=tests, lit=lit, shadows=shadows, cull=cull,
             pool=knobs.on, pool_chunk=knobs.chunk, pool_k=knobs.k,
-            slots=slots)
+            slots=slots, spheres=spheres, progress=progress)
+    groups = sphere_groups(tbl, camera_shutter(cam))
     lib = _lib()
     use_sky, (bgr, bgg, bgb) = background_args(background)
     out = torch.empty((3, n_tiles * TILE_ROWS, LANES), dtype=_F32,
                       device=tbl.device)
     err = lib.rtow_megakernel(
-        tbl.data_ptr(), tbl.shape[0],
+        tbl.data_ptr(), tbl.shape[0], groups.data_ptr(), groups.shape[0],
         None if tris is None else tris.tbl.data_ptr(),
         None if tris is None else tris.boxes.data_ptr(),
         0 if tris is None else tris.n_blocks,
@@ -1609,8 +1767,10 @@ def render_blocks(
         None if steps is None else steps.data_ptr(),
         None if tests is None else tests.data_ptr(),
         None if shadows is None else shadows.data_ptr(),
+        None if spheres is None else spheres.data_ptr(),
         *lit_args(lit, tbl), int(cull), int(knobs.on), knobs.chunk,
         knobs.k, None if slots is None else slots.data_ptr(),
+        None if progress is None else progress.dev_ptr,
         *_cuda.device_args(tbl))
     _cuda.check_launch(lib, err, "megakernel")
     render_blocks.launches += 1
@@ -1748,9 +1908,51 @@ def _lib() -> ctypes.CDLL:
     points declared."""
     lib = _cuda.load("megakernel")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.rtow_megakernel.argtypes = [p, i, p, p, i, i, i, p, i, i, i, i, i,
-                                    i, i, i, f, f, f, p, p, p, p, p, p,
-                                    p, i, i, i, i, i, i, i, i, i, i, i, i,
-                                    p, i, p]
+    lib.rtow_megakernel.argtypes = [p, i, p, i, p, p, i, i, i, p, i, i,
+                                    i, i, i, i, i, i, f, f, f, p, p, p, p,
+                                    p, p, p, p, i, i, i, i, i, i, i, i, i,
+                                    i, i, i, p, p, i, p]
     lib.rtow_megakernel.restype = i
+    lib.rtow_progress_alloc.argtypes = [i, ctypes.POINTER(p),
+                                        ctypes.POINTER(p)]
+    lib.rtow_progress_alloc.restype = i
     return lib
+
+
+class ProgressCounter:
+    """A count of finished 128-pixel tile rows that :func:`render_blocks`
+    adds to while a launch runs: one uint32 of mapped, pinned host memory
+    (``rtow_progress_alloc`` in ``csrc/megakernel.cu``), which each block
+    of K1 adds its rows to with a system-scope atomic and the host reads
+    without a synchronisation.  The plain version adds every row at the
+    end."""
+
+    def __init__(self, host: int, dev_ptr: int):
+        self._cell = ctypes.c_uint32.from_address(host)
+        self.dev_ptr = dev_ptr
+
+    @property
+    def value(self) -> int:
+        return self._cell.value
+
+    def reset(self) -> None:
+        self._cell.value = 0
+
+    def add(self, rows: int) -> None:
+        self._cell.value += rows
+
+
+@functools.lru_cache(maxsize=None)
+def progress_counter(device_index: int) -> ProgressCounter:
+    """The process's :class:`ProgressCounter` on card ``device_index``,
+    allocated at first use (and kept: it is 4 bytes).  Raises if the
+    mapped allocation fails."""
+    lib = _lib()
+    host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+    err = lib.rtow_progress_alloc(device_index, ctypes.byref(host),
+                                  ctypes.byref(dev))
+    if err:
+        raise RuntimeError(
+            f"mapped host memory for the ticker: CUDA error {err} "
+            f"({lib.rtow_cuda_error_string(err).decode()})")
+    return ProgressCounter(host.value, dev.value)

@@ -1,28 +1,26 @@
 """Times whole-frame launches of the megakernel K1 on the card.
 
     python -m rtow_tpu_torch.time_k1 [--runs 5] [--pool {0,1}] [--spp 16]
-        [--groups W ...] [scene ...]
+        [scene ...]
 
 Scenes: ``cover`` (the plain instance), and the lit instances' ``cornell``,
 ``smoke``, ``lights`` and ``textures`` at 400x400, spp 16, depth 8, and
 ``checker`` and ``roulette`` (the cover) at 1200x675, spp 16, depth 50;
-by default all of them (``--spp`` sets the samples per pixel).  ``--pool 0`` times the classic scheduler,
-``--pool 1`` the work pool (``RTOW_POOL_CHUNK`` / ``RTOW_POOL_K`` as the
-environment names them); by default both, in turns, so one call compares
-the two (at spp 16 each lane's one item holds its pixel's every sample:
-the pool renders the classic image and the A/B shows its cost alone).
-``--groups 16 32 64 128`` times each width of the sphere cull's row
-groups (``sphere_group``) in turns as well (by default the kernel's own,
-``megakernel.SPHERE_GROUP``).  Each scene, scheduler and width is
-launched once to warm up and once with the stats counters (ray steps and
-lane slots: their ratio is the occupancy; the sphere groups' box tests
-and rows swept), then ``--runs`` times, each timed alone by CUDA events.
+by default all of them (``--spp`` sets the samples per pixel).
+``--pool 0`` times the classic scheduler, ``--pool 1`` the work pool
+(``RTOW_POOL_CHUNK`` / ``RTOW_POOL_K`` as the environment names them); by
+default both, in turns, so one call compares the two (at spp 16 each
+lane's one item holds its pixel's every sample: the pool renders the
+classic image and the A/B shows its cost alone).  Each scene and
+scheduler is launched once to warm up and once with the stats counters
+(ray steps and lane slots: their ratio is the occupancy; the sphere
+groups' box tests and rows swept), then ``--runs`` times, each timed
+alone by CUDA events.
 Prints one JSON line: the card, nvcc's register and spill report for
 ``csrc/megakernel.cu`` (when this process built it), and per scene the
-times in ms and their median, keyed by scheduler (and ``/g<width>`` with
-``--groups``).  Run it from two checkouts on one card, one after the
-other and back, to compare two versions of the kernel (a checkout from
-before the cull takes no ``--groups``).
+times in ms and their median, keyed by scheduler.  Run it from two
+checkouts on one card, one after the other and back, to compare two
+versions of the kernel.
 """
 from __future__ import annotations
 
@@ -72,9 +70,6 @@ def main(argv=None) -> None:
                    help="0 the classic scheduler, 1 the work pool "
                         "(default: both, in turns)")
     p.add_argument("--spp", type=int, default=16)
-    p.add_argument("--groups", type=int, nargs="+", default=None,
-                   metavar="W", help="sphere-group widths to time in turns "
-                                     "(default: the kernel's own)")
     p.add_argument("scenes", nargs="*", metavar="scene",
                    help=f"one of {', '.join(SCENES)} (default: all)")
     opts = p.parse_args(argv)
@@ -94,38 +89,33 @@ def main(argv=None) -> None:
         timeout=60).stdout.strip().splitlines()[0]
     pools = {0: ("classic",), 1: ("pool",), None: ("classic", "pool")}[
         opts.pool]
-    # (key, launch kwargs) of each variant timed in turns.
-    variants = [(s, dict(pool=s == "pool")) for s in pools]
-    if opts.groups:
-        variants = [(f"{s}/g{w}", dict(k, sphere_group=w))
-                    for s, k in variants for w in opts.groups]
     times = {}
     for name in opts.scenes or SCENES:
         args, kw = _frame_args(name, dev, opts.spp)
-        runs, counts = {v: [] for v, _ in variants}, {}
-        for v, vkw in variants:
-            mk.render_blocks(*args, **kw, **vkw)  # warm-up
+        runs, counts = {s: [] for s in pools}, {}
+        for s in pools:
+            mk.render_blocks(*args, **kw, pool=s == "pool")  # warm-up
             c = {n: torch.zeros(k, dtype=torch.int64, device=dev)
                  for n, k in (("steps", 1), ("slots", 1), ("spheres", 2))}
             if not hasattr(mk, "sphere_groups"):  # a checkout without the cull
                 del c["spheres"]
-            mk.render_blocks(*args, **kw, **vkw, **c)
-            counts[v] = {n: t.tolist() for n, t in c.items()}
+            mk.render_blocks(*args, **kw, pool=s == "pool", **c)
+            counts[s] = {n: t.tolist() for n, t in c.items()}
         for _ in range(opts.runs):
-            for v, vkw in variants:
+            for s in pools:
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                mk.render_blocks(*args, **kw, **vkw)
+                mk.render_blocks(*args, **kw, pool=s == "pool")
                 end.record()
                 torch.cuda.synchronize()
-                runs[v].append(start.elapsed_time(end))
-        times[name] = {v: {"ms": runs[v],
-                           "median_ms": statistics.median(runs[v]),
-                           **counts[v],
-                           "occupancy": (counts[v]["steps"][0]
-                                         / counts[v]["slots"][0])}
-                       for v, _ in variants}
+                runs[s].append(start.elapsed_time(end))
+        times[name] = {s: {"ms": runs[s],
+                           "median_ms": statistics.median(runs[s]),
+                           **counts[s],
+                           "occupancy": (counts[s]["steps"][0]
+                                         / counts[s]["slots"][0])}
+                       for s in pools}
     print(json.dumps({"card": card, "ptxas": ptxas, "times": times}),
           flush=True)
 

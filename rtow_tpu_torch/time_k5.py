@@ -8,8 +8,9 @@ K4 on bench.py's knot (``tools/make_mesh.make_knot``), with ``--lit``
 under two square lamps on black with NEE.  Each of its 9 K5 launches is
 timed alone by CUDA events (``--runs`` calls after a warm-up, their
 mean), beside its live lanes, then the 9 together (median of
-``--runs``); where the checkout's ``bounce_bwd`` has forms, in each form
-("thread", "warp", "auto": the one the card picks), in turns.  Prints one
+``--runs``); where the checkout's K5 has forms (``grad.WARP_MAX_LIVE``),
+in each form ("thread", "warp", "auto": the one the card picks), in
+turns, each forced through that cut-over.  Prints one
 JSON line: the card and, per form, the per-launch and total
 milliseconds.  It calls only what every checkout since K5's triangle
 instances has, so a copy of this file in another checkout's package
@@ -19,7 +20,6 @@ versions.
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import os
 import statistics
@@ -106,14 +106,16 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(1)
     cots = [torch.from_numpy(rng.standard_normal(tuple(c.shape))
                              .astype(np.float32)).to(dev) for c, _ in tape]
-    forms = (G.BWD_FORMS if "form" in inspect.signature(G.bounce_bwd).parameters
-             else (None,))
+    cut = getattr(G, "WARP_MAX_LIVE", None)
+    forms = ((None,) if cut is None else ("thread", "warp", "auto"))
 
     def call(it, form):
         c, i = tape[it]
-        kw = {} if form is None else {"form": form}
+        if form is not None:
+            G.WARP_MAX_LIVE = {"thread": -1, "warp": 1 << 30, "auto": cut}[
+                form]
         return G.bounce_bwd(c, i, cots[it], tbl, tris, it=it, seed=0,
-                            max_depth=DEPTH, lit=lit, **kw)
+                            max_depth=DEPTH, lit=lit)
 
     def ms(fn, n):
         fn()  # warm-up
@@ -136,6 +138,8 @@ def main(argv=None) -> None:
         for f in forms:
             total[str(f)].append(ms(lambda: [call(it, f)
                                              for it in range(len(tape))], 1))
+    if cut is not None:
+        G.WARP_MAX_LIVE = cut
     print(json.dumps({"card": card, "knot": opts.knot, "lit": opts.lit,
                       "lanes": tape[0][0].shape[1], "live": live,
                       "per_launch_ms": per,

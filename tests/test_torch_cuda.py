@@ -879,13 +879,11 @@ def test_vol_gradient_launches_kernels_only(dev, monkeypatch):
 # K1's culled sphere sweep and its ticker; K5's warp form
 
 
-@pytest.mark.parametrize("width", mk.SPHERE_GROUPS)
 @pytest.mark.parametrize("pool", [False, True], ids=["classic", "pool"])
-def test_sphere_cull_bit_identical_to_plain_on_card(dev, pool, width):
-    """K1 sweeps the cover's spheres by row groups of each width: bit for
-    bit the plain version's frame, with equal steps, shadow-free counters
-    and sphere box / row counts; the rows swept are fewer than the
-    brute-force sweep's."""
+def test_sphere_cull_bit_identical_to_plain_on_card(dev, pool):
+    """K1 sweeps the cover's spheres by row groups: bit for bit the plain
+    version's frame, with equal steps, shadow-free counters and sphere box
+    / row counts; the rows swept are fewer than the brute-force sweep's."""
     scene, cam = cover_scene(Config(image_width=160, aspect_ratio=16 / 9),
                              device=dev)
     tbl, _ = mk.build_sphere_table(scene)
@@ -896,14 +894,13 @@ def test_sphere_cull_bit_identical_to_plain_on_card(dev, pool, width):
     for fn in (mk.render_blocks, mk.render_blocks_reference):
         steps, sph = (torch.zeros(n, dtype=torch.int64, device=dev)
                       for n in (1, 2))
-        planes = torch.stack(fn(*args, steps=steps, spheres=sph, pool=pool,
-                                sphere_group=width))
+        planes = torch.stack(fn(*args, steps=steps, spheres=sph, pool=pool))
         torch.cuda.synchronize()
         out.append((planes, steps.tolist() + sph.tolist()))
     (k, kc), (p, pc) = out
     assert torch.equal(k, p)
     assert kc == pc, (kc, pc)
-    assert kc[1] == kc[0] * tbl.shape[0] // width  # every sweep's boxes
+    assert kc[1] == kc[0] * tbl.shape[0] // mk.SPHERE_GROUP  # every sweep
     assert 0 < kc[2] < kc[0] * tbl.shape[0]
 
 
@@ -925,11 +922,12 @@ def test_ticker_counter_counts_every_tile_row_on_card(dev):
     assert torch.equal(ticked, torch.stack(mk.render_blocks(*args)))
 
 
-def test_grad_bwd_warp_form_matches_thread_form(dev):
+def test_grad_bwd_warp_form_matches_thread_form(dev, monkeypatch):
     """K5's warp form against its thread form and the picked one at every
-    bounce of a sorted forward on the 4,096-triangle knot: cot_in bit for
-    bit, equal counters, table gradients within 1e-3 of the column's
-    largest |thread|."""
+    bounce of a sorted forward on the 4,096-triangle knot, each forced by
+    its cut-over ``grad.WARP_MAX_LIVE``: cot_in bit for bit, equal
+    counters, table gradients within 1e-3 of the column's largest
+    |thread|."""
     tbl, tris, tape = _mesh_grad_tape(dev, 64, 32, False)
     rng = np.random.default_rng(6)
     before = grad.bounce_bwd.warp_launches
@@ -937,11 +935,13 @@ def test_grad_bwd_warp_form_matches_thread_form(dev):
         cot = torch.from_numpy(rng.standard_normal(cont.shape)
                                .astype(np.float32)).to(dev)
         res = {}
-        for form in ("thread", "warp", "auto"):
+        for form, cut in (("thread", -1), ("warp", 1 << 30),
+                          ("auto", grad.flat_bounce.WARP_MAX_LIVE)):
+            monkeypatch.setattr(grad, "WARP_MAX_LIVE", cut)
             st = torch.zeros(4, dtype=torch.int64, device=dev)
             res[form] = grad.bounce_bwd(cont, ints, cot, tbl, tris, it=it,
-                                        seed=3, max_depth=8, stats=st,
-                                        form=form) + (st,)
+                                        seed=3, max_depth=8,
+                                        stats=st) + (st,)
         for form in ("warp", "auto"):
             t, w = res["thread"], res[form]
             assert torch.equal(w[0], t[0]), (it, form)
@@ -949,4 +949,4 @@ def test_grad_bwd_warp_form_matches_thread_form(dev):
             for a, b in ((w[1], t[1]), (w[2], t[2])):
                 scale = b.abs().amax(dim=0, keepdim=True)
                 assert bool(((a - b).abs() <= 1e-3 * scale).all()), (it, form)
-    assert grad.bounce_bwd.warp_launches == before + 2 * len(tape)
+    assert grad.bounce_bwd.warp_launches == before + 3 * len(tape)

@@ -198,22 +198,20 @@ def test_time_k1_launches_each_scene(name):
 
 def test_shared_memory_check_counts_lit_rows():
     """The kernel stages the light and volume rows beside the sphere
-    table and its sphere-group boxes: the wrapper's shared-memory check
-    counts them and raises a ValueError before any launch.  Tensors on
-    the meta device reach the check without a card: 27 sphere blocks
-    (221,184 bytes) and their 108 group boxes of 32 rows (3,456 bytes) fit
-    alone, and 140 staged rows of 14 floats (7,840 bytes) push them
-    over."""
-    tbl = torch.empty((27 * mk.SPHERE_BLOCK, mk.TBL_COLS), device="meta")
+    table: the wrapper's shared-memory check counts them and raises a
+    ValueError before any launch.  Tensors on the meta device reach the
+    check without a card: 28 sphere blocks (229,376 bytes) fit alone, and
+    64 staged rows of 14 floats (3,584 bytes) push them over."""
+    tbl = torch.empty((28 * mk.SPHERE_BLOCK, mk.TBL_COLS), device="meta")
     cam = torch.empty(21, device="meta")
     meta = mk.pack_meta(0, width=8, height=8, spp=1, max_depth=1)
-    lit = mk.Lit(vol_kinds=("s",), vol_row0=139,
-                 rows=torch.empty((140, 14), device="meta"))
-    assert mk.lit_rows(lit) == 140
-    with pytest.raises(ValueError, match="7840 bytes of light and volume"):
-        mk.render_blocks(tbl, cam, meta, 1, lit=lit, sphere_group=32)
+    lit = mk.Lit(vol_kinds=("s",), vol_row0=63,
+                 rows=torch.empty((64, 14), device="meta"))
+    assert mk.lit_rows(lit) == 64
+    with pytest.raises(ValueError, match="3584 bytes of light and volume"):
+        mk.render_blocks(tbl, cam, meta, 1, lit=lit)
     with pytest.raises(ValueError, match="no megakernel for device meta"):
-        mk.render_blocks(tbl, cam, meta, 1, sphere_group=32)
+        mk.render_blocks(tbl, cam, meta, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -2,15 +2,16 @@
 brute-force one.
 
 K1 (``csrc/megakernel.cu``) slab-tests the boxes of the sphere table's
-Morton-ordered row groups (``megakernel.sphere_groups``: 16, 32, 64 or
-128 rows each) and sweeps only the groups a ray enters before its current
-best t; its plain version is ``megakernel.nearest_sphere_culled``.  Inside
-a group the rows and the strict ``<`` are the brute-force sweep's, and a
+Morton-ordered row groups (``megakernel.sphere_groups``, of
+``SPHERE_GROUP`` = 16 rows each) and sweeps only the groups a ray enters
+before its current best t; its plain version is
+``megakernel.nearest_sphere_culled``.  Inside a group the rows and the strict ``<`` are the brute-force sweep's, and a
 group skipped holds no row hit below the best t, so the culled sweep must
 give the brute-force ``nearest_sphere``'s (t, k) bit for bit, on every ray:
 camera rays, random rays, rays grazing group boxes and spheres, and
 shadow rays from hit points with a finite ``t_init`` (the NEE sweep's
-threshold), on the static and the moving cover, at every group width.
+threshold), on the static and the moving cover, each laid out from four
+seeds (four ball fields, so four Morton tables and sets of group boxes).
 Also: every row's motion-swept bound (over the camera's shutter) lies in
 its group's box, and the counters (box tests, rows swept) equal a count
 made here in numpy float32, ray by ray.
@@ -26,12 +27,14 @@ from rtow_tpu_torch.models.builders import cover_scene
 from rtow_tpu_torch.ops import megakernel as mk
 
 N_RAYS, SEED = 1024, 3
+#: The cover's layout seeds: each lays out another ball field.
+SCENE_SEEDS = (0, 1, 2, 3)
 
 
 @functools.lru_cache(maxsize=None)
-def _cover(moving):
+def _cover(moving, scene_seed=0):
     scene, cam = cover_scene(Config(device="cpu", moving_spheres=moving,
-                                    image_width=64, seed=0))
+                                    image_width=64, seed=scene_seed))
     tbl, _ = mk.build_sphere_table(scene)
     return scene, cam, tbl
 
@@ -79,7 +82,7 @@ def _rays(scene, cam, tbl, kind):
         # Half aimed at group-box corners and edges, half tangent to a
         # sphere at time tm (|d| x distance off by ~1e-6 of the radius).
         org = rng.uniform([-12.0, 0.05, -12.0], [12.0, 3.0, 12.0], (n, 3))
-        boxes = mk.sphere_groups(tbl, 16).boxes.numpy()
+        boxes = mk.sphere_groups(tbl).numpy()
         boxes = boxes[boxes[:, 0] < boxes[:, 3]]
         b = boxes[rng.integers(0, len(boxes), n // 2)]
         pick = rng.integers(0, 2, (n // 2, 3))
@@ -115,14 +118,13 @@ def _rays(scene, cam, tbl, kind):
     return tuple(f32(x) for x in (*org.T, *d.T, tm)), None
 
 
-@pytest.mark.parametrize("width", mk.SPHERE_GROUPS)
+@pytest.mark.parametrize("scene_seed", SCENE_SEEDS)
 @pytest.mark.parametrize("kind", ["camera", "random", "graze", "shadow"])
 @pytest.mark.parametrize("moving", [True, False], ids=["moving", "static"])
-def test_culled_sweep_bit_identical_to_brute_force(moving, kind, width):
-    scene, cam, tbl = _cover(moving)
+def test_culled_sweep_bit_identical_to_brute_force(moving, kind, scene_seed):
+    scene, cam, tbl = _cover(moving, scene_seed)
     ray, t_init = _rays(scene, cam, tbl, kind)
-    groups = mk.sphere_groups(tbl, width, mk.camera_shutter(
-        mk.pack_camera(cam)))
+    groups = mk.sphere_groups(tbl, mk.camera_shutter(mk.pack_camera(cam)))
     (bt, bk), (ct, ck), tally = _sweep_both(tbl, groups, ray, t_init)
     assert torch.equal(ck, bk)
     assert torch.equal(ct.view(torch.int32), bt.view(torch.int32))
@@ -130,19 +132,19 @@ def test_culled_sweep_bit_identical_to_brute_force(moving, kind, width):
     hit = float(((bt < (mk.BIG if t_init is None else t_init))
                  ).float().mean())
     assert 0.02 < hit <= 1.0, hit
-    n_groups = tbl.shape[0] // width
+    n_groups = tbl.shape[0] // mk.SPHERE_GROUP
     assert tally[3] == n_groups * N_RAYS
     assert 0 < tally[4] < tbl.shape[0] * N_RAYS
 
 
-@pytest.mark.parametrize("width", mk.SPHERE_GROUPS)
+@pytest.mark.parametrize("scene_seed", SCENE_SEEDS)
 @pytest.mark.parametrize("shutter", [(0.0, 1.0), (-0.5, 1.5)],
                          ids=["unit", "wide"])
 @pytest.mark.parametrize("moving", [True, False], ids=["moving", "static"])
-def test_rows_inside_their_group_box(moving, shutter, width):
-    scene, _, tbl = _cover(moving)
-    groups = mk.sphere_groups(tbl, width, shutter)
-    boxes = groups.boxes.numpy()
+def test_rows_inside_their_group_box(moving, shutter, scene_seed):
+    scene, _, tbl = _cover(moving, scene_seed)
+    width = mk.SPHERE_GROUP
+    boxes = mk.sphere_groups(tbl, shutter).numpy()
     assert boxes.shape == (tbl.shape[0] // width, 8)
     t = tbl.numpy().astype(np.float64)
     n = scene.n_spheres
@@ -174,8 +176,8 @@ def _numpy_count(tbl, groups, ray, t_init):
     float32: the kernel's slab test and row test, in table order."""
     f = np.float32
     T = tbl.numpy()
-    B = groups.boxes.numpy()
-    w = groups.width
+    B = groups.numpy()
+    w = mk.SPHERE_GROUP
     ox, oy, oz, dx, dy, dz, tm = (v.numpy() for v in ray)
     boxes = rows = 0
     for i in range(ox.shape[0]):
@@ -215,14 +217,14 @@ def _numpy_count(tbl, groups, ray, t_init):
     return boxes, rows
 
 
-@pytest.mark.parametrize("width", mk.SPHERE_GROUPS)
+@pytest.mark.parametrize("scene_seed", SCENE_SEEDS)
 @pytest.mark.parametrize("kind", ["camera", "shadow"])
-def test_counters_equal_a_numpy_count(kind, width):
-    scene, cam, tbl = _cover(True)
+def test_counters_equal_a_numpy_count(kind, scene_seed):
+    scene, cam, tbl = _cover(True, scene_seed)
     ray, t_init = _rays(scene, cam, tbl, kind)
     ray = tuple(v[:96] for v in ray)
     t_init = None if t_init is None else t_init[:96]
-    groups = mk.sphere_groups(tbl, width)
+    groups = mk.sphere_groups(tbl)
     _, _, tally = _sweep_both(tbl, groups, ray, t_init)
     assert tuple(tally[3:]) == _numpy_count(tbl, groups, ray, t_init)
 
@@ -242,8 +244,7 @@ def test_ground_group_entered_by_rays_at_the_ground():
     for kind in ("camera", "shadow"):  # shadow: from the camera rays' hits
         ray, _ = _rays(scene, cam, tbl, kind)
         inv = tuple(1.0 / d for d in ray[3:6])
-        for width in mk.SPHERE_GROUPS:
-            box = mk.sphere_groups(tbl, width).boxes[ground // width].tolist()
-            entered = mk.box_entered(box, ray[:3], inv,
-                                     torch.full((N_RAYS,), mk.BIG), lanes)
-            assert torch.equal(entered, lanes), (kind, width)
+        box = mk.sphere_groups(tbl)[ground // mk.SPHERE_GROUP].tolist()
+        entered = mk.box_entered(box, ray[:3], inv,
+                                 torch.full((N_RAYS,), mk.BIG), lanes)
+        assert torch.equal(entered, lanes), kind
