@@ -359,7 +359,8 @@ def main() -> None:
     for name, label in (("grad_fwd", "K4"), ("grad_bwd", "K5")):
         inst = {}
         for entry, v in ptxas_entries(builds[name].log).items():
-            # K5's warp form: grad_bwd_warp<kLit>, its triangles implied.
+            # The warp forms: grad_fwd_warp / grad_bwd_warp<kLit>, their
+            # triangles implied.
             warp, a, b = re.search(name + r"(_warp)?ILb(\d)E(?:Lb(\d)E)?",
                                    entry).groups()
             bits = ("1", a) if warp else (a, b)
@@ -899,9 +900,9 @@ def plant_faults(torch, k, p, sums, what, vol_row0=None) -> str:
 
 
 @contextlib.contextmanager
-def k5_form(G, form):
-    """K5 forced to its "thread" or "warp" form, or left to pick ("auto"),
-    through its cut-over ``G.WARP_MAX_LIVE``."""
+def warp_form(G, form):
+    """K4 and K5 forced to their "thread" or "warp" forms, or left to pick
+    ("auto"), through their cut-over ``G.WARP_MAX_LIVE``."""
     keep = G.WARP_MAX_LIVE
     G.WARP_MAX_LIVE = {"thread": -1, "warp": 1 << 30, "auto": keep}[form]
     try:
@@ -1874,6 +1875,18 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
                 check(torch.equal(ks, ps),
                       f"K4 {name} knot, flat={flat}, bounce {it}: counted "
                       f"{ks.tolist()}, plain {ps.tolist()}")
+                # K4's warp form forced, held to the plain version bit for
+                # bit with equal counters.
+                kw4 = counters()
+                with warp_form(G, "warp"):
+                    wc, wi = G.bounce_fwd(cont, ints, tbl, tris, stats=kw4,
+                                          **a)
+                check(torch.equal(wc, pc) and torch.equal(wi, pi)
+                      and torch.equal(kw4, ps),
+                      f"K4's warp form {name} knot, flat={flat}, bounce "
+                      f"{it}: not bit-identical to plain (max |d| "
+                      f"{float((wc - pc).abs().max())}) or counted "
+                      f"{kw4.tolist()}, plain {ps.tolist()}")
                 # Zero-mean cotangents, of mixed sign as the loss's
                 # 2 (img - target) / N are; K5 is held to the sums of
                 # |terms| (check_k5).
@@ -1904,7 +1917,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
                 # The warp form forced at every bounce, held to the same
                 # plain version by the same rule.
                 kw_ = counters()
-                with k5_form(G, "warp"):
+                with warp_form(G, "warp"):
                     warp = G.bounce_bwd(cont, ints, cot, tbl, tris,
                                         stats=kw_, **a)
                 res_w = check_k5(torch, warp, plain,
@@ -1940,7 +1953,8 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
     say("19", f"K4 / K5 triangle instances vs plain on {card}, all 9 "
               f"bounces of one forward at {size}x{size} spp{SPP_GRAD} depth "
               f"{DEPTH_GRAD} (sorted lanes): K4 bit-identical with equal "
-              f"counters (box tests, triangle tests, live lanes), K5's "
+              f"counters (box tests, triangle tests, live lanes), as picked "
+              f"and in the warp form forced, K5's "
               f"replay counting the same, K5 within {GRAD_TOL} of the scale "
               f"(cot_in: its row's max |plain|; g_tbl, g_tri: the column's "
               f"largest sum of |terms|), as picked and in the warp form "
@@ -1975,7 +1989,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
     try:
         losses, cur, per_step = [], start, []
         G.bounce_fwd.launches = G.bounce_bwd.launches = 0
-        G.bounce_bwd.warp_launches = 0
+        G.bounce_fwd.warp_launches = G.bounce_bwd.warp_launches = 0
         t0 = time.perf_counter()
         for _ in range(3):
             cur, loss = step(cur, torch.Generator(dev).manual_seed(7), target)
@@ -1984,7 +1998,8 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
                              sorts[0]))
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
-        main_launches = per_step[-1][:2] + (G.bounce_bwd.warp_launches,)
+        main_launches = per_step[-1][:2] + (G.bounce_bwd.warp_launches,
+                                            G.bounce_fwd.warp_launches)
         _, grads = G.loss_and_grad_kernel(
             start, cam, torch.Generator(dev).manual_seed(7), target, pix,
             **kw)
@@ -1997,6 +2012,9 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
     check(main_launches[2] == main_launches[1],
           f"K5 issued its warp form {main_launches[2]} times in "
           f"{main_launches[1]} launches")
+    check(main_launches[3] == main_launches[0],
+          f"K4 issued its warp form {main_launches[3]} times in "
+          f"{main_launches[0]} launches")
     check(all(np.isfinite(losses)) and losses[0] > losses[1] > losses[2],
           f"mesh trainer: loss did not fall over the steps: {losses}")
     gv = grads.triangles.verts
@@ -2009,8 +2027,9 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
               f"lanes sorted (lr {LR_MESH}, albedo mask): loss "
               f"{', '.join(f'{x:.6g}' for x in losses)}; albedo mean |error| "
               f"{err0:.6g} -> {err3:.6g}; K4 {main_launches[0]} and K5 "
-              f"{main_launches[1]} launches (the warp form issued in "
-              f"{main_launches[2]}), {per_step[-1][2]} sorts, no "
+              f"{main_launches[1]} launches (the warp forms issued in "
+              f"{main_launches[3]} and {main_launches[2]}), "
+              f"{per_step[-1][2]} sorts, no "
               f"plain version; {train_s:.2f} s; vertex gradient max |g| "
               f"{float(gv.abs().max()):.3g}")
 
@@ -2112,28 +2131,51 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
 
     # K4 and K5 launch by launch: each of the 9 launches of phase 19's
     # tape of the 65k knot, and of the 65k knot under two square lamps
-    # with NEE, timed alone by CUDA events (K5's two forms in turns:
-    # thread, warp, warp, thread; then as picked on the card), beside its
-    # live lanes; the forms held to each other at every launch: cot_in
-    # bit for bit, equal counters, g_tbl / g_tri / g_rows within GRAD_TOL
-    # of the column's largest |thread form|.
+    # with NEE, timed alone by CUDA events (each kernel's two forms in
+    # turns: thread, warp, warp, thread; then as picked on the card),
+    # beside its live lanes; the forms held to each other at every launch:
+    # K4 bit for bit with equal counters (and on the lit knot, which
+    # phase 19 does not run, to the plain version too), K5's cot_in bit
+    # for bit, equal counters, g_tbl / g_tri / g_rows within GRAD_TOL of
+    # the column's largest |thread form|.
     lit_scene = lit_knot(SceneBuilder, *make_knot(*KNOTS["65k"]), dev)
     lit_tbl, lit_tris, lit_tape = tape_of(lit_scene, False, nee=True)
-    tapes = {"65k knot": (tbl, tris, tape, mk.Lit()),
+    tapes = {"65k knot": (tbl, tris, tape, mk.Lit(), scene.background),
              "lit 65k knot": (lit_tbl, lit_tris, lit_tape,
-                              G.grad_lit(lit_scene, nee=True))}
-    k5_forms = {}
-    for tname, (t_tbl, t_tris, t_tape, t_lit) in tapes.items():
-        launches, sums = [], {"K4": 0.0, "thread": 0.0, "warp": 0.0,
-                              "auto": 0.0}
+                              G.grad_lit(lit_scene, nee=True),
+                              lit_scene.background)}
+    form_sums = {}
+    for tname, (t_tbl, t_tris, t_tape, t_lit, t_bg) in tapes.items():
+        launches = []
+        sums = {f"{k} {f}": 0.0 for k in ("K4", "K5")
+                for f in ("thread", "warp", "auto")}
         for it, (c, i) in enumerate(t_tape):
-            a = dict(it=it, seed=0, max_depth=DEPTH_GRAD, lit=t_lit)
+            a = dict(it=it, seed=0, max_depth=DEPTH_GRAD, lit=t_lit,
+                     background=t_bg)
+            fwd, st4 = {}, {}
+            for form in ("auto", "thread", "warp"):
+                st4[form] = counters()
+                with warp_form(G, form):
+                    fwd[form] = G.bounce_fwd(c, i, t_tbl, t_tris,
+                                             stats=st4[form], **a)
+            if tname.startswith("lit"):
+                st4["plain"] = counters()
+                fwd["plain"] = G.bounce_fwd_reference(
+                    c, i, t_tbl, t_tris, stats=st4["plain"], **a)
+            for form in fwd:
+                check(all(torch.equal(x, y) for x, y in
+                          zip(fwd[form], fwd["thread"]))
+                      and torch.equal(st4[form], st4["thread"]),
+                      f"K4 {form} form, {tname}, launch {it}: not "
+                      f"bit-identical to the thread form, or counted "
+                      f"{st4[form].tolist()}, the thread form "
+                      f"{st4['thread'].tolist()}")
             ct = torch.from_numpy(rng.standard_normal((13, c.shape[1]))
                                   .astype(np.float32)).to(dev)
             res, st = {}, {}
             for form in ("auto", "thread", "warp"):
                 st[form] = counters()
-                with k5_form(G, form):
+                with warp_form(G, form):
                     res[form] = G.bounce_bwd(c, i, ct, t_tbl, t_tris,
                                              stats=st[form], **a)
             ref = res["thread"]
@@ -2152,49 +2194,56 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
                     check(bool(((k_ - t_).abs() <= GRAD_TOL * scale).all()),
                           f"{what}: {part} off the thread form's by more "
                           f"than {GRAD_TOL} of the column's scale")
-            ms = {"K4": per_launch_ms(torch, lambda: G.bounce_fwd(
-                c, i, t_tbl, t_tris, **a), 3)}
-            turns = {"thread": [], "warp": []}
-            for form in ("thread", "warp", "warp", "thread"):
-                with k5_form(G, form):
-                    turns[form].append(per_launch_ms(
-                        torch, lambda: G.bounce_bwd(c, i, ct, t_tbl, t_tris,
-                                                    **a), 3))
-            ms.update({f: statistics.mean(v) for f, v in turns.items()})
-            ms["auto"] = per_launch_ms(torch, lambda: G.bounce_bwd(
-                c, i, ct, t_tbl, t_tris, **a), 3)
+            calls = {"K4": lambda: G.bounce_fwd(c, i, t_tbl, t_tris, **a),
+                     "K5": lambda: G.bounce_bwd(c, i, ct, t_tbl, t_tris,
+                                                **a)}
+            ms, text = {}, []
+            for kname, call in calls.items():
+                turns = {"thread": [], "warp": []}
+                for form in ("thread", "warp", "warp", "thread"):
+                    with warp_form(G, form):
+                        turns[form].append(per_launch_ms(torch, call, 3))
+                ms.update({f"{kname} {f}": statistics.mean(v)
+                           for f, v in turns.items()})
+                ms[f"{kname} auto"] = per_launch_ms(torch, call, 3)
+                text.append(
+                    f"{kname} thread "
+                    f"{'/'.join(f'{x:.3f}' for x in turns['thread'])}, warp "
+                    f"{'/'.join(f'{x:.3f}' for x in turns['warp'])}, picked "
+                    f"{ms[f'{kname} auto']:.3f}")
             for k_, v in ms.items():
                 sums[k_] += v
-            live = int(st["thread"][2])
-            launches.append(
-                f"{live} live: K4 {ms['K4']:.3f}, K5 thread "
-                f"{'/'.join(f'{x:.3f}' for x in turns['thread'])}, warp "
-                f"{'/'.join(f'{x:.3f}' for x in turns['warp'])}, picked "
-                f"{ms['auto']:.3f}")
-        k5_forms[tname] = sums
+            launches.append(f"{int(st['thread'][2])} live: "
+                            + "; ".join(text))
+        form_sums[tname] = sums
         say("20", f"K4 / K5 per launch on the {tname} ({W_MESH_GRAD}x"
                   f"{W_MESH_GRAD} spp{SPP_GRAD}, {t_tape[0][0].shape[1]} "
-                  f"lanes, sorted) on {card}, ms each launch alone (K5's "
-                  f"forms in turns thread, warp, warp, thread, the picked "
-                  f"form with WARP_MAX_LIVE {G.WARP_MAX_LIVE}); both forms' "
-                  f"cot_in bit-identical, counters equal, table gradients "
-                  f"within {GRAD_TOL}: " + "; ".join(launches)
-                  + f"; sums: K4 {sums['K4']:.3f}, K5 thread "
-                  f"{sums['thread']:.3f}, warp {sums['warp']:.3f}, picked "
-                  f"{sums['auto']:.3f}")
-    rows.append({
-        "name": "grad_bwd_tris_warp",
-        "route": "cuda",
-        "source": "rtow_tpu_torch/csrc/grad_bwd.cu",
-        "replaces": "rtow_tpu/ops/pallas_grad.py:224",
-        "launches": main_launches[2],
-        "max_abs_err": max(errs_warp),
-        "ms": k5_forms["65k knot"]["warp"],
-        "plain_ms": plain_ms[1],
-        "bound_ms": rows[1]["bound_ms"],
-        "bound_by": rows[1]["bound_by"],
-        "library_ms": None,
-    })
+                  f"lanes, sorted) on {card}, ms each launch alone (each "
+                  f"kernel's forms in turns thread, warp, warp, thread, the "
+                  f"picked form with WARP_MAX_LIVE {G.WARP_MAX_LIVE}); K4's "
+                  f"forms bit-identical with equal counters"
+                  + (" and to the plain version" if tname.startswith("lit")
+                     else "")
+                  + f", K5's cot_in bit-identical, counters equal, table "
+                  f"gradients within {GRAD_TOL}: " + " | ".join(launches)
+                  + "; sums: " + ", ".join(f"{k} {v:.3f}"
+                                           for k, v in sums.items()))
+    for kname, key, row, n_warp in (
+            ("grad_fwd", "K4 warp", rows[0], main_launches[3]),
+            ("grad_bwd", "K5 warp", rows[1], main_launches[2])):
+        rows.append({
+            "name": f"{kname}_tris_warp",
+            "route": "cuda",
+            "source": f"rtow_tpu_torch/csrc/{kname}.cu",
+            "replaces": row["replaces"],
+            "launches": n_warp,
+            "max_abs_err": max(errs_warp) if kname == "grad_bwd" else 0.0,
+            "ms": form_sums["65k knot"][key],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+        })
 
     # Where a mesh train step's time goes: torch.profiler over one step.
     step_ms, dev_ms = profile_ms(torch, lambda: step(
@@ -2390,7 +2439,8 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
             tape.append((cont, ints))
             cont, ints = G.bounce_fwd(cont, ints, tbl, tris, it=it, seed=0,
                                       max_depth=DEPTH_GRAD, lit=lit,
-                                      background=scene.background)
+                                      background=scene.background,
+                                      drain=False)
         return tape
 
     def counters():
@@ -2399,13 +2449,15 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
     def kernel_ms(scene, tbl, tris, lit, tape):
         """Medians of 3 (after a warm-up) of K4's and K5's (depth + 1)
         launches on ``tape`` (K5 under standard-normal cotangents), each
-        set issued back to back between one pair of CUDA events ->
+        set issued back to back between one pair of CUDA events, as the
+        trainer issues them on its unsorted lanes (``drain=False``) ->
         ((K4 ms, runs), (K5 ms, runs))."""
         n = tape[0][0].shape[1]
         cots = [torch.from_numpy(rng.standard_normal((13, n))
                                  .astype(np.float32)).to(dev) for _ in tape]
         args = [dict(it=it, seed=0, max_depth=DEPTH_GRAD, lit=lit,
-                     background=scene.background) for it in range(len(tape))]
+                     background=scene.background, drain=False)
+                for it in range(len(tape))]
         out = []
         for kern, bwd in ((G.bounce_fwd, False), (G.bounce_bwd, True)):
             def run():

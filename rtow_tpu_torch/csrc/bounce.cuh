@@ -326,6 +326,35 @@ __device__ __forceinline__ void warp_add(unsigned long long n,
     n += __shfl_down_sync(0xFFFFFFFFu, n, off);
   if ((threadIdx.x & 31) == 0) atomicAdd(to, n);
 }
+
+// The blocks of `kernel` (`threads` each, `smem` bytes of dynamic shared
+// memory, which it is allowed) the card holds at once, into *held: the
+// grid of K4's and K5's warp forms.
+template <class Kernel>
+inline cudaError_t resident_blocks(Kernel kernel, int threads, int smem,
+                                   int* held) {
+  int per_sm = 0, device = 0, sms = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  *held = (per_sm > 0 ? per_sm : 1) * sms;
+  return err;
+}
+
+// K4's and K5's choice of form: where `live` (a device count of the live
+// lanes, or null) is at most `cut`, the warp form runs the launch and the
+// thread form's blocks exit at once; a uniform branch, so the host never
+// reads the count.
+__device__ __forceinline__ bool warp_form_runs(const long long* live,
+                                               int cut) {
+  return live != nullptr && *live <= cut;
+}
 #endif
 
 // Slab test of box b (two float4: min xyz + max x, max yz): whether the ray
@@ -776,11 +805,17 @@ constexpr float kRRPMin = 0.05f;
 // The lit features of a render.  rows: the (n_lights + n_vol) x 14 light
 // rows then volume rows (the volumes from vol_row0); light_kinds and
 // vol_kinds: 2 bits per row, light 0 sphere / 1 triangle, volume 0 sphere /
-// 1 box / 2 rotated box.
+// 1 box / 2 rotated box.  frames: null, or each volume's (cos, sin) of its
+// rotation (column 7), staged once by a kernel that reads them often
+// (stage_frames); vol_frame derives them where it is null.  own_rows: each
+// thread of K5's thread form has its own sums of the rows' cotangents
+// (add_rows, bounce_adjoint.cuh).
 struct Lit {
   const float* rows;
   int emissive, n_lights, checker, n_vol, vol_row0, roulette;
   uint32_t light_kinds, vol_kinds;
+  const float* frames = nullptr;
+  int own_rows = 0;
 };
 
 // max(x, lo) as torch.clamp(x, min=lo) takes it (a NaN stays NaN).
@@ -1000,6 +1035,31 @@ RTOW_HD float light_pdf_toward(const Lit& L, const Ray& r, float t_hit) {
 
 // -- media (ops/volumes.py) --
 
+// The (cos, sin) of volume k's rotation about y (its row q's column 7):
+// from L.frames where a kernel staged them, else derived here by the same
+// cosf / sinf, so both give the same bits.
+RTOW_HD void vol_frame(const Lit& L, int k, const float* q, float* c,
+                       float* sn) {
+  if (L.frames != nullptr) {
+    *c = L.frames[2 * k];
+    *sn = L.frames[2 * k + 1];
+  } else {
+    *c = cosf(q[7]);
+    *sn = sinf(q[7]);
+  }
+}
+
+// Writes each volume's (cos, sin) to frames (2 n_vol floats) for
+// vol_frame, one volume per thread of `threads` from thread t; the caller
+// then points L->frames at them once every thread has written.
+RTOW_HD void stage_frames(const Lit& L, float* frames, int t, int threads) {
+  for (int k = t; k < L.n_vol; k += threads) {
+    const float* q = L.rows + kLitCols * (L.vol_row0 + k);
+    frames[2 * k] = cosf(q[7]);
+    frames[2 * k + 1] = sinf(q[7]);
+  }
+}
+
 // The boundary interval [t0, t1] of volume k along the ray; false where the
 // ray misses it.
 RTOW_HD bool vol_interval(const Lit& L, int k, float ox, float oy, float oz,
@@ -1019,7 +1079,8 @@ RTOW_HD bool vol_interval(const Lit& L, int k, float ox, float oy, float oz,
     return disc > 0.0f;
   }
   if (kind == 2u) {  // rotated box: the ray into the box's local frame
-    const float c = cosf(q[7]), sn = sinf(q[7]);
+    float c, sn;
+    vol_frame(L, k, q, &c, &sn);
     const float wx = ox - q[11], wy = oy - q[12], wz = oz - q[13];
     ox = c * wx - sn * wz;
     oz = sn * wx + c * wz;

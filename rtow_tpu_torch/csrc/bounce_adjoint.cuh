@@ -322,22 +322,79 @@ RTOW_HD void triangle_hit_adjoint(const float4* tri, int k, const Hit& e,
 
 // ---- the lit features' adjoints -------------------------------------------
 
-// Adds v to a light-row cotangent: the block's shared accumulator on the
-// card (atomically: every lane of the block adds to it; in the warp form
-// one thread of the lane's warp), the lane's own rows in a host build.
-template <Sweep kSweep = Sweep::kThread>
-RTOW_HD void add_row(float* g, float v) {
-#ifdef __CUDA_ARCH__
-  if (v != 0.0f && writes_lane<kSweep>()) atomicAdd(g, v);
-#else
-  *g += v;
-#endif
-}
+#ifdef __CUDACC__
+// add_grouped sums a warp's groups first only where one has at least this
+// many threads: below it the shuffles cost more than the contention they
+// save.
+constexpr int kGroupMin = 4;
 
-// Adds a row's 14 local cotangents q to its accumulator g.
+// Adds each thread's kN values v to row `key` (key < 0: none), first
+// summed over the threads of the warp that have the same key: the lowest
+// thread of each such group adds the group's sums, add(c, sum) for each
+// non-zero column c of its own row (an atomicAdd).  So a warp whose lanes
+// hit a few rows makes a few atomics per column, not 32 contending ones (a
+// float atomicAdd to shared memory is a compare-and-swap loop,
+// ATOMS.CAST.SPIN, which contending threads repeat); where every group is
+// smaller than kGroupMin, each thread adds its own values.  The whole warp
+// calls it, converged; the group's values are gathered by shuffles, one
+// member a round, in lane order, so only the order of the float sums
+// changes.
+template <int kN, class Add>
+__device__ __forceinline__ void add_grouped(int key, const float* v,
+                                            Add add) {
+  constexpr unsigned kAll = 0xFFFFFFFFu;
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  const unsigned peers = __match_any_sync(kAll, key);
+  const bool lead = __ffs(static_cast<int>(peers)) - 1 == lane;
+  unsigned rest = lead ? peers & (peers - 1u) : 0u;  // the lead's peers
+  const int rounds = static_cast<int>(
+      __reduce_max_sync(kAll, static_cast<unsigned>(__popc(rest))));
+  if (rounds < kGroupMin) {  // small groups: each thread adds its own
+    if (key >= 0) {
+#pragma unroll
+      for (int c = 0; c < kN; ++c)
+        if (v[c] != 0.0f) add(c, v[c]);
+    }
+    return;
+  }
+  float sum[kN];
+#pragma unroll
+  for (int c = 0; c < kN; ++c) sum[c] = v[c];
+  for (int i = 0; i < rounds; ++i) {
+    const int src = rest != 0u ? __ffs(static_cast<int>(rest)) - 1 : lane;
+#pragma unroll
+    for (int c = 0; c < kN; ++c) {
+      const float x = __shfl_sync(kAll, v[c], src);
+      if (rest != 0u) sum[c] += x;
+    }
+    rest &= rest - 1u;
+  }
+  if (lead && key >= 0) {
+#pragma unroll
+    for (int c = 0; c < kN; ++c)
+      if (sum[c] != 0.0f) add(c, sum[c]);
+  }
+}
+#endif
+
+// Adds a row's 14 local cotangents q to its sums g.  Where the lane owns
+// its sums (a host build's lanes, or L.own_rows: each thread of K5's thread
+// form has its own copy of the rows' sums in shared memory), plain adds;
+// otherwise the block's shared sums, atomically (in the warp form, where
+// the 32 threads hold the same q, by one thread of the warp).
 template <Sweep kSweep = Sweep::kThread>
-RTOW_HD void add_rows(float* g, const float* q) {
-  for (int c = 0; c < kLitCols; ++c) add_row<kSweep>(g + c, q[c]);
+RTOW_HD void add_rows(const Lit& L, float* g, const float* q) {
+#ifdef __CUDA_ARCH__
+  if (kSweep == Sweep::kThread && L.own_rows) {
+    for (int c = 0; c < kLitCols; ++c) g[c] += q[c];
+  } else if (writes_lane<kSweep>()) {
+    for (int c = 0; c < kLitCols; ++c)
+      if (q[c] != 0.0f) atomicAdd(g + c, q[c]);
+  }
+#else
+  (void)L;
+  for (int c = 0; c < kLitCols; ++c) g[c] += q[c];
+#endif
 }
 
 // c = a x b: ga += b x gc, gb += gc x a.
@@ -661,7 +718,7 @@ RTOW_HD void light_pdf_adjoint(const Lit& L, const Ray& r, float t_hit,
         gq[7 + i] += g_e2[i];
       }
     }
-    add_rows<kSweep>(g_lrows + kLitCols * k, gq);
+    add_rows<kSweep>(L, g_lrows + kLitCols * k, gq);
   }
   // u = d / sqrt(at_least(|d|^2, 1e-24))
   const float g_inv = dot3(g_u, d);
@@ -827,8 +884,7 @@ RTOW_HD void vol_interval_adjoint(const Lit& L, int k, const float* o,
   float lo_o[3] = {o[0], o[1], o[2]}, lo_d[3] = {d[0], d[1], d[2]};
   float cs = 1.0f, sn = 0.0f, w[3] = {0.0f, 0.0f, 0.0f};
   if (kind == 2u) {  // the ray in the box's frame
-    cs = cosf(q[7]);
-    sn = sinf(q[7]);
+    vol_frame(L, k, q, &cs, &sn);
     for (int i = 0; i < 3; ++i) w[i] = o[i] - q[11 + i];
     lo_o[0] = cs * w[0] - sn * w[2];
     lo_o[1] = w[1];
@@ -930,7 +986,7 @@ RTOW_HD void transmittance_adjoint(const Lit& L, const Ray& r, float t_max,
     min_adjoint(t1, t_max, g_ov, &g_t1, g_tmax);
     vol_interval_adjoint(L, k, o, d, t0 >= 0.0f ? -g_ov : 0.0f, g_t1, g_o,
                          g_d, gq);
-    add_rows<kSweep>(g_lrows + kLitCols * (L.vol_row0 + k), gq);
+    add_rows<kSweep>(L, g_lrows + kLitCols * (L.vol_row0 + k), gq);
   }
   len_adjoint(d, g_len, g_d);
 }
@@ -1044,7 +1100,7 @@ RTOW_HD void next_event_adjoint(const float4* tbl, int npad, const Tris& tris,
   g->px += gp[0];
   g->py += gp[1];
   g->pz += gp[2];
-  add_rows<kSweep>(g_lrows + kLitCols * k, gq);
+  add_rows<kSweep>(L, g_lrows + kLitCols * k, gq);
 }
 
 // The adjoint of an emissive hit's radiance, rad' = rad + tp al w_emit
@@ -1132,7 +1188,7 @@ RTOW_HD void volume_adjoint(const float4* tbl, int npad, const Tris& tris,
     gin[3 + i] = g_d[i];
   }
   gin[6] += g_tm;
-  add_rows<kSweep>(g_lrows + kLitCols * (L.vol_row0 + kv), gq);
+  add_rows<kSweep>(L, g_lrows + kLitCols * (L.vol_row0 + kv), gq);
 }
 
 // Replays bounce_lane_t<kTris, kLit> for a live lane from its saved input

@@ -28,18 +28,27 @@
 // hierarchy), each unlit or lit, with the same optional `stats` as K4.
 //
 // What bounds it on Hopper: float32 ALU work, as in K4 (the replayed sweeps),
-// plus the table-gradient sums.  Sphere lanes add their row cotangents into a
-// per-block copy of the sphere-table gradient in shared memory (npad x 16
-// floats: 32 KB for the cover), and each block then adds the non-zero
-// entries of its copy to g_tbl with atomicAdd: one global atomic per touched
-// entry per block instead of one per lane.  The cotangent of the light and
-// volume rows (at most 24 x 14 floats) is summed the same way, in shared
-// memory behind the staged rows.  The triangle table's gradient (4 MB for a
-// 65,536-triangle mesh, 23 MB for 360,448 rows) cannot sit in shared memory:
-// a triangle lane adds each non-zero column of its row cotangent to g_tri
-// with one global atomicAdd, 14 at most.  Sorted lanes put a warp's threads
-// on the same few triangles, so these atomics contend; warp aggregation is
-// later work.  The order of the atomics changes from run to run, so g_tbl,
+// plus the table-gradient sums.  A float atomicAdd to shared memory is a
+// compare-and-swap loop that contending threads repeat, and one to global
+// memory is serialised per address at its L2 slice, so the sums are made
+// in three steps.  First the lanes of a warp that add to the same row --
+// the same winner row, light row or volume row -- sum their columns by
+// shuffles (add_grouped: __match_any_sync on the row), and one lane of each
+// group adds the sums.  Those adds go to a per-block copy in shared memory
+// of the sphere table's gradient (npad x 16 floats: 32 KB for the cover),
+// of the light and volume rows' (at most 24 x 14 floats) and, where the
+// triangle table has at most kTriSharedRows rows (the Cornell and smoke
+// boxes' 12-24 triangles), of the triangle table's.  Last each block adds
+// the non-zero entries of its copies to g_tbl, g_rows and g_tri with
+// atomicAdd: one global atomic per touched entry per block.  A larger
+// triangle table's gradient (4 MB for a 65,536-triangle mesh, 23 MB for
+// 360,448 rows) cannot sit in shared memory, so a group adds its sums to
+// g_tri in global memory.  Measured on the Cornell box and the smoke box
+// (PERF.md): the 2.56 M lanes' global atomics into 12-24 triangle rows took
+// 58-85% of the 9 launches, the light and volume rows' shared atomics 28%
+// on the smoke box with NEE.  The rotated boxes' frames (cos, sin) are
+// derived once per block (rtow::stage_frames), not in every interval and
+// its adjoint.  The order of the sums changes from run to run, so g_tbl,
 // g_tri and g_rows are reproducible only to float32 rounding of the sums.
 //
 // The drain.  The mesh trainer sorts dead lanes last, and after the first
@@ -63,16 +72,128 @@
 namespace {
 
 constexpr int kThreads = 256;
+// The triangle table's gradient is summed per block in shared memory where
+// it has at most this many rows (4 blocks of 128: 32 KB), as the sphere
+// table's is; a larger table's lanes add to g_tri in global memory.
+constexpr int kTriSharedRows = 512;
+// The thread form gives each thread its own sums of the light and volume
+// rows' cotangents where the block's copies take at most this many bytes
+// (4 rows: the Cornell and smoke boxes' 2-4); else its threads add to the
+// block's one copy atomically.
+constexpr int kOwnRowsBytes = 64 * 1024;
 
-// Where `live` (a device count of the live lanes, or null) is at most
-// `cut`, the warp form (grad_bwd_warp) runs the launch and the thread
-// form's blocks exit at once; a uniform branch, so the host never reads
-// the count.
-__device__ __forceinline__ bool warp_form_runs(const long long* live,
-                                               int cut) {
-  return live != nullptr && *live <= cut;
+using rtow::warp_form_runs;
+
+// The stride of a thread's own row sums: the rows' floats, made odd so
+// that neighbouring threads' copies fall in different banks; 0 where they
+// do not fit in kOwnRowsBytes.
+__host__ __device__ constexpr int own_stride(int lit_rows) {
+  return lit_rows > 0 &&
+                 kThreads * ((lit_rows * rtow::kLitCols) | 1) * 4 <=
+                     kOwnRowsBytes
+             ? (lit_rows * rtow::kLitCols) | 1
+             : 0;
 }
 
+// A block's shared memory: the sphere table (npad x 4 float4) and its
+// gradient (npad x 16 floats); with kLit the light and volume rows'
+// gradient (lit_rows x 14 floats, or kThreads x own where each thread has
+// its own copy), the rows themselves (lit_rows x 14 floats) and the
+// volumes' frames (2 lit_rows floats); then, where tri_rows > 0, the
+// triangle table's gradient (tri_rows x 16 floats).
+template <bool kLit>
+__host__ __device__ constexpr int smem_floats(int npad, int lit_rows,
+                                              int tri_rows, int own) {
+  return 2 * npad * rtow::kCols +
+         (kLit ? (own > 0 ? kThreads * own : lit_rows * rtow::kLitCols) +
+                     lit_rows * (rtow::kLitCols + 2)
+               : 0) +
+         tri_rows * rtow::kCols;
+}
+
+struct Staged {
+  float4* tbl;
+  float* acc;   // the sphere table's gradient
+  float* lacc;  // the light and volume rows' gradient
+  float* tacc;  // the triangle table's gradient (tri_rows > 0)
+};
+
+// Stages the sphere table and the rows (lit->rows and its frames then
+// point at the copies) and zeroes the gradients' copies (own: as
+// own_stride).
+template <bool kLit>
+__device__ __forceinline__ Staged stage(const float4* table, int npad,
+                                        rtow::Lit* lit, int lit_rows,
+                                        int tri_rows, int own) {
+  extern __shared__ float4 smem[];
+  Staged S;
+  S.tbl = smem;
+  S.acc = reinterpret_cast<float*>(smem + 4 * npad);
+  S.lacc = S.acc + npad * rtow::kCols;
+  float* end = S.lacc;
+  for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) S.tbl[i] = table[i];
+  for (int i = threadIdx.x; i < npad * rtow::kCols; i += blockDim.x)
+    S.acc[i] = 0.0f;
+  if constexpr (kLit) {
+    const int sums = own > 0 ? kThreads * own : lit_rows * rtow::kLitCols;
+    for (int i = threadIdx.x; i < sums; i += blockDim.x) S.lacc[i] = 0.0f;
+    float* rows = S.lacc + sums;
+    for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x)
+      rows[i] = lit->rows[i];
+    lit->rows = rows;
+    lit->own_rows = own > 0;
+    float* frames = rows + lit_rows * rtow::kLitCols;
+    __syncthreads();
+    rtow::stage_frames(*lit, frames, threadIdx.x, blockDim.x);
+    lit->frames = frames;
+    end = frames + 2 * lit_rows;
+  }
+  S.tacc = end;
+  for (int i = threadIdx.x; i < tri_rows * rtow::kCols; i += blockDim.x)
+    S.tacc[i] = 0.0f;
+  __syncthreads();
+  return S;
+}
+
+// Adds the block's sums to the gradients in global memory: each non-zero
+// entry of the shared copies once (the threads' own row sums first summed
+// in thread order).
+template <bool kLit>
+__device__ __forceinline__ void flush(const Staged& S, int npad,
+                                      int lit_rows, int tri_rows, int own,
+                                      float* g_tbl, float* g_tri,
+                                      float* g_rows) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < npad * rtow::kCols; i += blockDim.x) {
+    const float v = S.acc[i];
+    if (v != 0.0f) atomicAdd(&g_tbl[i], v);
+  }
+  if constexpr (kLit) {
+    for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x) {
+      float v = 0.0f;
+      if (own > 0) {
+        for (int t = 0; t < kThreads; ++t) v += S.lacc[t * own + i];
+      } else {
+        v = S.lacc[i];
+      }
+      if (v != 0.0f) atomicAdd(&g_rows[i], v);
+    }
+  }
+  for (int i = threadIdx.x; i < tri_rows * rtow::kCols; i += blockDim.x) {
+    const float v = S.tacc[i];
+    if (v != 0.0f) atomicAdd(&g_tri[i], v);
+  }
+}
+
+// The thread form: one thread per lane.  A lane's winner-row cotangent is
+// summed with those of the warp's other lanes on the same row
+// (add_grouped) and added to the block's shared copy of its table's
+// gradient, to g_tri itself where the triangle table has more than
+// kTriSharedRows rows (tri_rows 0).  Its light and volume rows'
+// cotangents go to the thread's own sums where they fit (own > 0, as
+// own_stride), else to the block's.  For the triangle instances where
+// `live_count` is given, its blocks exit at once where the warp form runs
+// the launch (warp_form_runs).
 template <bool kTris, bool kLit>
 __global__ void __launch_bounds__(kThreads)
     grad_bwd(const float4* __restrict__ table, int npad, rtow::Tris tris,
@@ -82,40 +203,30 @@ __global__ void __launch_bounds__(kThreads)
              float* __restrict__ g_tbl, float* __restrict__ g_tri,
              float* __restrict__ g_rows,
              unsigned long long* __restrict__ stats, rtow::Lit lit,
-             int lit_rows, const long long* live_count, int cut) {
+             int lit_rows, int tri_rows, int own,
+             const long long* live_count, int cut) {
   if constexpr (kTris) {
     if (warp_form_runs(live_count, cut)) return;
   }
   // One-sided triangles, as JAX's gradient (pallas_grad.py:910), fixed at
   // compile time: the sweep's side test then costs what the cull alone does.
   tris.side_mask = rtow::kKeepSign;
-  // npad x 4 float4 of table, npad x 16 of its gradient; then (kLit) the
-  // light rows and their gradient, lit_rows x 14 floats each.
-  extern __shared__ float4 smem[];
-  float4* tbl = smem;
-  float* acc = reinterpret_cast<float*>(smem + 4 * npad);
-  float* lacc = acc + npad * rtow::kCols;
-  for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) tbl[i] = table[i];
-  for (int i = threadIdx.x; i < npad * rtow::kCols; i += blockDim.x)
-    acc[i] = 0.0f;
-  if constexpr (kLit) {
-    float* rows = lacc + lit_rows * rtow::kLitCols;
-    for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x) {
-      rows[i] = lit.rows[i];
-      lacc[i] = 0.0f;
-    }
-    lit.rows = rows;
-  }
-  __syncthreads();
+  const Staged S = stage<kLit>(table, npad, &lit, lit_rows, tri_rows, own);
 
+  // The winner row's columns: a sphere's kParamGrads (kTexParamGrads with
+  // textures), a triangle's kTriParamGrads; the others stay 0.
   constexpr int kSphCols = kLit ? rtow::kTexParamGrads : rtow::kParamGrads;
+  constexpr int kRowCols =
+      kTris && rtow::kTriParamGrads > kSphCols ? rtow::kTriParamGrads
+                                               : kSphCols;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   rtow::Tally tally;
   int live = 0;
+  int k = -1;
+  float gw[rtow::kCols] = {};
   if (g < n) {
     const size_t stride = static_cast<size_t>(n);
     float s[rtow::kCont], G[rtow::kCont], gin[rtow::kCont];
-    float gw[rtow::kCols] = {};
 #pragma unroll
     for (int j = 0; j < rtow::kCont; ++j) {
       s[j] = cont[j * stride + g];
@@ -125,39 +236,30 @@ __global__ void __launch_bounds__(kThreads)
     const int alive = ints[g];
     const int bounce = ints[stride + g];
     const uint32_t lid = static_cast<uint32_t>(ints[2 * stride + g]);
-    int k = -1;
     if (alive > 0) {
       live = 1;
       k = rtow::bounce_lane_adjoint_t<kTris, kLit>(
-          tbl, npad, tris, s, bounce, rtow::lane_hash(lid), salt, max_depth,
-          bg, G, gin, gw, &tally, lit, alive > 1, lacc);
+          S.tbl, npad, tris, s, bounce, rtow::lane_hash(lid), salt, max_depth,
+          bg, G, gin, gw, &tally, lit, alive > 1,
+          own > 0 ? S.lacc + threadIdx.x * own : S.lacc);
     }
 #pragma unroll
     for (int j = 0; j < rtow::kCont; ++j) cot_in[j * stride + g] = gin[j];
+  }
+  // The whole warp, converged: the winner rows' sums, each group's by its
+  // lowest thread, whose k is the group's.
+  rtow::add_grouped<kRowCols>(k, gw, [&](int c, float x) {
     if (kTris && k >= npad) {
-      float* row = g_tri + static_cast<size_t>(k - npad) * rtow::kCols;
-#pragma unroll
-      for (int c = 0; c < rtow::kTriParamGrads; ++c) {
-        if (gw[c] != 0.0f) atomicAdd(&row[c], gw[c]);
-      }
-    } else if (k >= 0) {
-#pragma unroll
-      for (int c = 0; c < kSphCols; ++c) {
-        if (gw[c] != 0.0f) atomicAdd(&acc[k * rtow::kCols + c], gw[c]);
-      }
+      const int i = (k - npad) * rtow::kCols + c;
+      if (tri_rows > 0)
+        atomicAdd(&S.tacc[i], x);
+      else
+        atomicAdd(&g_tri[i], x);
+    } else {
+      atomicAdd(&S.acc[k * rtow::kCols + c], x);
     }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < npad * rtow::kCols; i += blockDim.x) {
-    const float v = acc[i];
-    if (v != 0.0f) atomicAdd(&g_tbl[i], v);
-  }
-  if constexpr (kLit) {
-    for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x) {
-      const float v = lacc[i];
-      if (v != 0.0f) atomicAdd(&g_rows[i], v);
-    }
-  }
+  });
+  flush<kLit>(S, npad, lit_rows, tri_rows, own, g_tbl, g_tri, g_rows);
   if (stats != nullptr) {  // box tests, triangle tests, live lanes, shadows
     if constexpr (kTris) {
       rtow::warp_add(tally.boxes, stats);
@@ -176,8 +278,8 @@ __global__ void __launch_bounds__(kThreads)
 // as one (nearest_triangle_warp, bit-identical to the serial sweep) and
 // running the adjoint on the same inputs, so its branches are uniform.
 // Lane 0 alone writes the lane's cot_in, adds its row cotangent to the
-// shared g_tbl copy or to g_tri, adds to the light rows' sums and counts
-// the lane's work.
+// shared g_tbl copy or to g_tri (in global memory: few lanes contend), adds
+// to the light rows' sums and counts the lane's work.
 template <bool kLit>
 __global__ void __launch_bounds__(kThreads)
     grad_bwd_warp(const float4* __restrict__ table, int npad, rtow::Tris tris,
@@ -190,22 +292,7 @@ __global__ void __launch_bounds__(kThreads)
                   int lit_rows, const long long* live_count, int cut) {
   if (!warp_form_runs(live_count, cut)) return;
   tris.side_mask = rtow::kKeepSign;
-  extern __shared__ float4 smem[];
-  float4* tbl = smem;
-  float* acc = reinterpret_cast<float*>(smem + 4 * npad);
-  float* lacc = acc + npad * rtow::kCols;
-  for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) tbl[i] = table[i];
-  for (int i = threadIdx.x; i < npad * rtow::kCols; i += blockDim.x)
-    acc[i] = 0.0f;
-  if constexpr (kLit) {
-    float* rows = lacc + lit_rows * rtow::kLitCols;
-    for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x) {
-      rows[i] = lit.rows[i];
-      lacc[i] = 0.0f;
-    }
-    lit.rows = rows;
-  }
-  __syncthreads();
+  const Staged S = stage<kLit>(table, npad, &lit, lit_rows, 0, 0);
 
   constexpr int kSphCols = kLit ? rtow::kTexParamGrads : rtow::kParamGrads;
   const bool lead = (threadIdx.x & 31) == 0;
@@ -245,8 +332,8 @@ __global__ void __launch_bounds__(kThreads)
       const uint32_t lid = static_cast<uint32_t>(ints[2 * stride + g]);
       constexpr auto kWarp = rtow::Sweep::kWarp;
       const int k = rtow::bounce_lane_adjoint_t<true, kLit, kWarp>(
-          tbl, npad, tris, s, bounce, rtow::lane_hash(lid), salt, max_depth,
-          bg, G, gin, gw, &tally, lit, alive > 1, lacc);
+          S.tbl, npad, tris, s, bounce, rtow::lane_hash(lid), salt,
+          max_depth, bg, G, gin, gw, &tally, lit, alive > 1, S.lacc);
       if (lead) {
         ++live;
 #pragma unroll
@@ -261,23 +348,13 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
           for (int col = 0; col < kSphCols; ++col) {
             if (gw[col] != 0.0f)
-              atomicAdd(&acc[k * rtow::kCols + col], gw[col]);
+              atomicAdd(&S.acc[k * rtow::kCols + col], gw[col]);
           }
         }
       }
     }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < npad * rtow::kCols; i += blockDim.x) {
-    const float v = acc[i];
-    if (v != 0.0f) atomicAdd(&g_tbl[i], v);
-  }
-  if constexpr (kLit) {
-    for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x) {
-      const float v = lacc[i];
-      if (v != 0.0f) atomicAdd(&g_rows[i], v);
-    }
-  }
+  flush<kLit>(S, npad, lit_rows, 0, 0, g_tbl, g_tri, g_rows);
   if (stats != nullptr) {  // the lanes' work, counted by lane 0 alone
     rtow::warp_add(lead ? tally.boxes : 0ull, stats);
     rtow::warp_add(lead ? tally.tris : 0ull, stats + 1);
@@ -290,7 +367,9 @@ __global__ void __launch_bounds__(kThreads)
 // instances where `live` is given, grad_bwd_warp<kLit> over the warps the
 // card holds at once; each runs the lanes where the other exits (`cut`:
 // the warp form takes launches of at most `cut` live lanes; cut >= n
-// launches the warp form alone).
+// launches the warp form alone).  The thread form sums g_tri in shared
+// memory where the triangle table has at most kTriSharedRows rows, and
+// gives each thread its own row sums where they fit (own_stride).
 template <bool kTris, bool kLit>
 int launch(const float* table, int npad, const rtow::Tris& tris,
            const float* cont, const int* ints, const float* cot_out, int n,
@@ -298,38 +377,33 @@ int launch(const float* table, int npad, const rtow::Tris& tris,
            float* cot_in, float* g_tbl, float* g_tri, float* g_rows,
            unsigned long long* stats, const rtow::Lit& lit, int lit_rows,
            const long long* live, int cut, cudaStream_t stream) {
-  const int smem = 2 * (npad * rtow::kCols +
-                        (kLit ? lit_rows * rtow::kLitCols : 0)) *
-                   static_cast<int>(sizeof(float));
   const int blocks = (n + kThreads - 1) / kThreads;
   const uint32_t salt = rtow::salt_of(seed, static_cast<uint32_t>(it));
   const bool warp = kTris && live != nullptr;
   if (!warp || cut < n) {
     auto kernel = grad_bwd<kTris, kLit>;
+    const int m_rows = kTris ? tris.n_blocks * tris.block : 0;
+    const int tri_rows = m_rows <= kTriSharedRows ? m_rows : 0;
+    const int own = kLit ? own_stride(lit_rows) : 0;
+    const int smem = smem_floats<kLit>(npad, lit_rows, tri_rows, own) *
+                     static_cast<int>(sizeof(float));
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<blocks, kThreads, smem, stream>>>(
         reinterpret_cast<const float4*>(table), npad, tris, cont, ints,
         cot_out, n, salt, max_depth, bg, cot_in, g_tbl, g_tri, g_rows, stats,
-        lit, lit_rows, warp ? live : nullptr, cut);
+        lit, lit_rows, tri_rows, own, warp ? live : nullptr, cut);
     err = cudaGetLastError();
     if (err != cudaSuccess || !warp) return static_cast<int>(err);
   }
   auto kernel = grad_bwd_warp<kLit>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int per_sm = 0, device = 0, sms = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kThreads, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
+  const int smem = smem_floats<kLit>(npad, lit_rows, 0, 0) *
+                   static_cast<int>(sizeof(float));
+  int held = 0;
+  cudaError_t err = rtow::resident_blocks(kernel, kThreads, smem, &held);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int resident = per_sm * sms;
-  kernel<<<resident < blocks ? resident : blocks, kThreads, smem, stream>>>(
+  kernel<<<held < blocks ? held : blocks, kThreads, smem, stream>>>(
       reinterpret_cast<const float4*>(table), npad, tris, cont, ints, cot_out,
       n, salt, max_depth, bg, cot_in, g_tbl, g_tri, g_rows, stats, lit,
       lit_rows, live, cut);

@@ -1,4 +1,5 @@
-// The gradient path's forward bounce, one thread per lane.
+// The gradient path's forward bounce: one thread per lane, or one warp per
+// live lane in the mesh trainer's drain.
 //
 // Replaces rtow_tpu/ops/pallas_grad.py:_grad_fwd_kernel (K4, :101; launched
 // by _bounce_fwd_impl :592) for spheres and triangles, the sky or a flat
@@ -47,8 +48,21 @@
 // registers; a warp whose 32 lanes are all dead takes the copy branch only,
 // the counterpart of the Pallas kernel's drained-tile skip (:132-146).
 //
+// The drain.  The mesh trainer sorts dead lanes last, and after the first
+// bounces only a few warps at the head of a launch are live: in the thread
+// form each of them walks its lane's triangle hierarchy alone while the
+// card is mostly empty, so a launch of a few hundred live lanes took as
+// long as one of a million.  The triangle instances therefore have a warp
+// form too, grad_fwd_warp: one warp per live lane, its 32 threads sweeping
+// the lane's triangles together (nearest_triangle_warp, as K3's and K5's
+// warp forms) and running the rest of the bounce on the same inputs, lane
+// 0 alone writing.  Which form runs is decided on the card, as in K5: the
+// launcher issues both, each block reads a device count of the live lanes
+// (warp_form_runs, bounce.cuh), and the form that does not run exits at
+// once, so the host needs no sync.
+//
 // Numbers: built with -fmad=false, IEEE division and sqrt, so the output is
-// bit-identical to the plain version on the card.
+// bit-identical to the plain version on the card, in either form.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,8 +73,28 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// kLit: the lit bounce; lit.rows points at global memory here and is staged
-// into shared memory.
+using rtow::warp_form_runs;
+
+// Stages the sphere table (npad rows x 4 float4) and, for the lit
+// instances, the light and volume rows (lit->rows, global memory, then
+// pointed at their copy) into the block's shared memory.
+template <bool kLit>
+__device__ __forceinline__ void stage(const float4* table, int npad,
+                                      rtow::Lit* lit, int lit_rows,
+                                      float4* tbl) {
+  for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) tbl[i] = table[i];
+  if constexpr (kLit) {
+    float* rows = reinterpret_cast<float*>(tbl + npad * 4);
+    for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x)
+      rows[i] = lit->rows[i];
+    lit->rows = rows;
+  }
+  __syncthreads();
+}
+
+// The thread form: one thread per lane.  kLit: the lit bounce.  For the
+// triangle instances where `live_count` is given, its blocks exit at once
+// where the warp form runs the launch (warp_form_runs).
 template <bool kTris, bool kLit>
 __global__ void __launch_bounds__(kThreads)
     grad_fwd(const float4* __restrict__ table, int npad, rtow::Tris tris,
@@ -68,19 +102,15 @@ __global__ void __launch_bounds__(kThreads)
              int n, uint32_t salt, int max_depth, rtow::Background bg,
              float* __restrict__ cont_out, int* __restrict__ ints_out,
              unsigned long long* __restrict__ stats, rtow::Lit lit,
-             int lit_rows) {
+             int lit_rows, const long long* live_count, int cut) {
+  if constexpr (kTris) {
+    if (warp_form_runs(live_count, cut)) return;
+  }
   // One-sided triangles, as JAX's gradient (pallas_grad.py:910), fixed at
   // compile time: the sweep's side test then costs what the cull alone does.
   tris.side_mask = rtow::kKeepSign;
   extern __shared__ float4 tbl[];  // npad rows x 4 float4, then lit rows
-  for (int i = threadIdx.x; i < npad * 4; i += blockDim.x) tbl[i] = table[i];
-  if constexpr (kLit) {
-    float* rows = reinterpret_cast<float*>(tbl + npad * 4);
-    for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x)
-      rows[i] = lit.rows[i];
-    lit.rows = rows;
-  }
-  __syncthreads();
+  stage<kLit>(table, npad, &lit, lit_rows, tbl);
 
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   rtow::Tally tally;
@@ -116,24 +146,119 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// The warp form of the triangle instances, for a launch whose live lanes
+// are few (the sorted drain): one warp per live lane.  The grid holds the
+// warps the card runs at once; its threads first copy the dead lanes
+// through, then warp w takes lanes w, w + n_warps, ... and for each live
+// one the 32 threads run its bounce together
+// (bounce_lane_t<true, kLit, Sweep::kWarp>: the triangle sweeps by
+// nearest_triangle_warp, bit-identical to the serial sweep, the rest on
+// the same inputs, so its branches are uniform).  Lane 0 alone writes the
+// lane's outputs and counts its work.
+template <bool kLit>
+__global__ void __launch_bounds__(kThreads)
+    grad_fwd_warp(const float4* __restrict__ table, int npad, rtow::Tris tris,
+                  const float* __restrict__ cont, const int* __restrict__ ints,
+                  int n, uint32_t salt, int max_depth, rtow::Background bg,
+                  float* __restrict__ cont_out, int* __restrict__ ints_out,
+                  unsigned long long* __restrict__ stats, rtow::Lit lit,
+                  int lit_rows, const long long* live_count, int cut) {
+  if (!warp_form_runs(live_count, cut)) return;
+  tris.side_mask = rtow::kKeepSign;
+  extern __shared__ float4 tbl[];
+  stage<kLit>(table, npad, &lit, lit_rows, tbl);
+
+  const bool lead = (threadIdx.x & 31) == 0;
+  const int n_threads = gridDim.x * kThreads;
+  const int n_warps = n_threads / 32;
+  const size_t stride = static_cast<size_t>(n);
+  // Dead lanes are copied through, each thread its own lanes.
+  for (int g = blockIdx.x * kThreads + threadIdx.x; g < n; g += n_threads) {
+    if (ints[g] > 0) continue;
+#pragma unroll
+    for (int j = 0; j < rtow::kCont; ++j)
+      cont_out[j * stride + g] = cont[j * stride + g];
+    ints_out[g] = ints[g];
+    ints_out[stride + g] = ints[stride + g];
+    ints_out[2 * stride + g] = ints[2 * stride + g];
+  }
+  // Each live lane to one warp, as grad_bwd_warp deals them.
+  const int wl = threadIdx.x & 31;
+  rtow::Tally tally;
+  unsigned long long live = 0;
+  for (int base = (blockIdx.x * kThreads + threadIdx.x) / 32; base < n;
+       base += 32 * n_warps) {
+    const int mine = base + wl * n_warps;
+    const bool mine_live = mine < n && ints[mine] > 0;
+    for (unsigned m = __ballot_sync(0xFFFFFFFFu, mine_live); m != 0u;
+         m &= m - 1u) {
+      const int g = base + (__ffs(static_cast<int>(m)) - 1) * n_warps;
+      float s[rtow::kCont];
+#pragma unroll
+      for (int j = 0; j < rtow::kCont; ++j) s[j] = cont[j * stride + g];
+      int alive = ints[g];
+      int bounce = ints[stride + g];
+      const int lid = ints[2 * stride + g];
+      constexpr auto kWarp = rtow::Sweep::kWarp;
+      alive = rtow::bounce_lane_t<true, kLit, kWarp>(
+          tbl, npad, tris, s, &bounce,
+          rtow::lane_hash(static_cast<uint32_t>(lid)), salt, max_depth, bg,
+          &tally, lit, alive > 1);
+      if (lead) {
+        ++live;
+#pragma unroll
+        for (int j = 0; j < rtow::kCont; ++j) cont_out[j * stride + g] = s[j];
+        ints_out[g] = alive;
+        ints_out[stride + g] = bounce;
+        ints_out[2 * stride + g] = lid;
+      }
+    }
+  }
+  if (stats != nullptr) {  // the lanes' work, counted by lane 0 alone
+    rtow::warp_add(lead ? tally.boxes : 0ull, stats);
+    rtow::warp_add(lead ? tally.tris : 0ull, stats + 1);
+    rtow::warp_add(live, stats + 2);
+    if constexpr (kLit) rtow::warp_add(lead ? tally.shadows : 0ull, stats + 3);
+  }
+}
+
+// Launches grad_fwd<kTris, kLit> over n lanes and, for the triangle
+// instances where `live` is given, grad_fwd_warp<kLit> over the warps the
+// card holds at once; each runs the lanes where the other exits (`cut`:
+// the warp form takes launches of at most `cut` live lanes; cut >= n
+// launches the warp form alone).
 template <bool kTris, bool kLit>
 int launch(const float* table, int npad, const rtow::Tris& tris,
            const float* cont, const int* ints, int n, int it, int seed,
            int max_depth, const rtow::Background& bg, float* cont_out,
            int* ints_out, unsigned long long* stats, const rtow::Lit& lit,
-           int lit_rows, cudaStream_t stream) {
-  auto kernel = grad_fwd<kTris, kLit>;
+           int lit_rows, const long long* live, int cut,
+           cudaStream_t stream) {
   const int smem = (npad * rtow::kCols + (kLit ? lit_rows * rtow::kLitCols
                                                : 0)) *
                    static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (n + kThreads - 1) / kThreads;
-  kernel<<<blocks, kThreads, smem, stream>>>(
-      reinterpret_cast<const float4*>(table), npad, tris, cont, ints, n,
-      rtow::salt_of(seed, static_cast<uint32_t>(it)), max_depth, bg,
-      cont_out, ints_out, stats, lit, lit_rows);
+  const uint32_t salt = rtow::salt_of(seed, static_cast<uint32_t>(it));
+  const auto* tbl = reinterpret_cast<const float4*>(table);
+  const bool warp = kTris && live != nullptr;
+  if (!warp || cut < n) {
+    auto kernel = grad_fwd<kTris, kLit>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks, kThreads, smem, stream>>>(
+        tbl, npad, tris, cont, ints, n, salt, max_depth, bg, cont_out,
+        ints_out, stats, lit, lit_rows, warp ? live : nullptr, cut);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || !warp) return static_cast<int>(err);
+  }
+  auto kernel = grad_fwd_warp<kLit>;
+  int held = 0;
+  cudaError_t err = rtow::resident_blocks(kernel, kThreads, smem, &held);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<held < blocks ? held : blocks, kThreads, smem, stream>>>(
+      tbl, npad, tris, cont, ints, n, salt, max_depth, bg, cont_out, ints_out,
+      stats, lit, lit_rows, live, cut);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -145,10 +270,10 @@ int dispatch(bool any_lit, const float* table, int npad,
              int n, int it, int seed, int max_depth,
              const rtow::Background& bg, float* cont_out, int* ints_out,
              unsigned long long* stats, const rtow::Lit& lit, int lit_rows,
-             cudaStream_t stream) {
+             const long long* live, int cut, cudaStream_t stream) {
   auto run = any_lit ? launch<kTris, true> : launch<kTris, false>;
   return run(table, npad, tris, cont, ints, n, it, seed, max_depth, bg,
-             cont_out, ints_out, stats, lit, lit_rows, stream);
+             cont_out, ints_out, stats, lit, lit_rows, live, cut, stream);
 }
 
 }  // namespace
@@ -169,7 +294,10 @@ extern "C" {
 // neither); the emissive and checker flags; n_lights lights of kinds
 // light_kinds (2 bits each, row 0 lowest: 0 sphere, 1 triangle); n_vol
 // volumes of kinds vol_kinds (2 bits each: 0 sphere, 1 box, 2 rotated box)
-// in the rows from vol_row0 on.  Returns the cudaError_t of the launch.
+// in the rows from vol_row0 on.  live: null (the thread form), or for the
+// triangle instances a device int64 holding the count of live lanes: the
+// warp form then runs where it is at most cut (cut >= n: the warp form
+// alone).  Returns the cudaError_t of the launches.
 int rtow_grad_fwd(const float* table, int npad, const float* tri,
                   const float* boxes, const float* supers,
                   const float* hypers, int n_blocks, int n_super,
@@ -179,7 +307,8 @@ int rtow_grad_fwd(const float* table, int npad, const float* tri,
                   float* cont_out, int* ints_out, unsigned long long* stats,
                   const float* lit_rows, int n_rows, int emissive,
                   int n_lights, int light_kinds, int checker, int n_vol,
-                  int vol_kinds, int vol_row0, int device, void* stream) {
+                  int vol_kinds, int vol_row0, const long long* live, int cut,
+                  int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const rtow::Tris tris{reinterpret_cast<const float4*>(tri),
@@ -196,10 +325,10 @@ int rtow_grad_fwd(const float* table, int npad, const float* tri,
   if (tri == nullptr)
     return dispatch<false>(any_lit, table, npad, tris, cont, ints, n, it,
                            seed, max_depth, bg, cont_out, ints_out, stats, lit,
-                           n_rows, st);
+                           n_rows, nullptr, cut, st);
   return dispatch<true>(any_lit, table, npad, tris, cont, ints, n, it, seed,
                         max_depth, bg, cont_out, ints_out, stats, lit,
-                        n_rows, st);
+                        n_rows, live, cut, st);
 }
 
 const char* rtow_cuda_error_string(int err) {

@@ -93,6 +93,12 @@ GRAD_TRI_BLOCK = 128
 #: the flat sweep.
 MAX_TRI_BLOCKS = 4096
 MAX_FLAT_TRI_BLOCKS = 1536
+#: K5 sums the triangle table's gradient in shared memory where the table
+#: has at most this many rows (``csrc/grad_bwd.cu``'s ``kTriSharedRows``),
+#: and gives each of a block's 256 threads its own sums of the light and
+#: volume rows where they take at most this many bytes (``kOwnRowsBytes``).
+TRI_SHARED_ROWS = 512
+OWN_ROWS_BYTES = 64 * 1024
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -347,6 +353,20 @@ def _check_grad_lit(lit: Lit, tbl: torch.Tensor) -> None:
     check_lit(lit, tbl)
 
 
+def _bwd_staged(lit: Lit, tris: Optional[TriTable]) -> int:
+    """The bytes K5's thread form keeps in shared memory beside its two
+    copies of the sphere table (``csrc/grad_bwd.cu``'s ``smem_floats``):
+    the rows' sums (one copy, or each thread's own), the rows and the
+    volumes' frames, and a small triangle table's gradient."""
+    rows = lit_rows(lit)
+    sums = rows * LIGHT_COLS
+    if rows and 256 * (sums | 1) * 4 <= OWN_ROWS_BYTES:
+        sums = 256 * (sums | 1)
+    small = tris is not None and tris.tbl.shape[0] <= TRI_SHARED_ROWS
+    return (sums + rows * (LIGHT_COLS + 2)
+            + (tris.tbl.numel() if small else 0)) * 4
+
+
 def _check(kernel, tbl, tris, cont, ints, cot, stats, lit, cull, **scalars):
     """The wrappers' checks -> (it, seed, max_depth)."""
     if not cull:
@@ -354,8 +374,9 @@ def _check(kernel, tbl, tris, cont, ints, cot, stats, lit, cull, **scalars):
                          "do (pallas_grad.py:910): no two-sided triangles")
     _check_grad_lit(lit, tbl)
     copies = 2 if cot is not None else 1
-    check_table(tbl, kernel, copies=copies,
-                staged=copies * lit_rows(lit) * LIGHT_COLS * 4)
+    staged = (lit_rows(lit) * LIGHT_COLS * 4 if cot is None
+              else _bwd_staged(lit, tris))
+    check_table(tbl, kernel, copies=copies, staged=staged)
     if tris is not None:
         check_tris(tris, tbl, kernel)
     _check_state(tbl, cont, ints, cot)
@@ -386,11 +407,42 @@ def _lit_args(lit: Lit) -> tuple:
             lit.vol_row0)
 
 
+#: K4's and K5's warp forms (``grad_fwd_warp``, ``grad_bwd_warp``) run a
+#: triangle launch of at most this many live lanes; the thread forms run
+#: the rest.  It is K3's cut, measured on K3's launches
+#: (:data:`.flat_bounce.WARP_MAX_LIVE`).  K4's and K5's own launches,
+#: timed alone in both forms on the 65k knot and the lit 65k knot
+#: (``chip_smoke.py`` phase 20), put each cut between 235,170 live lanes
+#: (the warp form wins) and 1,048,576 (it loses); those tapes have no
+#: launch in between, so any cut there picks the same forms
+#: (``python -m rtow_tpu_torch.time_k4 --cross`` times K4's forms in
+#: between).  Read at each call: a launch's lane count or more runs the
+#: warp form alone, below 0 the thread form runs every launch.
+WARP_MAX_LIVE = flat_bounce.WARP_MAX_LIVE
+
+
+def _live_count(ints, tris, live, drain):
+    """The launchers' device count of the live lanes (``live``, or
+    counted here from ``ints``), or None without triangles or without
+    ``drain``: the thread form alone."""
+    if tris is None or not drain:
+        return None
+    if live is None:
+        return torch.count_nonzero(ints[0])
+    if live.dtype != torch.int64 or live.numel() != 1 \
+            or live.device != ints.device:
+        raise ValueError(f"live must be a one-element int64 count on the "
+                         f"lanes' device, got {live.dtype} "
+                         f"{tuple(live.shape)} {live.device}")
+    return live
+
+
 def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
                tris: Optional[TriTable] = None, *, it: int, seed: int,
                max_depth: int, background: Union[str, tuple] = "sky",
                flat: bool = False, stats: Optional[torch.Tensor] = None,
-               lit: Lit = Lit(), cull: bool = True):
+               lit: Lit = Lit(), cull: bool = True,
+               live: Optional[torch.Tensor] = None, drain: bool = True):
     """One forward bounce (``_bounce_fwd_impl``, :592) -> (cont, ints).
 
     ``tris``: the scene's triangle table, or None; ``flat`` sweeps its
@@ -401,7 +453,17 @@ def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
     A CUDA ``tbl`` launches ``csrc/grad_fwd.cu`` (counted in
     ``bounce_fwd.launches``, in ``lit_launches`` where ``lit`` has a
     feature, and in ``vol_launches`` where it has media); a CPU ``tbl`` runs
-    :func:`bounce_fwd_reference`; any other device raises.  Triangles are
+    :func:`bounce_fwd_reference`; any other device raises.  With
+    triangles and ``drain`` (lanes that may be sorted, so that a launch's
+    live lanes can be few), it issues both of K4's forms, and the card
+    runs the warp form (one warp per live lane) where the launch has at
+    most ``WARP_MAX_LIVE`` live lanes, the thread form elsewhere, from
+    ``live`` (a one-element int64 tensor on the card,
+    ``torch.count_nonzero(ints[0])``) or from a count taken here;
+    launches that issue the warp form are also counted in
+    ``bounce_fwd.warp_launches``.  Without ``drain`` the thread form runs
+    alone, with no count.  Both forms give the same outputs and counters,
+    bit for bit.  Triangles are
     one-sided: ``cull`` False raises, as JAX's gradient has no two-sided
     triangles."""
     it, seed, max_depth = _check("grad_fwd kernel", tbl, tris, cont, ints,
@@ -416,36 +478,29 @@ def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
     use_sky, (bgr, bgg, bgb) = background_args(background)
     cont_out = torch.empty_like(cont)
     ints_out = torch.empty_like(ints)
+    live = _live_count(ints, tris, live, drain)
     err = lib.rtow_grad_fwd(
         tbl.data_ptr(), tbl.shape[0], *_tri_args(tris, flat),
         cont.data_ptr(), ints.data_ptr(), cont.shape[1], it, seed, max_depth,
         int(use_sky), bgr, bgg, bgb, cont_out.data_ptr(), ints_out.data_ptr(),
         None if stats is None else stats.data_ptr(), *_lit_args(lit),
+        None if live is None else live.data_ptr(), WARP_MAX_LIVE,
         *_cuda.device_args(tbl))
     _cuda.check_launch(lib, err, "grad_fwd")
     bounce_fwd.launches += 1
     bounce_fwd.lit_launches += lit.any
     bounce_fwd.vol_launches += bool(lit.vol_kinds)
+    bounce_fwd.warp_launches += live is not None
     return cont_out, ints_out
 
 
 #: Kernel launches made by :func:`bounce_fwd` in this process, those of
-#: them that ran a lit instance, and those of these that ran media.
+#: them that ran a lit instance, those of these that ran media, and those
+#: that issued the warp form.
 bounce_fwd.launches = 0
 bounce_fwd.lit_launches = 0
 bounce_fwd.vol_launches = 0
-
-
-#: K5's warp form (``grad_bwd_warp``) runs a triangle launch of at most
-#: this many live lanes; the thread form runs the rest.  It is K3's cut,
-#: measured on K3's launches (:data:`.flat_bounce.WARP_MAX_LIVE`).  K5's
-#: own launches, timed alone in both forms on the 65k knot and the lit 65k
-#: knot (``chip_smoke.py`` phase 20), put its cut between 235,170 live
-#: lanes (the warp form wins) and 1,048,576 (it loses); those tapes have no
-#: launch in between, so any cut there picks the same forms.  Read at each
-#: call: a launch's lane count or more runs the warp form alone, below 0
-#: the thread form runs every launch.
-WARP_MAX_LIVE = flat_bounce.WARP_MAX_LIVE
+bounce_fwd.warp_launches = 0
 
 
 def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
@@ -453,21 +508,22 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
                it: int, seed: int, max_depth: int,
                background: Union[str, tuple] = "sky", flat: bool = False,
                stats: Optional[torch.Tensor] = None, lit: Lit = Lit(),
-               cull: bool = True):
+               cull: bool = True, live: Optional[torch.Tensor] = None,
+               drain: bool = True):
     """One backward bounce (``_bounce_grad_bwd``, :639) from the bounce's
     saved input state -> (cot_in (13, L), g_tbl (Npad, 16), g_tri (Mpad,
     16) or None without ``tris``, g_rows (R, 14) or None without light or
-    volume rows).  ``tris``, ``flat``, ``lit``, ``stats`` and ``cull`` as
-    for :func:`bounce_fwd`.
+    volume rows).  ``tris``, ``flat``, ``lit``, ``stats``, ``cull``,
+    ``live`` and ``drain`` as for :func:`bounce_fwd`.
 
     A CUDA ``tbl`` launches ``csrc/grad_bwd.cu`` (counted in
     ``bounce_bwd.launches``, ``lit_launches`` and ``vol_launches``, as for
     :func:`bounce_fwd`); a CPU ``tbl`` runs
     :func:`bounce_bwd_reference`; any other device raises.  With
-    triangles, it issues both of K5's forms, and the card runs the warp
+    triangles and ``drain``, it issues both of K5's forms, and the card runs the warp
     form (one warp per live lane) where the launch has at most
-    ``WARP_MAX_LIVE`` live lanes, from a count it keeps on the card, the
-    thread form elsewhere.  Launches that issue the warp form are also
+    ``WARP_MAX_LIVE`` live lanes, from a count on the card (``live``, or
+    taken here), the thread form elsewhere.  Launches that issue the warp form are also
     counted in ``bounce_bwd.warp_launches``.  Both forms give the same
     cot_in and counters, and table gradients that differ only by the
     atomics' order."""
@@ -485,8 +541,7 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
     g_tbl = torch.zeros_like(tbl)
     g_tri = None if tris is None else torch.zeros_like(tris.tbl)
     g_rows = None if lit.rows is None else torch.zeros_like(lit.rows)
-    warp = tris is not None
-    live = torch.count_nonzero(ints[0]) if warp else None
+    live = _live_count(ints, tris, live, drain)
     err = lib.rtow_grad_bwd(
         tbl.data_ptr(), tbl.shape[0], *_tri_args(tris, flat),
         cont.data_ptr(), ints.data_ptr(), cot_out.data_ptr(), cont.shape[1],
@@ -500,7 +555,7 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
     bounce_bwd.launches += 1
     bounce_bwd.lit_launches += lit.any
     bounce_bwd.vol_launches += bool(lit.vol_kinds)
-    bounce_bwd.warp_launches += warp
+    bounce_bwd.warp_launches += live is not None
     return cot_in, g_tbl, g_tri, g_rows
 
 
@@ -523,7 +578,7 @@ def _lib(name: str) -> ctypes.CDLL:
     lit = [p, i, i, i, i, i, i, i, i]
     if name == "grad_fwd":
         lib.rtow_grad_fwd.argtypes = [p, i, *tri, p, p, i, i, i, i, i, f, f,
-                                      f, p, p, p, *lit, i, p]
+                                      f, p, p, p, *lit, p, i, i, p]
         lib.rtow_grad_fwd.restype = i
     else:
         lib.rtow_grad_bwd.argtypes = [p, i, *tri, p, p, p, i, i, i, i, i, f,
@@ -541,20 +596,26 @@ class BounceGrad(torch.autograd.Function):
     tape); the backward is :func:`bounce_bwd` on that state.  ``ints``
     carries no cotangent, nor do the triangle boxes: ``tris`` is the
     table without its rows (``tbl=None``), decisions only; ``lit`` is the
-    lit features without their rows."""
+    lit features without their rows.  ``drain``: the lanes are sorted,
+    so the kernels' warp forms may run (:func:`bounce_fwd`); then, on the
+    card, with triangles, the live lanes are counted once: the forward's
+    count picks K4's form and is kept for K5's."""
 
     @staticmethod
     def forward(ctx, cont, ints, tbl, tri_tbl, rows, tris, lit, it, seed,
-                max_depth, background, flat):
+                max_depth, background, flat, drain):
         full = None if tris is None else tris._replace(tbl=tri_tbl)
+        live = (torch.count_nonzero(ints[0])
+                if drain and tris is not None and ints.is_cuda else None)
         cont_out, ints_out = bounce_fwd(cont, ints, tbl, full, it=it,
                                         seed=seed, max_depth=max_depth,
                                         background=background, flat=flat,
-                                        lit=lit._replace(rows=rows))
+                                        lit=lit._replace(rows=rows),
+                                        live=live, drain=drain)
         ctx.save_for_backward(cont, ints, tbl, tri_tbl, rows)
-        ctx.tris, ctx.lit = tris, lit
+        ctx.tris, ctx.lit, ctx.live = tris, lit, live
         ctx.scalars = dict(it=it, seed=seed, max_depth=max_depth,
-                           background=background, flat=flat)
+                           background=background, flat=flat, drain=drain)
         ctx.mark_non_differentiable(ints_out)
         return cont_out, ints_out
 
@@ -564,19 +625,20 @@ class BounceGrad(torch.autograd.Function):
         full = None if ctx.tris is None else ctx.tris._replace(tbl=tri_tbl)
         cot_in, g_tbl, g_tri, g_rows = bounce_bwd(
             cont, ints, g_cont.contiguous(), tbl, full,
-            lit=ctx.lit._replace(rows=rows), **ctx.scalars)
-        return (cot_in, None, g_tbl, g_tri, g_rows) + (None,) * 7
+            lit=ctx.lit._replace(rows=rows), live=ctx.live, **ctx.scalars)
+        return (cot_in, None, g_tbl, g_tri, g_rows) + (None,) * 8
 
 
 def bounce_grad(cont, ints, tbl, tris: Optional[TriTable] = None, *,
                 it: int, seed: int, max_depth: int,
                 background: Union[str, tuple] = "sky", flat: bool = False,
-                lit: Lit = Lit()):
+                lit: Lit = Lit(), drain: bool = True):
     """:class:`BounceGrad` applied to one bounce."""
     return BounceGrad.apply(
         cont, ints, tbl, None if tris is None else tris.tbl, lit.rows,
         None if tris is None else tris._replace(tbl=None),
-        lit._replace(rows=None), it, seed, max_depth, background, flat)
+        lit._replace(rows=None), it, seed, max_depth, background, flat,
+        drain)
 
 
 # ---------------------------------------------------------------------------
@@ -680,7 +742,8 @@ def render_rays_kernel(scene: Scene, rays: Rays, *, n_pixels: int, spp: int,
         cont, ints = bounce_grad(cont, ints, tbl, tris, it=it, seed=seed,
                                  max_depth=max_depth,
                                  background=scene.background,
-                                 flat=force_flat, lit=lit)
+                                 flat=force_flat, lit=lit,
+                                 drain=bool(sort_lanes))
     if sort_lanes:  # back to lane order, so a pixel's samples are adjacent
         cont, ints = _permute(cont, ints, torch.argsort(ints[2]))
     return cont[10:13, :l_raw].T.reshape(n_pixels, spp, 3).mean(dim=1)

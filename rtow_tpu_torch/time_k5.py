@@ -1,17 +1,25 @@
-"""Times the backward bounce kernel K5 on the mesh trainer's launches.
+"""Times the backward bounce kernel K5 on the gradient trainers' launches.
 
     python -m rtow_tpu_torch.time_k5 [--runs 3] [--knot 65k|360k] [--lit]
+    python -m rtow_tpu_torch.time_k5 [--runs 3] --scene cornell|smoke|smoke-nee|cover ...
 
-The tape: the sorted input states of one forward at the mesh trainer's
-size (256x256, 16 samples per pixel, depth 8: 1,048,576 lanes) through
-K4 on bench.py's knot (``tools/make_mesh.make_knot``), with ``--lit``
-under two square lamps on black with NEE.  Each of its 9 K5 launches is
-timed alone by CUDA events (``--runs`` calls after a warm-up, their
-mean), beside its live lanes, then the 9 together (median of
-``--runs``); where the checkout's K5 has forms (``grad.WARP_MAX_LIVE``),
-in each form ("thread", "warp", "auto": the one the card picks), in
-turns, each forced through that cut-over.  Prints one
-JSON line: the card and, per form, the per-launch and total
+The knot tape: the sorted input states of one forward at the mesh
+trainer's size (256x256, 16 samples per pixel, depth 8: 1,048,576 lanes)
+through K4 on bench.py's knot (``tools/make_mesh.make_knot``), with
+``--lit`` under two square lamps on black with NEE.  The scene tapes
+(``--scene``, one or more): the unsorted input states of one forward
+through K4 at the lit and media trainers' size (400x400, 16 samples per
+pixel, depth 8: 2,560,000 lanes) on the Cornell box with NEE
+(``cornell``), the smoke box without NEE (``smoke``) and with it
+(``smoke-nee``), and the sphere trainer's cover at 400x267 (``cover``,
+the sphere instance), given to the kernels as the trainers give them
+(``drain=False``: the thread form alone).  Each of a tape's 9 K5
+launches is timed alone by CUDA events (``--runs`` calls after a warm-up, their mean), beside its
+live lanes, then the 9 together (median of ``--runs``); on a knot, where the
+checkout's K5 has forms (``grad.WARP_MAX_LIVE``), in each form
+("thread", "warp", "auto": the one the card picks), in turns, each forced
+through that cut-over; on a scene as the card picks it.  Prints one JSON
+line per tape: the card and, per form, the per-launch and total
 milliseconds.  It calls only what every checkout since K5's triangle
 instances has, so a copy of this file in another checkout's package
 times that K5: run both in one chip call, in turns, to compare two
@@ -28,6 +36,12 @@ import sys
 
 KNOTS = {"65k": (256, 128), "360k": (600, 300)}
 SIZE, SPP, DEPTH = 256, 16, 8
+#: --scene: (builder in models/builders.py, aspect ratio, NEE).
+SCENES = {"cornell": ("cornell_scene", 1.0, True),
+          "smoke": ("smoke_scene", 1.0, False),
+          "smoke-nee": ("smoke_scene", 1.0, True),
+          "cover": ("cover_scene", 1.5, False)}
+W_SCENE = 400
 
 
 def _scene(knot: str, lit: bool, dev):
@@ -50,7 +64,8 @@ def _scene(knot: str, lit: bool, dev):
 
 
 def _tape(scene, lit: bool, dev):
-    """(sphere table, triangle table, [(cont, ints)] of each bounce)."""
+    """(sphere table, triangle table, [(cont, ints)] of each bounce) of a
+    knot: sorted, as render_rays_kernel hands them to each bounce."""
     import torch
 
     from .models.camera import camera_rays, make_camera, pixel_coords
@@ -82,6 +97,116 @@ def _tape(scene, lit: bool, dev):
     return tbl, G.grad_tri_table(scene), tape
 
 
+def trainer_kw(fn, sorted_lanes: bool) -> dict:
+    """The keywords the trainers give ``fn`` (``bounce_fwd`` or
+    ``bounce_bwd``): ``drain=False`` on unsorted lanes (no warp form, no
+    live count), where the checkout's wrapper takes it."""
+    import inspect
+
+    if sorted_lanes or "drain" not in inspect.signature(fn).parameters:
+        return {}
+    return {"drain": False}
+
+
+def tapes(opts, dev):
+    """{name: (tbl, tris, tape, lit, background)} of the tapes asked for:
+    the knot's, or each --scene's (unsorted, chained through K4)."""
+    import importlib
+
+    import torch
+
+    from .config import Config
+    from .models.camera import camera_rays, pixel_coords
+    from .ops import grad as G
+    from .ops import megakernel as mk
+
+    if not opts.scene:
+        scene = _scene(opts.knot, opts.lit, dev)
+        name = f"{'lit ' if opts.lit else ''}{opts.knot} knot"
+        return {name: (*_tape(scene, opts.lit, dev),
+                       G.grad_lit(scene, opts.lit), scene.background)}
+    builders = importlib.import_module(f"{__package__}.models.builders")
+    out = {}
+    for name in opts.scene:
+        fn, aspect, nee = SCENES[name]
+        if fn == "cover_scene":
+            scene, cam = builders.cover_scene(
+                Config(image_width=W_SCENE, aspect_ratio=aspect), device=dev)
+        else:
+            scene, cam = getattr(builders, fn)(aspect, device=dev)
+        height = int(round(W_SCENE / aspect))
+        lit = G.grad_lit(scene, nee)
+        tbl, _ = mk.build_sphere_table(scene)
+        tris = G.grad_tri_table(scene) if scene.n_triangles else None
+        gen = torch.Generator(dev).manual_seed(7)
+        pix = torch.arange(W_SCENE * height,
+                           device=dev).repeat_interleave(SPP)
+        s, t = pixel_coords(W_SCENE, height, gen, pix)
+        cont, ints = mk.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
+                                   dev)
+        tape, kw = [], trainer_kw(G.bounce_fwd, False)
+        for it in range(DEPTH + 1):
+            tape.append((cont, ints))
+            cont, ints = G.bounce_fwd(cont, ints, tbl, tris, it=it, seed=0,
+                                      max_depth=DEPTH, lit=lit,
+                                      background=scene.background, **kw)
+        out[name] = (tbl, tris, tape, lit, scene.background)
+    return out
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def event_ms(torch, fn, n):
+    """Mean ms of ``n`` calls of ``fn`` after one to warm up, between two
+    CUDA events."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def time_forms(torch, G, kernel, tape, forms, runs):
+    """({form: [ms of each launch alone]}, {form: {runs, median}} of the 9
+    together): ``kernel(it)`` issues launch ``it``, in each of ``forms``
+    in turns (forced through ``G.WARP_MAX_LIVE``; None: the checkout's
+    one form)."""
+    cut = getattr(G, "WARP_MAX_LIVE", None)
+
+    def call(it, form):
+        if form is not None:
+            G.WARP_MAX_LIVE = {"thread": -1, "warp": 1 << 30, "auto": cut}[
+                form]
+        return kernel(it)
+
+    per = {str(f): [] for f in forms}
+    total = {str(f): [] for f in forms}
+    try:
+        for it in range(len(tape)):
+            for f in forms:
+                per[str(f)].append(event_ms(torch, lambda: call(it, f), runs))
+        for _ in range(runs):
+            for f in forms:
+                total[str(f)].append(event_ms(
+                    torch, lambda: [call(it, f) for it in range(len(tape))],
+                    1))
+    finally:
+        if cut is not None:
+            G.WARP_MAX_LIVE = cut
+    return per, {f: {"runs": v, "median": statistics.median(v)}
+                 for f, v in total.items()}
+
+
 def main(argv=None) -> None:
     import numpy as np
     import torch
@@ -92,60 +217,34 @@ def main(argv=None) -> None:
     p.add_argument("--runs", type=int, default=3)
     p.add_argument("--knot", choices=sorted(KNOTS), default="65k")
     p.add_argument("--lit", action="store_true")
+    p.add_argument("--scene", nargs="+", choices=sorted(SCENES))
     opts = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("time_k5: needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    scene = _scene(opts.knot, opts.lit, dev)
-    tbl, tris, tape = _tape(scene, opts.lit, dev)
-    lit = G.grad_lit(scene, opts.lit)
-    rng = np.random.default_rng(1)
-    cots = [torch.from_numpy(rng.standard_normal(tuple(c.shape))
-                             .astype(np.float32)).to(dev) for c, _ in tape]
-    cut = getattr(G, "WARP_MAX_LIVE", None)
-    forms = ((None,) if cut is None else ("thread", "warp", "auto"))
+    name_card = card()
+    has_forms = getattr(G, "WARP_MAX_LIVE", None) is not None
+    for name, (tbl, tris, tape, lit, bg) in tapes(opts, dev).items():
+        rng = np.random.default_rng(1)
+        cots = [torch.from_numpy(rng.standard_normal(tuple(c.shape))
+                                 .astype(np.float32)).to(dev)
+                for c, _ in tape]
+        forms = (("thread", "warp", "auto") if has_forms and not opts.scene
+                 else (None,))
+        kw = trainer_kw(G.bounce_bwd, not opts.scene)
 
-    def call(it, form):
-        c, i = tape[it]
-        if form is not None:
-            G.WARP_MAX_LIVE = {"thread": -1, "warp": 1 << 30, "auto": cut}[
-                form]
-        return G.bounce_bwd(c, i, cots[it], tbl, tris, it=it, seed=0,
-                            max_depth=DEPTH, lit=lit)
+        def kernel(it):
+            c, i = tape[it]
+            return G.bounce_bwd(c, i, cots[it], tbl, tris, it=it, seed=0,
+                                max_depth=DEPTH, lit=lit, background=bg,
+                                **kw)
 
-    def ms(fn, n):
-        fn()  # warm-up
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
-
-    live = [int((i[0] > 0).sum()) for _, i in tape]
-    per = {str(f): [] for f in forms}
-    for it in range(len(tape)):
-        for f in forms:
-            per[str(f)].append(ms(lambda: call(it, f), opts.runs))
-    total = {str(f): [] for f in forms}
-    for _ in range(opts.runs):
-        for f in forms:
-            total[str(f)].append(ms(lambda: [call(it, f)
-                                             for it in range(len(tape))], 1))
-    if cut is not None:
-        G.WARP_MAX_LIVE = cut
-    print(json.dumps({"card": card, "knot": opts.knot, "lit": opts.lit,
-                      "lanes": tape[0][0].shape[1], "live": live,
-                      "per_launch_ms": per,
-                      "total_ms": {f: {"runs": v,
-                                       "median": statistics.median(v)}
-                                   for f, v in total.items()}}), flush=True)
+        per, total = time_forms(torch, G, kernel, tape, forms, opts.runs)
+        print(json.dumps({"card": name_card, "kernel": "K5", "tape": name,
+                          "lanes": tape[0][0].shape[1],
+                          "live": [int((i[0] > 0).sum()) for _, i in tape],
+                          "per_launch_ms": per, "total_ms": total}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -950,3 +950,25 @@ def test_grad_bwd_warp_form_matches_thread_form(dev, monkeypatch):
                 scale = b.abs().amax(dim=0, keepdim=True)
                 assert bool(((a - b).abs() <= 1e-3 * scale).all()), (it, form)
     assert grad.bounce_bwd.warp_launches == before + 3 * len(tape)
+
+
+def test_grad_fwd_warp_form_bit_identical(dev, monkeypatch):
+    """K4's warp form against its thread form, the picked one and the plain
+    version at every bounce of a sorted forward on the 4,096-triangle knot,
+    each forced by its cut-over ``grad.WARP_MAX_LIVE``: the outputs bit
+    for bit, the counters equal."""
+    tbl, tris, tape = _mesh_grad_tape(dev, 64, 32, False)
+    before = grad.bounce_fwd.warp_launches
+    for it, (cont, ints) in enumerate(tape):
+        kw = dict(it=it, seed=3, max_depth=8)
+        ps = torch.zeros(4, dtype=torch.int64, device=dev)
+        plain = grad.bounce_fwd_reference(cont, ints, tbl, tris, stats=ps,
+                                          **kw)
+        for cut in (-1, 1 << 30, grad.flat_bounce.WARP_MAX_LIVE):
+            monkeypatch.setattr(grad, "WARP_MAX_LIVE", cut)
+            st = torch.zeros(4, dtype=torch.int64, device=dev)
+            out = grad.bounce_fwd(cont, ints, tbl, tris, stats=st, **kw)
+            assert all(torch.equal(a, b) for a, b in zip(out, plain)), \
+                (it, cut)
+            assert torch.equal(st, ps), (it, cut)
+    assert grad.bounce_fwd.warp_launches == before + 3 * len(tape)
