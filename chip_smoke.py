@@ -2439,8 +2439,7 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
             tape.append((cont, ints))
             cont, ints = G.bounce_fwd(cont, ints, tbl, tris, it=it, seed=0,
                                       max_depth=DEPTH_GRAD, lit=lit,
-                                      background=scene.background,
-                                      drain=False)
+                                      background=scene.background)
         return tape
 
     def counters():
@@ -2450,13 +2449,12 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
         """Medians of 3 (after a warm-up) of K4's and K5's (depth + 1)
         launches on ``tape`` (K5 under standard-normal cotangents), each
         set issued back to back between one pair of CUDA events, as the
-        trainer issues them on its unsorted lanes (``drain=False``) ->
-        ((K4 ms, runs), (K5 ms, runs))."""
+        trainer issues them -> ((K4 ms, runs), (K5 ms, runs))."""
         n = tape[0][0].shape[1]
         cots = [torch.from_numpy(rng.standard_normal((13, n))
                                  .astype(np.float32)).to(dev) for _ in tape]
         args = [dict(it=it, seed=0, max_depth=DEPTH_GRAD, lit=lit,
-                     background=scene.background, drain=False)
+                     background=scene.background)
                 for it in range(len(tape))]
         out = []
         for kern, bwd in ((G.bounce_fwd, False), (G.bounce_bwd, True)):

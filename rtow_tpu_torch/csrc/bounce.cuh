@@ -805,17 +805,18 @@ constexpr float kRRPMin = 0.05f;
 // The lit features of a render.  rows: the (n_lights + n_vol) x 14 light
 // rows then volume rows (the volumes from vol_row0); light_kinds and
 // vol_kinds: 2 bits per row, light 0 sphere / 1 triangle, volume 0 sphere /
-// 1 box / 2 rotated box.  frames: null, or each volume's (cos, sin) of its
-// rotation (column 7), staged once by a kernel that reads them often
-// (stage_frames); vol_frame derives them where it is null.  own_rows: each
-// thread of K5's thread form has its own sums of the rows' cotangents
-// (add_rows, bounce_adjoint.cuh).
+// 1 box / 2 rotated box.
 struct Lit {
   const float* rows;
   int emissive, n_lights, checker, n_vol, vol_row0, roulette;
   uint32_t light_kinds, vol_kinds;
+#ifdef RTOW_STAGED_FRAMES
+  // Null, or each volume's (cos, sin) of its rotation (column 7), staged
+  // once a block by K5 (grad_bwd.cu defines RTOW_STAGED_FRAMES), which
+  // reads them in every interval and interval adjoint (stage_frames).  The
+  // other kernels keep neither the field nor the branch in vol_frame.
   const float* frames = nullptr;
-  int own_rows = 0;
+#endif
 };
 
 // max(x, lo) as torch.clamp(x, min=lo) takes it (a NaN stays NaN).
@@ -1036,19 +1037,25 @@ RTOW_HD float light_pdf_toward(const Lit& L, const Ray& r, float t_hit) {
 // -- media (ops/volumes.py) --
 
 // The (cos, sin) of volume k's rotation about y (its row q's column 7):
-// from L.frames where a kernel staged them, else derived here by the same
+// from L.frames where K5 staged them, else derived here by the same
 // cosf / sinf, so both give the same bits.
 RTOW_HD void vol_frame(const Lit& L, int k, const float* q, float* c,
                        float* sn) {
+#ifdef RTOW_STAGED_FRAMES
   if (L.frames != nullptr) {
     *c = L.frames[2 * k];
     *sn = L.frames[2 * k + 1];
-  } else {
-    *c = cosf(q[7]);
-    *sn = sinf(q[7]);
+    return;
   }
+#else
+  (void)L;
+  (void)k;
+#endif
+  *c = cosf(q[7]);
+  *sn = sinf(q[7]);
 }
 
+#ifdef RTOW_STAGED_FRAMES
 // Writes each volume's (cos, sin) to frames (2 n_vol floats) for
 // vol_frame, one volume per thread of `threads` from thread t; the caller
 // then points L->frames at them once every thread has written.
@@ -1059,6 +1066,7 @@ RTOW_HD void stage_frames(const Lit& L, float* frames, int t, int threads) {
     frames[2 * k + 1] = sinf(q[7]);
   }
 }
+#endif
 
 // The boundary interval [t0, t1] of volume k along the ray; false where the
 // ray misses it.

@@ -329,7 +329,7 @@ RTOW_HD void triangle_hit_adjoint(const float4* tri, int k, const Hit& e,
 constexpr int kGroupMin = 4;
 
 // Adds each thread's kN values v to row `key` (key < 0: none), first
-// summed over the threads of the warp that have the same key: the lowest
+// summed over the threads of the warp that have the same row: the lowest
 // thread of each such group adds the group's sums, add(c, sum) for each
 // non-zero column c of its own row (an atomicAdd).  So a warp whose lanes
 // hit a few rows makes a few atomics per column, not 32 contending ones (a
@@ -346,7 +346,9 @@ __device__ __forceinline__ void add_grouped(int key, const float* v,
   const int lane = static_cast<int>(threadIdx.x & 31u);
   const unsigned peers = __match_any_sync(kAll, key);
   const bool lead = __ffs(static_cast<int>(peers)) - 1 == lane;
-  unsigned rest = lead ? peers & (peers - 1u) : 0u;  // the lead's peers
+  // The lead's peers; threads with no row (dead lanes, misses, volume
+  // events) form no group, so they never raise the rounds.
+  unsigned rest = lead && key >= 0 ? peers & (peers - 1u) : 0u;
   const int rounds = static_cast<int>(
       __reduce_max_sync(kAll, static_cast<unsigned>(__popc(rest))));
   if (rounds < kGroupMin) {  // small groups: each thread adds its own
@@ -377,22 +379,30 @@ __device__ __forceinline__ void add_grouped(int key, const float* v,
 }
 #endif
 
-// Adds a row's 14 local cotangents q to its sums g.  Where the lane owns
-// its sums (a host build's lanes, or L.own_rows: each thread of K5's thread
-// form has its own copy of the rows' sums in shared memory), plain adds;
-// otherwise the block's shared sums, atomically (in the warp form, where
-// the 32 threads hold the same q, by one thread of the warp).
+// Where a lane adds its light and volume rows' cotangents: the sums g (all
+// of L's rows x 14 floats), and whether the lane owns them (own: plain
+// adds) or shares them with other threads (atomic adds).  A host build's
+// lanes own theirs; K5 decides for its device lanes (grad_bwd.cu).
+struct RowSums {
+  float* g = nullptr;
+  bool own = false;
+};
+
+// Adds row `row`'s 14 local cotangents q to its sums: plain adds where
+// the lane owns them (a host build always), otherwise atomically (in the
+// warp form, where the 32 threads hold the same q, by one thread of the
+// warp).
 template <Sweep kSweep = Sweep::kThread>
-RTOW_HD void add_rows(const Lit& L, float* g, const float* q) {
+RTOW_HD void add_rows(const RowSums& sums, int row, const float* q) {
+  float* g = sums.g + kLitCols * row;
 #ifdef __CUDA_ARCH__
-  if (kSweep == Sweep::kThread && L.own_rows) {
+  if (kSweep == Sweep::kThread && sums.own) {
     for (int c = 0; c < kLitCols; ++c) g[c] += q[c];
   } else if (writes_lane<kSweep>()) {
     for (int c = 0; c < kLitCols; ++c)
       if (q[c] != 0.0f) atomicAdd(g + c, q[c]);
   }
 #else
-  (void)L;
   for (int c = 0; c < kLitCols; ++c) g[c] += q[c];
 #endif
 }
@@ -613,7 +623,7 @@ RTOW_HD void sample_light_adjoint(const Lit& L, int k, float u1, float u2,
 template <Sweep kSweep = Sweep::kThread>
 RTOW_HD void light_pdf_adjoint(const Lit& L, const Ray& r, float t_hit,
                                float g_pdf, float* g_o, float* g_d,
-                               float* g_tm, float* g_lrows) {
+                               float* g_tm, const RowSums& g_lrows) {
   const float n = static_cast<float>(L.n_lights);
   const float d[3] = {r.dx, r.dy, r.dz};
   const float o[3] = {r.ox, r.oy, r.oz};
@@ -718,7 +728,7 @@ RTOW_HD void light_pdf_adjoint(const Lit& L, const Ray& r, float t_hit,
         gq[7 + i] += g_e2[i];
       }
     }
-    add_rows<kSweep>(L, g_lrows + kLitCols * k, gq);
+    add_rows<kSweep>(g_lrows, k, gq);
   }
   // u = d / sqrt(at_least(|d|^2, 1e-24))
   const float g_inv = dot3(g_u, d);
@@ -963,7 +973,7 @@ template <Sweep kSweep = Sweep::kThread>
 RTOW_HD void transmittance_adjoint(const Lit& L, const Ray& r, float t_max,
                                    float T, float g_T, float* g_o,
                                    float* g_d, float* g_tmax,
-                                   float* g_lrows) {
+                                   const RowSums& g_lrows) {
   const float o[3] = {r.ox, r.oy, r.oz}, d[3] = {r.dx, r.dy, r.dz};
   const float dlen = sqrtf(at_least(dot3(d, d), 1e-24f));
   const float g_tau = -g_T * T;
@@ -986,7 +996,7 @@ RTOW_HD void transmittance_adjoint(const Lit& L, const Ray& r, float t_max,
     min_adjoint(t1, t_max, g_ov, &g_t1, g_tmax);
     vol_interval_adjoint(L, k, o, d, t0 >= 0.0f ? -g_ov : 0.0f, g_t1, g_o,
                          g_d, gq);
-    add_rows<kSweep>(L, g_lrows + kLitCols * (L.vol_row0 + k), gq);
+    add_rows<kSweep>(g_lrows, L.vol_row0 + k, gq);
   }
   len_adjoint(d, g_len, g_d);
 }
@@ -1029,7 +1039,8 @@ RTOW_HD void next_event_adjoint(const float4* tbl, int npad, const Tris& tris,
                                 float nz, float nar, float nag, float nab,
                                 bool volume, uint32_t lane, uint32_t salt,
                                 const float* G, float* gin, ShadeGrad* g,
-                                float* g_tm, float* g_lrows, Tally* tally) {
+                                float* g_tm, const RowSums& g_lrows,
+                                Tally* tally) {
   const float pick = uniform(lane, salt, 8);
   const float u1 = uniform(lane, salt, 9);
   const float u2 = uniform(lane, salt, 10);
@@ -1100,7 +1111,7 @@ RTOW_HD void next_event_adjoint(const float4* tbl, int npad, const Tris& tris,
   g->px += gp[0];
   g->py += gp[1];
   g->pz += gp[2];
-  add_rows<kSweep>(L, g_lrows + kLitCols * k, gq);
+  add_rows<kSweep>(g_lrows, k, gq);
 }
 
 // The adjoint of an emissive hit's radiance, rad' = rad + tp al w_emit
@@ -1114,7 +1125,8 @@ template <Sweep kSweep = Sweep::kThread>
 RTOW_HD void emission_adjoint(const Lit& L, const Ray& r, float a,
                               float t_hit, const Material& m, bool mis,
                               const float* s, const float* G, float* gin,
-                              float* g_al, float* g_tm, float* g_lrows) {
+                              float* g_al, float* g_tm,
+                              const RowSums& g_lrows) {
   float w_emit = 1.0f, p_b = 0.0f, sum = 0.0f, den = 1.0f;
   if (mis) {
     const float p_l = light_pdf_toward(L, r, t_hit);
@@ -1156,7 +1168,7 @@ RTOW_HD void volume_adjoint(const float4* tbl, int npad, const Tris& tris,
                             const Lit& L, const float* s, const Ray& r,
                             int kv, float v_t, const float* v_alb, bool nee,
                             uint32_t lane, uint32_t salt, const float* G,
-                            float* gin, float* g_lrows, Tally* tally) {
+                            float* gin, const RowSums& g_lrows, Tally* tally) {
   const float d[3] = {r.dx, r.dy, r.dz};
   const float p[3] = {r.ox + v_t * r.dx, r.oy + v_t * r.dy,
                       r.oz + v_t * r.dz};
@@ -1188,7 +1200,7 @@ RTOW_HD void volume_adjoint(const float4* tbl, int npad, const Tris& tris,
     gin[3 + i] = g_d[i];
   }
   gin[6] += g_tm;
-  add_rows<kSweep>(L, g_lrows + kLitCols * (L.vol_row0 + kv), gq);
+  add_rows<kSweep>(g_lrows, L.vol_row0 + kv, gq);
 }
 
 // Replays bounce_lane_t<kTris, kLit> for a live lane from its saved input
@@ -1216,7 +1228,7 @@ RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
                                   const float* G, float* gin, float* gw,
                                   Tally* tally, const Lit& L = Lit{},
                                   bool from_diffuse = false,
-                                  float* g_lrows = nullptr) {
+                                  RowSums g_lrows = {}) {
   for (int j = 0; j < kCont; ++j) gin[j] = G[j];
   const Ray r{s[0], s[1], s[2], s[3], s[4], s[5], s[6]};
   const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;

@@ -31,25 +31,27 @@
 // plus the table-gradient sums.  A float atomicAdd to shared memory is a
 // compare-and-swap loop that contending threads repeat, and one to global
 // memory is serialised per address at its L2 slice, so the sums are made
-// in three steps.  First the lanes of a warp that add to the same row --
-// the same winner row, light row or volume row -- sum their columns by
-// shuffles (add_grouped: __match_any_sync on the row), and one lane of each
-// group adds the sums.  Those adds go to a per-block copy in shared memory
-// of the sphere table's gradient (npad x 16 floats: 32 KB for the cover),
-// of the light and volume rows' (at most 24 x 14 floats) and, where the
-// triangle table has at most kTriSharedRows rows (the Cornell and smoke
-// boxes' 12-24 triangles), of the triangle table's.  Last each block adds
-// the non-zero entries of its copies to g_tbl, g_rows and g_tri with
-// atomicAdd: one global atomic per touched entry per block.  A larger
+// in steps.  First the lanes of a warp on the same winner row sum their
+// columns by shuffles where such a group has four or more (add_grouped:
+// __match_any_sync on the row), and one lane of each group adds the sums.
+// Those adds go to a per-block copy in shared memory of the sphere table's
+// gradient (npad x 16 floats: 32 KB for the cover) and, where the caller's
+// layout has room beside the sphere table (ops/grad.py's _bwd_layout: the
+// Cornell and smoke boxes' 12-24 triangles), of the triangle table's.  The
+// light and volume rows' cotangents go to each thread's own sums where
+// the layout has room for them, else to the block's one copy.  Last each
+// block adds the non-zero entries of its copies to g_tbl, g_rows and g_tri
+// with atomicAdd: one global atomic per touched entry per block.  A larger
 // triangle table's gradient (4 MB for a 65,536-triangle mesh, 23 MB for
 // 360,448 rows) cannot sit in shared memory, so a group adds its sums to
 // g_tri in global memory.  Measured on the Cornell box and the smoke box
 // (PERF.md): the 2.56 M lanes' global atomics into 12-24 triangle rows took
-// 58-85% of the 9 launches, the light and volume rows' shared atomics 28%
+// 57-85% of the 9 launches, the light and volume rows' shared atomics 28%
 // on the smoke box with NEE.  The rotated boxes' frames (cos, sin) are
-// derived once per block (rtow::stage_frames), not in every interval and
-// its adjoint.  The order of the sums changes from run to run, so g_tbl,
-// g_tri and g_rows are reproducible only to float32 rounding of the sums.
+// derived once per block where the layout has room (rtow::stage_frames),
+// not in every interval and its adjoint.  The order of the sums changes
+// from run to run, so g_tbl, g_tri and g_rows are reproducible only to
+// float32 rounding of the sums.
 //
 // The drain.  The mesh trainer sorts dead lanes last, and after the first
 // bounces only a few warps at the head of a launch are live: in the thread
@@ -66,65 +68,61 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The rotated boxes' frames, staged once a block (Lit::frames): this
+// kernel's alone.  In every kernel the field and vol_frame's branch cost
+// K4 up to 2.5% on the smoke box (PERF.md).
+#define RTOW_STAGED_FRAMES 1
 #include "bounce.cuh"
 #include "bounce_adjoint.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-// The triangle table's gradient is summed per block in shared memory where
-// it has at most this many rows (4 blocks of 128: 32 KB), as the sphere
-// table's is; a larger table's lanes add to g_tri in global memory.
-constexpr int kTriSharedRows = 512;
-// The thread form gives each thread its own sums of the light and volume
-// rows' cotangents where the block's copies take at most this many bytes
-// (4 rows: the Cornell and smoke boxes' 2-4); else its threads add to the
-// block's one copy atomically.
-constexpr int kOwnRowsBytes = 64 * 1024;
 
 using rtow::warp_form_runs;
 
-// The stride of a thread's own row sums: the rows' floats, made odd so
-// that neighbouring threads' copies fall in different banks; 0 where they
-// do not fit in kOwnRowsBytes.
-__host__ __device__ constexpr int own_stride(int lit_rows) {
-  return lit_rows > 0 &&
-                 kThreads * ((lit_rows * rtow::kLitCols) | 1) * 4 <=
-                     kOwnRowsBytes
-             ? (lit_rows * rtow::kLitCols) | 1
-             : 0;
-}
+// What a block keeps in shared memory beyond the sphere table, its
+// gradient, the light and volume rows and one copy of their sums, as the
+// caller lays it out to fit beside the sphere table (ops/grad.py's
+// _bwd_layout): tri_rows > 0, the triangle table's gradient (tri_rows x
+// 16 floats) summed per block; own > 0, each thread's own sums of the
+// rows, own floats apart (odd, so that neighbouring threads' copies fall
+// in different banks), in place of the one copy; frames, the volumes'
+// (cos, sin).  The warp form takes frames alone.
+struct Layout {
+  int tri_rows, own, frames;
+};
 
 // A block's shared memory: the sphere table (npad x 4 float4) and its
-// gradient (npad x 16 floats); with kLit the light and volume rows'
-// gradient (lit_rows x 14 floats, or kThreads x own where each thread has
-// its own copy), the rows themselves (lit_rows x 14 floats) and the
-// volumes' frames (2 lit_rows floats); then, where tri_rows > 0, the
+// gradient (npad x 16 floats); with kLit the rows' sums (lit_rows x 14
+// floats, or kThreads x own), the rows themselves (lit_rows x 14 floats)
+// and, with frames, the volumes' frames (2 n_vol floats); then the
 // triangle table's gradient (tri_rows x 16 floats).
 template <bool kLit>
-__host__ __device__ constexpr int smem_floats(int npad, int lit_rows,
-                                              int tri_rows, int own) {
-  return 2 * npad * rtow::kCols +
-         (kLit ? (own > 0 ? kThreads * own : lit_rows * rtow::kLitCols) +
-                     lit_rows * (rtow::kLitCols + 2)
-               : 0) +
-         tri_rows * rtow::kCols;
+int smem_bytes(int npad, int lit_rows, int n_vol, const Layout& lay) {
+  const int floats =
+      2 * npad * rtow::kCols +
+      (kLit ? (lay.own > 0 ? kThreads * lay.own : lit_rows * rtow::kLitCols) +
+                  lit_rows * rtow::kLitCols + (lay.frames ? 2 * n_vol : 0)
+            : 0) +
+      lay.tri_rows * rtow::kCols;
+  return floats * static_cast<int>(sizeof(float));
 }
 
 struct Staged {
   float4* tbl;
   float* acc;   // the sphere table's gradient
   float* lacc;  // the light and volume rows' gradient
-  float* tacc;  // the triangle table's gradient (tri_rows > 0)
+  float* tacc;  // the triangle table's gradient (lay.tri_rows > 0)
 };
 
-// Stages the sphere table and the rows (lit->rows and its frames then
-// point at the copies) and zeroes the gradients' copies (own: as
-// own_stride).
+// Stages the sphere table, the rows and, with lay.frames, the volumes'
+// frames (lit->rows and lit->frames then point at the copies) and zeroes
+// the gradients' copies.
 template <bool kLit>
 __device__ __forceinline__ Staged stage(const float4* table, int npad,
                                         rtow::Lit* lit, int lit_rows,
-                                        int tri_rows, int own) {
+                                        const Layout& lay) {
   extern __shared__ float4 smem[];
   Staged S;
   S.tbl = smem;
@@ -135,21 +133,23 @@ __device__ __forceinline__ Staged stage(const float4* table, int npad,
   for (int i = threadIdx.x; i < npad * rtow::kCols; i += blockDim.x)
     S.acc[i] = 0.0f;
   if constexpr (kLit) {
-    const int sums = own > 0 ? kThreads * own : lit_rows * rtow::kLitCols;
+    const int sums =
+        lay.own > 0 ? kThreads * lay.own : lit_rows * rtow::kLitCols;
     for (int i = threadIdx.x; i < sums; i += blockDim.x) S.lacc[i] = 0.0f;
     float* rows = S.lacc + sums;
     for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x)
       rows[i] = lit->rows[i];
     lit->rows = rows;
-    lit->own_rows = own > 0;
-    float* frames = rows + lit_rows * rtow::kLitCols;
-    __syncthreads();
-    rtow::stage_frames(*lit, frames, threadIdx.x, blockDim.x);
-    lit->frames = frames;
-    end = frames + 2 * lit_rows;
+    end = rows + lit_rows * rtow::kLitCols;
+    if (lay.frames) {
+      __syncthreads();
+      rtow::stage_frames(*lit, end, threadIdx.x, blockDim.x);
+      lit->frames = end;
+      end += 2 * lit->n_vol;
+    }
   }
   S.tacc = end;
-  for (int i = threadIdx.x; i < tri_rows * rtow::kCols; i += blockDim.x)
+  for (int i = threadIdx.x; i < lay.tri_rows * rtow::kCols; i += blockDim.x)
     S.tacc[i] = 0.0f;
   __syncthreads();
   return S;
@@ -160,7 +160,7 @@ __device__ __forceinline__ Staged stage(const float4* table, int npad,
 // in thread order).
 template <bool kLit>
 __device__ __forceinline__ void flush(const Staged& S, int npad,
-                                      int lit_rows, int tri_rows, int own,
+                                      int lit_rows, const Layout& lay,
                                       float* g_tbl, float* g_tri,
                                       float* g_rows) {
   __syncthreads();
@@ -171,15 +171,16 @@ __device__ __forceinline__ void flush(const Staged& S, int npad,
   if constexpr (kLit) {
     for (int i = threadIdx.x; i < lit_rows * rtow::kLitCols; i += blockDim.x) {
       float v = 0.0f;
-      if (own > 0) {
-        for (int t = 0; t < kThreads; ++t) v += S.lacc[t * own + i];
+      if (lay.own > 0) {
+        for (int t = 0; t < kThreads; ++t) v += S.lacc[t * lay.own + i];
       } else {
         v = S.lacc[i];
       }
       if (v != 0.0f) atomicAdd(&g_rows[i], v);
     }
   }
-  for (int i = threadIdx.x; i < tri_rows * rtow::kCols; i += blockDim.x) {
+  for (int i = threadIdx.x; i < lay.tri_rows * rtow::kCols;
+       i += blockDim.x) {
     const float v = S.tacc[i];
     if (v != 0.0f) atomicAdd(&g_tri[i], v);
   }
@@ -188,10 +189,10 @@ __device__ __forceinline__ void flush(const Staged& S, int npad,
 // The thread form: one thread per lane.  A lane's winner-row cotangent is
 // summed with those of the warp's other lanes on the same row
 // (add_grouped) and added to the block's shared copy of its table's
-// gradient, to g_tri itself where the triangle table has more than
-// kTriSharedRows rows (tri_rows 0).  Its light and volume rows'
-// cotangents go to the thread's own sums where they fit (own > 0, as
-// own_stride), else to the block's.  For the triangle instances where
+// gradient, to g_tri itself where the layout has no copy of it
+// (lay.tri_rows 0).  Its light and volume rows' cotangents go to the
+// thread's own sums where the layout gives it some (lay.own > 0), else to
+// the block's.  For the triangle instances where
 // `live_count` is given, its blocks exit at once where the warp form runs
 // the launch (warp_form_runs).
 template <bool kTris, bool kLit>
@@ -203,15 +204,15 @@ __global__ void __launch_bounds__(kThreads)
              float* __restrict__ g_tbl, float* __restrict__ g_tri,
              float* __restrict__ g_rows,
              unsigned long long* __restrict__ stats, rtow::Lit lit,
-             int lit_rows, int tri_rows, int own,
-             const long long* live_count, int cut) {
+             int lit_rows, Layout lay, const long long* live_count,
+             int cut) {
   if constexpr (kTris) {
     if (warp_form_runs(live_count, cut)) return;
   }
   // One-sided triangles, as JAX's gradient (pallas_grad.py:910), fixed at
   // compile time: the sweep's side test then costs what the cull alone does.
   tris.side_mask = rtow::kKeepSign;
-  const Staged S = stage<kLit>(table, npad, &lit, lit_rows, tri_rows, own);
+  const Staged S = stage<kLit>(table, npad, &lit, lit_rows, lay);
 
   // The winner row's columns: a sphere's kParamGrads (kTexParamGrads with
   // textures), a triangle's kTriParamGrads; the others stay 0.
@@ -241,7 +242,8 @@ __global__ void __launch_bounds__(kThreads)
       k = rtow::bounce_lane_adjoint_t<kTris, kLit>(
           S.tbl, npad, tris, s, bounce, rtow::lane_hash(lid), salt, max_depth,
           bg, G, gin, gw, &tally, lit, alive > 1,
-          own > 0 ? S.lacc + threadIdx.x * own : S.lacc);
+          rtow::RowSums{lay.own > 0 ? S.lacc + threadIdx.x * lay.own : S.lacc,
+                        lay.own > 0});
     }
 #pragma unroll
     for (int j = 0; j < rtow::kCont; ++j) cot_in[j * stride + g] = gin[j];
@@ -251,7 +253,7 @@ __global__ void __launch_bounds__(kThreads)
   rtow::add_grouped<kRowCols>(k, gw, [&](int c, float x) {
     if (kTris && k >= npad) {
       const int i = (k - npad) * rtow::kCols + c;
-      if (tri_rows > 0)
+      if (lay.tri_rows > 0)
         atomicAdd(&S.tacc[i], x);
       else
         atomicAdd(&g_tri[i], x);
@@ -259,7 +261,7 @@ __global__ void __launch_bounds__(kThreads)
       atomicAdd(&S.acc[k * rtow::kCols + c], x);
     }
   });
-  flush<kLit>(S, npad, lit_rows, tri_rows, own, g_tbl, g_tri, g_rows);
+  flush<kLit>(S, npad, lit_rows, lay, g_tbl, g_tri, g_rows);
   if (stats != nullptr) {  // box tests, triangle tests, live lanes, shadows
     if constexpr (kTris) {
       rtow::warp_add(tally.boxes, stats);
@@ -289,10 +291,11 @@ __global__ void __launch_bounds__(kThreads)
                   float* __restrict__ cot_in, float* __restrict__ g_tbl,
                   float* __restrict__ g_tri, float* __restrict__ g_rows,
                   unsigned long long* __restrict__ stats, rtow::Lit lit,
-                  int lit_rows, const long long* live_count, int cut) {
+                  int lit_rows, Layout lay, const long long* live_count,
+                  int cut) {
   if (!warp_form_runs(live_count, cut)) return;
   tris.side_mask = rtow::kKeepSign;
-  const Staged S = stage<kLit>(table, npad, &lit, lit_rows, 0, 0);
+  const Staged S = stage<kLit>(table, npad, &lit, lit_rows, lay);
 
   constexpr int kSphCols = kLit ? rtow::kTexParamGrads : rtow::kParamGrads;
   const bool lead = (threadIdx.x & 31) == 0;
@@ -333,7 +336,8 @@ __global__ void __launch_bounds__(kThreads)
       constexpr auto kWarp = rtow::Sweep::kWarp;
       const int k = rtow::bounce_lane_adjoint_t<true, kLit, kWarp>(
           S.tbl, npad, tris, s, bounce, rtow::lane_hash(lid), salt,
-          max_depth, bg, G, gin, gw, &tally, lit, alive > 1, S.lacc);
+          max_depth, bg, G, gin, gw, &tally, lit, alive > 1,
+          rtow::RowSums{S.lacc, false});
       if (lead) {
         ++live;
 #pragma unroll
@@ -354,7 +358,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-  flush<kLit>(S, npad, lit_rows, 0, 0, g_tbl, g_tri, g_rows);
+  flush<kLit>(S, npad, lit_rows, lay, g_tbl, g_tri, g_rows);
   if (stats != nullptr) {  // the lanes' work, counted by lane 0 alone
     rtow::warp_add(lead ? tally.boxes : 0ull, stats);
     rtow::warp_add(lead ? tally.tris : 0ull, stats + 1);
@@ -367,46 +371,42 @@ __global__ void __launch_bounds__(kThreads)
 // instances where `live` is given, grad_bwd_warp<kLit> over the warps the
 // card holds at once; each runs the lanes where the other exits (`cut`:
 // the warp form takes launches of at most `cut` live lanes; cut >= n
-// launches the warp form alone).  The thread form sums g_tri in shared
-// memory where the triangle table has at most kTriSharedRows rows, and
-// gives each thread its own row sums where they fit (own_stride).
+// launches the warp form alone).  The thread form lays out its shared
+// memory as `lay` says, the warp form with lay.frames alone.
 template <bool kTris, bool kLit>
 int launch(const float* table, int npad, const rtow::Tris& tris,
            const float* cont, const int* ints, const float* cot_out, int n,
            int it, int seed, int max_depth, const rtow::Background& bg,
            float* cot_in, float* g_tbl, float* g_tri, float* g_rows,
            unsigned long long* stats, const rtow::Lit& lit, int lit_rows,
-           const long long* live, int cut, cudaStream_t stream) {
+           const Layout& lay, const long long* live, int cut,
+           cudaStream_t stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
   const uint32_t salt = rtow::salt_of(seed, static_cast<uint32_t>(it));
   const bool warp = kTris && live != nullptr;
   if (!warp || cut < n) {
     auto kernel = grad_bwd<kTris, kLit>;
-    const int m_rows = kTris ? tris.n_blocks * tris.block : 0;
-    const int tri_rows = m_rows <= kTriSharedRows ? m_rows : 0;
-    const int own = kLit ? own_stride(lit_rows) : 0;
-    const int smem = smem_floats<kLit>(npad, lit_rows, tri_rows, own) *
-                     static_cast<int>(sizeof(float));
+    const int smem = smem_bytes<kLit>(npad, lit_rows, lit.n_vol, lay);
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     kernel<<<blocks, kThreads, smem, stream>>>(
         reinterpret_cast<const float4*>(table), npad, tris, cont, ints,
         cot_out, n, salt, max_depth, bg, cot_in, g_tbl, g_tri, g_rows, stats,
-        lit, lit_rows, tri_rows, own, warp ? live : nullptr, cut);
+        lit, lit_rows, lay, warp ? live : nullptr, cut);
     err = cudaGetLastError();
     if (err != cudaSuccess || !warp) return static_cast<int>(err);
   }
   auto kernel = grad_bwd_warp<kLit>;
-  const int smem = smem_floats<kLit>(npad, lit_rows, 0, 0) *
-                   static_cast<int>(sizeof(float));
+  const Layout wl{0, 0, lay.frames};
+  const int smem = smem_bytes<kLit>(npad, lit_rows, lit.n_vol, wl);
   int held = 0;
   cudaError_t err = rtow::resident_blocks(kernel, kThreads, smem, &held);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<held < blocks ? held : blocks, kThreads, smem, stream>>>(
       reinterpret_cast<const float4*>(table), npad, tris, cont, ints, cot_out,
       n, salt, max_depth, bg, cot_in, g_tbl, g_tri, g_rows, stats, lit,
-      lit_rows, live, cut);
+      lit_rows, wl, live, cut);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -416,12 +416,12 @@ int dispatch(bool any_lit, const float* table, int npad,
              const float* cot_out, int n, int it, int seed, int max_depth,
              const rtow::Background& bg, float* cot_in, float* g_tbl,
              float* g_tri, float* g_rows, unsigned long long* stats,
-             const rtow::Lit& lit, int lit_rows, const long long* live,
-             int cut, cudaStream_t stream) {
+             const rtow::Lit& lit, int lit_rows, const Layout& lay,
+             const long long* live, int cut, cudaStream_t stream) {
   auto run = any_lit ? launch<kTris, true> : launch<kTris, false>;
   return run(table, npad, tris, cont, ints, cot_out, n, it, seed, max_depth,
-             bg, cot_in, g_tbl, g_tri, g_rows, stats, lit, lit_rows, live,
-             cut, stream);
+             bg, cot_in, g_tbl, g_tri, g_rows, stats, lit, lit_rows, lay,
+             live, cut, stream);
 }
 
 }  // namespace
@@ -434,7 +434,10 @@ extern "C" {
 // (13, n) float32; ints: (3, n) int32; g_tbl: (npad, 16), g_tri
 // (n_blocks * tri_block, 16) and g_rows (n_rows, 14) float32, zeroed by the
 // caller (g_tri unused without triangles, g_rows without rows);
-// stats and the lit features: as for rtow_grad_fwd.  live: null (the
+// stats and the lit features: as for rtow_grad_fwd.  tri_rows, own and
+// frames: the thread form's shared-memory layout (Layout), which the
+// caller fits beside the sphere table (tri_rows 0 without triangles).
+// live: null (the
 // thread form), or for the triangle instances a device int64 holding the
 // count of live lanes: the warp form then runs where it is at most cut
 // (cut >= n: the warp form alone).  Returns the cudaError_t of the
@@ -450,7 +453,8 @@ int rtow_grad_bwd(const float* table, int npad, const float* tri,
                   unsigned long long* stats, const float* lit_rows,
                   int n_rows, int emissive, int n_lights, int light_kinds,
                   int checker, int n_vol, int vol_kinds, int vol_row0,
-                  const long long* live, int cut, int device, void* stream) {
+                  int tri_rows, int own, int frames, const long long* live,
+                  int cut, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const rtow::Tris tris{reinterpret_cast<const float4*>(tri),
@@ -463,14 +467,15 @@ int rtow_grad_bwd(const float* table, int npad, const float* tri,
                       vol_row0, 0, static_cast<uint32_t>(light_kinds),
                       static_cast<uint32_t>(vol_kinds)};
   const bool any_lit = emissive || n_lights > 0 || checker || n_vol > 0;
+  const Layout lay{tri_rows, own, frames};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (tri == nullptr)
     return dispatch<false>(any_lit, table, npad, tris, cont, ints, cot_out, n,
                            it, seed, max_depth, bg, cot_in, g_tbl, nullptr,
-                           g_rows, stats, lit, n_rows, nullptr, cut, st);
+                           g_rows, stats, lit, n_rows, lay, nullptr, cut, st);
   return dispatch<true>(any_lit, table, npad, tris, cont, ints, cot_out, n,
                         it, seed, max_depth, bg, cot_in, g_tbl, g_tri, g_rows,
-                        stats, lit, n_rows, live, cut, st);
+                        stats, lit, n_rows, lay, live, cut, st);
 }
 
 const char* rtow_cuda_error_string(int err) {

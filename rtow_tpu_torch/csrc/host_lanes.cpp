@@ -99,7 +99,9 @@ void bwd_lanes(const float4* tbl, int npad, const rtow::Tris& tris,
           tbl, npad, tris, s, ints[n + g],
           rtow::lane_hash(static_cast<uint32_t>(ints[2 * n + g])), salt,
           max_depth, bg, G, gin, w, &tally, L, ints[g] > 1,
-          g_rows + static_cast<size_t>(g) * n_rows * rtow::kLitCols);
+          rtow::RowSums{
+              g_rows + static_cast<size_t>(g) * n_rows * rtow::kLitCols,
+              true});
     }
     for (int j = 0; j < rtow::kCont; ++j) cot_in[j * n + g] = gin[j];
     winner[g] = k;

@@ -68,11 +68,11 @@ from ..models.scene import IMAGE, Scene
 from . import _cuda, flat_bounce
 from .lights import LIGHT_COLS, build_light_table
 from .megakernel import (
-    BIG, TBL_COLS, TRI_PARAMS, Lit, TriTable, _kind_bits, background_args,
-    build_sphere_table, build_tri_table, check_counter, check_lit,
-    check_table, check_tris, draw_scatter, hit_basics, lane_hash,
-    lane_state, lit_rows, nearest_sphere, nearest_triangle, nee_contrib,
-    shade, step_salt, uniform, volume_event, winners,
+    BIG, MAX_TABLE_BYTES, TBL_COLS, TRI_PARAMS, Lit, TriTable, _kind_bits,
+    background_args, build_sphere_table, build_tri_table, check_counter,
+    check_lit, check_table, check_tris, draw_scatter, hit_basics,
+    lane_hash, lane_state, lit_rows, nearest_sphere, nearest_triangle,
+    nee_contrib, shade, step_salt, uniform, volume_event, winners,
 )
 from .volumes import build_volume_table
 from .wavefront import WAVEFRONT_MIN_TRIS, sort_keys
@@ -93,12 +93,15 @@ GRAD_TRI_BLOCK = 128
 #: the flat sweep.
 MAX_TRI_BLOCKS = 4096
 MAX_FLAT_TRI_BLOCKS = 1536
-#: K5 sums the triangle table's gradient in shared memory where the table
-#: has at most this many rows (``csrc/grad_bwd.cu``'s ``kTriSharedRows``),
-#: and gives each of a block's 256 threads its own sums of the light and
-#: volume rows where they take at most this many bytes (``kOwnRowsBytes``).
+#: K5's thread form (``csrc/grad_bwd.cu``) sums the triangle table's
+#: gradient per block in shared memory where the table has at most this
+#: many rows, and gives each of a block's ``BWD_THREADS`` threads its own
+#: sums of the light and volume rows where they take at most this many
+#: bytes, each only where it fits beside the sphere table
+#: (:func:`_bwd_layout`).
 TRI_SHARED_ROWS = 512
 OWN_ROWS_BYTES = 64 * 1024
+BWD_THREADS = 256
 
 _F32 = torch.float32
 _I32 = torch.int32
@@ -353,18 +356,35 @@ def _check_grad_lit(lit: Lit, tbl: torch.Tensor) -> None:
     check_lit(lit, tbl)
 
 
-def _bwd_staged(lit: Lit, tris: Optional[TriTable]) -> int:
-    """The bytes K5's thread form keeps in shared memory beside its two
-    copies of the sphere table (``csrc/grad_bwd.cu``'s ``smem_floats``):
-    the rows' sums (one copy, or each thread's own), the rows and the
-    volumes' frames, and a small triangle table's gradient."""
+def _bwd_layout(tbl: torch.Tensor, lit: Lit,
+                tris: Optional[TriTable]) -> Tuple[int, Tuple[int, int, int]]:
+    """K5's shared memory beside its two copies of the sphere table ->
+    (bytes, (tri_rows, own, frames)), the layout ``rtow_grad_bwd`` takes
+    (``csrc/grad_bwd.cu``'s ``Layout``).  Always the light and volume rows
+    and one copy of their sums; then, each only where the block's shared
+    memory still holds it, in the order of what each saved for its bytes
+    (PERF.md): the volumes' frames (8 bytes a volume), the triangle
+    table's gradient where it has at most ``TRI_SHARED_ROWS`` rows, and
+    each thread's own row sums where they take at most
+    ``OWN_ROWS_BYTES`` (``own``: the odd stride between two threads'
+    copies).  So K5 takes every table that fits with the rows alone."""
     rows = lit_rows(lit)
-    sums = rows * LIGHT_COLS
-    if rows and 256 * (sums | 1) * 4 <= OWN_ROWS_BYTES:
-        sums = 256 * (sums | 1)
-    small = tris is not None and tris.tbl.shape[0] <= TRI_SHARED_ROWS
-    return (sums + rows * (LIGHT_COLS + 2)
-            + (tris.tbl.numel() if small else 0)) * 4
+    used = 2 * tbl.numel() * 4 + 2 * rows * LIGHT_COLS * 4
+    tri_rows = own = frames = 0
+    if lit.vol_kinds and used + 8 * len(lit.vol_kinds) <= MAX_TABLE_BYTES:
+        frames = 1
+        used += 8 * len(lit.vol_kinds)
+    if tris is not None and tris.tbl.shape[0] <= TRI_SHARED_ROWS \
+            and used + tris.tbl.numel() * 4 <= MAX_TABLE_BYTES:
+        tri_rows = tris.tbl.shape[0]
+        used += tris.tbl.numel() * 4
+    stride = (rows * LIGHT_COLS) | 1
+    more = BWD_THREADS * stride * 4 - rows * LIGHT_COLS * 4
+    if rows and BWD_THREADS * stride * 4 <= OWN_ROWS_BYTES \
+            and used + more <= MAX_TABLE_BYTES:
+        own = stride
+        used += more
+    return used - 2 * tbl.numel() * 4, (tri_rows, own, frames)
 
 
 def _check(kernel, tbl, tris, cont, ints, cot, stats, lit, cull, **scalars):
@@ -375,7 +395,7 @@ def _check(kernel, tbl, tris, cont, ints, cot, stats, lit, cull, **scalars):
     _check_grad_lit(lit, tbl)
     copies = 2 if cot is not None else 1
     staged = (lit_rows(lit) * LIGHT_COLS * 4 if cot is None
-              else _bwd_staged(lit, tris))
+              else _bwd_layout(tbl, lit, tris)[0])
     check_table(tbl, kernel, copies=copies, staged=staged)
     if tris is not None:
         check_tris(tris, tbl, kernel)
@@ -421,11 +441,20 @@ def _lit_args(lit: Lit) -> tuple:
 WARP_MAX_LIVE = flat_bounce.WARP_MAX_LIVE
 
 
-def _live_count(ints, tris, live, drain):
+def warp_forms(tris: Optional[TriTable]) -> bool:
+    """Whether K4 and K5 issue their warp forms beside the thread forms:
+    for a triangle table of more than one block.  The warp form's gain is
+    a lane's blocks swept by 32 threads; a table of one block (the Cornell
+    and smoke boxes' 12-24 walls) gives it none, and there issuing both
+    forms with a live count cost K4 4-21% (PERF.md)."""
+    return tris is not None and tris.n_blocks > 1
+
+
+def _live_count(ints, tris, live):
     """The launchers' device count of the live lanes (``live``, or
-    counted here from ``ints``), or None without triangles or without
-    ``drain``: the thread form alone."""
-    if tris is None or not drain:
+    counted here from ``ints``), or None where the kernels issue the
+    thread form alone (:func:`warp_forms`)."""
+    if not warp_forms(tris):
         return None
     if live is None:
         return torch.count_nonzero(ints[0])
@@ -442,7 +471,7 @@ def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
                max_depth: int, background: Union[str, tuple] = "sky",
                flat: bool = False, stats: Optional[torch.Tensor] = None,
                lit: Lit = Lit(), cull: bool = True,
-               live: Optional[torch.Tensor] = None, drain: bool = True):
+               live: Optional[torch.Tensor] = None):
     """One forward bounce (``_bounce_fwd_impl``, :592) -> (cont, ints).
 
     ``tris``: the scene's triangle table, or None; ``flat`` sweeps its
@@ -453,17 +482,16 @@ def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
     A CUDA ``tbl`` launches ``csrc/grad_fwd.cu`` (counted in
     ``bounce_fwd.launches``, in ``lit_launches`` where ``lit`` has a
     feature, and in ``vol_launches`` where it has media); a CPU ``tbl`` runs
-    :func:`bounce_fwd_reference`; any other device raises.  With
-    triangles and ``drain`` (lanes that may be sorted, so that a launch's
-    live lanes can be few), it issues both of K4's forms, and the card
-    runs the warp form (one warp per live lane) where the launch has at
-    most ``WARP_MAX_LIVE`` live lanes, the thread form elsewhere, from
-    ``live`` (a one-element int64 tensor on the card,
-    ``torch.count_nonzero(ints[0])``) or from a count taken here;
-    launches that issue the warp form are also counted in
-    ``bounce_fwd.warp_launches``.  Without ``drain`` the thread form runs
-    alone, with no count.  Both forms give the same outputs and counters,
-    bit for bit.  Triangles are
+    :func:`bounce_fwd_reference`; any other device raises.  With a
+    triangle table of more than one block (:func:`warp_forms`), it issues
+    both of K4's forms, and the card runs the warp form (one warp per live
+    lane) where the launch has at most ``WARP_MAX_LIVE`` live lanes, the
+    thread form elsewhere, from ``live`` (a one-element int64 tensor on
+    the card, ``torch.count_nonzero(ints[0])``) or from a count taken
+    here; launches that issue the warp form are also counted in
+    ``bounce_fwd.warp_launches``.  Otherwise the thread form runs alone,
+    with no count.  Both forms give the same outputs and counters, bit
+    for bit.  Triangles are
     one-sided: ``cull`` False raises, as JAX's gradient has no two-sided
     triangles."""
     it, seed, max_depth = _check("grad_fwd kernel", tbl, tris, cont, ints,
@@ -478,7 +506,7 @@ def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
     use_sky, (bgr, bgg, bgb) = background_args(background)
     cont_out = torch.empty_like(cont)
     ints_out = torch.empty_like(ints)
-    live = _live_count(ints, tris, live, drain)
+    live = _live_count(ints, tris, live)
     err = lib.rtow_grad_fwd(
         tbl.data_ptr(), tbl.shape[0], *_tri_args(tris, flat),
         cont.data_ptr(), ints.data_ptr(), cont.shape[1], it, seed, max_depth,
@@ -508,20 +536,19 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
                it: int, seed: int, max_depth: int,
                background: Union[str, tuple] = "sky", flat: bool = False,
                stats: Optional[torch.Tensor] = None, lit: Lit = Lit(),
-               cull: bool = True, live: Optional[torch.Tensor] = None,
-               drain: bool = True):
+               cull: bool = True, live: Optional[torch.Tensor] = None):
     """One backward bounce (``_bounce_grad_bwd``, :639) from the bounce's
     saved input state -> (cot_in (13, L), g_tbl (Npad, 16), g_tri (Mpad,
     16) or None without ``tris``, g_rows (R, 14) or None without light or
-    volume rows).  ``tris``, ``flat``, ``lit``, ``stats``, ``cull``,
-    ``live`` and ``drain`` as for :func:`bounce_fwd`.
+    volume rows).  ``tris``, ``flat``, ``lit``, ``stats``, ``cull`` and
+    ``live`` as for :func:`bounce_fwd`.
 
     A CUDA ``tbl`` launches ``csrc/grad_bwd.cu`` (counted in
     ``bounce_bwd.launches``, ``lit_launches`` and ``vol_launches``, as for
     :func:`bounce_fwd`); a CPU ``tbl`` runs
-    :func:`bounce_bwd_reference`; any other device raises.  With
-    triangles and ``drain``, it issues both of K5's forms, and the card runs the warp
-    form (one warp per live lane) where the launch has at most
+    :func:`bounce_bwd_reference`; any other device raises.  Where
+    :func:`warp_forms`, it issues both of K5's forms, and the card runs
+    the warp form (one warp per live lane) where the launch has at most
     ``WARP_MAX_LIVE`` live lanes, from a count on the card (``live``, or
     taken here), the thread form elsewhere.  Launches that issue the warp form are also
     counted in ``bounce_bwd.warp_launches``.  Both forms give the same
@@ -541,7 +568,7 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
     g_tbl = torch.zeros_like(tbl)
     g_tri = None if tris is None else torch.zeros_like(tris.tbl)
     g_rows = None if lit.rows is None else torch.zeros_like(lit.rows)
-    live = _live_count(ints, tris, live, drain)
+    live = _live_count(ints, tris, live)
     err = lib.rtow_grad_bwd(
         tbl.data_ptr(), tbl.shape[0], *_tri_args(tris, flat),
         cont.data_ptr(), ints.data_ptr(), cot_out.data_ptr(), cont.shape[1],
@@ -549,6 +576,7 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
         g_tbl.data_ptr(), None if g_tri is None else g_tri.data_ptr(),
         None if g_rows is None else g_rows.data_ptr(),
         None if stats is None else stats.data_ptr(), *_lit_args(lit),
+        *_bwd_layout(tbl, lit, tris)[1],
         None if live is None else live.data_ptr(),
         WARP_MAX_LIVE, *_cuda.device_args(tbl))
     _cuda.check_launch(lib, err, "grad_bwd")
@@ -582,7 +610,8 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.rtow_grad_fwd.restype = i
     else:
         lib.rtow_grad_bwd.argtypes = [p, i, *tri, p, p, p, i, i, i, i, i, f,
-                                      f, f, p, p, p, p, p, *lit, p, i, i, p]
+                                      f, f, p, p, p, p, p, *lit, i, i, i, p,
+                                      i, i, p]
         lib.rtow_grad_bwd.restype = i
     return lib
 
@@ -596,26 +625,26 @@ class BounceGrad(torch.autograd.Function):
     tape); the backward is :func:`bounce_bwd` on that state.  ``ints``
     carries no cotangent, nor do the triangle boxes: ``tris`` is the
     table without its rows (``tbl=None``), decisions only; ``lit`` is the
-    lit features without their rows.  ``drain``: the lanes are sorted,
-    so the kernels' warp forms may run (:func:`bounce_fwd`); then, on the
-    card, with triangles, the live lanes are counted once: the forward's
-    count picks K4's form and is kept for K5's."""
+    lit features without their rows.  On the card, where the kernels
+    issue their warp forms (:func:`warp_forms`), the live lanes are
+    counted once: the forward's count picks K4's form and is kept for
+    K5's."""
 
     @staticmethod
     def forward(ctx, cont, ints, tbl, tri_tbl, rows, tris, lit, it, seed,
-                max_depth, background, flat, drain):
+                max_depth, background, flat):
         full = None if tris is None else tris._replace(tbl=tri_tbl)
         live = (torch.count_nonzero(ints[0])
-                if drain and tris is not None and ints.is_cuda else None)
+                if warp_forms(full) and ints.is_cuda else None)
         cont_out, ints_out = bounce_fwd(cont, ints, tbl, full, it=it,
                                         seed=seed, max_depth=max_depth,
                                         background=background, flat=flat,
                                         lit=lit._replace(rows=rows),
-                                        live=live, drain=drain)
+                                        live=live)
         ctx.save_for_backward(cont, ints, tbl, tri_tbl, rows)
         ctx.tris, ctx.lit, ctx.live = tris, lit, live
         ctx.scalars = dict(it=it, seed=seed, max_depth=max_depth,
-                           background=background, flat=flat, drain=drain)
+                           background=background, flat=flat)
         ctx.mark_non_differentiable(ints_out)
         return cont_out, ints_out
 
@@ -626,19 +655,18 @@ class BounceGrad(torch.autograd.Function):
         cot_in, g_tbl, g_tri, g_rows = bounce_bwd(
             cont, ints, g_cont.contiguous(), tbl, full,
             lit=ctx.lit._replace(rows=rows), live=ctx.live, **ctx.scalars)
-        return (cot_in, None, g_tbl, g_tri, g_rows) + (None,) * 8
+        return (cot_in, None, g_tbl, g_tri, g_rows) + (None,) * 7
 
 
 def bounce_grad(cont, ints, tbl, tris: Optional[TriTable] = None, *,
                 it: int, seed: int, max_depth: int,
                 background: Union[str, tuple] = "sky", flat: bool = False,
-                lit: Lit = Lit(), drain: bool = True):
+                lit: Lit = Lit()):
     """:class:`BounceGrad` applied to one bounce."""
     return BounceGrad.apply(
         cont, ints, tbl, None if tris is None else tris.tbl, lit.rows,
         None if tris is None else tris._replace(tbl=None),
-        lit._replace(rows=None), it, seed, max_depth, background, flat,
-        drain)
+        lit._replace(rows=None), it, seed, max_depth, background, flat)
 
 
 # ---------------------------------------------------------------------------
@@ -742,8 +770,7 @@ def render_rays_kernel(scene: Scene, rays: Rays, *, n_pixels: int, spp: int,
         cont, ints = bounce_grad(cont, ints, tbl, tris, it=it, seed=seed,
                                  max_depth=max_depth,
                                  background=scene.background,
-                                 flat=force_flat, lit=lit,
-                                 drain=bool(sort_lanes))
+                                 flat=force_flat, lit=lit)
     if sort_lanes:  # back to lane order, so a pixel's samples are adjacent
         cont, ints = _permute(cont, ints, torch.argsort(ints[2]))
     return cont[10:13, :l_raw].T.reshape(n_pixels, spp, 3).mean(dim=1)

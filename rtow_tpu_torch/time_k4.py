@@ -1,11 +1,12 @@
 """Times the forward bounce kernel K4 on the gradient trainers' launches.
 
-    python -m rtow_tpu_torch.time_k4 [--runs 3] [--knot 65k|360k] [--lit] [--cross]
+    python -m rtow_tpu_torch.time_k4 [--runs 3] [--knot 4k|65k|360k] [--lit] [--cross]
     python -m rtow_tpu_torch.time_k4 [--runs 3] --scene cornell|smoke|smoke-nee ...
 
-The tapes are ``time_k5``'s: the knot's sorted input states of one
-forward at the mesh trainer's size (256x256, 16 samples per pixel, depth
-8: 1,048,576 lanes), with ``--lit`` under two square lamps with NEE, or
+The tapes are ``time_k5``'s: the knot's input states of one forward at
+the mesh trainer's size (256x256, 16 samples per pixel, depth 8:
+1,048,576 lanes; sorted where the trainer sorts them), with ``--lit``
+under two square lamps with NEE, or
 each ``--scene``'s unsorted ones at 400x400, given to K4 as the trainers
 give them.  Each of a tape's 9 K4
 launches is timed alone by CUDA events (``--runs`` calls after a warm-up,
@@ -29,7 +30,7 @@ import argparse
 import json
 
 from .time_k5 import (
-    DEPTH, KNOTS, SCENES, card, event_ms, tapes, time_forms, trainer_kw,
+    DEPTH, KNOTS, SCENES, card, event_ms, tapes, time_forms,
 )
 
 #: --cross: the live lanes left in the knot's first launch.
@@ -56,13 +57,12 @@ def main(argv=None) -> None:
     for name, (tbl, tris, tape, lit, bg) in tapes(opts, dev).items():
         forms = (("thread", "warp", "auto") if has_forms and not opts.scene
                  else (None,))
-        kw = trainer_kw(G.bounce_fwd, not opts.scene)
 
         def kernel(it, ints=None):
             c, i = tape[it]
             return G.bounce_fwd(c, i if ints is None else ints, tbl, tris,
                                 it=it, seed=0, max_depth=DEPTH, lit=lit,
-                                background=bg, **kw)
+                                background=bg)
 
         per, total = time_forms(torch, G, kernel, tape, forms, opts.runs)
         out = {"card": name_card, "kernel": "K4", "tape": name,

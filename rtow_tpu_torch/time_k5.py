@@ -1,19 +1,21 @@
 """Times the backward bounce kernel K5 on the gradient trainers' launches.
 
-    python -m rtow_tpu_torch.time_k5 [--runs 3] [--knot 65k|360k] [--lit]
+    python -m rtow_tpu_torch.time_k5 [--runs 3] [--knot 4k|65k|360k] [--lit]
     python -m rtow_tpu_torch.time_k5 [--runs 3] --scene cornell|smoke|smoke-nee|cover ...
 
-The knot tape: the sorted input states of one forward at the mesh
-trainer's size (256x256, 16 samples per pixel, depth 8: 1,048,576 lanes)
-through K4 on bench.py's knot (``tools/make_mesh.make_knot``), with
-``--lit`` under two square lamps on black with NEE.  The scene tapes
+The knot tape: the input states of one forward at the mesh trainer's
+size (256x256, 16 samples per pixel, depth 8: 1,048,576 lanes) through
+K4 on bench.py's knot (``tools/make_mesh.make_knot``), with ``--lit``
+under two square lamps on black with NEE, sorted where the trainer sorts
+them (meshes of more than 16,384 triangles: the 65k and 360k knots, not
+the 4,096-triangle one).  The scene tapes
 (``--scene``, one or more): the unsorted input states of one forward
 through K4 at the lit and media trainers' size (400x400, 16 samples per
 pixel, depth 8: 2,560,000 lanes) on the Cornell box with NEE
 (``cornell``), the smoke box without NEE (``smoke``) and with it
 (``smoke-nee``), and the sphere trainer's cover at 400x267 (``cover``,
-the sphere instance), given to the kernels as the trainers give them
-(``drain=False``: the thread form alone).  Each of a tape's 9 K5
+the sphere instance), given to the kernels as the trainers give them.
+Each of a tape's 9 K5
 launches is timed alone by CUDA events (``--runs`` calls after a warm-up, their mean), beside its
 live lanes, then the 9 together (median of ``--runs``); on a knot, where the
 checkout's K5 has forms (``grad.WARP_MAX_LIVE``), in each form
@@ -34,7 +36,7 @@ import statistics
 import subprocess
 import sys
 
-KNOTS = {"65k": (256, 128), "360k": (600, 300)}
+KNOTS = {"4k": (64, 32), "65k": (256, 128), "360k": (600, 300)}
 SIZE, SPP, DEPTH = 256, 16, 8
 #: --scene: (builder in models/builders.py, aspect ratio, NEE).
 SCENES = {"cornell": ("cornell_scene", 1.0, True),
@@ -65,7 +67,8 @@ def _scene(knot: str, lit: bool, dev):
 
 def _tape(scene, lit: bool, dev):
     """(sphere table, triangle table, [(cont, ints)] of each bounce) of a
-    knot: sorted, as render_rays_kernel hands them to each bounce."""
+    knot, as render_rays_kernel hands them to each bounce (sorted where
+    it sorts them)."""
     import torch
 
     from .models.camera import camera_rays, make_camera, pixel_coords
@@ -89,23 +92,11 @@ def _tape(scene, lit: bool, dev):
         with torch.no_grad():
             G.render_rays_kernel(scene, camera_rays(cam, gen, s, t),
                                  n_pixels=pix.numel(), spp=1,
-                                 max_depth=DEPTH, seed=0, sort_lanes=True,
-                                 nee=lit)
+                                 max_depth=DEPTH, seed=0, nee=lit)
     finally:
         G.bounce_grad = bounce
     tbl, _ = mk.build_sphere_table(scene)
     return tbl, G.grad_tri_table(scene), tape
-
-
-def trainer_kw(fn, sorted_lanes: bool) -> dict:
-    """The keywords the trainers give ``fn`` (``bounce_fwd`` or
-    ``bounce_bwd``): ``drain=False`` on unsorted lanes (no warp form, no
-    live count), where the checkout's wrapper takes it."""
-    import inspect
-
-    if sorted_lanes or "drain" not in inspect.signature(fn).parameters:
-        return {}
-    return {"drain": False}
 
 
 def tapes(opts, dev):
@@ -144,12 +135,12 @@ def tapes(opts, dev):
         s, t = pixel_coords(W_SCENE, height, gen, pix)
         cont, ints = mk.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
                                    dev)
-        tape, kw = [], trainer_kw(G.bounce_fwd, False)
+        tape = []
         for it in range(DEPTH + 1):
             tape.append((cont, ints))
             cont, ints = G.bounce_fwd(cont, ints, tbl, tris, it=it, seed=0,
                                       max_depth=DEPTH, lit=lit,
-                                      background=scene.background, **kw)
+                                      background=scene.background)
         out[name] = (tbl, tris, tape, lit, scene.background)
     return out
 
@@ -231,13 +222,11 @@ def main(argv=None) -> None:
                 for c, _ in tape]
         forms = (("thread", "warp", "auto") if has_forms and not opts.scene
                  else (None,))
-        kw = trainer_kw(G.bounce_bwd, not opts.scene)
 
         def kernel(it):
             c, i = tape[it]
             return G.bounce_bwd(c, i, cots[it], tbl, tris, it=it, seed=0,
-                                max_depth=DEPTH, lit=lit, background=bg,
-                                **kw)
+                                max_depth=DEPTH, lit=lit, background=bg)
 
         per, total = time_forms(torch, G, kernel, tape, forms, opts.runs)
         print(json.dumps({"card": name_card, "kernel": "K5", "tape": name,

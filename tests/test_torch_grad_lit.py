@@ -187,3 +187,67 @@ def test_one_bounce_matches_bounce_grad_and_its_vjp(name):
     assert not pgtbl.numpy()[:, 12].any() and not jgtbl[:, 12].any()
     if scene.has_checker:
         assert np.abs(pgtbl.numpy()[:, 13:]).max() > 0
+
+
+# ---------------------------------------------------------------------------
+# K5's shared-memory layout: tensors on the meta device reach the wrappers'
+# checks without a card.
+
+
+def _meta_tris(blocks):
+    def z(*shape):
+        return torch.empty(shape, device="meta")
+    return mk.TriTable(tbl=z(blocks * grad.GRAD_TRI_BLOCK, 16),
+                       boxes=z(blocks, 8), supers=z(1, 8), hypers=z(1, 8),
+                       block=grad.GRAD_TRI_BLOCK, count=12)
+
+
+@pytest.mark.parametrize("sphere_blocks, lights, volumes, layout", [
+    # The largest table and rows K5 took before it kept anything more in
+    # shared memory: 14 sphere blocks beside 16 light and 8 volume rows.
+    (14, 16, 8, (0, 0, 1)),
+    # The same table under the smoke box's 2 + 2 rows: no room for the
+    # triangle table's gradient or the threads' own row sums.
+    (14, 2, 2, (0, 0, 1)),
+    # A small table: every piece fits (own: 4 rows x 14 columns, odd).
+    (1, 2, 2, (128, 57, 1)),
+    (15, 2, 2, None),  # refused alone, as before
+])
+def test_k5_layout_fits_beside_the_sphere_table(sphere_blocks, lights,
+                                                volumes, layout):
+    """K5 keeps the triangle table's gradient, each thread's own row sums
+    and the volumes' frames in shared memory only where they fit beside
+    the sphere table, so it takes every sphere table it took with the
+    rows alone; the wrapper's check counts what the layout holds."""
+    tbl = torch.empty((sphere_blocks * mk.SPHERE_BLOCK, mk.TBL_COLS),
+                      device="meta")
+    lit = mk.Lit(nee_kinds=("t",) * lights, vol_kinds=("r",) * volumes,
+                 vol_row0=lights,
+                 rows=torch.empty((lights + volumes, 14), device="meta"))
+    tris = _meta_tris(1)
+    n = 64
+    cont = torch.empty((13, n), device="meta")
+    ints = torch.empty((3, n), dtype=torch.int32, device="meta")
+    match = ("no grad_bwd kernel for device meta" if layout
+             else "exceed the grad_bwd kernel's shared-memory table")
+    with pytest.raises(ValueError, match=match):
+        grad.bounce_bwd(cont, ints, torch.empty_like(cont), tbl, tris, it=0,
+                        seed=0, max_depth=8, lit=lit)
+    staged, got = grad._bwd_layout(tbl, lit, tris)
+    if layout:
+        assert got == layout
+        assert 2 * tbl.numel() * 4 + staged <= mk.MAX_TABLE_BYTES
+        assert staged >= 2 * (lights + volumes) * 14 * 4
+
+
+@pytest.mark.parametrize("blocks, issued", [(None, False), (1, False),
+                                            (2, True), (32, True)])
+def test_warp_forms_need_more_than_one_triangle_block(blocks, issued):
+    """K4 and K5 issue their warp forms, and the wrappers count the live
+    lanes, only for a triangle table of more than one block; the Cornell
+    and smoke boxes' walls fill one."""
+    tris = None if blocks is None else _meta_tris(blocks)
+    assert grad.warp_forms(tris) is issued
+    ints = torch.ones((3, 8), dtype=torch.int32)
+    live = grad._live_count(ints, tris, None)
+    assert (live is not None) is issued
