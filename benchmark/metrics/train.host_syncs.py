@@ -1,0 +1,7 @@
+"""The program's host syncs per train step: its ``rtow.sync.*`` spans,
+each a place where the host waits on the card (``benchmark/spans.py``)."""
+from benchmark import spans
+
+
+def read(trace):
+    return spans.host_syncs(trace, spans.TRAIN_STEP)

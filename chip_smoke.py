@@ -961,7 +961,9 @@ def check_k5(torch, kern, plain, what, sums=None):
 
 def profile_ms(torch, fn):
     """(wall ms, {kernel name: device ms}) of ``fn()`` under
-    torch.profiler."""
+    torch.profiler; the program's spans (``rtow.*``), which the profiler
+    also marks on the card's timeline, are not device work and are left
+    out."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -975,7 +977,9 @@ def profile_ms(torch, fn):
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", 0) or getattr(
             ev, "cuda_time_total", 0)
-        if ev.device_type.name == "CUDA" and us:
+        if (ev.device_type.name == "CUDA" and us
+                and not getattr(ev, "is_user_annotation", False)
+                and not ev.key.startswith("rtow.")):
             dev_ms[ev.key] = us / 1e3
     return wall, dev_ms
 

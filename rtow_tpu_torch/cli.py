@@ -4,10 +4,11 @@ or to a file, logging on stderr.  ``-l mesh.obj`` renders an OBJ mesh
 (K1 up to 16,384 triangles, the sorted wavefront and K3 above);
 ``--lights``, ``--cornell``, ``--textures``, ``--smoke``, ``--checker``
 and ``--russian-roulette`` run the kernels' lit instances (K1's, and
-K3's for ``-l`` meshes over 16,384 triangles).  Flags whose feature
-the port has not ported (``--globe``, ``--backend jnp``, ``--devices``
-above 1, ``--profile-dir``) raise ``NotImplementedError`` naming the
-ROADMAP item.
+K3's for ``-l`` meshes over 16,384 triangles).  ``--profile-dir D``
+writes a ``torch.profiler`` Chrome trace of the render, the program's
+spans included, to ``D/trace.json``.  Flags whose feature the port has
+not ported (``--globe``, ``--backend jnp``, ``--devices`` above 1)
+raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from __future__ import annotations
 
@@ -64,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-o", "--output", type=str, default="-",
                    help="Output PPM path ('-' = stdout, like the reference)")
     p.add_argument("-v", "--verbose", action="store_true")
-    p.add_argument("--profile-dir", type=str, default="")
+    p.add_argument("--profile-dir", type=str, default="",
+                   help="Write a torch.profiler Chrome trace of the render "
+                        "here (trace.json)")
     p.add_argument("--device", type=str, default=d.device,
                    help="torch device: cuda (the CUDA kernels) or cpu "
                         "(their plain PyTorch versions)")

@@ -23,7 +23,10 @@ import torch
 
 from .models.camera import Camera
 from .models.scene import Scene
-from .ops.grad import render_pixels_kernel, scene_value_and_grad
+from .ops.grad import (
+    grad_tables, render_pixels_kernel, scene_grads, scene_params,
+)
+from .utils.profiling import span
 
 
 def image_mse(scene: Scene, camera: Camera, gen: torch.Generator, target,
@@ -37,11 +40,29 @@ def image_mse(scene: Scene, camera: Camera, gen: torch.Generator, target,
 
 
 def loss_and_grad(scene: Scene, camera: Camera, gen: torch.Generator,
-                  target, pixel_ids, **kw) -> Tuple[torch.Tensor, Scene]:
+                  target, pixel_ids, *, sort_lanes=None, nee: bool = False,
+                  _force_flat: bool = False,
+                  **kw) -> Tuple[torch.Tensor, Scene]:
     """(loss, dloss/dscene) (``loss_and_grad``, :142).  Integer leaves
-    get None gradients, which :func:`sgd_update` skips."""
-    return scene_value_and_grad(
-        lambda s: image_mse(s, camera, gen, target, pixel_ids, **kw), scene)
+    get None gradients, which :func:`sgd_update` skips.  ``sort_lanes``,
+    ``nee`` and ``_force_flat`` build the scene's tables
+    (``grad_tables``), ``kw`` goes to the renderer (``width``, ...).
+
+    Its phases are profiler spans (``utils/profiling.span``):
+    ``rtow.train.tables`` (the scene's tables), ``rtow.train.forward``
+    (the camera rays, the bounces and the loss) and
+    ``rtow.train.backward`` (``autograd.grad`` on this thread, while on
+    a card the autograd engine runs K5 on its own thread)."""
+    with span("rtow.train.tables"), torch.enable_grad():
+        params = scene_params(scene)
+        watched = scene.replace_leaves(params)
+        tables = grad_tables(watched, sort_lanes=sort_lanes,
+                             force_flat=_force_flat, nee=nee)
+    with span("rtow.train.forward"), torch.enable_grad():
+        loss = image_mse(watched, camera, gen, target, pixel_ids,
+                         tables=tables, **kw)
+    with span("rtow.train.backward"):
+        return loss.detach(), scene_grads(loss, params, scene)
 
 
 def sgd_update(scene: Scene, grads: Scene, lr: float) -> Scene:
@@ -72,16 +93,21 @@ def build_train_step(camera: Camera, *, width: int, height: int, spp: int,
     gradients first (:func:`mask_grads`), e.g. the materials only, or the
     mesh's ``triangles.verts``; ``seed`` salts the kernels' counter RNG,
     ``gen`` draws the camera rays; ``render_kw`` goes to
-    ``render_pixels_kernel`` (``sort_lanes``, ``_force_flat``)."""
+    :func:`loss_and_grad` (``sort_lanes``, ``nee``, ``_force_flat``).
+
+    The step is the span ``rtow.train.step``, tiled by
+    :func:`loss_and_grad`'s three phases and ``rtow.train.update``."""
+    pixel_ids = torch.arange(width * height, device=camera.origin.device)
 
     def step(scene: Scene, gen: torch.Generator, target):
-        pixel_ids = torch.arange(width * height, device=scene.device)
-        loss, grads = loss_and_grad(
-            scene, camera, gen, target, pixel_ids, width=width,
-            height=height, spp=spp, max_depth=max_depth, seed=seed,
-            **render_kw)
-        if keep is not None:
-            grads = mask_grads(grads, keep)
-        return sgd_update(scene, grads, lr), loss
+        with span("rtow.train.step"):
+            loss, grads = loss_and_grad(
+                scene, camera, gen, target, pixel_ids, width=width,
+                height=height, spp=spp, max_depth=max_depth, seed=seed,
+                **render_kw)
+            with span("rtow.train.update"):
+                if keep is not None:
+                    grads = mask_grads(grads, keep)
+                return sgd_update(scene, grads, lr), loss
 
     return step

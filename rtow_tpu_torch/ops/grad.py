@@ -59,12 +59,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Optional, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from ..models.camera import Camera, Rays, camera_rays, pixel_coords
 from ..models.scene import IMAGE, Scene
+from ..utils.profiling import span
 from . import _cuda, flat_bounce
 from .lights import LIGHT_COLS, build_light_table
 from .megakernel import (
@@ -634,13 +635,14 @@ class BounceGrad(torch.autograd.Function):
     def forward(ctx, cont, ints, tbl, tri_tbl, rows, tris, lit, it, seed,
                 max_depth, background, flat):
         full = None if tris is None else tris._replace(tbl=tri_tbl)
-        live = (torch.count_nonzero(ints[0])
-                if warp_forms(full) and ints.is_cuda else None)
-        cont_out, ints_out = bounce_fwd(cont, ints, tbl, full, it=it,
-                                        seed=seed, max_depth=max_depth,
-                                        background=background, flat=flat,
-                                        lit=lit._replace(rows=rows),
-                                        live=live)
+        with span("rtow.grad.k4"):
+            live = (torch.count_nonzero(ints[0])
+                    if warp_forms(full) and ints.is_cuda else None)
+            cont_out, ints_out = bounce_fwd(cont, ints, tbl, full, it=it,
+                                            seed=seed, max_depth=max_depth,
+                                            background=background, flat=flat,
+                                            lit=lit._replace(rows=rows),
+                                            live=live)
         ctx.save_for_backward(cont, ints, tbl, tri_tbl, rows)
         ctx.tris, ctx.lit, ctx.live = tris, lit, live
         ctx.scalars = dict(it=it, seed=seed, max_depth=max_depth,
@@ -652,9 +654,12 @@ class BounceGrad(torch.autograd.Function):
     def backward(ctx, g_cont, _g_ints):
         cont, ints, tbl, tri_tbl, rows = ctx.saved_tensors
         full = None if ctx.tris is None else ctx.tris._replace(tbl=tri_tbl)
-        cot_in, g_tbl, g_tri, g_rows = bounce_bwd(
-            cont, ints, g_cont.contiguous(), tbl, full,
-            lit=ctx.lit._replace(rows=rows), live=ctx.live, **ctx.scalars)
+        # On a card this runs on the autograd engine's device thread.
+        with span("rtow.grad.k5"):
+            cot_in, g_tbl, g_tri, g_rows = bounce_bwd(
+                cont, ints, g_cont.contiguous(), tbl, full,
+                lit=ctx.lit._replace(rows=rows), live=ctx.live,
+                **ctx.scalars)
         return (cot_in, None, g_tbl, g_tri, g_rows) + (None,) * 7
 
 
@@ -674,7 +679,9 @@ def bounce_grad(cont, ints, tbl, tris: Optional[TriTable] = None, *,
 
 
 def _check_scene(scene: Scene) -> None:
-    if bool((scene.materials.kind == IMAGE).any()):
+    with span("rtow.sync.check_scene"):
+        image = bool((scene.materials.kind == IMAGE).any())
+    if image:
         raise NotImplementedError(
             "image textures in the gradient kernels need the reference "
             "integrator's texel gathers (ROADMAP Queue 1 item 5)")
@@ -737,10 +744,46 @@ def _permute(cont, ints, perm):
     return cont.index_select(1, perm), ints.index_select(1, perm)
 
 
+class GradTables(NamedTuple):
+    """What the differentiable render reads of a scene, built once a
+    render by :func:`grad_tables`: the sphere table, the triangle table
+    (None without triangles), the lit features with their rows, the sort
+    keys' origin grid (min, 1 / extent) where the lanes are sorted (None
+    where not) and whether the triangle blocks are swept flat."""
+    tbl: torch.Tensor
+    tris: Optional[TriTable]
+    lit: Lit
+    grid: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    flat: bool
+
+
+def grad_tables(scene: Scene, *, sort_lanes=None, force_flat: bool = False,
+                nee: bool = False) -> GradTables:
+    """The :class:`GradTables` of ``scene``, differentiable in its leaves:
+    ``sort_lanes`` None sorts for meshes of more than 16,384 triangles;
+    ``force_flat`` and ``nee`` as :func:`render_rays_kernel` takes them."""
+    _check_scene(scene)
+    lit = grad_lit(scene, nee)
+    if sort_lanes is None:
+        sort_lanes = scene.n_triangles > WAVEFRONT_MIN_TRIS
+    tbl, sph_boxes = build_sphere_table(scene)
+    tris = grad_tri_table(scene, force_flat) if scene.n_triangles else None
+    grid = _sort_grid(sph_boxes, tris) if sort_lanes else None
+    return GradTables(tbl, tris, lit, grid, force_flat)
+
+
+def _sort_lanes(cont, ints, grid):
+    """The lanes in the order of their spatial keys on ``grid``."""
+    with span("rtow.grad.sort"):
+        with torch.no_grad():
+            perm = torch.argsort(sort_keys(cont, ints[0], *grid), stable=True)
+        return _permute(cont, ints, perm)
+
+
 def render_rays_kernel(scene: Scene, rays: Rays, *, n_pixels: int, spp: int,
                        max_depth: int, seed: int = 0, sort_lanes=None,
-                       force_flat: bool = False,
-                       nee: bool = False) -> torch.Tensor:
+                       force_flat: bool = False, nee: bool = False,
+                       tables: Optional[GradTables] = None) -> torch.Tensor:
     """Differentiable mean radiance of ``n_pixels`` pixels -> (P, 3), from
     their ``n_pixels * spp`` camera rays in (pixel, sample) order (the
     lane half of ``render_pixels_kernel``, pallas_grad.py:915-1001):
@@ -748,31 +791,27 @@ def render_rays_kernel(scene: Scene, rays: Rays, *, n_pixels: int, spp: int,
     :class:`BounceGrad`, each after a sort of the lanes where
     ``sort_lanes`` (None: for meshes of more than 16,384 triangles).
     ``force_flat`` sweeps the triangle blocks flat; ``nee`` samples the
-    lights at every diffuse hit (:func:`grad_lit`).  The render runs on
-    the scene's device: the kernels on a card, their plain versions on
-    the CPU."""
-    _check_scene(scene)
-    lit = grad_lit(scene, nee)
-    if sort_lanes is None:
-        sort_lanes = scene.n_triangles > WAVEFRONT_MIN_TRIS
-    tbl, sph_boxes = build_sphere_table(scene)
-    tris = grad_tri_table(scene, force_flat) if scene.n_triangles else None
+    lights at every diffuse hit (:func:`grad_lit`).  ``tables``, built by
+    :func:`grad_tables` from ``scene``, replaces those three: the render
+    then builds none.  The render runs on the scene's device: the kernels
+    on a card, their plain versions on the CPU."""
+    if tables is None:
+        tables = grad_tables(scene, sort_lanes=sort_lanes,
+                             force_flat=force_flat, nee=nee)
     l_raw = n_pixels * spp
     cont, ints = lane_state(rays, l_raw, scene.device)
-    if sort_lanes:
-        bmin, inv_ext = _sort_grid(sph_boxes, tris)
     for it in range(max_depth + 1):
-        if sort_lanes:
-            with torch.no_grad():
-                perm = torch.argsort(
-                    sort_keys(cont, ints[0], bmin, inv_ext), stable=True)
-            cont, ints = _permute(cont, ints, perm)
-        cont, ints = bounce_grad(cont, ints, tbl, tris, it=it, seed=seed,
-                                 max_depth=max_depth,
-                                 background=scene.background,
-                                 flat=force_flat, lit=lit)
-    if sort_lanes:  # back to lane order, so a pixel's samples are adjacent
-        cont, ints = _permute(cont, ints, torch.argsort(ints[2]))
+        with span("rtow.train.bounce"):
+            if tables.grid is not None:
+                cont, ints = _sort_lanes(cont, ints, tables.grid)
+            cont, ints = bounce_grad(cont, ints, tables.tbl, tables.tris,
+                                     it=it, seed=seed, max_depth=max_depth,
+                                     background=scene.background,
+                                     flat=tables.flat, lit=tables.lit)
+    if tables.grid is not None:
+        # Back to lane order, so a pixel's samples are adjacent.
+        with span("rtow.grad.sort"):
+            cont, ints = _permute(cont, ints, torch.argsort(ints[2]))
     return cont[10:13, :l_raw].T.reshape(n_pixels, spp, 3).mean(dim=1)
 
 
@@ -792,20 +831,21 @@ def render_pixels_kernel(
     nee: bool = False,
     grad_reduce_axes: Tuple = (),
     _force_flat: bool = False,
+    tables: Optional[GradTables] = None,
 ) -> torch.Tensor:
     """Differentiable mean radiance of the given pixels -> (P, 3)
     (``render_pixels_kernel``, pallas_grad.py:761): camera rays from
     ``gen`` (a ``torch.Generator`` on the scene's device, in place of the
     JAX key) and :func:`render_rays_kernel`.  ``jitter=False`` pins rays
     to pixel centres (FD gates).  ``sort_lanes`` (None: by the triangle
-    count) and ``_force_flat`` as there; ``nee=True`` (emissive scenes
-    only) runs next-event estimation with MIS in both kernels.  Gradients
-    reach every scene leaf that ``build_sphere_table``,
-    ``build_tri_table``, under NEE ``build_light_table``, and
-    ``build_volume_table`` read (sphere centers and radii, triangle
-    vertices, albedo and the second colour, fuzz, ir; the media's
-    density, albedo, corners or centre and radius, rotate_y and
-    translate)."""
+    count), ``_force_flat`` and ``tables`` as there; ``nee=True``
+    (emissive scenes only) runs next-event estimation with MIS in both
+    kernels.  Gradients reach every scene leaf that
+    ``build_sphere_table``, ``build_tri_table``, under NEE
+    ``build_light_table``, and ``build_volume_table`` read (sphere
+    centers and radii, triangle vertices, albedo and the second colour,
+    fuzz, ir; the media's density, albedo, corners or centre and radius,
+    rotate_y and translate)."""
     if grad_reduce_axes:
         raise NotImplementedError(
             "grad_reduce_axes needs the sharded train step "
@@ -822,26 +862,38 @@ def render_pixels_kernel(
                               n_pixels=pixel_ids.shape[0], spp=spp,
                               max_depth=max_depth, seed=seed,
                               sort_lanes=sort_lanes, force_flat=_force_flat,
-                              nee=nee)
+                              nee=nee, tables=tables)
+
+
+def scene_params(scene: Scene) -> Dict[str, torch.Tensor]:
+    """The scene's floating-point leaves, detached, as fresh tensors that
+    require gradients, under their dotted keys."""
+    return {k: v.detach().requires_grad_(True)
+            for k, v in scene.leaves().items() if v.is_floating_point()}
+
+
+def scene_grads(value: torch.Tensor, params: Dict[str, torch.Tensor],
+                scene: Scene) -> Scene:
+    """d value / d ``params`` (from :func:`scene_params` of ``scene``) as
+    a Scene: the float leaves hold the gradients (zeros where ``value``
+    does not read the leaf), the integer leaves None."""
+    grads = torch.autograd.grad(value, list(params.values()),
+                                allow_unused=True)
+    out = {k: None for k in scene.leaves()}
+    for (k, p), g in zip(params.items(), grads):
+        out[k] = torch.zeros_like(p) if g is None else g
+    return scene.replace_leaves(out)
 
 
 def scene_value_and_grad(fn: Callable[[Scene], torch.Tensor],
                          scene: Scene) -> Tuple[torch.Tensor, Scene]:
     """(fn(scene), d fn / d scene) for a scalar ``fn``: the counterpart of
-    ``jax.value_and_grad(fn, allow_int=True)``.  The gradient is a Scene
-    whose float leaves hold the gradients (zeros where ``fn`` does not
-    read the leaf) and whose integer leaves are None."""
-    leaves = scene.leaves()
-    params = {k: v.detach().requires_grad_(True)
-              for k, v in leaves.items() if v.is_floating_point()}
+    ``jax.value_and_grad(fn, allow_int=True)``, the gradient as
+    :func:`scene_grads` gives it."""
+    params = scene_params(scene)
     with torch.enable_grad():
         value = fn(scene.replace_leaves(params))
-        grads = torch.autograd.grad(value, list(params.values()),
-                                    allow_unused=True)
-    out = {k: None for k in leaves}
-    for (k, p), g in zip(params.items(), grads):
-        out[k] = torch.zeros_like(p) if g is None else g
-    return value.detach(), scene.replace_leaves(out)
+    return value.detach(), scene_grads(value, params, scene)
 
 
 def loss_and_grad_kernel(scene: Scene, camera: Camera, gen: torch.Generator,

@@ -65,6 +65,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import _cuda
 from .lights import LIGHT_COLS
 
@@ -349,8 +350,10 @@ def sphere_groups(tbl: torch.Tensor,
 
 
 def camera_shutter(cam: torch.Tensor) -> Tuple[float, float]:
-    """(t0, t1) of a camera vector from :func:`pack_camera`."""
-    t0, dt = cam[19:21].tolist()
+    """(t0, t1) of a camera vector from :func:`pack_camera` (a host sync
+    where ``cam`` is on a card)."""
+    with span("rtow.sync.camera_shutter"):
+        t0, dt = cam[19:21].tolist()
     return t0, t0 + dt
 
 
@@ -448,8 +451,11 @@ def build_tri_table(scene, tri_block: int, order: str = "median") -> TriTable:
     if order == "morton":
         perm = morton_order(tmin.amin(dim=0), tmax.amax(dim=0), cent)
     elif order == "median":
-        perm = torch.from_numpy(_median_split_order(
-            cent.cpu().numpy(), tri_block)).to(dev)
+        # The split is made on the host: the centroids read back, the
+        # order copied up (both wait for the card).
+        with span("rtow.sync.tri_order"):
+            perm = torch.from_numpy(_median_split_order(
+                cent.cpu().numpy(), tri_block)).to(dev)
     else:
         raise ValueError(f"order must be 'median' or 'morton', not {order!r}")
     verts = verts[perm]
@@ -498,8 +504,10 @@ def build_tri_table(scene, tri_block: int, order: str = "median") -> TriTable:
         return TriTable(tbl, boxes, supers, none, tri_block, m)
     # Supers pad to a whole hyper-block with inverted boxes.
     nsb_pad = -(-nsb // SUPER) * SUPER
-    pad_row = torch.tensor([[big, big, big, -big, -big, -big, 0.0, 0.0]],
-                           dtype=_F32, device=dev)
+    # A host tensor's copy to the card waits for the card.
+    with span("rtow.sync.tri_pad"):
+        pad_row = torch.tensor([[big, big, big, -big, -big, -big, 0.0, 0.0]],
+                               dtype=_F32, device=dev)
     supers = torch.cat([supers, pad_row.repeat(nsb_pad - nsb, 1)])
     hyp_min, hyp_max = group(padded(sup_min, big, nsb_pad),
                              padded(sup_max, -big, nsb_pad), SUPER)

@@ -45,7 +45,7 @@ import torch
 from ..config import Config
 from ..models.camera import Camera, camera_rays, pixel_coords
 from ..models.scene import Scene
-from ..utils.profiling import RenderStats
+from ..utils.profiling import RenderStats, span
 from .flat_bounce import Tables, bounce_step
 from .megakernel import (
     TILE, build_sphere_table, build_tri_table, pick_tri_block, scene_lit,
@@ -97,7 +97,9 @@ def sort_keys(ray, alive: torch.Tensor, bmin: torch.Tensor,
              | (_spread3(qorig(oz, 2).long()) << 2))
     inv_len = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
     big = 3.0e38
-    top = torch.tensor(lim + 0.999, dtype=_F32, device=ox.device)
+    # A host scalar's copy to the card, which waits for the card.
+    with span("rtow.sync.sort_keys"):
+        top = torch.tensor(lim + 0.999, dtype=_F32, device=ox.device)
 
     def qdir(d):
         nd = d * inv_len
@@ -161,9 +163,16 @@ def _morton_pixel_perm(width: int, height: int) -> np.ndarray:
 
 
 def _sorted(state, bmin, inv_ext):
-    perm = torch.sort(sort_keys(state, state[13], bmin, inv_ext),
-                      stable=True).indices
-    return state.index_select(1, perm)
+    with span("rtow.wavefront.sort"):
+        perm = torch.sort(sort_keys(state, state[13], bmin, inv_ext),
+                          stable=True).indices
+        return state.index_select(1, perm)
+
+
+def _live_count(win) -> int:
+    """The window's live lanes, read on the host."""
+    with span("rtow.sync.live_count"):
+        return int((win[13] > 0).sum())
 
 
 def lane_state(rays, n_lanes: int) -> torch.Tensor:
@@ -199,22 +208,25 @@ def trace_lanes(state: torch.Tensor, seed: int, *, max_depth: int,
         if w != state.shape[1]:
             state = _sorted(state, bmin, inv_ext)
         win, rest = state[:, :w], state[:, w:]
-        # The one host sync per bounce: the live count picks the window,
-        # and K3's form.
-        n_live = int((win[13] > 0).sum())
+        # The one host sync per bounce (and one opening each window): the
+        # live count picks the window, and K3's form.
+        n_live = _live_count(win)
         while n_live > 0 and n_live > nxt:
-            win = _sorted(win, bmin, inv_ext)
-            if tape is not None:
-                tape.append((win, it))
-            if windows is not None:
-                live_tiles = (win[13] > 0).view(-1, TILE).any(dim=1).sum()
-                for j, n in enumerate((w // TILE, n_live, int(live_tiles))):
-                    windows[j] += n
-            win = bounce_step(win, it, seed, max_depth, tables,
-                              background=background, stats=stats,
-                              shadows=shadows, cull=cull, live=n_live)
-            it += 1
-            n_live = int((win[13] > 0).sum())
+            with span("rtow.wavefront.bounce"):
+                win = _sorted(win, bmin, inv_ext)
+                if tape is not None:
+                    tape.append((win, it))
+                if windows is not None:
+                    live_tiles = (win[13] > 0).view(-1, TILE).any(
+                        dim=1).sum()
+                    for j, n in enumerate((w // TILE, n_live,
+                                           int(live_tiles))):
+                        windows[j] += n
+                win = bounce_step(win, it, seed, max_depth, tables,
+                                  background=background, stats=stats,
+                                  shadows=shadows, cull=cull, live=n_live)
+                it += 1
+                n_live = _live_count(win)
         state = torch.cat([win, rest], dim=1) if rest.shape[1] else win
         if level_its is not None:
             level_its.append(it)
@@ -303,25 +315,29 @@ def render_wavefront(scene: Scene, camera: Camera, cfg: Config,
     device = scene.device
     ppc, n_chunks = chunk_plan(cfg)
 
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = _time.perf_counter()
-    tables, bmin, inv_ext = scene_tables(scene, cfg.russian_roulette)
-    perm = np.full((n_chunks * ppc,), n_pixels, np.int64)
-    perm[:n_pixels] = _morton_pixel_perm(width, height)
-    perm_t = torch.from_numpy(perm).to(device)
-    fb = torch.zeros((n_chunks * ppc, 3), dtype=_F32, device=device)
+    with span("rtow.wavefront.tables"):
+        if device.type == "cuda":
+            with span("rtow.sync.frame_start"):
+                torch.cuda.synchronize(device)
+        t0 = _time.perf_counter()
+        tables, bmin, inv_ext = scene_tables(scene, cfg.russian_roulette)
+        perm = np.full((n_chunks * ppc,), n_pixels, np.int64)
+        perm[:n_pixels] = _morton_pixel_perm(width, height)
+        with span("rtow.sync.pixel_perm"):
+            perm_t = torch.from_numpy(perm).to(device)
+        fb = torch.zeros((n_chunks * ppc, 3), dtype=_F32, device=device)
     for g in range(n_chunks):
-        pixel_ids = perm_t[g * ppc:(g + 1) * ppc]
-        sums = trace_wavefront_sorted(
-            tables, camera, chunk_generator(device, cfg.seed, g),
-            pixel_ids.clamp(max=n_pixels - 1),
-            cfg.seed + g * _CHUNK_SEED_STRIDE, spp=spp,
-            max_depth=cfg.max_child_rays, width=width, height=height,
-            bmin=bmin, inv_ext=inv_ext, background=scene.background,
-            cull_backfaces=cull_backfaces, stats=stats, shadows=shadows)
-        fb[g * ppc:(g + 1) * ppc] = torch.where(
-            (pixel_ids < n_pixels)[:, None], sums, 0.0)
+        with span("rtow.wavefront.chunk"):
+            pixel_ids = perm_t[g * ppc:(g + 1) * ppc]
+            sums = trace_wavefront_sorted(
+                tables, camera, chunk_generator(device, cfg.seed, g),
+                pixel_ids.clamp(max=n_pixels - 1),
+                cfg.seed + g * _CHUNK_SEED_STRIDE, spp=spp,
+                max_depth=cfg.max_child_rays, width=width, height=height,
+                bmin=bmin, inv_ext=inv_ext, background=scene.background,
+                cull_backfaces=cull_backfaces, stats=stats, shadows=shadows)
+            fb[g * ppc:(g + 1) * ppc] = torch.where(
+                (pixel_ids < n_pixels)[:, None], sums, 0.0)
         if progress:
             done = min((g + 1) * ppc // width, height)
             print(f"\rScanlines remaining: {height - done}   ",
@@ -329,8 +345,10 @@ def render_wavefront(scene: Scene, camera: Camera, cfg: Config,
                   flush=True)
     img = torch.zeros((n_pixels, 3), dtype=_F32, device=device)
     valid = perm_t < n_pixels
-    img[perm_t[valid]] = fb[valid]
-    img = img.cpu().numpy()
+    with span("rtow.sync.frame_scatter"):  # a mask's size, read back
+        img[perm_t[valid]] = fb[valid]
+    with span("rtow.sync.readback"):
+        img = img.cpu().numpy()
     elapsed = _time.perf_counter() - t0
     if progress:
         print(RenderStats(elapsed, n_pixels, spp, cfg.max_child_rays,

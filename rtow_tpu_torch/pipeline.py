@@ -29,12 +29,14 @@ from .ops.megakernel import (
     unblock_image,
 )
 from .ops.wavefront import WAVEFRONT_MIN_TRIS, render_wavefront
-from .utils.profiling import RenderStats
+from .utils.profiling import RenderStats, span, trace_profile
 
 
-def _sync(device: torch.device) -> None:
+def _sync(device: torch.device, site: str) -> None:
+    """Wait for the card, inside the span ``rtow.sync.<site>``."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with span(f"rtow.sync.{site}"):
+            torch.cuda.synchronize(device)
 
 
 def render_megakernel(
@@ -64,33 +66,40 @@ def render_megakernel(
         seed = cfg.seed
     device = scene.device
 
-    _sync(device)
-    t0 = _time.perf_counter()
-    tbl, tris = scene_k1_tables(scene)
-    lit = scene_lit(scene, cfg.russian_roulette)
-    cam = pack_camera(camera)
-    knobs = pool_knobs()
-    meta = pack_meta(seed, width=width, height=height, spp=spp,
-                     max_depth=cfg.max_child_rays)
-    counter = None
-    if progress and device.type == "cuda":
-        counter = progress_counter(torch.cuda.current_device()
-                                   if device.index is None else device.index)
-        counter.reset()
-    r, g, b = render_blocks(tbl, cam, meta, n_tiles_for(width, height),
-                            background=scene.background, tris=tris, lit=lit,
-                            pool=knobs.on, pool_chunk=knobs.chunk,
-                            pool_k=knobs.k, progress=counter)
-    if progress:
-        _ticker(counter, device, width, height)
-    rad = unblock_image(r, g, b, width=width, height=height)
-    _sync(device)
-    elapsed = _time.perf_counter() - t0
-    if progress:
-        stats = RenderStats(elapsed, width * height, spp, cfg.max_child_rays,
-                            backend=device.type)
-        print(stats.summary(), file=sys.stderr)
-    return rad.cpu().numpy().astype(np.float64).reshape(height, width, 3) / spp
+    with span("rtow.render.tables"):
+        _sync(device, "frame_start")
+        t0 = _time.perf_counter()
+        tbl, tris = scene_k1_tables(scene)
+        lit = scene_lit(scene, cfg.russian_roulette)
+        cam = pack_camera(camera)
+        knobs = pool_knobs()
+        meta = pack_meta(seed, width=width, height=height, spp=spp,
+                         max_depth=cfg.max_child_rays)
+        counter = None
+        if progress and device.type == "cuda":
+            counter = progress_counter(torch.cuda.current_device()
+                                       if device.index is None
+                                       else device.index)
+            counter.reset()
+    with span("rtow.render.k1"):
+        r, g, b = render_blocks(tbl, cam, meta, n_tiles_for(width, height),
+                                background=scene.background, tris=tris,
+                                lit=lit, pool=knobs.on,
+                                pool_chunk=knobs.chunk, pool_k=knobs.k,
+                                progress=counter)
+        if progress:
+            _ticker(counter, device, width, height)
+    with span("rtow.render.readback"):
+        rad = unblock_image(r, g, b, width=width, height=height)
+        _sync(device, "frame_end")
+        elapsed = _time.perf_counter() - t0
+        if progress:
+            stats = RenderStats(elapsed, width * height, spp,
+                                cfg.max_child_rays, backend=device.type)
+            print(stats.summary(), file=sys.stderr)
+        with span("rtow.sync.readback"):
+            rad = rad.cpu()
+        return rad.numpy().astype(np.float64).reshape(height, width, 3) / spp
 
 
 #: Seconds between the ticker's reads of the progress counter.
@@ -124,7 +133,8 @@ def _ticker(counter, device, width: int, height: int) -> None:
         reader = threading.Thread(target=tick, daemon=True)
         reader.start()
         try:
-            done.synchronize()
+            with span("rtow.sync.ticker"):
+                done.synchronize()
         finally:
             stop.set()
             reader.join()
@@ -158,7 +168,12 @@ def render_auto(
     (``pipeline.py:219``), and raises where two or more cards are.
     Meshes over 16,384 triangles take the sorted wavefront, lit or not;
     the reference integrator's cases (``--backend jnp``, image textures)
-    and ``--profile-dir`` raise."""
+    raise.  ``cfg.profile_dir`` (``--profile-dir``) traces the render
+    into a Chrome trace there (``utils/profiling.trace_profile``), its
+    spans included: ``rtow.render.frame`` around the frame, and within it
+    ``rtow.render.tables`` (here the image-texture check), then K1's
+    ``rtow.render.tables``, ``rtow.render.k1`` and
+    ``rtow.render.readback`` or the wavefront's spans."""
     if (cfg.n_devices > 1 and scene.device.type == "cuda"
             and torch.cuda.device_count() > 1):
         raise NotImplementedError(
@@ -168,16 +183,15 @@ def render_auto(
         raise NotImplementedError(
             "--backend jnp needs the reference integrator "
             "(ROADMAP Queue 1 item 5)")
-    if cfg.profile_dir:
-        raise NotImplementedError(
-            "--profile-dir needs the port's profiler traces "
-            "(ROADMAP Queue 1 item 12)")
-    if bool((scene.materials.kind == IMAGE).any()):
-        raise NotImplementedError(
-            "image textures need the reference integrator "
-            "(ROADMAP Queue 1 item 5)")
-    if wavefront_supported(scene):
-        return render_wavefront(scene, camera, cfg, progress=progress)
-    if megakernel_supported(scene):
-        return render_megakernel(scene, camera, cfg, progress=progress)
+    with trace_profile(cfg.profile_dir), span("rtow.render.frame"):
+        with span("rtow.render.tables"), span("rtow.sync.image_check"):
+            image = bool((scene.materials.kind == IMAGE).any())
+        if image:
+            raise NotImplementedError(
+                "image textures need the reference integrator "
+                "(ROADMAP Queue 1 item 5)")
+        if wavefront_supported(scene):
+            return render_wavefront(scene, camera, cfg, progress=progress)
+        if megakernel_supported(scene):
+            return render_megakernel(scene, camera, cfg, progress=progress)
     raise ValueError("scene has no primitives")

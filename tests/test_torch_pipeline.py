@@ -7,6 +7,7 @@ The JAX side runs the CLASSIC scheduler (``tests/conftest.py`` sets
 within 1e-4 of mean radiance and mean |difference| at most 5e-3 (see
 tests/test_torch_megakernel.py for why a few pixels flip).
 """
+import json
 import os
 import subprocess
 import sys
@@ -115,12 +116,32 @@ def test_cli_renders_a_mesh_on_cpu(tmp_path, capsys):
 @pytest.mark.parametrize("flags", [
     ["--globe"], ["-l", os.path.join(ROOT, "samples", "knot_small.obj"),
                   "--backend", "jnp"],
-    ["--backend", "jnp"], ["--profile-dir", "trace"],
+    ["--backend", "jnp"],
 ])
 def test_unported_flags_fail_loudly(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--device", "cpu", "-w", "8", "-s", "1", "-o", os.devnull,
                   *flags])
+
+
+def test_profile_dir_writes_a_trace(tmp_path, capsys):
+    """``--profile-dir D`` writes a Chrome trace into D whose
+    ``rtow.render.frame`` holds ``rtow.render.tables`` and
+    ``rtow.render.readback``, and says so on stderr."""
+    out = tmp_path / "trace"
+    assert cli.main(["--device", "cpu", "-w", "8", "-s", "1", "-c", "2",
+                     "-o", os.devnull, "--profile-dir", str(out)]) == 0
+    assert f"profile trace written to {out}" in capsys.readouterr().err
+    with open(out / "trace.json") as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X"]
+    spans = {}
+    for e in events:
+        spans.setdefault(e["name"], []).append((e["ts"], e["ts"] + e["dur"]))
+    [(start, end)] = spans["rtow.render.frame"]
+    for name in ("rtow.render.tables", "rtow.render.readback"):
+        assert spans[name] and all(start <= s and e <= end
+                                   for s, e in spans[name])
 
 
 def test_devices_flag_renders_on_one_device(tmp_path):
