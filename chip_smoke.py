@@ -1994,12 +1994,14 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
         losses, cur, per_step = [], start, []
         G.bounce_fwd.launches = G.bounce_bwd.launches = 0
         G.bounce_fwd.warp_launches = G.bounce_bwd.warp_launches = 0
+        G.permute_lanes.launches = G.permute_lanes.bwd_launches = 0
         t0 = time.perf_counter()
         for _ in range(3):
             cur, loss = step(cur, torch.Generator(dev).manual_seed(7), target)
             losses.append(float(loss))
             per_step.append((G.bounce_fwd.launches, G.bounce_bwd.launches,
-                             sorts[0]))
+                             sorts[0], G.permute_lanes.launches,
+                             G.permute_lanes.bwd_launches))
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         main_launches = per_step[-1][:2] + (G.bounce_bwd.warp_launches,
@@ -2009,10 +2011,14 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
             **kw)
     finally:
         G.bounce_fwd_reference, G.bounce_bwd_reference, G.sort_keys = plain
-    want = [(k * (DEPTH_GRAD + 1),) * 3 for k in (1, 2, 3)]
+    # The lanes are permuted before each bounce and once more back to lane
+    # order; the first permute's lanes (camera rays) carry no cotangent.
+    want = [(k * (DEPTH_GRAD + 1),) * 3 + (k * (DEPTH_GRAD + 2),
+                                           k * (DEPTH_GRAD + 1))
+            for k in (1, 2, 3)]
     check(per_step == want,
-          f"K4 / K5 launches and sorts after each mesh train step "
-          f"{per_step}, not {want}")
+          f"K4 / K5 launches, sorts, permutes and un-permutes after each "
+          f"mesh train step {per_step}, not {want}")
     check(main_launches[2] == main_launches[1],
           f"K5 issued its warp form {main_launches[2]} times in "
           f"{main_launches[1]} launches")
@@ -2033,7 +2039,8 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
               f"{err0:.6g} -> {err3:.6g}; K4 {main_launches[0]} and K5 "
               f"{main_launches[1]} launches (the warp forms issued in "
               f"{main_launches[3]} and {main_launches[2]}), "
-              f"{per_step[-1][2]} sorts, no "
+              f"{per_step[-1][2]} sorts, {per_step[-1][3]} permutes and "
+              f"{per_step[-1][4]} un-permutes, no "
               f"plain version; {train_s:.2f} s; vertex gradient max |g| "
               f"{float(gv.abs().max()):.3g}")
 

@@ -42,10 +42,11 @@ the shadow ray's transmittance.  The rows are a differentiable input of
 plays the role of the ``lax.scan`` carries.  With ``sort_lanes`` (by
 default for meshes of more than 16,384 triangles) the lanes are sorted by
 the sorted wavefront's spatial key before every bounce and put back in
-lane order after the last, by differentiable gathers (``_permute_by``,
-:724-758; on the card an index gather, whose backward is an index
-scatter).  The tables' cotangents flow back into the Scene's leaves
-through ``build_sphere_table``'s and ``build_tri_table``'s gathers.
+lane order after the last, by :class:`LanePermute` (``_permute_by``,
+:724-758): an index gather, whose backward writes each cotangent column
+back once, with no sum and no sort.  The tables' cotangents flow back
+into the Scene's leaves through ``build_sphere_table``'s and
+``build_tri_table``'s gathers.
 
 Lane state: ``cont`` (13, L) float32 = ox oy oz dx dy dz tm tpr tpg tpb
 rr rg rb, ``ints`` (3, L) int32 = alive, bounce, lane id.  L is a
@@ -738,10 +739,47 @@ def _sort_grid(sph_boxes, tris) -> Tuple[torch.Tensor, torch.Tensor]:
     return bmin, 1.0 / torch.clamp(bmax - bmin, min=1e-6)
 
 
-def _permute(cont, ints, perm):
-    """The lanes in the order ``perm``: a gather, differentiable in
-    ``cont`` (its backward scatters the cotangent back)."""
-    return cont.index_select(1, perm), ints.index_select(1, perm)
+class LanePermute(torch.autograd.Function):
+    """(cont, ints, perm) -> the lanes in the order ``perm``, a
+    permutation (``torch.argsort``'s): two gathers, differentiable in
+    ``cont`` (``pallas_grad._permute_by``, :724-758).
+
+    The backward puts the cotangent back in lane order, ``g_in[:, perm[j]]
+    = g_out[:, j]``, writing each column once into an empty tensor.  A
+    permutation has nothing to sum, so ``index_select``'s own backward, an
+    accumulating scatter into zeros that first sorts the indices, is not
+    needed; ``perm`` is saved as it is, so the forward launches nothing
+    beside its two gathers.  Nor does the backward zero-fill a cotangent
+    for ``ints`` (``set_materialize_grads(False)``)."""
+
+    @staticmethod
+    def forward(ctx, cont, ints, perm):
+        ctx.save_for_backward(perm)
+        ctx.set_materialize_grads(False)
+        ints_out = ints.index_select(1, perm)
+        ctx.mark_non_differentiable(ints_out)
+        return cont.index_select(1, perm), ints_out
+
+    @staticmethod
+    def backward(ctx, g_cont, _g_ints):
+        perm, = ctx.saved_tensors
+        # On a card this runs on the autograd engine's device thread.
+        with span("rtow.grad.unpermute"):
+            g_in = torch.empty_like(g_cont).index_copy_(1, perm, g_cont)
+        permute_lanes.bwd_launches += 1
+        return g_in, None, None
+
+
+def permute_lanes(cont, ints, perm):
+    """:class:`LanePermute` applied to the lanes (cont, ints)."""
+    permute_lanes.launches += 1
+    return LanePermute.apply(cont, ints, perm)
+
+
+#: Permutations of the lanes made by :func:`permute_lanes` in this
+#: process, and un-permutes of their cotangents by its backward.
+permute_lanes.launches = 0
+permute_lanes.bwd_launches = 0
 
 
 class GradTables(NamedTuple):
@@ -777,7 +815,7 @@ def _sort_lanes(cont, ints, grid):
     with span("rtow.grad.sort"):
         with torch.no_grad():
             perm = torch.argsort(sort_keys(cont, ints[0], *grid), stable=True)
-        return _permute(cont, ints, perm)
+        return permute_lanes(cont, ints, perm)
 
 
 def render_rays_kernel(scene: Scene, rays: Rays, *, n_pixels: int, spp: int,
@@ -811,7 +849,7 @@ def render_rays_kernel(scene: Scene, rays: Rays, *, n_pixels: int, spp: int,
     if tables.grid is not None:
         # Back to lane order, so a pixel's samples are adjacent.
         with span("rtow.grad.sort"):
-            cont, ints = _permute(cont, ints, torch.argsort(ints[2]))
+            cont, ints = permute_lanes(cont, ints, torch.argsort(ints[2]))
     return cont[10:13, :l_raw].T.reshape(n_pixels, spp, 3).mean(dim=1)
 
 

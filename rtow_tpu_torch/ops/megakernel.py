@@ -458,16 +458,23 @@ def build_tri_table(scene, tri_block: int, order: str = "median") -> TriTable:
                 cent.cpu().numpy(), tri_block)).to(dev)
     else:
         raise ValueError(f"order must be 'median' or 'morton', not {order!r}")
-    verts = verts[perm]
+    # The rows gather by index_select, whose backward adds each row's
+    # cotangent into its source row (index_add_).  Indexing's backward
+    # sorts the rows' indices first and, on the card, sums each source
+    # row's run in one thread: a mesh's triangles mostly share one
+    # material, which made that run every triangle of the mesh.
+    verts = verts.index_select(0, perm)
     mid = tr.material[perm].long()
     tmin, tmax = tmin[perm], tmax[perm]
     v0 = verts[:, 0]
     e1 = verts[:, 1] - v0
     e2 = verts[:, 2] - v0
+    mat_cols = torch.cat([
+        mats.albedo,
+        torch.stack([mats.fuzz, mats.ir, mats.kind.to(_F32)], dim=1),
+    ], dim=1)
     tbl = torch.cat([
-        v0, e1, e2, mats.albedo[mid],
-        torch.stack([mats.fuzz[mid], mats.ir[mid],
-                     mats.kind[mid].to(_F32)], dim=1),
+        v0, e1, e2, mat_cols.index_select(0, mid),
         torch.zeros((m, 1), dtype=_F32, device=dev),
     ], dim=1).to(_F32)
     tbl = torch.cat([tbl, torch.zeros((mpad - m, TBL_COLS), dtype=_F32,

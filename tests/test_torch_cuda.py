@@ -5,8 +5,9 @@ schedulers, the work pool and the classic one), the probes T1 and T2
 (rtow_tpu_torch/tools), the sorted
 wavefront's bounce K3 (ops/flat_bounce.py) and the gradient bounces
 K4 / K5 (ops/grad.py), with their lit instances (emission, NEE with the
-light rows' cotangent, textures, media with the volume rows'), and K1's
-and K3's two-sided triangles.
+light rows' cotangent, textures, media with the volume rows'), K1's
+and K3's two-sided triangles, and the gradient path's gathers: the
+sorted lanes' permutation and the triangle table.
 
 Marked ``cuda``: each test skips (with its reason) where
 ``torch.cuda.is_available()`` is false.  This file imports neither JAX
@@ -685,6 +686,97 @@ def test_mesh_gradient_launches_kernels_only(dev, monkeypatch):
     g = grads.triangles.verts
     assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
     assert bool(torch.isfinite(loss))
+
+
+@pytest.mark.parametrize("n", [65536, 1048576])
+def test_lane_unpermute_equals_index_select_backward(dev, n):
+    """The sorted lanes' un-permute (grad.LanePermute's backward) on the
+    card: the cont cotangent equal (torch.equal) to index_select's
+    autograd backward, from a permutation with ties broken by a stable
+    argsort; no accumulating scatter and no sort in the backward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(dev).manual_seed(n)
+    cont = torch.randn((13, n), device=dev, generator=gen)
+    ints = torch.randint(0, 9, (3, n), dtype=torch.int32, device=dev,
+                         generator=gen)
+    perm = torch.argsort(torch.randint(0, n // 64, (n,), device=dev,
+                                       generator=gen), stable=True)
+    cot = torch.randn((13, n), device=dev, generator=gen)
+    mine = cont.clone().requires_grad_(True)
+    ref = cont.clone().requires_grad_(True)
+    out, out_ints = grad.permute_lanes(mine, ints, perm)
+    ref_out = ref.index_select(1, perm)
+    assert torch.equal(out, ref_out)
+    assert torch.equal(out_ints, ints.index_select(1, perm))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        g_mine, = torch.autograd.grad(out, mine, cot)
+        torch.cuda.synchronize()
+    g_ref, = torch.autograd.grad(ref_out, ref, cot)
+    assert torch.equal(g_mine, g_ref)
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total
+               and not e.key.startswith("rtow.")]
+    assert kernels and not [k for k in kernels if "indexing_backward" in k
+                            or "sort" in k.lower() or "fill" in k.lower()], \
+        kernels
+
+
+def test_sorted_step_counts_its_permutes(dev):
+    """A sorted train step on a mesh over 16,384 triangles at depth 8
+    permutes the lanes 10 times (before each of the 9 bounces, then back
+    to lane order) and un-permutes 9 cotangents (the camera rays carry
+    none)."""
+    from rtow_tpu_torch import diff
+
+    scene = _knot(dev, 128, 136)  # 17,408 triangles
+    cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=45.0, aspect_ratio=1.0, device=dev)
+    step = diff.build_train_step(cam, lr=1.0, width=32, height=32, spp=4,
+                                 max_depth=8,
+                                 keep=lambda p: p.endswith("albedo"))
+    before = (grad.permute_lanes.launches, grad.permute_lanes.bwd_launches)
+    _, loss = step(scene, torch.Generator(dev).manual_seed(0),
+                   torch.zeros((32 * 32, 3), device=dev))
+    assert bool(torch.isfinite(loss))
+    assert (grad.permute_lanes.launches - before[0],
+            grad.permute_lanes.bwd_launches - before[1]) == (10, 9)
+
+
+def test_tri_table_backward_runs_no_indexing_backward(dev):
+    """The gradient path's triangle table on the card: its backward adds
+    each row's cotangent into its vertices and its material (index_add_)
+    and launches no indexing_backward kernel (indexing's sorted,
+    accumulating scatter, which summed the knot's 17,408 rows of one
+    material in one thread); the material's albedo, fuzz and ir
+    cotangents within 1e-5 of their float64 sums' sums of |terms|."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scene = _knot(dev, 128, 136)  # 17,408 triangles
+    keys = ("triangles.verts", "materials.albedo", "materials.fuzz",
+            "materials.ir")
+    leaves = {k: scene.leaves()[k].clone().requires_grad_(True)
+              for k in keys}
+    tris = grad.grad_tri_table(scene.replace_leaves(leaves))
+    cot = torch.randn(tris.tbl.shape, device=dev,
+                      generator=torch.Generator(dev).manual_seed(4))
+    value = (tris.tbl * cot).sum()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        g = torch.autograd.grad(value, [leaves[k] for k in keys])
+        torch.cuda.synchronize()
+    kernels = [e.key for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    assert not [k for k in kernels if "indexing_backward" in k], kernels
+    rows = cot[:scene.triangles.verts.shape[0]].double()
+    knot = int(scene.triangles.material[0])
+    for got, cols in zip(g[1:], (slice(9, 12), 12, 13)):
+        err = (got[knot].double() - rows[:, cols].sum(0)).abs()
+        assert bool((err <= 1e-5 * rows[:, cols].abs().sum(0)).all()), cols
+        assert not got[1 - knot].any()
 
 
 # ---------------------------------------------------------------------------

@@ -138,6 +138,46 @@ def test_table_is_differentiable_in_the_vertices():
         [[9.0 * 384, 10.0 * 384, 11.0 * 384], [0.0, 0.0, 0.0]]))
 
 
+@pytest.mark.parametrize("order", ["morton", "median"])
+def test_table_backward_adds_rows_without_sorting(order):
+    """The table's rows are gathered by ``index_select``: its backward
+    adds each row's cotangent into its source row (``index_add_``), with
+    no sort and no accumulating ``index_put_`` (indexing's backward, which
+    on the card sums each material's run of rows in one thread).  All
+    4,096 triangles of the knot share one material, whose albedo, fuzz
+    and ir get the sums of their rows' cotangents; the ground, a sphere,
+    gets none from the triangle table."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, scene = _knot_scenes(64, 32)
+    keys = ("triangles.verts", "materials.albedo", "materials.fuzz",
+            "materials.ir")
+    leaves = {k: scene.leaves()[k].clone().requires_grad_(True)
+              for k in keys}
+    tris = mk.build_tri_table(scene.replace_leaves(leaves), 128, order=order)
+    cot = torch.randn(tris.tbl.shape,
+                      generator=torch.Generator().manual_seed(4))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        g_verts, g_albedo, g_fuzz, g_ir = torch.autograd.grad(
+            (tris.tbl * cot).sum(), [leaves[k] for k in keys])
+    names = {e.key for e in prof.key_averages()}
+    assert "aten::index_add_" in names
+    assert not names & {"aten::sort", "aten::index_put_",
+                        "aten::_index_put_impl_"}
+    rows = cot[:g_verts.shape[0]].double()
+    knot = int(scene.triangles.material[0])
+    # Float32 sums in another order than float64's: within 1e-5 of the
+    # sum of |terms|.
+    for got, cols in ((g_albedo, slice(9, 12)), (g_fuzz, 12), (g_ir, 13)):
+        err = (got[knot].double() - rows[:, cols].sum(0)).abs()
+        assert bool((err <= 1e-5 * rows[:, cols].abs().sum(0)).all()), cols
+        assert not got[1 - knot].any()
+    # Each triangle's v0, e1 = v1 - v0 and e2 = v2 - v0: d/dv1 summed over
+    # the triangles is the e1 columns' sum, whatever the rows' order.
+    err = (g_verts[:, 1].double().sum(0) - rows[:, 3:6].sum(0)).abs()
+    assert bool((err <= 1e-5 * rows[:, 3:6].abs().sum(0)).all())
+
+
 # ---------------------------------------------------------------------------
 # (b) One bounce, lane by lane
 

@@ -100,7 +100,8 @@ def test_train_step_phases(train, sort_lanes):
     with K4's span and, where the lanes are sorted, the sort's with its
     keys' sync (and one more sort after the last bounce); the scene
     check's sync in the tables; K5's spans in the backward (this thread
-    on the CPU)."""
+    on the CPU), and where sorted the un-permutes' (the camera rays'
+    permute has no cotangent to put back)."""
     kw, cam, scene, target = train
     step = diff.build_train_step(cam, lr=1.0, sort_lanes=sort_lanes,
                                  keep=lambda p: p.endswith("albedo"), **kw)
@@ -127,6 +128,9 @@ def test_train_step_phases(train, sort_lanes):
         assert sorts == []
     k5 = named(ev, "rtow.grad.k5")
     assert len(k5) == DEPTH + 1 and all(inside(k, backward) for k in k5)
+    unpermutes = named(ev, "rtow.grad.unpermute")
+    assert len(unpermutes) == (DEPTH + 1 if sort_lanes else 0)
+    assert all(inside(u, backward) for u in unpermutes)
     syncs = [e for e in ev if e[0].startswith("rtow.sync.")]
     assert [e[0] for e in syncs] == ["rtow.sync.check_scene"] + [
         "rtow.sync.sort_keys"] * (DEPTH + 1 if sort_lanes else 0)
