@@ -99,7 +99,13 @@ def render_megakernel(
             print(stats.summary(), file=sys.stderr)
         with span("rtow.sync.readback"):
             rad = rad.cpu()
-        return rad.numpy().astype(np.float64).reshape(height, width, 3) / spp
+        # The float64 cast and the divide in one pass into one array: two
+        # passes, each into a fresh array, cost the host twice the time
+        # and most of a frame's jitter (the same values either way).
+        img = np.empty((height, width, 3), np.float64)
+        np.divide(rad.numpy().reshape(height, width, 3), spp, out=img,
+                  dtype=np.float64)
+        return img
 
 
 #: Seconds between the ticker's reads of the progress counter.
