@@ -29,7 +29,9 @@ K5's triangle instances against their plain versions on the 4,096- and
 65,536-triangle knots, flat and down the hierarchy, K5 as picked and in
 its warp form; three
 ``diff.build_train_step`` steps on the 65k knot at 256x256, 16 samples
-per pixel, depth 8, with the lanes sorted; the forward and
+per pixel, depth 8, with the lanes sorted by the key kernel
+``csrc/sort_keys.cu``, held bit for bit to the plain keys and timed; the
+forward and
 forward+backward times of both bench knots; each K4 and K5 launch timed
 alone, K5's thread and warp forms in turns and held to each other) and
 lit inverse rendering
@@ -321,10 +323,11 @@ def main() -> None:
              f"{torch.version.cuda}, nvcc "
              f"{nvcc_ver.stdout.strip().splitlines()[-1]}")
 
-    # ---- (1) build, all six sources at once ------------------------------
+    # ---- (1) build, all seven sources at once ----------------------------
     t0 = time.perf_counter()
     builds = _cuda.build_all(["megakernel", "flat_bounce", "grad_fwd",
-                              "grad_bwd", "mxu_probe", "nb_slice"])
+                              "grad_bwd", "sort_keys", "mxu_probe",
+                              "nb_slice"])
     wall = time.perf_counter() - t0
     for name, build in builds.items():
         regs = [int(w) for line in build.log.splitlines() if "Used" in line
@@ -370,11 +373,15 @@ def main() -> None:
         say("1", f"{label}'s instances (ptxas): " + "; ".join(
             f"{k} {regs} registers, {spill} B spilled"
             for k, (regs, spill, _) in sorted(inst.items())))
+    say("1", "the key kernel's passes (ptxas): " + "; ".join(
+        f"{k} {regs} registers, {spill} B spilled"
+        for k, (regs, spill, _) in ptxas_entries(
+            builds["sort_keys"].log).items()))
     say("1", "the probes' kernels (ptxas): " + "; ".join(
         f"{k} {regs} registers, {spill} B spilled"
         for name in ("mxu_probe", "nb_slice")
         for k, (regs, spill, _) in ptxas_entries(builds[name].log).items()))
-    say("1", f"six builds in parallel: {wall:.1f} s wall")
+    say("1", f"{len(builds)} builds in parallel: {wall:.1f} s wall")
 
     def sphere_args(scene, cam, width, height, spp, depth):
         tbl, _ = mk.build_sphere_table(scene)
@@ -1792,10 +1799,12 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
     65,536-triangle knot, both through the hierarchy and the flat sweep),
     then mesh inverse rendering at full
     size: three ``diff.build_train_step`` steps on the 65k knot at
-    256x256 spp16 depth 8 with the lanes sorted (the plain versions made
-    to raise), the forward and forward+backward times on both bench
-    knots, K4 and K5 timed by CUDA events with their bounds, and a
-    profiled step.  Returns the triangle instances' JSON entries."""
+    256x256 spp16 depth 8 with the lanes sorted (the plain versions, the
+    keys' among them, made to raise; the key kernel's 9 calls of a step
+    then held bit for bit to the plain keys and timed), the forward and
+    forward+backward times on both bench knots, K4 and K5 timed by CUDA
+    events with their bounds, and a profiled step.  Returns the triangle
+    instances' JSON entries."""
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from make_mesh import make_knot
     import numpy as np
@@ -1807,6 +1816,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
     from rtow_tpu_torch.models.scene import SceneBuilder
     from rtow_tpu_torch.ops import grad as G
     from rtow_tpu_torch.ops import megakernel as mk
+    from rtow_tpu_torch.ops import wavefront as wf
 
     rng = np.random.default_rng(1)
     cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
@@ -1981,26 +1991,32 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
     def refuse(*_a, **_k):
         raise CheckFailed("the mesh trainer ran a plain version on the card")
 
-    plain = (G.bounce_fwd_reference, G.bounce_bwd_reference, G.sort_keys)
-    sorts = [0]
+    plain = (G.bounce_fwd_reference, G.bounce_bwd_reference, G.sort_keys,
+             wf.sort_keys_reference)
+    sorts, key_inputs = [0], []
 
     def counted_keys(*a, **k):
         sorts[0] += 1
+        if len(key_inputs) < DEPTH_GRAD + 1:  # the first step's sorts
+            key_inputs.append(a)
         return plain[2](*a, **k)
 
     G.bounce_fwd_reference = G.bounce_bwd_reference = refuse
+    wf.sort_keys_reference = refuse
     G.sort_keys = counted_keys
     try:
         losses, cur, per_step = [], start, []
         G.bounce_fwd.launches = G.bounce_bwd.launches = 0
         G.bounce_fwd.warp_launches = G.bounce_bwd.warp_launches = 0
         G.permute_lanes.launches = G.permute_lanes.bwd_launches = 0
+        wf.sort_keys.launches = 0
         t0 = time.perf_counter()
         for _ in range(3):
             cur, loss = step(cur, torch.Generator(dev).manual_seed(7), target)
             losses.append(float(loss))
             per_step.append((G.bounce_fwd.launches, G.bounce_bwd.launches,
-                             sorts[0], G.permute_lanes.launches,
+                             sorts[0], wf.sort_keys.launches,
+                             G.permute_lanes.launches,
                              G.permute_lanes.bwd_launches))
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
@@ -2010,15 +2026,17 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
             start, cam, torch.Generator(dev).manual_seed(7), target, pix,
             **kw)
     finally:
-        G.bounce_fwd_reference, G.bounce_bwd_reference, G.sort_keys = plain
+        (G.bounce_fwd_reference, G.bounce_bwd_reference, G.sort_keys,
+         wf.sort_keys_reference) = plain
     # The lanes are permuted before each bounce and once more back to lane
     # order; the first permute's lanes (camera rays) carry no cotangent.
-    want = [(k * (DEPTH_GRAD + 1),) * 3 + (k * (DEPTH_GRAD + 2),
+    # Each sort's keys are one call of the key kernel.
+    want = [(k * (DEPTH_GRAD + 1),) * 4 + (k * (DEPTH_GRAD + 2),
                                            k * (DEPTH_GRAD + 1))
             for k in (1, 2, 3)]
     check(per_step == want,
-          f"K4 / K5 launches, sorts, permutes and un-permutes after each "
-          f"mesh train step {per_step}, not {want}")
+          f"K4 / K5 launches, sorts, key kernel calls, permutes and "
+          f"un-permutes after each mesh train step {per_step}, not {want}")
     check(main_launches[2] == main_launches[1],
           f"K5 issued its warp form {main_launches[2]} times in "
           f"{main_launches[1]} launches")
@@ -2039,8 +2057,9 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
               f"{err0:.6g} -> {err3:.6g}; K4 {main_launches[0]} and K5 "
               f"{main_launches[1]} launches (the warp forms issued in "
               f"{main_launches[3]} and {main_launches[2]}), "
-              f"{per_step[-1][2]} sorts, {per_step[-1][3]} permutes and "
-              f"{per_step[-1][4]} un-permutes, no "
+              f"{per_step[-1][2]} sorts ({per_step[-1][3]} key kernel "
+              f"calls), {per_step[-1][4]} permutes and "
+              f"{per_step[-1][5]} un-permutes, no "
               f"plain version; {train_s:.2f} s; vertex gradient max |g| "
               f"{float(gv.abs().max()):.3g}")
 
@@ -2139,6 +2158,45 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
             "bound_by": by,
             "library_ms": None,
         })
+
+    # The key kernel alone: the first train step's 9 sorts' inputs, the
+    # kernel's keys held bit for bit to the plain version's, both timed by
+    # CUDA events; the bound is bytes: the six ray rows and the alive row
+    # read once, the key written once.
+    def run_keys(fn):
+        return event_ms(torch, lambda: [fn(*a) for a in key_inputs])
+
+    for j, a in enumerate(key_inputs):
+        check(torch.equal(wf.sort_keys(*a), wf.sort_keys_reference(*a)),
+              f"the key kernel's keys of sort {j} differ from the plain "
+              f"version's")
+    run_keys(wf.sort_keys)  # warm-up
+    k_runs = [run_keys(wf.sort_keys)[0] for _ in range(5)]
+    p_runs = [run_keys(wf.sort_keys_reference)[0] for _ in range(3)]
+    k_ms, p_ms = statistics.median(k_runs), statistics.median(p_runs)
+    n_keys = key_inputs[0][0].shape[1]
+    bound = len(key_inputs) * n_keys * (6 * 4 + 4 + 8) / PEAK_BYTES * 1e3
+    say("20", f"the key kernel (csrc/sort_keys.cu) on the 65k knot's "
+              f"{len(key_inputs)} sorts of {n_keys} lanes on {card}: keys "
+              f"bit for bit with the plain version's; kernel {k_ms:.4f} ms "
+              f"(median of {', '.join(f'{x:.4f}' for x in k_runs)}); plain "
+              f"{p_ms:.3f} ms (median of "
+              f"{', '.join(f'{x:.3f}' for x in p_runs)}); bound "
+              f"{bound:.4f} ms (bytes) = {bound / k_ms:.1%} of the kernel "
+              f"time")
+    rows.append({
+        "name": "sort_keys",
+        "route": "cuda",
+        "source": "rtow_tpu_torch/csrc/sort_keys.cu",
+        "replaces": None,
+        "launches": per_step[-1][3],
+        "max_abs_err": 0.0,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": bound,
+        "bound_by": "bytes",
+        "library_ms": None,
+    })
 
     # K4 and K5 launch by launch: each of the 9 launches of phase 19's
     # tape of the 65k knot, and of the 65k knot under two square lamps

@@ -3,7 +3,8 @@
 // in its thread and warp forms, in plain loops over lanes, and the triangle
 // sweep of K3's two forms
 // (rtow::nearest_triangle, and rtow::nearest_triangle_warp with the warp's
-// 32 lanes played one after another), for the CPU.
+// 32 lanes played one after another), and the sorted lanes' keys
+// (sort_keys.cuh: the live range, then each lane's key), for the CPU.
 //
 // The lane code in bounce.cuh and bounce_adjoint.cuh is plain C++ inside
 // RTOW_HD functions; defining RTOW_HD as `inline` and a float4 of four
@@ -31,6 +32,7 @@ struct float4 {
 
 #include "bounce.cuh"
 #include "bounce_adjoint.cuh"
+#include "sort_keys.cuh"
 
 namespace {
 
@@ -264,6 +266,45 @@ void rtow_host_sweep(const float* tri, const float* boxes,
   }
   stats[0] += tally.boxes;
   stats[1] += tally.tris;
+}
+
+// The sorted lanes' keys of n lanes, as rtow_sort_keys computes them (the
+// same arguments, without the scratch): the live direction range over the
+// lanes in order, then each lane's key.  alive_f32: 1 float32, 0 int32.
+void rtow_host_sort_keys(const float* ray, long long stride,
+                         const void* alive, int alive_f32, int n,
+                         const float* bmin, const float* inv_ext,
+                         long long* out) {
+  namespace K = rtow::keys;
+  auto live = [&](int g) {
+    return alive_f32 ? static_cast<const float*>(alive)[g] > 0.0f
+                     : static_cast<const int*>(alive)[g] > 0;
+  };
+  float lo[3] = {K::kBig, K::kBig, K::kBig};
+  float hi[3] = {-K::kBig, -K::kBig, -K::kBig};
+  for (int g = 0; g < n; ++g) {
+    if (!live(g)) continue;
+    float nd[3];
+    K::unit_dir(ray[3 * stride + g], ray[4 * stride + g],
+                ray[5 * stride + g], nd);
+    for (int a = 0; a < 3; ++a) {
+      lo[a] = K::min_nan(lo[a], nd[a]);
+      hi[a] = K::max_nan(hi[a], nd[a]);
+    }
+  }
+  float scale[3];
+  for (int a = 0; a < 3; ++a) scale[a] = K::dir_scale(lo[a], hi[a]);
+  for (int g = 0; g < n; ++g) {
+    if (!live(g)) {
+      out[g] = K::kDeadKey;
+      continue;
+    }
+    const float o[3] = {ray[g], ray[stride + g], ray[2 * stride + g]};
+    float nd[3];
+    K::unit_dir(ray[3 * stride + g], ray[4 * stride + g],
+                ray[5 * stride + g], nd);
+    out[g] = K::lane_key(o, nd, bmin, inv_ext, lo, scale);
+  }
 }
 
 }  // extern "C"

@@ -26,15 +26,17 @@ Camera rays come from a ``torch.Generator`` seeded per chunk
 (``models/camera.py``), where the JAX package uses threefry, so a frame
 agrees with the JAX package's statistically, not lane by lane.
 
-Host costs, by design of this first version: the window test reads the
-live-lane count each bounce (one device-to-host sync per bounce), and
-each bounce is a few dozen PyTorch launches around the one kernel.  The
-same count picks K3's form for the bounce (``bounce_step``'s ``live``):
-the wide launches one thread per lane, the drain's narrow ones one warp
-per live lane.
+Host costs: the window test reads the live-lane count each bounce (one
+device-to-host sync per bounce), and each bounce is a few launches
+around K3: the key kernel (``sort_keys``, ``csrc/sort_keys.cu``), the
+sort and the gather of the state.  The same count picks K3's form for
+the bounce (``bounce_step``'s ``live``): the wide launches one thread
+per lane, the drain's narrow ones one warp per live lane.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import sys
 import time as _time
 from typing import Optional, Tuple, Union
@@ -46,6 +48,7 @@ from ..config import Config
 from ..models.camera import Camera, camera_rays, pixel_coords
 from ..models.scene import Scene
 from ..utils.profiling import RenderStats, span
+from . import _cuda
 from .flat_bounce import Tables, bounce_step
 from .megakernel import (
     TILE, build_sphere_table, build_tri_table, pick_tri_block, scene_lit,
@@ -73,13 +76,95 @@ def _spread3(x: torch.Tensor) -> torch.Tensor:
     return (x | (x << 2)) & 0x09249249
 
 
-def sort_keys(ray, alive: torch.Tensor, bmin: torch.Tensor,
+def sort_keys(ray: torch.Tensor, alive: torch.Tensor, bmin: torch.Tensor,
               inv_ext: torch.Tensor) -> torch.Tensor:
     """Spatial key of every lane -> (L,) int64, dead lanes ``DEAD_KEY``
-    (``sort_keys``, :77).  ``ray``: the six (L,) rows ox oy oz dx dy dz
-    (a tensor's first six rows will do); ``alive``: the (L,) alive row,
-    live where > 0.  The sorted wavefront passes its packed state's rows,
-    the gradient path its ``cont`` and ``ints[0]``.
+    (``sort_keys``, :77).  ``ray``: a float32 tensor whose first six rows
+    are ox oy oz dx dy dz, lanes adjacent (a row stride beyond L will do:
+    the sorted wavefront passes its packed state or a window of it, the
+    gradient path its ``cont``); ``alive``: the (L,) alive row, int32 (the
+    gradient path's ``ints[0]``) or float32 (the state's row 13), live
+    where > 0; ``bmin``, ``inv_ext``: the (3,) float32 grid.
+
+    A CUDA ``ray`` launches ``csrc/sort_keys.cu`` (counted in
+    ``sort_keys.launches``): the live direction range and the keys on the
+    card, a fixed two launches whatever L, no host round trip.  A CPU
+    ``ray`` runs :func:`sort_keys_reference`; any other device raises.
+    Both give the same keys, bit for bit."""
+    _check_keys(ray, alive, bmin, inv_ext)
+    if ray.device.type == "cpu":
+        return sort_keys_reference(ray, alive, bmin, inv_ext)
+    n = ray.shape[1]
+    out = torch.empty(n, dtype=torch.int64, device=ray.device)
+    index, stream = _cuda.device_args(ray)
+    scratch = _KEY_SCRATCH.get((index, stream))
+    if scratch is None:  # the ticket counter (0), lo and scale, partials
+        scratch = torch.zeros(1 + 6 + 6 * KEY_MAX_CTAS, dtype=torch.int32,
+                              device=ray.device)
+        _KEY_SCRATCH[(index, stream)] = scratch
+    n_cta = min(-(-n // (256 * 4)), KEY_MAX_CTAS)
+    lib = _keys_lib()
+    err = lib.rtow_sort_keys(
+        ray.data_ptr(), ray.stride(0), alive.data_ptr(),
+        int(alive.dtype == _F32), n, bmin.data_ptr(), inv_ext.data_ptr(),
+        scratch.data_ptr(), n_cta, out.data_ptr(), index, stream)
+    _cuda.check_launch(lib, err, "sort_keys")
+    sort_keys.launches += 1
+    return out
+
+
+#: Calls of the key kernel made by :func:`sort_keys` in this process (each
+#: issues its two launches, the range and the keys).
+sort_keys.launches = 0
+
+#: The most CTAs of the key kernel's range pass (each strides over at
+#: least 1,024 lanes).
+KEY_MAX_CTAS = 1024
+
+#: The key kernel's scratch, by (device index, stream handle).
+_KEY_SCRATCH: dict = {}
+
+
+def _check_keys(ray, alive, bmin, inv_ext) -> None:
+    """Raise unless the key kernel (or its plain version, on the CPU)
+    takes these operands."""
+    dev = ray.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no sort_keys kernel for device {dev}")
+    if ray.dtype != _F32 or ray.dim() != 2 or ray.shape[0] < 6 \
+            or (ray.shape[1] > 1 and ray.stride(1) != 1):
+        raise ValueError(f"ray must be float32 rows (>= 6, L) with adjacent "
+                         f"lanes, got {tuple(ray.shape)} {ray.dtype} "
+                         f"strides {ray.stride()}")
+    n = ray.shape[1]
+    if alive.dtype not in (torch.int32, _F32) \
+            or tuple(alive.shape) != (n,) or not alive.is_contiguous():
+        raise ValueError(f"alive must be a contiguous ({n},) int32 or "
+                         f"float32 row, got {tuple(alive.shape)} "
+                         f"{alive.dtype}")
+    for name, t in (("bmin", bmin), ("inv_ext", inv_ext)):
+        if t.dtype != _F32 or tuple(t.shape) != (3,) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (3,) float32 "
+                             f"tensor, got {tuple(t.shape)} {t.dtype}")
+    if any(t.device != dev for t in (alive, bmin, inv_ext)):
+        raise ValueError("ray, alive, bmin and inv_ext must share a device")
+
+
+@functools.lru_cache(maxsize=None)
+def _keys_lib() -> ctypes.CDLL:
+    """``csrc/sort_keys.cu``, built at first use, with its C entry point
+    declared."""
+    lib = _cuda.load("sort_keys")
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.rtow_sort_keys.argtypes = [p, q, p, i, i, p, p, p, i, p, i, p]
+    lib.rtow_sort_keys.restype = i
+    return lib
+
+
+def sort_keys_reference(ray, alive: torch.Tensor, bmin: torch.Tensor,
+                        inv_ext: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`sort_keys`, in PyTorch operators.
 
     A 30-bit Morton code whose 3-bit groups alternate origin and
     direction, origin first: the origin quantised to 5 bits per axis on
@@ -97,9 +182,9 @@ def sort_keys(ray, alive: torch.Tensor, bmin: torch.Tensor,
              | (_spread3(qorig(oz, 2).long()) << 2))
     inv_len = 1.0 / torch.sqrt(dx * dx + dy * dy + dz * dz)
     big = 3.0e38
-    # A host scalar's copy to the card, which waits for the card.
-    with span("rtow.sync.sort_keys"):
-        top = torch.tensor(lim + 0.999, dtype=_F32, device=ox.device)
+    # The scale's numerator on the lanes' device: a tensor divided by a
+    # host scalar becomes a reciprocal product on the card.
+    top = torch.full((), lim + 0.999, dtype=_F32, device=ox.device)
 
     def qdir(d):
         nd = d * inv_len

@@ -22,8 +22,8 @@ import re
 import tempfile
 from pathlib import Path
 
-SOURCES = ("megakernel", "flat_bounce", "grad_fwd", "grad_bwd", "mxu_probe",
-           "nb_slice")
+SOURCES = ("megakernel", "flat_bounce", "grad_fwd", "grad_bwd", "sort_keys",
+           "mxu_probe", "nb_slice")
 
 
 def entries(log: str) -> dict:

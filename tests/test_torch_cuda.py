@@ -6,8 +6,9 @@ schedulers, the work pool and the classic one), the probes T1 and T2
 wavefront's bounce K3 (ops/flat_bounce.py) and the gradient bounces
 K4 / K5 (ops/grad.py), with their lit instances (emission, NEE with the
 light rows' cotangent, textures, media with the volume rows'), K1's
-and K3's two-sided triangles, and the gradient path's gathers: the
-sorted lanes' permutation and the triangle table.
+and K3's two-sided triangles, the gradient path's gathers (the sorted
+lanes' permutation and the triangle table) and the sorted lanes' keys
+(ops/wavefront.py, csrc/sort_keys.cu), bit for bit.
 
 Marked ``cuda``: each test skips (with its reason) where
 ``torch.cuda.is_available()`` is false.  This file imports neither JAX
@@ -743,6 +744,168 @@ def test_sorted_step_counts_its_permutes(dev):
     assert bool(torch.isfinite(loss))
     assert (grad.permute_lanes.launches - before[0],
             grad.permute_lanes.bwd_launches - before[1]) == (10, 9)
+
+
+# ---------------------------------------------------------------------------
+# The sorted lanes' keys (csrc/sort_keys.cu)
+
+
+def _knot_key_inputs(dev, size=256, spp=16):
+    """The arguments of every sort_keys call of one sorted forward on the
+    17,408-triangle knot at size x size, spp samples, depth 8 (9 calls,
+    the gradient path's cont and int32 alive row), and their keys."""
+    scene = _knot(dev, 128, 136)
+    cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=45.0, aspect_ratio=1.0, device=dev)
+    calls, keys = [], grad.sort_keys
+
+    def recorded(*a):
+        calls.append(a)
+        return keys(*a)
+
+    grad.sort_keys = recorded
+    try:
+        with torch.no_grad():
+            grad.render_pixels_kernel(
+                scene, cam, torch.Generator(dev).manual_seed(0),
+                torch.arange(size * size, device=dev), width=size,
+                height=size, spp=spp, max_depth=8, seed=3)
+    finally:
+        grad.sort_keys = keys
+    return calls
+
+
+def _synthetic_keys(dev, name):
+    """(ray, alive) of the key case ``name``: random origins and
+    directions (numpy seed), 80% of the lanes live with codes 1 and 2."""
+    n = 1 << 20
+    rng = np.random.default_rng(17)
+    st = np.zeros((16, n + 13), np.float32)
+    st[0:3] = rng.uniform(-1.2, 1.2, (3, n + 13))
+    st[3:6] = rng.normal(size=(3, n + 13))
+    st[13] = (rng.random(n + 13) < 0.8) * rng.integers(1, 3, n + 13)
+    state = torch.from_numpy(st).to(dev)
+    if name == "window":  # float32 alive, row stride n + 13 over 300,001
+        return state[:, :300_001], state[13, :300_001]
+    if name == "all_dead":
+        state[13] = 0.0
+    elif name == "one_live":
+        state[13] = 0.0
+        state[13, 654_321] = 2.0
+    elif name == "nan_direction":
+        state[4, 99] = float("nan")
+        state[13, 99] = 1.0
+    return state[:13].clone(), state[13].to(torch.int32)
+
+
+def test_sort_keys_kernel_bit_identical_on_knot_step(dev):
+    """The key kernel's keys equal the plain version's, bit for bit, at
+    each of the 9 sorts of a sorted forward at 1,048,576 lanes (int32
+    alive rows), one kernel call a sort."""
+    before = wf.sort_keys.launches
+    calls = _knot_key_inputs(dev)
+    assert len(calls) == 9 and wf.sort_keys.launches - before == 9
+    for j, a in enumerate(calls):
+        assert a[1].dtype == torch.int32 and a[0].shape[1] == 1 << 20
+        got, want = wf.sort_keys(*a), wf.sort_keys_reference(*a)
+        assert torch.equal(got, want), (j, int((got != want).sum()))
+        live = a[1] > 0
+        assert bool((got[~live] == wf.DEAD_KEY).all())
+
+
+@pytest.mark.parametrize("name", ["window", "all_dead", "one_live",
+                                  "nan_direction"])
+def test_sort_keys_kernel_bit_identical_on_edge_cases(dev, name):
+    """The key kernel against the plain version, bit for bit: a window of
+    a packed state (float32 alive, row stride beyond L, L not a multiple
+    of the block), every lane dead, one live lane, and a live lane with a
+    NaN direction (every live direction code 0)."""
+    ray, alive = _synthetic_keys(dev, name)
+    bmin = torch.tensor([-1.0, -0.9, -0.5], device=dev)
+    inv_ext = 1.0 / torch.tensor([2.0, 1.8, 1.0], device=dev)
+    got = wf.sort_keys(ray, alive, bmin, inv_ext)
+    want = wf.sort_keys_reference(ray, alive, bmin, inv_ext)
+    assert torch.equal(got, want), int((got != want).sum())
+    live = alive > 0
+    if name in ("all_dead", "one_live"):
+        assert int(live.sum()) == (name == "one_live")
+    assert bool((got[~live] == wf.DEAD_KEY).all())
+    if name == "nan_direction":
+        assert not bool((got[live] & 0o0707070707).any())
+    if name == "window":
+        assert ray.stride(0) != ray.shape[1] and alive.dtype == torch.float32
+
+
+def test_sort_keys_launches_per_step(dev):
+    """One sorted train step on a mesh over 16,384 triangles calls the key
+    kernel 9 times (before each bounce); a cover step, never sorted, 0."""
+    from rtow_tpu_torch import diff
+
+    cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=45.0, aspect_ratio=1.0, device=dev)
+    cover, cover_cam = cover_scene(Config(image_width=32, aspect_ratio=1.0),
+                                   device=dev)
+    counts = []
+    for scene, c in ((_knot(dev, 128, 136), cam), (cover, cover_cam)):
+        step = diff.build_train_step(c, lr=1.0, width=32, height=32, spp=4,
+                                     max_depth=8,
+                                     keep=lambda p: p.endswith("albedo"))
+        before = wf.sort_keys.launches
+        _, loss = step(scene, torch.Generator(dev).manual_seed(0),
+                       torch.zeros((32 * 32, 3), device=dev))
+        assert bool(torch.isfinite(loss))
+        counts.append(wf.sort_keys.launches - before)
+    assert counts == [9, 0]
+
+
+def test_knot_step_same_with_plain_keys(dev, monkeypatch):
+    """The knot's loss and albedo gradient at 1,048,576 sorted lanes, once
+    with the key kernel and once with the plain keys forced: the same keys
+    at every sort, so the same input state at every bounce and the same
+    loss, bit for bit.  The albedo gradient is not the same bit for bit
+    from one run to the next of either (K5 adds its triangle rows, and
+    the table's backward the 17,408 rows of one material, with atomics:
+    two runs with the key kernel differ by ~1e-6 of the largest entry), so
+    it is held within 1e-5 of its largest entry."""
+    scene = _knot(dev, 128, 136)
+    cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                      fov_degrees=45.0, aspect_ratio=1.0, device=dev)
+    target = torch.zeros((256 * 256, 3), device=dev)
+    bounce = grad.bounce_grad
+
+    def run(keys_fn):
+        keys, states = [], []
+
+        def recorded_keys(*a):
+            keys.append(keys_fn(*a))
+            return keys[-1]
+
+        def recorded_bounce(cont, ints, *a, **k):
+            states.append((cont.detach().clone(), ints.clone()))
+            return bounce(cont, ints, *a, **k)
+
+        monkeypatch.setattr(grad, "sort_keys", recorded_keys)
+        monkeypatch.setattr(grad, "bounce_grad", recorded_bounce)
+        loss, grads = grad.loss_and_grad_kernel(
+            scene, cam, torch.Generator(dev).manual_seed(0), target,
+            torch.arange(256 * 256, device=dev), width=256, height=256,
+            spp=16, max_depth=8)
+        return keys, states, loss, grads.materials.albedo
+
+    before = wf.sort_keys.launches
+    k_keys, k_states, k_loss, k_albedo = run(wf.sort_keys)
+    assert wf.sort_keys.launches - before == 9
+    p_keys, p_states, p_loss, p_albedo = run(wf.sort_keys_reference)
+    assert wf.sort_keys.launches - before == 9
+    assert len(k_keys) == len(p_keys) == len(k_states) == 9
+    assert all(torch.equal(k, p) for k, p in zip(k_keys, p_keys))
+    assert all(torch.equal(kc, pc) and torch.equal(ki, pi)
+               for (kc, ki), (pc, pi) in zip(k_states, p_states))
+    assert torch.equal(k_loss, p_loss)
+    assert bool(torch.isfinite(k_albedo).all()) and bool(k_albedo.any())
+    scale = float(k_albedo.abs().max())
+    assert float((k_albedo - p_albedo).abs().max()) <= 1e-5 * scale, \
+        (k_albedo, p_albedo)
 
 
 def test_tri_table_backward_runs_no_indexing_backward(dev):

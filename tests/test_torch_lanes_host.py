@@ -1,5 +1,5 @@
-"""The gradient kernels' lane code built for the host, against the plain
-PyTorch versions, on the CPU.
+"""The gradient kernels' lane code and the sorted lanes' keys built for
+the host, against the plain PyTorch versions, on the CPU.
 
 ``rtow_tpu_torch/csrc/host_lanes.cpp`` includes ``bounce.cuh`` and
 ``bounce_adjoint.cuh`` with ``RTOW_HD`` defined as ``inline`` and runs K4's
@@ -52,6 +52,14 @@ transmittance).
   equal; 2.0e-6 before the triangle adjoint summed t's cotangent and took
   the determinant's as autograd does, (g_pz dz + g_py dy) + g_px dx and
   -g_t (t / det).
+* The sort keys (``csrc/sort_keys.cuh``, the lane code of
+  ``csrc/sort_keys.cu``; ``rtow_host_sort_keys`` takes the live range over
+  the lanes in order, then each key): equal bit for bit to
+  :func:`wavefront.sort_keys_reference` on a packed state with a float32
+  alive row, a window of it (row stride beyond L), the gradient path's
+  rows with an int32 alive row, all lanes dead, one live lane and a live
+  lane with a NaN direction.  The reference takes a correctly rounded
+  float32 sqrt (float64, rounded once), as the card's and libm's are.
 """
 import ctypes
 import os
@@ -69,6 +77,7 @@ from rtow_tpu_torch.models.camera import pixel_coords
 from rtow_tpu_torch.models.scene import SceneBuilder
 from rtow_tpu_torch.ops import grad
 from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import wavefront as wf
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -167,6 +176,8 @@ def build_host_lanes(out_dir):
                                   p, p, p, p, i, i, i, i, i, i, i]
     lib.rtow_host_bwd.argtypes = [p, i, *tri, p, p, p, i, i, i, i, i, f, f, f,
                                   p, p, p, p, p, p, i, i, i, i, i, i, i, i]
+    lib.rtow_host_sort_keys.argtypes = [p, ctypes.c_longlong, p, i, i, p, p,
+                                        p]
     return lib
 
 
@@ -380,3 +391,54 @@ def test_k5_triangle_terms_sum_as_plain(host):
     assert cols[:9].all()  # v0, e1, e2
     d = ((sums[0] - sums[1]).abs().amax(dim=0)[cols] / scale[cols])
     assert float(d.max()) <= SUM_TOL, d.tolist()
+
+
+def _key_case(name):
+    """(ray, alive) of the sort-key case ``name``: 20,000 lanes of random
+    origins and directions, 80% live (numpy seed)."""
+    rng = np.random.default_rng(11)
+    n = 20_000
+    st = np.zeros((16, n), np.float32)
+    st[0:3] = rng.uniform(-1.2, 1.2, (3, n))
+    st[3:6] = rng.normal(size=(3, n))
+    st[13] = (rng.random(n) < 0.8) * rng.integers(1, 3, n)
+    state = torch.from_numpy(st)
+    if name == "packed":
+        return state, state[13]
+    if name == "window":  # row stride 20,000 over 4,096 lanes
+        return state[:, :4096], state[13, :4096]
+    if name == "grad_int32":
+        return state[:13].clone(), state[13].to(torch.int32)
+    if name == "all_dead":
+        state[13] = 0.0
+    elif name == "one_live":
+        state[13] = 0.0
+        state[13, 777] = 1.0
+    elif name == "nan_direction":
+        state[4, 5] = float("nan")
+        state[13, 5] = 1.0
+    return state, state[13]
+
+
+@pytest.mark.parametrize("name", ["packed", "window", "grad_int32",
+                                  "all_dead", "one_live", "nan_direction"])
+def test_sort_keys_lanes_match_plain(host, name, monkeypatch):
+    """The key kernel's lane code, run over the lanes on the host, gives
+    the plain version's keys bit for bit; dead lanes ``DEAD_KEY``."""
+    ray, alive = _key_case(name)
+    bmin = torch.tensor([-1.0, -0.9, -0.5])
+    inv_ext = 1.0 / torch.tensor([2.0, 1.8, 1.0])
+    got = torch.empty(ray.shape[1], dtype=torch.int64)
+    host.rtow_host_sort_keys(ray.data_ptr(), ray.stride(0), alive.data_ptr(),
+                             int(alive.dtype == torch.float32), ray.shape[1],
+                             bmin.data_ptr(), inv_ext.data_ptr(),
+                             got.data_ptr())
+    sqrt = torch.sqrt
+    monkeypatch.setattr(torch, "sqrt", lambda x: sqrt(x.double()).float())
+    want = wf.sort_keys_reference(ray, alive, bmin, inv_ext)
+    assert torch.equal(got, want), int((got != want).sum())
+    live = alive > 0
+    assert bool((got[~live] == wf.DEAD_KEY).all())
+    assert bool((got[live] < (1 << 30)).all())
+    if name == "nan_direction":  # every live direction code 0
+        assert not bool((got[live] & 0o0707070707).any())

@@ -156,6 +156,37 @@ def test_sort_keys_give_k3_keys_bit_for_bit():
     assert len(torch.unique(k3)) > 1000
 
 
+@pytest.mark.parametrize("seed,codes", [(5, False), (9, True)])
+def test_sort_keys_device_scalar_keeps_the_keys(seed, codes, monkeypatch):
+    """The plain keys' scale numerator made on the lanes' device by
+    ``torch.full`` (no host copy) gives the keys that the host scalar's
+    ``torch.tensor`` gave, bit for bit, on the two tests' states above."""
+    rng = np.random.default_rng(seed)
+    n = 20_000
+    st = np.zeros((16, n), np.float32)
+    st[0:3] = rng.uniform(-1.2, 1.2, (3, n))
+    st[3:6] = rng.normal(size=(3, n))
+    st[13] = rng.random(n) < 0.8
+    if codes:
+        st[13] *= rng.integers(1, 3, n)
+    state = torch.from_numpy(st)
+    bmin = torch.tensor([-1.0, -0.9, -0.5])
+    inv_ext = 1.0 / torch.tensor([2.0, 1.8, 1.0])
+    now = wf.sort_keys_reference(state, state[13], bmin, inv_ext)
+    full = torch.full
+
+    def host_scalar(size, fill, **kw):
+        assert size == () and fill == 31.999
+        return torch.tensor(fill, **kw)
+
+    monkeypatch.setattr(torch, "full", host_scalar)
+    before = wf.sort_keys_reference(state, state[13], bmin, inv_ext)
+    assert torch.equal(now, before)
+    assert torch.equal(full((), 31.999, dtype=torch.float32),
+                       torch.tensor(31.999, dtype=torch.float32))
+    assert len(torch.unique(now)) > 1000
+
+
 @pytest.mark.parametrize("n", [1024, 5120, 262144, 10_240_000])
 def test_window_ladder_matches_jax(n):
     assert wf._window_ladder(n) == jwf._window_ladder(n)
