@@ -52,8 +52,7 @@ under the sky; the lit knot at 400x400, 64 samples per pixel, depth 8,
 through ``render_wavefront``, and ``cli.main -l <65k knot> --russian-
 roulette``; K1 and K3 with two-sided triangles on a knot wound away from
 the camera) and the JAX package's production scheduler, K1's work pool
-(the render through ``cli.main`` runs it by default and under
-``RTOW_POOL=0`` the classic scheduler; the pool instances against the
+(the render through ``cli.main`` runs it; the pool instances against the
 plain pool on every K1 instance, bit for bit with equal counters; exact
 sample accounting at 1200x675; pool against classic as one estimator;
 the two schedulers' A/B with their occupancy on the cover, the Cornell
@@ -240,21 +239,6 @@ def kept_radiance():
         ppm.write_ppm = write
 
 
-@contextlib.contextmanager
-def pool_env(value):
-    """``RTOW_POOL`` set to ``value`` (None: unset) inside the block, as a
-    user sets it around ``python -m rtow_tpu_torch``."""
-    old = os.environ.pop("RTOW_POOL", None)
-    if value is not None:
-        os.environ["RTOW_POOL"] = value
-    try:
-        yield
-    finally:
-        os.environ.pop("RTOW_POOL", None)
-        if old is not None:
-            os.environ["RTOW_POOL"] = old
-
-
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -308,6 +292,7 @@ def main() -> None:
     from rtow_tpu_torch.models.scene import SceneBuilder
     from rtow_tpu_torch.ops import _cuda
     from rtow_tpu_torch.ops import megakernel as mk
+    from rtow_tpu_torch.ops import tables as tb
     from rtow_tpu_torch.ptxas_report import entries as ptxas_entries
     from rtow_tpu_torch.utils.ppm import read_ppm
 
@@ -384,11 +369,11 @@ def main() -> None:
     say("1", f"{len(builds)} builds in parallel: {wall:.1f} s wall")
 
     def sphere_args(scene, cam, width, height, spp, depth):
-        tbl, _ = mk.build_sphere_table(scene)
-        return (tbl, mk.pack_camera(cam),
-                mk.pack_meta(0, width=width, height=height, spp=spp,
+        tbl, _ = tb.build_sphere_table(scene)
+        return (tbl, tb.pack_camera(cam),
+                tb.pack_meta(0, width=width, height=height, spp=spp,
                              max_depth=depth),
-                mk.n_tiles_for(width, height))
+                tb.n_tiles_for(width, height))
 
     # ---- (2) kernel vs plain version on the card -----------------------
     three = three_sphere_scene(ASPECT, device=dev)
@@ -427,51 +412,50 @@ def main() -> None:
     say("4", "two kernel runs of the cover 400x225 are bit-identical")
 
     # ---- (5) the main path: cli.main at full size ----------------------
-    # Under the JAX package's production scheduler (RTOW_POOL unset: the
-    # work pool), then under RTOW_POOL=0 (the classic one); each run's
+    # K1 under the work pool, the JAX package's production scheduler; the
     # launches counted from 0.
     spp_main = 128
-    runs5 = {}
-    for label, env in (("pool", None), ("classic", "0")):
-        log = io.StringIO()
-        with tempfile.TemporaryDirectory() as tmp, pool_env(env):
-            ppm_path = os.path.join(tmp, "cover.ppm")
-            mk.render_blocks.launches = mk.render_blocks.pool_launches = 0
-            t0 = time.perf_counter()
-            with contextlib.redirect_stderr(log), kept_radiance() as kept:
-                rc = cli.main(["-w", str(W_MAIN), "-a", repr(ASPECT), "-s",
-                               str(spp_main), "-c", "50", "-o", ppm_path])
-            wall = time.perf_counter() - t0
-            n = (mk.render_blocks.launches, mk.render_blocks.pool_launches)
-            check(rc == 0, f"cli.main ({label}) returned {rc}")
-            check(n[0] == 1 and n[1] == (n[0] if label == "pool" else 0),
-                  f"cli.main ({label}): {n[0]} K1 launches ({n[1]} of them "
-                  f"the pool), not one a frame")
-            with open(ppm_path) as f:
-                img = read_ppm(f)
-        check(img.shape == (H_MAIN, W_MAIN, 3), f"PPM shape {img.shape}")
-        check(img.min() >= 0 and img.max() <= 255 and img.std() > 10,
-              "PPM values out of range or flat")
-        top = img[:40].reshape(-1, 3).mean(axis=0)
-        check(top[2] > top[0], f"top rows are not sky-blue (mean rgb {top})")
-        stats = [ln for ln in log.getvalue().splitlines()
-                 if ln.startswith("Done")]
-        # The ticker from the one launch: each count the host read, then 0.
-        ticks = [int(x) for x in re.findall(r"Scanlines remaining: (\d+)",
-                                            log.getvalue())]
-        check(len(ticks) >= 2 and ticks[-1] == 0 and 0 < ticks[0] <= H_MAIN
-              and ticks == sorted(ticks, reverse=True),
-              f"cli.main ({label}): the ticker printed {ticks}")
-        runs5[label] = (n[0], wall, kept[0])
-        say("5", f"cli.main -w {W_MAIN} -a {ASPECT!r} -s {spp_main} -c 50 "
-                 f"({label} scheduler{'' if env is None else ', RTOW_POOL=0'}"
-                 f"): {n[0]} launch, {n[1]} of them the pool; ticker "
-                 f"{ticks[:-1]} then 0; {wall:.2f} s "
-                 f"end to end ({W_MAIN * H_MAIN * spp_main / wall / 1e6:.2f} "
-                 f"Mprimary-rays/s incl. scene build and PPM write); render: "
-                 f"{stats[-1]}")
-    launches, pool_launches = runs5["classic"][0], runs5["pool"][0]
-    cover_radiance = runs5["pool"][2]
+    log = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        ppm_path = os.path.join(tmp, "cover.ppm")
+        mk.render_blocks.launches = mk.render_blocks.pool_launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(log), kept_radiance() as kept:
+            rc = cli.main(["-w", str(W_MAIN), "-a", repr(ASPECT), "-s",
+                           str(spp_main), "-c", "50", "-o", ppm_path])
+        wall = time.perf_counter() - t0
+        n = (mk.render_blocks.launches, mk.render_blocks.pool_launches)
+        check(rc == 0, f"cli.main returned {rc}")
+        check(n == (1, 1), f"cli.main: {n[0]} K1 launches ({n[1]} of them "
+                           f"the pool), not one pool launch a frame")
+        with open(ppm_path) as f:
+            img = read_ppm(f)
+    check(img.shape == (H_MAIN, W_MAIN, 3), f"PPM shape {img.shape}")
+    check(img.min() >= 0 and img.max() <= 255 and img.std() > 10,
+          "PPM values out of range or flat")
+    top = img[:40].reshape(-1, 3).mean(axis=0)
+    check(top[2] > top[0], f"top rows are not sky-blue (mean rgb {top})")
+    stats = [ln for ln in log.getvalue().splitlines()
+             if ln.startswith("Done")]
+    # The ticker from the one launch: each count the host read, then 0.
+    ticks = [int(x) for x in re.findall(r"Scanlines remaining: (\d+)",
+                                        log.getvalue())]
+    check(len(ticks) >= 2 and ticks[-1] == 0 and 0 < ticks[0] <= H_MAIN
+          and ticks == sorted(ticks, reverse=True),
+          f"cli.main: the ticker printed {ticks}")
+    say("5", f"cli.main -w {W_MAIN} -a {ASPECT!r} -s {spp_main} -c 50 "
+             f"(pool scheduler): {n[0]} launch, {n[1]} of them the pool; "
+             f"ticker {ticks[:-1]} then 0; {wall:.2f} s "
+             f"end to end ({W_MAIN * H_MAIN * spp_main / wall / 1e6:.2f} "
+             f"Mprimary-rays/s incl. scene build and PPM write); render: "
+             f"{stats[-1]}")
+    pool_launches = n[1]
+    # The classic scheduler's launches on the main path: the frame's K1
+    # launches that were not the pool's.
+    classic_launches = n[0] - n[1]
+    check(classic_launches == 0,
+          f"cli.main: {classic_launches} classic K1 launches on the main path")
+    cover_radiance = kept[0]
     # What the ticker costs the render: render_megakernel with and without
     # it, in turns (ticker, none, none, ticker), the same image bit for bit.
     cfg5 = Config(image_width=W_MAIN, aspect_ratio=ASPECT,
@@ -499,19 +483,19 @@ def main() -> None:
     # The classic scheduler, as every earlier PR timed it, then the pool.
     big = cover_scene(Config(image_width=W_MAIN, aspect_ratio=ASPECT),
                       device=dev)
-    tbl, _ = mk.build_sphere_table(big[0])
-    args = (tbl, mk.pack_camera(big[1]),
-            mk.pack_meta(0, width=W_MAIN, height=H_MAIN, spp=16,
+    tbl, _ = tb.build_sphere_table(big[0])
+    args = (tbl, tb.pack_camera(big[1]),
+            tb.pack_meta(0, width=W_MAIN, height=H_MAIN, spp=16,
                          max_depth=50),
-            mk.n_tiles_for(W_MAIN, H_MAIN))
+            tb.n_tiles_for(W_MAIN, H_MAIN))
     n_sph = big[0].n_spheres
-    width_g = mk.SPHERE_GROUP
+    width_g = tb.SPHERE_GROUP
 
     def k1_counts(spp, pool):
         """K1_COUNTERS of a kernel launch at ``spp`` (not timed)."""
         c = [torch.zeros(n, dtype=torch.int64, device=dev)
              for n in (1, 2, 1, 1, 2)]
-        mk.render_blocks(*args[:2], mk.pack_meta(0, width=W_MAIN,
+        mk.render_blocks(*args[:2], tb.pack_meta(0, width=W_MAIN,
                                                  height=H_MAIN, spp=spp,
                                                  max_depth=50),
                          args[3], steps=c[0], tests=c[1], shadows=c[2],
@@ -533,7 +517,7 @@ def main() -> None:
                    f"{width_g} rows at most {ground:.1%} of them), "
                    f"brute-force bound {brute:.2f} ms = {brute / ms:.1%}")
 
-    meta128 = mk.pack_meta(0, width=W_MAIN, height=H_MAIN, spp=spp_main,
+    meta128 = tb.pack_meta(0, width=W_MAIN, height=H_MAIN, spp=spp_main,
                            max_depth=50)
     k1_rows = {}
     for label, pool in (("classic", False), ("pool", True)):
@@ -591,7 +575,7 @@ def main() -> None:
         "library_ms": None,
     } for name, label, replaces, n, extra_err in (
         ("megakernel", "classic", "rtow_tpu/ops/pallas_megakernel.py:1433",
-         launches, 0.0),
+         classic_launches, 0.0),
         ("megakernel_pool", "pool", "rtow_tpu/ops/pallas_megakernel.py:1492",
          pool_launches, pool["max_abs_err"]))]
     # ---- (32) every process this script started has ended --------------
@@ -619,8 +603,10 @@ def grad_phases(torch, dev, card, say):
     from rtow_tpu_torch.config import Config
     from rtow_tpu_torch.models.builders import cover_scene
     from rtow_tpu_torch.models.camera import camera_rays, pixel_coords
+    from rtow_tpu_torch.ops import bounce as bn
     from rtow_tpu_torch.ops import grad as G
     from rtow_tpu_torch.ops import megakernel as mk
+    from rtow_tpu_torch.ops import tables as tb
 
     rng = np.random.default_rng(0)
 
@@ -629,7 +615,7 @@ def grad_phases(torch, dev, card, say):
         gen = torch.Generator(dev).manual_seed(seed)
         pix = torch.arange(width * height, device=dev).repeat_interleave(spp)
         s, t = pixel_coords(width, height, gen, pix)
-        return G.lane_state(camera_rays(cam, gen, s, t), pix.numel(), dev)
+        return bn.lane_state(camera_rays(cam, gen, s, t), pix.numel(), dev)
 
     def forward_tape(tbl, cont, ints, depth, seed, fn):
         """The (depth + 1) input states of one forward through ``fn``."""
@@ -642,7 +628,7 @@ def grad_phases(torch, dev, card, say):
 
     # ---- (7) K4 and K5 against their plain versions, a reduced forward ---
     small = cover_scene(Config(image_width=64, aspect_ratio=1.0), device=dev)
-    tbl_s, _ = mk.build_sphere_table(small[0])
+    tbl_s, _ = tb.build_sphere_table(small[0])
     c0, i0 = lanes_of(small[1], 64, 64, 4, seed=1)
     tape_k, (ck, ik) = forward_tape(tbl_s, c0, i0, DEPTH_GRAD, 5,
                                     G.bounce_fwd)
@@ -749,7 +735,7 @@ def grad_phases(torch, dev, card, say):
 
     # Each kernel at the trainer's shapes: the (depth + 1) launches of one
     # forward / backward on that forward's tape, against the plain version.
-    tbl, _ = mk.build_sphere_table(scene)
+    tbl, _ = tb.build_sphere_table(scene)
     c0, i0 = lanes_of(cam, W_GRAD, H_GRAD, SPP_GRAD, seed=7)
     tape, _ = forward_tape(tbl, c0, i0, DEPTH_GRAD, 0, G.bounce_fwd)
     n = c0.shape[1]
@@ -1030,6 +1016,7 @@ def mesh_phases(torch, dev, card, say, event_ms):
     from rtow_tpu_torch.models.scene import SceneBuilder
     from rtow_tpu_torch.ops import flat_bounce as fb
     from rtow_tpu_torch.ops import megakernel as mk
+    from rtow_tpu_torch.ops import tables as tb
     from rtow_tpu_torch.ops import wavefront as wf
     from rtow_tpu_torch.utils.ppm import read_ppm
 
@@ -1038,13 +1025,13 @@ def mesh_phases(torch, dev, card, say, event_ms):
     # ---- (10) K1 with triangles against its plain version ---------------
     scene, cam = mesh_scene(Config(model=small_obj, image_width=W_MESH,
                                    aspect_ratio=1.0), device=dev)
-    tbl, tris = mk.scene_k1_tables(scene)
+    tbl, tris = tb.k1_tables(scene)
 
     def k1_args(spp):
-        return (tbl, mk.pack_camera(cam),
-                mk.pack_meta(0, width=W_MESH, height=W_MESH, spp=spp,
+        return (tbl, tb.pack_camera(cam),
+                tb.pack_meta(0, width=W_MESH, height=W_MESH, spp=spp,
                              max_depth=DEPTH_MESH),
-                mk.n_tiles_for(W_MESH, W_MESH))
+                tb.n_tiles_for(W_MESH, W_MESH))
 
     # The frame cli.main -l renders (spp 64): the kernel timed, then held
     # bit for bit with equal counters against the plain version.
@@ -1171,7 +1158,7 @@ def mesh_phases(torch, dev, card, say, event_ms):
         f_wall, f_dev = profile_ms(torch, frame)
         parts = split_device_time(f_dev)
         busy = sum(f_dev.values())
-        tables, bmin, inv_ext = wf.scene_tables(scene)
+        tables, bmin, inv_ext = tb.k3_tables(scene)
         c_wall, c_dev = profile_ms(torch, lambda: wf.trace_wavefront_sorted(
             tables, bench_cam, wf.chunk_generator(dev, bench_cfg.seed, g_mid),
             mid_pixels, mid_seed, spp=SPP_MESH, max_depth=DEPTH_MESH,
@@ -1246,13 +1233,14 @@ def k3_tape(torch, dev, wf, scene, cam, cfg, g, pixels, seed, spp, depth,
     its ``pixels``' camera rays drawn as the frame draws them, and every
     launch's (input state, step) as ``trace_lanes`` ran the chunk."""
     from rtow_tpu_torch.models.camera import camera_rays, pixel_coords
+    from rtow_tpu_torch.ops import tables as tb
 
-    tables, bmin, inv_ext = wf.scene_tables(scene, roulette)
+    tables, bmin, inv_ext = tb.k3_tables(scene, roulette)
     gen = wf.chunk_generator(dev, cfg.seed, g)
     pix = pixels.repeat_interleave(spp)
     s, t = pixel_coords(cfg.image_width, cfg.image_height, gen, pix)
     tape = []
-    wf.trace_lanes(wf.lane_state(camera_rays(cam, gen, s, t), pix.numel()),
+    wf.trace_lanes(wf.packed_state(camera_rays(cam, gen, s, t), pix.numel()),
                    seed, max_depth=depth, tables=tables, bmin=bmin,
                    inv_ext=inv_ext, background=scene.background, cull=cull,
                    tape=tape)
@@ -1567,16 +1555,18 @@ def lit_phases(torch, dev, card, say, event_ms, cover_radiance):
     from rtow_tpu_torch.config import Config
     from rtow_tpu_torch.models import builders as B
     from rtow_tpu_torch.ops import megakernel as mk
+    from rtow_tpu_torch.ops import tables as tb
     from rtow_tpu_torch.utils.ppm import read_ppm
 
     def prepared(scene, cam, spp, depth, roulette, width=W_LIT):
-        tbl, tris = mk.scene_k1_tables(scene)
-        args = (tbl, mk.pack_camera(cam),
-                mk.pack_meta(0, width=width, height=width, spp=spp,
+        tbl, tris = tb.k1_tables(scene)
+        args = (tbl, tb.pack_camera(cam),
+                tb.pack_meta(0, width=width, height=width, spp=spp,
                              max_depth=depth),
-                mk.n_tiles_for(width, width))
+                tb.n_tiles_for(width, width))
         kw = dict(background=scene.background, tris=tris,
-                  lit=mk.scene_lit(scene, roulette), pool=False)
+                  lit=tb.scene_lit(scene, nee=scene.has_emissive,
+                                   roulette=roulette), pool=False)
         return args, kw
 
     def held(name, finite, same, err, kc, pc):
@@ -1815,7 +1805,9 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
     )
     from rtow_tpu_torch.models.scene import SceneBuilder
     from rtow_tpu_torch.ops import grad as G
+    from rtow_tpu_torch.ops import keys as ky
     from rtow_tpu_torch.ops import megakernel as mk
+    from rtow_tpu_torch.ops import tables as tb
     from rtow_tpu_torch.ops import wavefront as wf
 
     rng = np.random.default_rng(1)
@@ -1858,8 +1850,8 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
                                      nee=nee)
         finally:
             G.bounce_grad = bounce
-        tbl, _ = mk.build_sphere_table(scene)
-        return tbl, G.grad_tri_table(scene, flat), tape
+        tbl, _ = tb.build_sphere_table(scene)
+        return tbl, tb.grad_tri_table(scene, flat), tape
 
     def counters():
         return torch.zeros(4, dtype=torch.int64, device=dev)
@@ -1992,7 +1984,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
         raise CheckFailed("the mesh trainer ran a plain version on the card")
 
     plain = (G.bounce_fwd_reference, G.bounce_bwd_reference, G.sort_keys,
-             wf.sort_keys_reference)
+             ky.sort_keys_reference)
     sorts, key_inputs = [0], []
 
     def counted_keys(*a, **k):
@@ -2002,20 +1994,20 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
         return plain[2](*a, **k)
 
     G.bounce_fwd_reference = G.bounce_bwd_reference = refuse
-    wf.sort_keys_reference = refuse
+    ky.sort_keys_reference = refuse
     G.sort_keys = counted_keys
     try:
         losses, cur, per_step = [], start, []
         G.bounce_fwd.launches = G.bounce_bwd.launches = 0
         G.bounce_fwd.warp_launches = G.bounce_bwd.warp_launches = 0
         G.permute_lanes.launches = G.permute_lanes.bwd_launches = 0
-        wf.sort_keys.launches = 0
+        ky.sort_keys.launches = 0
         t0 = time.perf_counter()
         for _ in range(3):
             cur, loss = step(cur, torch.Generator(dev).manual_seed(7), target)
             losses.append(float(loss))
             per_step.append((G.bounce_fwd.launches, G.bounce_bwd.launches,
-                             sorts[0], wf.sort_keys.launches,
+                             sorts[0], ky.sort_keys.launches,
                              G.permute_lanes.launches,
                              G.permute_lanes.bwd_launches))
         torch.cuda.synchronize()
@@ -2027,7 +2019,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
             **kw)
     finally:
         (G.bounce_fwd_reference, G.bounce_bwd_reference, G.sort_keys,
-         wf.sort_keys_reference) = plain
+         ky.sort_keys_reference) = plain
     # The lanes are permuted before each bounce and once more back to lane
     # order; the first permute's lanes (camera rays) carry no cotangent.
     # Each sort's keys are one call of the key kernel.
@@ -2167,12 +2159,12 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
         return event_ms(torch, lambda: [fn(*a) for a in key_inputs])
 
     for j, a in enumerate(key_inputs):
-        check(torch.equal(wf.sort_keys(*a), wf.sort_keys_reference(*a)),
+        check(torch.equal(ky.sort_keys(*a), ky.sort_keys_reference(*a)),
               f"the key kernel's keys of sort {j} differ from the plain "
               f"version's")
-    run_keys(wf.sort_keys)  # warm-up
-    k_runs = [run_keys(wf.sort_keys)[0] for _ in range(5)]
-    p_runs = [run_keys(wf.sort_keys_reference)[0] for _ in range(3)]
+    run_keys(ky.sort_keys)  # warm-up
+    k_runs = [run_keys(ky.sort_keys)[0] for _ in range(5)]
+    p_runs = [run_keys(ky.sort_keys_reference)[0] for _ in range(3)]
     k_ms, p_ms = statistics.median(k_runs), statistics.median(p_runs)
     n_keys = key_inputs[0][0].shape[1]
     bound = len(key_inputs) * n_keys * (6 * 4 + 4 + 8) / PEAK_BYTES * 1e3
@@ -2209,9 +2201,9 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
     # the column's largest |thread form|.
     lit_scene = lit_knot(SceneBuilder, *make_knot(*KNOTS["65k"]), dev)
     lit_tbl, lit_tris, lit_tape = tape_of(lit_scene, False, nee=True)
-    tapes = {"65k knot": (tbl, tris, tape, mk.Lit(), scene.background),
+    tapes = {"65k knot": (tbl, tris, tape, tb.Lit(), scene.background),
              "lit 65k knot": (lit_tbl, lit_tris, lit_tape,
-                              G.grad_lit(lit_scene, nee=True),
+                              tb.scene_lit(lit_scene, nee=True),
                               lit_scene.background)}
     form_sums = {}
     for tname, (t_tbl, t_tris, t_tape, t_lit, t_bg) in tapes.items():
@@ -2477,8 +2469,10 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
 
     from rtow_tpu_torch import diff
     from rtow_tpu_torch.models.camera import camera_rays, pixel_coords
+    from rtow_tpu_torch.ops import bounce as bn
     from rtow_tpu_torch.ops import grad as G
     from rtow_tpu_torch.ops import megakernel as mk
+    from rtow_tpu_torch.ops import tables as tb
 
     p_cmp, p_train = spec["phases"]
     what = spec["what"]
@@ -2489,9 +2483,9 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
         build, aspect, nee = scenes[name]
         scene, cam = build(aspect, device=dev)
         width, height = W_LIT, int(round(W_LIT / aspect))
-        lit = G.grad_lit(scene, nee)
-        tbl, _ = mk.build_sphere_table(scene)
-        tris = G.grad_tri_table(scene) if scene.n_triangles else None
+        lit = tb.scene_lit(scene, nee=nee)
+        tbl, _ = tb.build_sphere_table(scene)
+        tris = tb.grad_tri_table(scene) if scene.n_triangles else None
         return scene, cam, width, height, lit, tbl, tris, nee
 
     def tape_of(scene, cam, width, height, lit, tbl, tris, seed=7):
@@ -2501,8 +2495,8 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
         pix = torch.arange(width * height,
                            device=dev).repeat_interleave(SPP_GRAD)
         s, t = pixel_coords(width, height, gen, pix)
-        cont, ints = G.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
-                                  dev)
+        cont, ints = bn.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
+                                   dev)
         tape = []
         for it in range(DEPTH_GRAD + 1):
             tape.append((cont, ints))
@@ -2818,6 +2812,7 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
     from rtow_tpu_torch.models.scene import SceneBuilder
     from rtow_tpu_torch.ops import flat_bounce as fb
     from rtow_tpu_torch.ops import megakernel as mk
+    from rtow_tpu_torch.ops import tables as tb
     from rtow_tpu_torch.ops import wavefront as wf
     from rtow_tpu_torch.utils.ppm import read_ppm
 
@@ -2909,7 +2904,7 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
               f"{mk.render_blocks.launches} of K1")
         check(np.array_equal(counted, img), "two lit knot frames differ")
         f_wall, f_dev = profile_ms(torch, frame)
-        tables, bmin, inv_ext = wf.scene_tables(lit_scene)
+        tables, bmin, inv_ext = tb.k3_tables(lit_scene)
         c_wall, c_dev = profile_ms(torch, lambda: wf.trace_wavefront_sorted(
             tables, cam, wf.chunk_generator(dev, lit_cfg.seed, g_mid),
             mid_pixels, lit_cfg.seed + g_mid * 7919, spp=SPP_MESH,
@@ -2979,13 +2974,14 @@ def lit_mesh_phases(torch, dev, card, say, event_ms):
     # ---- (27) two-sided triangles: K1 and K3 with cull=False -------------
     small_v, small_f = make_knot(64, 32)  # 4,096 triangles: K1
     k1_scene = lit_knot(SceneBuilder, small_v, small_f, dev, reverse=True)
-    tbl, tris = mk.scene_k1_tables(k1_scene)
-    args = (tbl, mk.pack_camera(cam),
-            mk.pack_meta(0, width=W_MESH, height=W_MESH, spp=2,
+    tbl, tris = tb.k1_tables(k1_scene)
+    args = (tbl, tb.pack_camera(cam),
+            tb.pack_meta(0, width=W_MESH, height=W_MESH, spp=2,
                          max_depth=DEPTH_KNOT_LIT),
-            mk.n_tiles_for(W_MESH, W_MESH))
+            tb.n_tiles_for(W_MESH, W_MESH))
     kw = dict(background=k1_scene.background, tris=tris,
-              lit=mk.scene_lit(k1_scene), pool=False)
+              lit=tb.scene_lit(k1_scene, nee=k1_scene.has_emissive),
+              pool=False)
     two_sided = lambda: mk.render_blocks(*args, **kw, cull=False)  # noqa
     event_ms(torch, two_sided)  # warm-up
     k1_ms = statistics.median(event_ms(torch, two_sided)[0]
@@ -3033,6 +3029,7 @@ def pool_phases(torch, dev, card, say, event_ms):
     from rtow_tpu_torch.models.camera import make_camera
     from rtow_tpu_torch.models.scene import SceneBuilder
     from rtow_tpu_torch.ops import megakernel as mk
+    from rtow_tpu_torch.ops import tables as tb
 
     small_obj = os.path.join(ROOT, "samples", "knot_small.obj")
 
@@ -3047,13 +3044,14 @@ def pool_phases(torch, dev, card, say, event_ms):
 
     def launch_args(scene, cam, width, height, spp, depth, roulette=False,
                     **kw):
-        tbl, tris = mk.scene_k1_tables(scene)
-        args = (tbl, mk.pack_camera(cam),
-                mk.pack_meta(0, width=width, height=height, spp=spp,
+        tbl, tris = tb.k1_tables(scene)
+        args = (tbl, tb.pack_camera(cam),
+                tb.pack_meta(0, width=width, height=height, spp=spp,
                              max_depth=depth),
-                mk.n_tiles_for(width, height))
+                tb.n_tiles_for(width, height))
         return args, dict(background=scene.background, tris=tris,
-                          lit=mk.scene_lit(scene, roulette), **kw)
+                          lit=tb.scene_lit(scene, nee=scene.has_emissive,
+                                           roulette=roulette), **kw)
 
     # ---- (28) the pool against its plain version, every K1 instance ------
     # Reduced frames (POOL_COVER, POOL_SQUARE, POOL_SPP).  Bit-identical

@@ -23,9 +23,8 @@ import torch
 
 from .models.camera import Camera
 from .models.scene import Scene
-from .ops.grad import (
-    grad_tables, render_pixels_kernel, scene_grads, scene_params,
-)
+from .ops.grad import render_pixels_kernel, scene_grads, scene_params
+from .ops.tables import grad_tables
 from .utils.profiling import span
 
 

@@ -4,31 +4,30 @@ the NOISE material.
 
 The hash is uint32 arithmetic.  CPU torch has no logical right shift on
 uint32, so it runs on int64 tensors holding uint32 values, as
-``ops/megakernel.mix`` does; ``csrc/bounce.cuh`` has the same functions on
+``utils/rng.mix`` does; ``csrc/bounce.cuh`` has the same functions on
 uint32 for the kernel.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.megakernel import _M32, _mul32
+from ..utils.rng import INV24, M32, mul32
 
 _F32 = torch.float32
-_INV24 = 1.0 / (1 << 24)
 
 
 def _hash01(xi, yi, zi) -> torch.Tensor:
     """Lattice hash of integer coordinates (int64 tensors) -> U[0, 1):
     a murmur3-style finalizer over the three coordinates taken mod
     2**32."""
-    h = (_mul32(xi & _M32, 0x9E3779B1) ^ _mul32(yi & _M32, 0x85EBCA77)
-         ^ _mul32(zi & _M32, 0xC2B2AE3D))
+    h = (mul32(xi & M32, 0x9E3779B1) ^ mul32(yi & M32, 0x85EBCA77)
+         ^ mul32(zi & M32, 0xC2B2AE3D))
     h = h ^ (h >> 16)
-    h = _mul32(h, 0x7FEB352D)
+    h = mul32(h, 0x7FEB352D)
     h = h ^ (h >> 15)
-    h = _mul32(h, 0x846CA68B)
+    h = mul32(h, 0x846CA68B)
     h = h ^ (h >> 16)
-    return (h >> 8).to(_F32) * _INV24
+    return (h >> 8).to(_F32) * INV24
 
 
 def value_noise(px, py, pz) -> torch.Tensor:

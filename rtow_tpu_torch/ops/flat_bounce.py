@@ -8,7 +8,7 @@ once per bounce.  Rows: ox oy oz dx dy dz tm tpr tpg tpb rr rg rb, the
 alive code, the bounce count and the lane id, the last three as exact
 float32 integers.  A live lane (alive > 0) is advanced one bounce: the
 sphere sweep, the triangle sweep down the table's hyper / super / block
-hierarchy, the shade, as in ``ops/megakernel.py``; a dead lane is copied
+hierarchy, the shade, as in ``ops/bounce.py``; a dead lane is copied
 through.  The lane's random numbers are the counter hash on its lane id
 (``lane_hash``) and the step salt ``mix(seed + it * 40503)``
 (pallas_megakernel.py:1791-1792), so a lane's path does not depend on
@@ -16,7 +16,7 @@ where the sort put it.
 
 Scenes with lights, textures or media, and renders with Russian
 roulette, carry their lit features in ``Tables.lit``
-(``megakernel.scene_lit``; JAX's static flags and light-table operand,
+(``tables.k3_tables``; JAX's static flags and light-table operand,
 :1742-1744): emission with its MIS weight, next-event estimation with a
 shadow ray down the same hierarchy, the volume event, the textured
 albedo, roulette.  Under NEE the alive code is 2 after a diffuse or
@@ -36,15 +36,17 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Union
+from typing import Optional, Union
 
 import torch
 
+from ..utils.rng import lane_hash, step_salt
 from . import _cuda
-from .megakernel import (
-    LIGHT_COLS, Lit, TriTable, background_args, bounce_lanes, check_counter,
-    check_lit, check_table, check_tris, lit_args, lit_rows, lane_hash,
-    step_salt,
+from .bounce import bounce_lanes
+from .lights import LIGHT_COLS
+from .tables import (
+    Tables, background_args, check_counter, check_lit, check_table,
+    check_tris, lit_args, lit_rows,
 )
 
 #: Rows of the packed lane state.
@@ -66,15 +68,6 @@ _F32 = torch.float32
 #: A count cannot tell those apart; the cut keeps the full first launch on
 #: the thread form, as bench.py's mesh legs (unlit) want.
 WARP_MAX_LIVE = 240_000
-
-
-class Tables(NamedTuple):
-    """The scene tables of a bounce: the (Npad, 16) sphere table (Npad
-    may be 0), the triangle table with its hierarchy, and the lit
-    features with their light and volume rows (none by default)."""
-    sph: torch.Tensor
-    tris: TriTable
-    lit: Lit = Lit()
 
 
 def _check(state: torch.Tensor, tables: Tables, stats, shadows,
@@ -105,7 +98,7 @@ def bounce_step_reference(state: torch.Tensor, it: int, seed: int,
                           cull: bool = True) -> torch.Tensor:
     """Plain PyTorch version of K3: a new (16, L) state.  Same inputs and
     outputs as :func:`bounce_step`; the bounce is K1's plain one
-    (``megakernel.bounce_lanes``) with both triangle sweeps down the
+    (``bounce.bounce_lanes``) with both triangle sweeps down the
     hierarchy, as the kernel traverses it."""
     out = state.clone()
     live = torch.nonzero(state[_ALIVE] > 0).flatten()
@@ -139,7 +132,7 @@ def bounce_step(state: torch.Tensor, it: int, seed: int, max_depth: int,
     (``bounce_step_pallas``, :1838).
 
     ``it`` is the bounce's step (the salt's counter), ``seed`` the
-    chunk's seed, ``tables`` the scene's :class:`Tables` (its ``lit``
+    chunk's seed, ``tables`` the scene's ``tables.Tables`` (its ``lit``
     picks the lit instance); ``cull`` False makes the triangles
     two-sided (``bounce_step_pallas(cull=False)``, :1848).  Counters,
     int64 on the state's device: ``stats`` (3,) gets the bounce's box

@@ -24,7 +24,7 @@ more) unless ``flat`` asks for the flat sweep (JAX's ``_force_flat``, the
 parity switch).  Winner ids are spheres ``0 .. npad - 1``, triangles
 ``npad + row``.
 
-The lit features come in a :class:`~.megakernel.Lit` (:func:`grad_lit`
+The lit features come in a ``tables.Lit`` (``tables.scene_lit``
 derives it from the scene, as ``render_pixels_kernel`` derives its
 statics, :887-913): emission with its MIS weight, next-event estimation
 toward the (K, 14) light rows with ``nee=True`` (the shadow ray swept from
@@ -60,24 +60,26 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from ..models.camera import Camera, Rays, camera_rays, pixel_coords
-from ..models.scene import IMAGE, Scene
+from ..models.scene import Scene
 from ..utils.profiling import span
+from ..utils.rng import hash_uniform, lane_hash, step_salt
 from . import _cuda, flat_bounce
-from .lights import LIGHT_COLS, build_light_table
-from .megakernel import (
-    BIG, MAX_TABLE_BYTES, TBL_COLS, TRI_PARAMS, Lit, TriTable, _kind_bits,
-    background_args, build_sphere_table, build_tri_table, check_counter,
-    check_lit, check_table, check_tris, draw_scatter, hit_basics,
-    lane_hash, lane_state, lit_rows, nearest_sphere, nearest_triangle,
-    nee_contrib, shade, step_salt, uniform, volume_event, winners,
+from .bounce import (
+    BIG, draw_scatter, hit_basics, lane_state, nearest_sphere,
+    nearest_triangle, nee_contrib, shade, volume_event, winners,
 )
-from .volumes import build_volume_table
-from .wavefront import WAVEFRONT_MIN_TRIS, sort_keys
+from .keys import sort_keys
+from .lights import LIGHT_COLS
+from .tables import (
+    MAX_TABLE_BYTES, TBL_COLS, TRI_PARAMS, GradTables, Lit, TriTable,
+    background_args, check_counter, check_lit, check_table, check_tris,
+    grad_lit_args, grad_tables, lit_rows,
+)
 
 #: Continuous (cotangent-bearing) state rows.
 N_CONT = 13
@@ -87,14 +89,6 @@ _N_PARAMS = 13
 #: Triangle winner-row columns that carry a cotangent (v0, e1, e2,
 #: albedo, fuzz, ir); kind's and column 15's are 0.
 _N_TRI_PARAMS = 14
-#: The gradient path's triangle-block width: the JAX module global
-#: ``TRI_BLOCK``, which ``render_pixels_kernel`` does not re-pick per
-#: scene (pallas_megakernel.py:71, :85).
-GRAD_TRI_BLOCK = 128
-#: Caps on the triangle blocks (pallas_grad.py:867, :886): in all, and on
-#: the flat sweep.
-MAX_TRI_BLOCKS = 4096
-MAX_FLAT_TRI_BLOCKS = 1536
 #: K5's thread form (``csrc/grad_bwd.cu``) sums the triangle table's
 #: gradient per block in shared memory where the table has at most this
 #: many rows, and gives each of a block's ``BWD_THREADS`` threads its own
@@ -174,7 +168,7 @@ def _lit_shade(state, ints, w, tri, best_t, alive, lane, salt, *, tbl, tris,
     volume rows, which event wins a constant), next-event estimation
     where it has lights (from the hit point or the event's), its
     contribution added where the shadow ray gets through, then
-    :func:`~.megakernel.shade` with the volume scatter, emission, the MIS
+    ``bounce.shade`` with the volume scatter, emission, the MIS
     weight (the previous bounce's diffuse flag is the alive code 2) and
     the textures.  Returns shade's (13-tuple, can, bounce)."""
     bounce = ints[1]
@@ -184,8 +178,8 @@ def _lit_shade(state, ints, w, tri, best_t, alive, lane, salt, *, tbl, tris,
     from_diffuse = None
     if lit.nee_kinds:
         from_diffuse = ints[0] > 1
-        nee_us = (uniform(lane, salt, 8), uniform(lane, salt, 9),
-                  uniform(lane, salt, 10))
+        nee_us = (hash_uniform(lane, salt, 8), hash_uniform(lane, salt, 9),
+                  hash_uniform(lane, salt, 10))
         p, l, thresh, contrib, nee_act = nee_contrib(
             state, basics, alive, bounce, max_depth, nee_us, lit, v_event)
         add = _shadow_open(tbl, tris, p, l, state[6], thresh, nee_act, flat,
@@ -348,16 +342,6 @@ def _scalars(it, seed, max_depth):
     return int(it), int(seed), int(max_depth)
 
 
-def _check_grad_lit(lit: Lit, tbl: torch.Tensor) -> None:
-    """Raise unless ``lit`` holds only what the gradient kernels take:
-    emission, NEE, textures and media (JAX's gradient statics have no
-    roulette)."""
-    if lit.roulette:
-        raise ValueError("the gradient kernels have no Russian roulette "
-                         "(pallas_grad.py:910-913)")
-    check_lit(lit, tbl)
-
-
 def _bwd_layout(tbl: torch.Tensor, lit: Lit,
                 tris: Optional[TriTable]) -> Tuple[int, Tuple[int, int, int]]:
     """K5's shared memory beside its two copies of the sphere table ->
@@ -389,12 +373,14 @@ def _bwd_layout(tbl: torch.Tensor, lit: Lit,
     return used - 2 * tbl.numel() * 4, (tri_rows, own, frames)
 
 
-def _check(kernel, tbl, tris, cont, ints, cot, stats, lit, cull, **scalars):
-    """The wrappers' checks -> (it, seed, max_depth)."""
-    if not cull:
-        raise ValueError("the gradient kernels cull back faces, as JAX's "
-                         "do (pallas_grad.py:910): no two-sided triangles")
-    _check_grad_lit(lit, tbl)
+def _check(kernel, tbl, tris, cont, ints, cot, stats, lit, **scalars):
+    """The wrappers' checks -> (it, seed, max_depth).  ``lit`` holds only
+    what the gradient kernels take: JAX's gradient statics have no
+    roulette."""
+    if lit.roulette:
+        raise ValueError("the gradient kernels have no Russian roulette "
+                         "(pallas_grad.py:910-913)")
+    check_lit(lit, tbl)
     copies = 2 if cot is not None else 1
     staged = (lit_rows(lit) * LIGHT_COLS * 4 if cot is None
               else _bwd_layout(tbl, lit, tris)[0])
@@ -416,17 +402,6 @@ def _tri_args(tris: Optional[TriTable], flat: bool) -> tuple:
             tris.supers.data_ptr(), tris.hypers.data_ptr(), tris.n_blocks,
             tris.n_super if deep else 0, tris.n_hyper if deep else 0,
             tris.block, tris.count)
-
-
-def _lit_args(lit: Lit) -> tuple:
-    """The launchers' lit arguments: the light and volume rows (or a null
-    pointer), their count, the emissive, NEE and texture features, and
-    the media (their count, kinds and first row)."""
-    return (None if lit.rows is None else lit.rows.data_ptr(), lit_rows(lit),
-            int(lit.emissive), len(lit.nee_kinds),
-            _kind_bits(lit.nee_kinds, "st"), int(lit.checker),
-            len(lit.vol_kinds), _kind_bits(lit.vol_kinds, "sbr"),
-            lit.vol_row0)
 
 
 #: K4's and K5's warp forms (``grad_fwd_warp``, ``grad_bwd_warp``) run a
@@ -472,13 +447,12 @@ def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
                tris: Optional[TriTable] = None, *, it: int, seed: int,
                max_depth: int, background: Union[str, tuple] = "sky",
                flat: bool = False, stats: Optional[torch.Tensor] = None,
-               lit: Lit = Lit(), cull: bool = True,
-               live: Optional[torch.Tensor] = None):
+               lit: Lit = Lit(), live: Optional[torch.Tensor] = None):
     """One forward bounce (``_bounce_fwd_impl``, :592) -> (cont, ints).
 
     ``tris``: the scene's triangle table, or None; ``flat`` sweeps its
     block boxes without the hierarchy; ``lit``: the lit features and the
-    light and volume rows (:func:`grad_lit`); ``stats``, a (4,) int64
+    light and volume rows (``tables.scene_lit``); ``stats``, a (4,) int64
     tensor on the table's device, gets the box tests, triangle tests (the
     shadow sweep's included), live lanes and NEE shadow rays added to it.
     A CUDA ``tbl`` launches ``csrc/grad_fwd.cu`` (counted in
@@ -493,11 +467,10 @@ def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
     here; launches that issue the warp form are also counted in
     ``bounce_fwd.warp_launches``.  Otherwise the thread form runs alone,
     with no count.  Both forms give the same outputs and counters, bit
-    for bit.  Triangles are
-    one-sided: ``cull`` False raises, as JAX's gradient has no two-sided
-    triangles."""
+    for bit.  Triangles are one-sided, as in JAX's gradient
+    (pallas_grad.py:910)."""
     it, seed, max_depth = _check("grad_fwd kernel", tbl, tris, cont, ints,
-                                 None, stats, lit, cull, it=it, seed=seed,
+                                 None, stats, lit, it=it, seed=seed,
                                  max_depth=max_depth)
     if tbl.device.type == "cpu":
         return bounce_fwd_reference(cont, ints, tbl, tris, it=it, seed=seed,
@@ -513,7 +486,7 @@ def bounce_fwd(cont: torch.Tensor, ints: torch.Tensor, tbl: torch.Tensor,
         tbl.data_ptr(), tbl.shape[0], *_tri_args(tris, flat),
         cont.data_ptr(), ints.data_ptr(), cont.shape[1], it, seed, max_depth,
         int(use_sky), bgr, bgg, bgb, cont_out.data_ptr(), ints_out.data_ptr(),
-        None if stats is None else stats.data_ptr(), *_lit_args(lit),
+        None if stats is None else stats.data_ptr(), *grad_lit_args(lit),
         None if live is None else live.data_ptr(), WARP_MAX_LIVE,
         *_cuda.device_args(tbl))
     _cuda.check_launch(lib, err, "grad_fwd")
@@ -538,12 +511,12 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
                it: int, seed: int, max_depth: int,
                background: Union[str, tuple] = "sky", flat: bool = False,
                stats: Optional[torch.Tensor] = None, lit: Lit = Lit(),
-               cull: bool = True, live: Optional[torch.Tensor] = None):
+               live: Optional[torch.Tensor] = None):
     """One backward bounce (``_bounce_grad_bwd``, :639) from the bounce's
     saved input state -> (cot_in (13, L), g_tbl (Npad, 16), g_tri (Mpad,
     16) or None without ``tris``, g_rows (R, 14) or None without light or
-    volume rows).  ``tris``, ``flat``, ``lit``, ``stats``, ``cull`` and
-    ``live`` as for :func:`bounce_fwd`.
+    volume rows).  ``tris``, ``flat``, ``lit``, ``stats`` and ``live`` as
+    for :func:`bounce_fwd`.
 
     A CUDA ``tbl`` launches ``csrc/grad_bwd.cu`` (counted in
     ``bounce_bwd.launches``, ``lit_launches`` and ``vol_launches``, as for
@@ -557,7 +530,7 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
     cot_in and counters, and table gradients that differ only by the
     atomics' order."""
     it, seed, max_depth = _check("grad_bwd kernel", tbl, tris, cont, ints,
-                                 cot_out, stats, lit, cull, it=it,
+                                 cot_out, stats, lit, it=it,
                                  seed=seed, max_depth=max_depth)
     if tbl.device.type == "cpu":
         return bounce_bwd_reference(cont, ints, cot_out, tbl, tris, it=it,
@@ -577,7 +550,7 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
         it, seed, max_depth, int(use_sky), bgr, bgg, bgb, cot_in.data_ptr(),
         g_tbl.data_ptr(), None if g_tri is None else g_tri.data_ptr(),
         None if g_rows is None else g_rows.data_ptr(),
-        None if stats is None else stats.data_ptr(), *_lit_args(lit),
+        None if stats is None else stats.data_ptr(), *grad_lit_args(lit),
         *_bwd_layout(tbl, lit, tris)[1],
         None if live is None else live.data_ptr(),
         WARP_MAX_LIVE, *_cuda.device_args(tbl))
@@ -679,66 +652,6 @@ def bounce_grad(cont, ints, tbl, tris: Optional[TriTable] = None, *,
 # The differentiable render.
 
 
-def _check_scene(scene: Scene) -> None:
-    with span("rtow.sync.check_scene"):
-        image = bool((scene.materials.kind == IMAGE).any())
-    if image:
-        raise NotImplementedError(
-            "image textures in the gradient kernels need the reference "
-            "integrator's texel gathers (ROADMAP Queue 1 item 5)")
-
-
-def grad_lit(scene: Scene, nee: bool = False) -> Lit:
-    """The gradient kernels' lit features of ``scene``, as
-    ``render_pixels_kernel`` derives its statics (:887-913): emission
-    wherever the scene has an emissive material, next-event estimation
-    toward its lights only with ``nee`` (a ValueError on a scene without
-    one), checker and noise textures, and the scene's media; no roulette,
-    which the gradient path does not have.  The rows are
-    ``build_light_table``'s under NEE, then ``build_volume_table``'s from
-    ``vol_row0`` (:891-905), differentiable in the scene's leaves."""
-    if nee and not scene.has_emissive:
-        raise ValueError("nee=True needs an emissive scene "
-                         "(SceneBuilder.add_light)")
-    kinds = tuple(k for k, _ in scene.light_ids) if nee else ()
-    rows = [build_light_table(scene)] if kinds else []
-    vol_row0 = rows[0].shape[0] if rows else 0
-    if scene.volume_kinds:
-        rows.append(build_volume_table(scene))
-    return Lit(emissive=scene.has_emissive, nee_kinds=kinds,
-               checker=scene.has_checker,
-               vol_kinds=tuple(scene.volume_kinds), vol_row0=vol_row0,
-               rows=torch.cat(rows) if rows else None)
-
-
-def grad_tri_table(scene: Scene, flat: bool = False) -> TriTable:
-    """The gradient path's triangle table: Morton order, 128-row blocks
-    (``build_tri_table`` under ``jit``), held to JAX's caps (a ValueError
-    past 4,096 blocks, or past 1,536 on the flat sweep)."""
-    tris = build_tri_table(scene, GRAD_TRI_BLOCK, order="morton")
-    nb = tris.n_blocks
-    if nb > MAX_TRI_BLOCKS:
-        raise ValueError(f"{nb} triangle blocks: the gradient path caps at "
-                         f"{MAX_TRI_BLOCKS} ({MAX_TRI_BLOCKS * GRAD_TRI_BLOCK}"
-                         f" triangles)")
-    if (flat or not tris.n_super) and nb > MAX_FLAT_TRI_BLOCKS:
-        raise ValueError(f"{nb} triangle blocks: the flat gradient sweep "
-                         f"caps at {MAX_FLAT_TRI_BLOCKS}")
-    return tris
-
-
-def _sort_grid(sph_boxes, tris) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(min, 1 / extent) of the sort keys' origin grid: the union of the
-    sphere blocks' and the triangle blocks' boxes, detached (cull-only,
-    pallas_grad.py:955-967)."""
-    boxes = sph_boxes.detach()
-    if tris is not None:
-        boxes = torch.cat([boxes, tris.boxes.detach()])
-    bmin = boxes[:, 0:3].amin(dim=0)
-    bmax = boxes[:, 3:6].amax(dim=0)
-    return bmin, 1.0 / torch.clamp(bmax - bmin, min=1e-6)
-
-
 class LanePermute(torch.autograd.Function):
     """(cont, ints, perm) -> the lanes in the order ``perm``, a
     permutation (``torch.argsort``'s): two gathers, differentiable in
@@ -782,34 +695,6 @@ permute_lanes.launches = 0
 permute_lanes.bwd_launches = 0
 
 
-class GradTables(NamedTuple):
-    """What the differentiable render reads of a scene, built once a
-    render by :func:`grad_tables`: the sphere table, the triangle table
-    (None without triangles), the lit features with their rows, the sort
-    keys' origin grid (min, 1 / extent) where the lanes are sorted (None
-    where not) and whether the triangle blocks are swept flat."""
-    tbl: torch.Tensor
-    tris: Optional[TriTable]
-    lit: Lit
-    grid: Optional[Tuple[torch.Tensor, torch.Tensor]]
-    flat: bool
-
-
-def grad_tables(scene: Scene, *, sort_lanes=None, force_flat: bool = False,
-                nee: bool = False) -> GradTables:
-    """The :class:`GradTables` of ``scene``, differentiable in its leaves:
-    ``sort_lanes`` None sorts for meshes of more than 16,384 triangles;
-    ``force_flat`` and ``nee`` as :func:`render_rays_kernel` takes them."""
-    _check_scene(scene)
-    lit = grad_lit(scene, nee)
-    if sort_lanes is None:
-        sort_lanes = scene.n_triangles > WAVEFRONT_MIN_TRIS
-    tbl, sph_boxes = build_sphere_table(scene)
-    tris = grad_tri_table(scene, force_flat) if scene.n_triangles else None
-    grid = _sort_grid(sph_boxes, tris) if sort_lanes else None
-    return GradTables(tbl, tris, lit, grid, force_flat)
-
-
 def _sort_lanes(cont, ints, grid):
     """The lanes in the order of their spatial keys on ``grid``."""
     with span("rtow.grad.sort"):
@@ -829,8 +714,9 @@ def render_rays_kernel(scene: Scene, rays: Rays, *, n_pixels: int, spp: int,
     :class:`BounceGrad`, each after a sort of the lanes where
     ``sort_lanes`` (None: for meshes of more than 16,384 triangles).
     ``force_flat`` sweeps the triangle blocks flat; ``nee`` samples the
-    lights at every diffuse hit (:func:`grad_lit`).  ``tables``, built by
-    :func:`grad_tables` from ``scene``, replaces those three: the render
+    lights at every diffuse hit (``tables.scene_lit``).  ``tables``, built
+    by ``tables.grad_tables`` from ``scene``, replaces those three: the
+    render
     then builds none.  The render runs on the scene's device: the kernels
     on a card, their plain versions on the CPU."""
     if tables is None:

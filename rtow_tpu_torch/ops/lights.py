@@ -33,7 +33,7 @@ _F32 = torch.float32
 LIGHT_COLS = 14
 
 # The JAX expressions' constants, rounded to float32 as XLA rounds them.
-_TWO_PI = float(np.float32(2.0 * np.pi))
+TWO_PI = float(np.float32(2.0 * np.pi))
 _PI = float(np.float32(np.pi))
 
 
@@ -119,7 +119,7 @@ def sample_light_dirs(table, light_kinds, pick, u1, u2, px, py, pz, tm):
             cos_max = _sqrt_pos(1.0 - r2 / torch.clamp(d2, min=1e-12))
             cos_t = 1.0 - u1 * (1.0 - cos_max)
             sin_t = _sqrt_pos(1.0 - cos_t * cos_t, 1e-12)
-            phi = _TWO_PI * u2
+            phi = TWO_PI * u2
             (ux, uy, uz), (vx, vy, vz) = _onb(wx_, wy_, wz_)
             cp, sp = torch.cos(phi), torch.sin(phi)
             sx = cp * sin_t * ux + sp * sin_t * vx + cos_t * wx_
@@ -131,7 +131,7 @@ def sample_light_dirs(table, light_kinds, pick, u1, u2, px, py, pz, tm):
             ok = (d2 > r2) & (disc > 0.0)
             geo = torch.where(ok, 2.0 * (1.0 - cos_max) * n, 0.0)
             pdf_k = torch.where(ok, 1.0 / torch.clamp(
-                _TWO_PI * (1.0 - cos_max) * n, min=1e-12), 0.0)
+                TWO_PI * (1.0 - cos_max) * n, min=1e-12), 0.0)
             t_k = torch.clamp(t_k, min=1e-4)
         else:
             v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, area = t[1:11]
@@ -201,7 +201,7 @@ def light_pdf_toward(table, light_kinds, ox, oy, oz, dx, dy, dz, t_hit, tm):
             t_k = -oc_d - _sqrt_pos(disc)
             cos_max = _sqrt_pos(1.0 - r2 / torch.clamp(d2, min=1e-12))
             ok = (d2 > r2) & (disc > 0.0) & (t_k > 0.0)
-            pdf_k = 1.0 / torch.clamp(_TWO_PI * (1.0 - cos_max) * n,
+            pdf_k = 1.0 / torch.clamp(TWO_PI * (1.0 - cos_max) * n,
                                       min=1e-12)
         else:
             v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, area = t[1:11]

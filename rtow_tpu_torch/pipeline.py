@@ -22,13 +22,13 @@ import torch
 
 from .config import Config
 from .models.camera import Camera
-from .models.scene import IMAGE, Scene
-from .ops.megakernel import (
-    LANES, n_tiles_for, pack_camera, pack_meta, pool_knobs,
-    progress_counter, render_blocks, scene_k1_tables, scene_lit,
-    unblock_image,
+from .models.scene import Scene
+from .ops.megakernel import progress_counter, render_blocks, unblock_image
+from .ops.tables import (
+    LANES, WAVEFRONT_MIN_TRIS, check_kernel_scene, k1_tables, n_tiles_for,
+    pack_camera, pack_meta, scene_lit,
 )
-from .ops.wavefront import WAVEFRONT_MIN_TRIS, render_wavefront
+from .ops.wavefront import render_wavefront
 from .utils.profiling import RenderStats, span, trace_profile
 
 
@@ -56,10 +56,7 @@ def render_megakernel(
     which a host thread reads about every ``TICK_S`` seconds, printing
     each new count, until the launch's event completes; on the CPU the plain
     version renders the frame and the ticker prints 0.  The scheduler is
-    the one that ``RTOW_POOL`` / ``RTOW_POOL_CHUNK`` / ``RTOW_POOL_K``
-    name when the render starts (the work pool unless ``RTOW_POOL`` is set
-    otherwise), as ``rtow_tpu.pipeline`` keys its traces on them (:74-84,
-    :158, :180)."""
+    the work pool, the JAX package's production default."""
     width, height = cfg.image_width, cfg.image_height
     spp = cfg.samples_per_pixel
     if seed is None:
@@ -69,10 +66,10 @@ def render_megakernel(
     with span("rtow.render.tables"):
         _sync(device, "frame_start")
         t0 = _time.perf_counter()
-        tbl, tris = scene_k1_tables(scene)
-        lit = scene_lit(scene, cfg.russian_roulette)
+        tbl, tris = k1_tables(scene)
+        lit = scene_lit(scene, nee=scene.has_emissive,
+                        roulette=cfg.russian_roulette)
         cam = pack_camera(camera)
-        knobs = pool_knobs()
         meta = pack_meta(seed, width=width, height=height, spp=spp,
                          max_depth=cfg.max_child_rays)
         counter = None
@@ -84,9 +81,7 @@ def render_megakernel(
     with span("rtow.render.k1"):
         r, g, b = render_blocks(tbl, cam, meta, n_tiles_for(width, height),
                                 background=scene.background, tris=tris,
-                                lit=lit, pool=knobs.on,
-                                pool_chunk=knobs.chunk, pool_k=knobs.k,
-                                progress=counter)
+                                lit=lit, progress=counter)
         if progress:
             _ticker(counter, device, width, height)
     with span("rtow.render.readback"):
@@ -190,12 +185,9 @@ def render_auto(
             "--backend jnp needs the reference integrator "
             "(ROADMAP Queue 1 item 5)")
     with trace_profile(cfg.profile_dir), span("rtow.render.frame"):
-        with span("rtow.render.tables"), span("rtow.sync.image_check"):
-            image = bool((scene.materials.kind == IMAGE).any())
-        if image:
-            raise NotImplementedError(
-                "image textures need the reference integrator "
-                "(ROADMAP Queue 1 item 5)")
+        with span("rtow.render.tables"):
+            with span("rtow.sync.image_check"):
+                check_kernel_scene(scene)
         if wavefront_supported(scene):
             return render_wavefront(scene, camera, cfg, progress=progress)
         if megakernel_supported(scene):

@@ -8,10 +8,10 @@ Scenes: ``cover`` (the plain instance), and the lit instances' ``cornell``,
 ``checker`` and ``roulette`` (the cover) at 1200x675, spp 16, depth 50;
 by default all of them (``--spp`` sets the samples per pixel).
 ``--pool 0`` times the classic scheduler, ``--pool 1`` the work pool
-(``RTOW_POOL_CHUNK`` / ``RTOW_POOL_K`` as the environment names them); by
-default both, in turns, so one call compares the two (at spp 16 each
-lane's one item holds its pixel's every sample: the pool renders the
-classic image and the A/B shows its cost alone).  Each scene and
+(16-sample items handed out every 4 iterations, ``render_blocks``'
+defaults); by default both, in turns, so one call compares the two (at
+spp 16 each lane's one item holds its pixel's every sample: the pool
+renders the classic image and the A/B shows its cost alone).  Each scene and
 scheduler is launched once to warm up and once with the stats counters
 (ray steps and lane slots: their ratio is the occupancy; the sphere
 groups' box tests and rows swept), then ``--runs`` times, each timed
@@ -37,6 +37,7 @@ def _frame_args(name: str, dev, spp: int = 16):
     from .config import Config
     from .models import builders as B
     from .ops import megakernel as mk
+    from .ops import tables as tb
 
     if name in ("cornell", "smoke", "lights", "textures"):
         build = {"cornell": B.cornell_scene, "smoke": B.smoke_scene,
@@ -48,13 +49,14 @@ def _frame_args(name: str, dev, spp: int = 16):
                                           aspect_ratio=16.0 / 9.0,
                                           checker_ground=name == "checker"),
                                    device=dev)
-    tbl, tris = mk.scene_k1_tables(scene)
-    args = (tbl, mk.pack_camera(cam),
-            mk.pack_meta(0, width=width, height=height, spp=spp,
+    tbl, tris = tb.k1_tables(scene)
+    args = (tbl, tb.pack_camera(cam),
+            tb.pack_meta(0, width=width, height=height, spp=spp,
                          max_depth=depth),
-            mk.n_tiles_for(width, height))
+            tb.n_tiles_for(width, height))
     kw = dict(background=scene.background, tris=tris,
-              lit=mk.scene_lit(scene, name == "roulette"))
+              lit=tb.scene_lit(scene, nee=scene.has_emissive,
+                               roulette=name == "roulette"))
     return args, kw
 
 

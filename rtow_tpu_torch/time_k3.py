@@ -45,6 +45,7 @@ def main(argv=None) -> None:
     from .models.scene import SceneBuilder
     from .ops import _cuda
     from .ops import flat_bounce as fb
+    from .ops import tables as tb
     from .ops import wavefront as wf
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -80,12 +81,12 @@ def main(argv=None) -> None:
                             .astype("int64")).to(dev)
     g = int((perm == WIDTH // 2 * WIDTH + WIDTH // 2).nonzero()) // ppc
     seed = cfg.seed + g * 7919  # render_wavefront's chunk salt
-    tables, bmin, inv_ext = wf.scene_tables(scene)
+    tables, bmin, inv_ext = tb.k3_tables(scene)
     gen = wf.chunk_generator(dev, cfg.seed, g)
     pix = perm[g * ppc:(g + 1) * ppc].repeat_interleave(SPP)
     s, t = pixel_coords(WIDTH, WIDTH, gen, pix)
     tape = []
-    wf.trace_lanes(wf.lane_state(camera_rays(cam, gen, s, t), pix.numel()),
+    wf.trace_lanes(wf.packed_state(camera_rays(cam, gen, s, t), pix.numel()),
                    seed, max_depth=DEPTH, tables=tables, bmin=bmin,
                    inv_ext=inv_ext, tape=tape)
     lives = [int((state[13] > 0).sum()) for state, _ in tape]

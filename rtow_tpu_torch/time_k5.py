@@ -73,7 +73,7 @@ def _tape(scene, lit: bool, dev):
 
     from .models.camera import camera_rays, make_camera, pixel_coords
     from .ops import grad as G
-    from .ops import megakernel as mk
+    from .ops import tables as tb
 
     cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
                       fov_degrees=45.0, aspect_ratio=1.0, aperture=0.0,
@@ -95,8 +95,8 @@ def _tape(scene, lit: bool, dev):
                                  max_depth=DEPTH, seed=0, nee=lit)
     finally:
         G.bounce_grad = bounce
-    tbl, _ = mk.build_sphere_table(scene)
-    return tbl, G.grad_tri_table(scene), tape
+    tbl, _ = tb.build_sphere_table(scene)
+    return tbl, tb.grad_tri_table(scene), tape
 
 
 def tapes(opts, dev):
@@ -108,14 +108,15 @@ def tapes(opts, dev):
 
     from .config import Config
     from .models.camera import camera_rays, pixel_coords
+    from .ops import bounce as bn
     from .ops import grad as G
-    from .ops import megakernel as mk
+    from .ops import tables as tb
 
     if not opts.scene:
         scene = _scene(opts.knot, opts.lit, dev)
         name = f"{'lit ' if opts.lit else ''}{opts.knot} knot"
         return {name: (*_tape(scene, opts.lit, dev),
-                       G.grad_lit(scene, opts.lit), scene.background)}
+                       tb.scene_lit(scene, nee=opts.lit), scene.background)}
     builders = importlib.import_module(f"{__package__}.models.builders")
     out = {}
     for name in opts.scene:
@@ -126,14 +127,14 @@ def tapes(opts, dev):
         else:
             scene, cam = getattr(builders, fn)(aspect, device=dev)
         height = int(round(W_SCENE / aspect))
-        lit = G.grad_lit(scene, nee)
-        tbl, _ = mk.build_sphere_table(scene)
-        tris = G.grad_tri_table(scene) if scene.n_triangles else None
+        lit = tb.scene_lit(scene, nee=nee)
+        tbl, _ = tb.build_sphere_table(scene)
+        tris = tb.grad_tri_table(scene) if scene.n_triangles else None
         gen = torch.Generator(dev).manual_seed(7)
         pix = torch.arange(W_SCENE * height,
                            device=dev).repeat_interleave(SPP)
         s, t = pixel_coords(W_SCENE, height, gen, pix)
-        cont, ints = mk.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
+        cont, ints = bn.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
                                    dev)
         tape = []
         for it in range(DEPTH + 1):

@@ -60,7 +60,6 @@ def frame(monkeypatch):
     events counted while it replays the sampled tile rows."""
     from rtow_tpu_torch import pipeline
 
-    monkeypatch.setenv("RTOW_POOL", "1")
     shadows = torch.zeros(1, dtype=torch.int64)
     blocks = pipeline.render_blocks
 

@@ -49,9 +49,12 @@ from rtow_tpu_torch.models.builders import (
 from rtow_tpu_torch.models.camera import make_camera
 from rtow_tpu_torch.models.camera import camera_rays, pixel_coords
 from rtow_tpu_torch.models.scene import SceneBuilder
+from rtow_tpu_torch.ops import bounce as bn
 from rtow_tpu_torch.ops import flat_bounce as fb
 from rtow_tpu_torch.ops import grad
+from rtow_tpu_torch.ops import keys as ky
 from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 from rtow_tpu_torch.ops import wavefront as wf
 
 pytestmark = pytest.mark.cuda
@@ -67,11 +70,11 @@ def dev():
 
 
 def _frames(scene, cam, width, height, spp, depth):
-    tbl, tris = mk.scene_k1_tables(scene)
-    args = (tbl, mk.pack_camera(cam),
-            mk.pack_meta(1, width=width, height=height, spp=spp,
+    tbl, tris = tb.k1_tables(scene)
+    args = (tbl, tb.pack_camera(cam),
+            tb.pack_meta(1, width=width, height=height, spp=spp,
                          max_depth=depth),
-            mk.n_tiles_for(width, height))
+            tb.n_tiles_for(width, height))
     kw = dict(background=scene.background, tris=tris)
     before = mk.render_blocks.launches
     kern = mk.render_blocks(*args, **kw)
@@ -118,12 +121,13 @@ def test_lit_kernel_matches_plain_on_card(dev, name):
                                         checker_ground=name == "checker"),
                                  device=dev)
         depth = 50
-    tbl, tris = mk.scene_k1_tables(scene)
-    args = (tbl, mk.pack_camera(cam),
-            mk.pack_meta(3, width=128, height=128, spp=2, max_depth=depth),
-            mk.n_tiles_for(128, 128))
+    tbl, tris = tb.k1_tables(scene)
+    args = (tbl, tb.pack_camera(cam),
+            tb.pack_meta(3, width=128, height=128, spp=2, max_depth=depth),
+            tb.n_tiles_for(128, 128))
     kw = dict(background=scene.background, tris=tris,
-              lit=mk.scene_lit(scene, name == "roulette"))
+              lit=tb.scene_lit(scene, nee=scene.has_emissive,
+                               roulette=name == "roulette"))
     out, counts = [], []
     before = mk.render_blocks.lit_launches
     for fn in (mk.render_blocks, mk.render_blocks_reference):
@@ -182,12 +186,13 @@ def test_pool_kernel_bit_identical_to_plain_on_card(dev, name):
     each launch counted as a pool launch.  The classic instance's slots
     agree too."""
     scene, cam, roulette, depth = _pool_scene(dev, name)
-    tbl, tris = mk.scene_k1_tables(scene)
-    args = (tbl, mk.pack_camera(cam),
-            mk.pack_meta(5, width=130, height=100, spp=20, max_depth=depth),
-            mk.n_tiles_for(130, 100))
+    tbl, tris = tb.k1_tables(scene)
+    args = (tbl, tb.pack_camera(cam),
+            tb.pack_meta(5, width=130, height=100, spp=20, max_depth=depth),
+            tb.n_tiles_for(130, 100))
     kw = dict(background=scene.background, tris=tris,
-              lit=mk.scene_lit(scene, roulette),
+              lit=tb.scene_lit(scene, nee=scene.has_emissive,
+                               roulette=roulette),
               cull=name != "knot_two_sided")
     for pool in (True, False):
         out, counts = [], []
@@ -260,7 +265,7 @@ def test_probes_match_plain_on_card(dev):
 def test_table_larger_than_shared_memory_raises(dev):
     tbl = torch.zeros((4 * 1024, 16), dtype=torch.float32, device=dev)
     cam = torch.zeros(21, dtype=torch.float32, device=dev)
-    meta = mk.pack_meta(0, width=8, height=8, spp=1, max_depth=1)
+    meta = tb.pack_meta(0, width=8, height=8, spp=1, max_depth=1)
     with pytest.raises(ValueError, match="shared-memory"):
         mk.render_blocks(tbl, cam, meta, 1)
 
@@ -282,7 +287,7 @@ def test_flat_bounce_matches_plain_on_card(dev, segments, rings):
     bounce of a sorted loop: the 384- and 8,192-triangle knots over a
     ground sphere, 64x64 spp4."""
     scene = _knot(dev, segments, rings)
-    tables, bmin, inv_ext = wf.scene_tables(scene)
+    tables, bmin, inv_ext = tb.k3_tables(scene)
     cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
                       fov_degrees=45.0, aspect_ratio=1.0, aperture=0.0,
                       focus_dist=3.0, device=dev)
@@ -291,7 +296,7 @@ def test_flat_bounce_matches_plain_on_card(dev, segments, rings):
     s, t = pixel_coords(64, 64, gen, pix)
     tape = []
     before = fb.bounce_step.launches
-    wf.trace_lanes(wf.lane_state(camera_rays(cam, gen, s, t), pix.numel()),
+    wf.trace_lanes(wf.packed_state(camera_rays(cam, gen, s, t), pix.numel()),
                    9, max_depth=20, tables=tables, bmin=bmin,
                    inv_ext=inv_ext, tape=tape)
     assert fb.bounce_step.launches == before + len(tape) > 3
@@ -352,7 +357,7 @@ def lit_knot_scene(dev, name, segments=64, rings=64):
 def _k3_tape(dev, scene, roulette=False, cull=True):
     """(tables, tape) of one sorted loop over the knot at 64x64 spp4
     depth 8, each launch's input state and step on the tape."""
-    tables, bmin, inv_ext = wf.scene_tables(scene, roulette)
+    tables, bmin, inv_ext = tb.k3_tables(scene, roulette)
     cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
                       fov_degrees=45.0, aspect_ratio=1.0, aperture=0.0,
                       focus_dist=3.0, device=dev)
@@ -360,7 +365,7 @@ def _k3_tape(dev, scene, roulette=False, cull=True):
     pix = torch.arange(64 * 64, device=dev).repeat_interleave(4)
     s, t = pixel_coords(64, 64, gen, pix)
     tape = []
-    wf.trace_lanes(wf.lane_state(camera_rays(cam, gen, s, t), pix.numel()),
+    wf.trace_lanes(wf.packed_state(camera_rays(cam, gen, s, t), pix.numel()),
                    9, max_depth=8, tables=tables, bmin=bmin, inv_ext=inv_ext,
                    background=scene.background, cull=cull, tape=tape)
     return tables, tape
@@ -456,12 +461,12 @@ def test_two_sided_matches_plain_on_card(dev, kernel):
     cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
                       fov_degrees=45.0, aspect_ratio=1.0, aperture=0.0,
                       focus_dist=3.0, device=dev)
-    tbl, tris = mk.scene_k1_tables(scene)
-    args = (tbl, mk.pack_camera(cam),
-            mk.pack_meta(3, width=128, height=128, spp=2, max_depth=8),
-            mk.n_tiles_for(128, 128))
+    tbl, tris = tb.k1_tables(scene)
+    args = (tbl, tb.pack_camera(cam),
+            tb.pack_meta(3, width=128, height=128, spp=2, max_depth=8),
+            tb.n_tiles_for(128, 128))
     kw = dict(background=scene.background, tris=tris,
-              lit=mk.scene_lit(scene))
+              lit=tb.scene_lit(scene, nee=scene.has_emissive))
     out, counts = [], []
     for fn, cull in ((mk.render_blocks, False),
                      (mk.render_blocks_reference, False),
@@ -547,11 +552,11 @@ def _grad_tape(dev, depth=8):
     forward through K4, and the table."""
     scene, cam = cover_scene(Config(image_width=64, aspect_ratio=1.0),
                              device=dev)
-    tbl, _ = mk.build_sphere_table(scene)
+    tbl, _ = tb.build_sphere_table(scene)
     gen = torch.Generator(dev).manual_seed(2)
     pix = torch.arange(64 * 64, device=dev).repeat_interleave(2)
     s, t = pixel_coords(64, 64, gen, pix)
-    cont, ints = mk.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
+    cont, ints = bn.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
                                dev)
     tape = []
     for it in range(depth + 1):
@@ -594,8 +599,8 @@ def test_grad_bwd_kernel_matches_plain(dev):
 
 def test_grad_bwd_table_larger_than_shared_memory_raises(dev):
     tbl = torch.zeros((2048, 16), dtype=torch.float32, device=dev)
-    cont = torch.zeros((13, mk.TILE), device=dev)
-    ints = torch.zeros((3, mk.TILE), dtype=torch.int32, device=dev)
+    cont = torch.zeros((13, tb.TILE), device=dev)
+    ints = torch.zeros((3, tb.TILE), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="shared-memory"):
         grad.bounce_bwd(cont, ints, cont, tbl, it=0, seed=0, max_depth=1)
 
@@ -631,8 +636,8 @@ def _mesh_grad_tape(dev, segments, rings, flat, depth=8):
                                     force_flat=flat)
     finally:
         grad.bounce_grad = bounce
-    tbl, _ = mk.build_sphere_table(scene)
-    return tbl, grad.grad_tri_table(scene, flat), tape
+    tbl, _ = tb.build_sphere_table(scene)
+    return tbl, tb.grad_tri_table(scene, flat), tape
 
 
 @pytest.mark.parametrize("segments,rings", [(16, 12), (64, 32)])
@@ -802,15 +807,15 @@ def test_sort_keys_kernel_bit_identical_on_knot_step(dev):
     """The key kernel's keys equal the plain version's, bit for bit, at
     each of the 9 sorts of a sorted forward at 1,048,576 lanes (int32
     alive rows), one kernel call a sort."""
-    before = wf.sort_keys.launches
+    before = ky.sort_keys.launches
     calls = _knot_key_inputs(dev)
-    assert len(calls) == 9 and wf.sort_keys.launches - before == 9
+    assert len(calls) == 9 and ky.sort_keys.launches - before == 9
     for j, a in enumerate(calls):
         assert a[1].dtype == torch.int32 and a[0].shape[1] == 1 << 20
-        got, want = wf.sort_keys(*a), wf.sort_keys_reference(*a)
+        got, want = ky.sort_keys(*a), ky.sort_keys_reference(*a)
         assert torch.equal(got, want), (j, int((got != want).sum()))
         live = a[1] > 0
-        assert bool((got[~live] == wf.DEAD_KEY).all())
+        assert bool((got[~live] == ky.DEAD_KEY).all())
 
 
 @pytest.mark.parametrize("name", ["window", "all_dead", "one_live",
@@ -823,13 +828,13 @@ def test_sort_keys_kernel_bit_identical_on_edge_cases(dev, name):
     ray, alive = _synthetic_keys(dev, name)
     bmin = torch.tensor([-1.0, -0.9, -0.5], device=dev)
     inv_ext = 1.0 / torch.tensor([2.0, 1.8, 1.0], device=dev)
-    got = wf.sort_keys(ray, alive, bmin, inv_ext)
-    want = wf.sort_keys_reference(ray, alive, bmin, inv_ext)
+    got = ky.sort_keys(ray, alive, bmin, inv_ext)
+    want = ky.sort_keys_reference(ray, alive, bmin, inv_ext)
     assert torch.equal(got, want), int((got != want).sum())
     live = alive > 0
     if name in ("all_dead", "one_live"):
         assert int(live.sum()) == (name == "one_live")
-    assert bool((got[~live] == wf.DEAD_KEY).all())
+    assert bool((got[~live] == ky.DEAD_KEY).all())
     if name == "nan_direction":
         assert not bool((got[live] & 0o0707070707).any())
     if name == "window":
@@ -850,11 +855,11 @@ def test_sort_keys_launches_per_step(dev):
         step = diff.build_train_step(c, lr=1.0, width=32, height=32, spp=4,
                                      max_depth=8,
                                      keep=lambda p: p.endswith("albedo"))
-        before = wf.sort_keys.launches
+        before = ky.sort_keys.launches
         _, loss = step(scene, torch.Generator(dev).manual_seed(0),
                        torch.zeros((32 * 32, 3), device=dev))
         assert bool(torch.isfinite(loss))
-        counts.append(wf.sort_keys.launches - before)
+        counts.append(ky.sort_keys.launches - before)
     assert counts == [9, 0]
 
 
@@ -892,11 +897,11 @@ def test_knot_step_same_with_plain_keys(dev, monkeypatch):
             spp=16, max_depth=8)
         return keys, states, loss, grads.materials.albedo
 
-    before = wf.sort_keys.launches
-    k_keys, k_states, k_loss, k_albedo = run(wf.sort_keys)
-    assert wf.sort_keys.launches - before == 9
-    p_keys, p_states, p_loss, p_albedo = run(wf.sort_keys_reference)
-    assert wf.sort_keys.launches - before == 9
+    before = ky.sort_keys.launches
+    k_keys, k_states, k_loss, k_albedo = run(ky.sort_keys)
+    assert ky.sort_keys.launches - before == 9
+    p_keys, p_states, p_loss, p_albedo = run(ky.sort_keys_reference)
+    assert ky.sort_keys.launches - before == 9
     assert len(k_keys) == len(p_keys) == len(k_states) == 9
     assert all(torch.equal(k, p) for k, p in zip(k_keys, p_keys))
     assert all(torch.equal(kc, pc) and torch.equal(ki, pi)
@@ -922,7 +927,7 @@ def test_tri_table_backward_runs_no_indexing_backward(dev):
             "materials.ir")
     leaves = {k: scene.leaves()[k].clone().requires_grad_(True)
               for k in keys}
-    tris = grad.grad_tri_table(scene.replace_leaves(leaves))
+    tris = tb.grad_tri_table(scene.replace_leaves(leaves))
     cot = torch.randn(tris.tbl.shape, device=dev,
                       generator=torch.Generator(dev).manual_seed(4))
     value = (tris.tbl * cot).sum()
@@ -961,13 +966,13 @@ def _grad_kernels_match_plain(dev, scene, cam, nee):
     cotangents have one sign, so the emission columns' terms do not).
     Returns the lit features, the shadow rays and the sum of |K5's
     g_rows|."""
-    lit = grad.grad_lit(scene, nee)
-    tbl, _ = mk.build_sphere_table(scene)
-    tris = grad.grad_tri_table(scene) if scene.n_triangles else None
+    lit = tb.scene_lit(scene, nee=nee)
+    tbl, _ = tb.build_sphere_table(scene)
+    tris = tb.grad_tri_table(scene) if scene.n_triangles else None
     gen = torch.Generator(dev).manual_seed(2)
     pix = torch.arange(48 * 48, device=dev).repeat_interleave(4)
     s, t = pixel_coords(48, 48, gen, pix)
-    cont, ints = mk.lane_state(camera_rays(cam, gen, s, t), pix.numel(), dev)
+    cont, ints = bn.lane_state(camera_rays(cam, gen, s, t), pix.numel(), dev)
     rng = np.random.default_rng(4)
     shadows, g_rows = 0, 0.0
     for it in range(9):
@@ -1141,10 +1146,10 @@ def test_sphere_cull_bit_identical_to_plain_on_card(dev, pool):
     / row counts; the rows swept are fewer than the brute-force sweep's."""
     scene, cam = cover_scene(Config(image_width=160, aspect_ratio=16 / 9),
                              device=dev)
-    tbl, _ = mk.build_sphere_table(scene)
-    args = (tbl, mk.pack_camera(cam),
-            mk.pack_meta(2, width=160, height=90, spp=4, max_depth=50),
-            mk.n_tiles_for(160, 90))
+    tbl, _ = tb.build_sphere_table(scene)
+    args = (tbl, tb.pack_camera(cam),
+            tb.pack_meta(2, width=160, height=90, spp=4, max_depth=50),
+            tb.n_tiles_for(160, 90))
     out = []
     for fn in (mk.render_blocks, mk.render_blocks_reference):
         steps, sph = (torch.zeros(n, dtype=torch.int64, device=dev)
@@ -1155,7 +1160,7 @@ def test_sphere_cull_bit_identical_to_plain_on_card(dev, pool):
     (k, kc), (p, pc) = out
     assert torch.equal(k, p)
     assert kc == pc, (kc, pc)
-    assert kc[1] == kc[0] * tbl.shape[0] // mk.SPHERE_GROUP  # every sweep
+    assert kc[1] == kc[0] * tbl.shape[0] // tb.SPHERE_GROUP  # every sweep
     assert 0 < kc[2] < kc[0] * tbl.shape[0]
 
 
@@ -1164,16 +1169,16 @@ def test_ticker_counter_counts_every_tile_row_on_card(dev):
     rendered without it, and the counter holds every tile row after."""
     scene, cam = cover_scene(Config(image_width=300, aspect_ratio=16 / 9),
                              device=dev)
-    tbl, _ = mk.build_sphere_table(scene)
-    n_tiles = mk.n_tiles_for(300, 168)
-    args = (tbl, mk.pack_camera(cam),
-            mk.pack_meta(0, width=300, height=168, spp=2, max_depth=8),
+    tbl, _ = tb.build_sphere_table(scene)
+    n_tiles = tb.n_tiles_for(300, 168)
+    args = (tbl, tb.pack_camera(cam),
+            tb.pack_meta(0, width=300, height=168, spp=2, max_depth=8),
             n_tiles)
     counter = mk.progress_counter(dev.index)
     counter.reset()
     ticked = torch.stack(mk.render_blocks(*args, progress=counter))
     torch.cuda.synchronize()
-    assert counter.value == n_tiles * mk.TILE_ROWS
+    assert counter.value == n_tiles * tb.TILE_ROWS
     assert torch.equal(ticked, torch.stack(mk.render_blocks(*args)))
 
 

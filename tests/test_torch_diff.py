@@ -25,7 +25,7 @@ from rtow_tpu_torch import diff
 from rtow_tpu_torch.models.camera import make_camera
 from rtow_tpu_torch.models.scene import Scene, SceneBuilder
 from rtow_tpu_torch.ops import grad
-from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 
 W = H = 12
 SPP = 32
@@ -248,8 +248,8 @@ def test_wrappers_on_cpu_count_no_launch(view):
 
 
 def test_wrappers_reject_other_devices_and_bad_inputs():
-    tbl, _ = mk.build_sphere_table(_two_lambertians())
-    n = mk.TILE
+    tbl, _ = tb.build_sphere_table(_two_lambertians())
+    n = tb.TILE
     cont = torch.zeros((13, n))
     ints = torch.zeros((3, n), dtype=torch.int32)
     kw = dict(it=0, seed=0, max_depth=1)

@@ -42,7 +42,7 @@ from rtow_tpu_torch.config import Config
 from rtow_tpu_torch.models import builders
 from rtow_tpu_torch.models.camera import Rays
 from rtow_tpu_torch.ops import grad
-from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 
 W, H = 128, 72  # the cover's camera; the tile is rows 30-37 (horizon)
 LEAVES = ("spheres.center0", "spheres.dcenter", "spheres.radius",
@@ -84,12 +84,12 @@ def _random_lanes(n, seed):
 def test_one_bounce_matches_bounce_grad_and_its_vjp(covers, background):
     (jscene, _), (scene, _) = covers
     jtbl, jboxes = jmk.build_sphere_table(jscene)
-    tbl, _ = mk.build_sphere_table(scene)
-    n = mk.TILE
+    tbl, _ = tb.build_sphere_table(scene)
+    n = tb.TILE
     cont, ints, cot = _random_lanes(n, seed=5)
     it, seed, depth = 2, 11, 3
     bg = None if background == "sky" else background
-    statics = (tbl.shape[0] // mk.SPHERE_BLOCK, 0, 0, 0, True, False, bg,
+    statics = (tbl.shape[0] // tb.SPHERE_BLOCK, 0, 0, 0, True, False, bg,
                False, (), (), 0)
     z = lambda *shape: jnp.zeros(shape, jnp.float32)  # noqa: E731
 

@@ -42,8 +42,9 @@ from rtow_tpu.ops import pallas_megakernel as jmk
 from rtow_tpu_torch.config import Config
 from rtow_tpu_torch.models import builders
 from rtow_tpu_torch.models.camera import camera_rays, pixel_coords
+from rtow_tpu_torch.ops import bounce as bn
 from rtow_tpu_torch.ops import grad
-from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 
 SIZE, SEED, DEPTH, IT = 32, 5, 4, 1
 
@@ -101,12 +102,12 @@ def jax_statics(jscene, nee):
 def lane_tape(scene, cam, lit, n_bounces, size=SIZE, spp=1, seed=SEED):
     """The input states of the first ``n_bounces`` bounces of one plain
     forward from the camera (``depth`` DEPTH), and the tables."""
-    tbl, _ = mk.build_sphere_table(scene)
-    tris = grad.grad_tri_table(scene) if scene.n_triangles else None
+    tbl, _ = tb.build_sphere_table(scene)
+    tris = tb.grad_tri_table(scene) if scene.n_triangles else None
     gen = torch.Generator().manual_seed(seed)
     pix = torch.arange(size * size).repeat_interleave(spp)
     s, t = pixel_coords(size, size, gen, pix)
-    cont, ints = mk.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
+    cont, ints = bn.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
                                "cpu")
     tape = []
     for it in range(n_bounces):
@@ -124,7 +125,7 @@ def test_one_bounce_matches_bounce_grad_and_its_vjp(name):
     scene, cam = build()
     if isinstance(jscene, tuple):
         jscene = jscene[0]
-    lit = grad.grad_lit(scene, nee)
+    lit = tb.scene_lit(scene, nee=nee)
     tbl, tris, tape = lane_tape(scene, cam, lit, IT + 1)
     cont, ints = (x.numpy() for x in tape[IT])
     n = cont.shape[1]
@@ -197,9 +198,9 @@ def test_one_bounce_matches_bounce_grad_and_its_vjp(name):
 def _meta_tris(blocks):
     def z(*shape):
         return torch.empty(shape, device="meta")
-    return mk.TriTable(tbl=z(blocks * grad.GRAD_TRI_BLOCK, 16),
+    return tb.TriTable(tbl=z(blocks * tb.GRAD_TRI_BLOCK, 16),
                        boxes=z(blocks, 8), supers=z(1, 8), hypers=z(1, 8),
-                       block=grad.GRAD_TRI_BLOCK, count=12)
+                       block=tb.GRAD_TRI_BLOCK, count=12)
 
 
 @pytest.mark.parametrize("sphere_blocks, lights, volumes, layout", [
@@ -219,9 +220,9 @@ def test_k5_layout_fits_beside_the_sphere_table(sphere_blocks, lights,
     and the volumes' frames in shared memory only where they fit beside
     the sphere table, so it takes every sphere table it took with the
     rows alone; the wrapper's check counts what the layout holds."""
-    tbl = torch.empty((sphere_blocks * mk.SPHERE_BLOCK, mk.TBL_COLS),
+    tbl = torch.empty((sphere_blocks * tb.SPHERE_BLOCK, tb.TBL_COLS),
                       device="meta")
-    lit = mk.Lit(nee_kinds=("t",) * lights, vol_kinds=("r",) * volumes,
+    lit = tb.Lit(nee_kinds=("t",) * lights, vol_kinds=("r",) * volumes,
                  vol_row0=lights,
                  rows=torch.empty((lights + volumes, 14), device="meta"))
     tris = _meta_tris(1)
@@ -236,7 +237,7 @@ def test_k5_layout_fits_beside_the_sphere_table(sphere_blocks, lights,
     staged, got = grad._bwd_layout(tbl, lit, tris)
     if layout:
         assert got == layout
-        assert 2 * tbl.numel() * 4 + staged <= mk.MAX_TABLE_BYTES
+        assert 2 * tbl.numel() * 4 + staged <= tb.MAX_TABLE_BYTES
         assert staged >= 2 * (lights + volumes) * 14 * 4
 
 

@@ -56,7 +56,7 @@ from rtow_tpu_torch import diff
 from rtow_tpu_torch.models.camera import Rays, make_camera
 from rtow_tpu_torch.models.scene import Scene, SceneBuilder
 from rtow_tpu_torch.ops import grad
-from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -109,13 +109,13 @@ def _knot_scenes(segments, rings, knot="lambertian"):
 def test_morton_table_equals_jax_under_jit(segments, rings, levels):
     jscene, scene = _knot_scenes(segments, rings)
     want = jax.jit(jmk.build_tri_table)(jscene)
-    got = grad.grad_tri_table(scene)
+    got = tb.grad_tri_table(scene)
     for name, g, w in zip(("tbl", "boxes", "supers", "hypers"), got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
     assert (got.n_blocks, got.n_super, got.n_hyper) == levels
-    assert got.block == jmk.TRI_BLOCK == grad.GRAD_TRI_BLOCK
+    assert got.block == jmk.TRI_BLOCK == tb.GRAD_TRI_BLOCK
     # The median split (the render paths' order) is another order.
-    median = mk.build_tri_table(scene, 128)
+    median = tb.build_tri_table(scene, 128)
     assert not torch.equal(median.tbl, got.tbl)
 
 
@@ -123,7 +123,7 @@ def test_table_is_differentiable_in_the_vertices():
     _, scene = _knot_scenes(16, 12)
     verts = scene.triangles.verts.clone().requires_grad_(True)
     albedo = scene.materials.albedo.clone().requires_grad_(True)
-    tris = grad.grad_tri_table(scene.replace_leaves(
+    tris = tb.grad_tri_table(scene.replace_leaves(
         {"triangles.verts": verts, "materials.albedo": albedo}))
     assert tris.tbl.requires_grad and not tris.boxes.requires_grad
     w = torch.arange(16, dtype=torch.float32)
@@ -154,7 +154,7 @@ def test_table_backward_adds_rows_without_sorting(order):
             "materials.ir")
     leaves = {k: scene.leaves()[k].clone().requires_grad_(True)
               for k in keys}
-    tris = mk.build_tri_table(scene.replace_leaves(leaves), 128, order=order)
+    tris = tb.build_tri_table(scene.replace_leaves(leaves), 128, order=order)
     cot = torch.randn(tris.tbl.shape,
                       generator=torch.Generator().manual_seed(4))
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -224,7 +224,7 @@ def _jax_tables(jscene):
 def test_one_bounce_matches_bounce_grad_and_its_vjp(segments, rings, knot):
     jscene, scene = _knot_scenes(segments, rings, knot)
     jtbl, jboxes, jtri, jtb, jsup, jhyp, statics = _jax_tables(jscene)
-    n = mk.TILE
+    n = tb.TILE
     cont, ints, cot = _random_lanes(n, seed=7)
     it, seed, depth = 1, 11, 3
 
@@ -242,8 +242,8 @@ def test_one_bounce_matches_bounce_grad_and_its_vjp(segments, rings, knot):
     jcot, jgtbl = np.asarray(jcot), np.asarray(jgtbl)
     jgtri = np.asarray(jgtri).transpose(0, 2, 1).reshape(-1, 16)
 
-    tbl, _ = mk.build_sphere_table(scene)
-    tris = grad.grad_tri_table(scene)
+    tbl, _ = tb.build_sphere_table(scene)
+    tris = tb.grad_tri_table(scene)
     kw = dict(it=it, seed=seed, max_depth=depth)
     c_t, i_t = torch.from_numpy(cont), torch.from_numpy(ints)
     stats = torch.zeros(4, dtype=torch.int64)
@@ -367,7 +367,7 @@ def test_hierarchy_equals_flat_bit_for_bit():
     301-336).  Both sweeps compute the same pair intersections in the same
     order, so the loss and every gradient leaf are bit-equal."""
     _, scene = _knot_scenes(64, 32)
-    assert grad.grad_tri_table(scene).n_super == 2
+    assert tb.grad_tri_table(scene).n_super == 2
     out = {flat: _loss_and_grads(scene, size=4, spp=4, max_depth=2,
                                  _force_flat=flat) for flat in (True, False)}
     assert float(out[True][0]) == float(out[False][0])
@@ -465,11 +465,11 @@ def test_caps_raise():
 
     big = scene_of(4096 * 128 + 1)  # padded to 4,352 blocks
     with pytest.raises(ValueError, match="caps at 4096"):
-        grad.grad_tri_table(big)
+        tb.grad_tri_table(big)
     mid = scene_of(1600 * 128)  # 1,600 blocks: 100 supers, 7 hypers
-    assert grad.grad_tri_table(mid).n_super
+    assert tb.grad_tri_table(mid).n_super
     with pytest.raises(ValueError, match="flat gradient sweep caps"):
-        grad.grad_tri_table(mid, flat=True)
+        tb.grad_tri_table(mid, flat=True)
 
 
 def test_lit_meshes_raise():

@@ -57,8 +57,9 @@ from rtow_tpu.ops import volumes as jvolumes
 from rtow_tpu_torch.models.camera import Rays, camera_rays, make_camera
 from rtow_tpu_torch.models.camera import pixel_coords
 from rtow_tpu_torch.models.scene import SceneBuilder
+from rtow_tpu_torch.ops import bounce as bn
 from rtow_tpu_torch.ops import grad
-from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 
 W = H = 10
 SPP, DEPTH, SEED, IT = 8, 3, 6, 1
@@ -123,11 +124,11 @@ def jax_statics(jscene, nee):
 def lane_tape(scene, lit, n_bounces):
     """The input states of the first ``n_bounces`` bounces of one plain
     forward from the camera at W x H, spp SPP."""
-    tbl, _ = mk.build_sphere_table(scene)
+    tbl, _ = tb.build_sphere_table(scene)
     gen = torch.Generator().manual_seed(SEED)
     pix = torch.arange(W * H).repeat_interleave(SPP)
     s, t = pixel_coords(W, H, gen, pix)
-    cont, ints = mk.lane_state(camera_rays(_cam(), gen, s, t), pix.numel(),
+    cont, ints = bn.lane_state(camera_rays(_cam(), gen, s, t), pix.numel(),
                                "cpu")
     tape = []
     for it in range(n_bounces):
@@ -141,7 +142,7 @@ def lane_tape(scene, lit, n_bounces):
 @pytest.mark.parametrize("nee", [False, True], ids=["plain", "nee"])
 def test_one_bounce_matches_bounce_grad_and_its_vjp(nee):
     jscene, scene = _scenes("sbr")
-    lit = grad.grad_lit(scene, nee)
+    lit = tb.scene_lit(scene, nee=nee)
     assert lit.vol_kinds == ("s", "b", "r")
     assert lit.vol_row0 == (1 if nee else 0)
     tbl, tape = lane_tape(scene, lit, IT + 1)

@@ -38,8 +38,7 @@ from rtow_tpu_torch.models.builders import mesh_scene
 from rtow_tpu_torch.models.camera import camera_rays, make_camera
 from rtow_tpu_torch.models.camera import pixel_coords
 from rtow_tpu_torch.models.scene import SceneBuilder
-from rtow_tpu_torch.ops import grad
-from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -69,20 +68,20 @@ def _table(name):
     if name == "flat":
         scene, _ = mesh_scene(Config(model=os.path.join(
             ROOT, "samples", "knot_small.obj"), device="cpu"))
-        block = mk.pick_tri_block(scene.n_triangles)
-        tris = mk.build_tri_table(scene, block)
+        block = tb.pick_tri_block(scene.n_triangles)
+        tris = tb.build_tri_table(scene, block)
         assert (tris.n_blocks, tris.n_super) == (8, 0)
     elif name == "supers":
         scene = _knot(64, 32)
-        tris = mk.build_tri_table(scene, 128)
+        tris = tb.build_tri_table(scene, 128)
         assert (tris.n_blocks, tris.n_super, tris.n_hyper) == (32, 2, 0)
     elif name == "twins":
         scene = _knot(64, 32, twice=True)
-        tris = mk.build_tri_table(scene, 128)
+        tris = tb.build_tri_table(scene, 128)
         assert (tris.n_blocks, tris.n_super, tris.n_hyper) == (64, 4, 0)
     else:
         scene = _knot(256, 128)
-        tris = grad.grad_tri_table(scene)
+        tris = tb.grad_tri_table(scene)
         assert (tris.n_blocks, tris.n_super, tris.n_hyper) == (512, 32, 2)
     return scene, tris
 

@@ -38,8 +38,9 @@ import torch
 from rtow_tpu_torch.models.camera import camera_rays, make_camera
 from rtow_tpu_torch.models.camera import pixel_coords
 from rtow_tpu_torch.models.scene import SceneBuilder
+from rtow_tpu_torch.ops import bounce as bn
 from rtow_tpu_torch.ops import grad
-from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -94,16 +95,16 @@ class _Case:
 
     def __init__(self, host, table, lit):
         scene, cam = _scene(table, lit)
-        self.scene, self.lit = scene, grad.grad_lit(scene, nee=lit)
-        self.tbl, _ = mk.build_sphere_table(scene)
-        self.tris = grad.grad_tri_table(scene)
+        self.scene, self.lit = scene, tb.scene_lit(scene, nee=lit)
+        self.tbl, _ = tb.build_sphere_table(scene)
+        self.tris = tb.grad_tri_table(scene)
         # Both go down the hierarchy (the lamps' 4 triangles add blocks).
         assert self.tris.n_super >= 4
         assert (self.tris.n_hyper >= 2) == (table == "hypers")
         gen = torch.Generator().manual_seed(SEED)
         pix = torch.arange(SIZE * SIZE).repeat_interleave(SPP)
         s, t = pixel_coords(SIZE, SIZE, gen, pix)
-        cont, ints = mk.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
+        cont, ints = bn.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
                                    "cpu")
         rng = np.random.default_rng(SEED)
         self.tape = []
@@ -114,7 +115,7 @@ class _Case:
             cont, ints = self._fwd(host, cont, ints, it)
 
     def _args(self, it):
-        use_sky, bg = mk.background_args(self.scene.background)
+        use_sky, bg = tb.background_args(self.scene.background)
         return (grad._tri_args(self.tris, False),
                 (it, SEED, DEPTH, int(use_sky), *bg))
 
@@ -122,8 +123,8 @@ class _Case:
         lit = self.lit
         return ((None if lit.rows is None else lit.rows.data_ptr()),
                 int(lit.emissive), len(lit.nee_kinds),
-                mk._kind_bits(lit.nee_kinds, "st"), int(lit.checker),
-                len(lit.vol_kinds), mk._kind_bits(lit.vol_kinds, "sbr"),
+                tb.kind_bits(lit.nee_kinds, "st"), int(lit.checker),
+                len(lit.vol_kinds), tb.kind_bits(lit.vol_kinds, "sbr"),
                 lit.vol_row0)
 
     def _fwd(self, host, cont, ints, it):
@@ -141,7 +142,7 @@ class _Case:
         cont, ints, cot, it = self.tape[b]
         tris, scalars = self._args(it)
         n = cont.shape[1]
-        r = mk.lit_rows(self.lit)
+        r = tb.lit_rows(self.lit)
         cot_in = torch.empty_like(cot)
         winner = torch.empty(n, dtype=torch.int32)
         gw = torch.empty((n, 16))

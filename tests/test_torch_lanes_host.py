@@ -55,7 +55,7 @@ transmittance).
 * The sort keys (``csrc/sort_keys.cuh``, the lane code of
   ``csrc/sort_keys.cu``; ``rtow_host_sort_keys`` takes the live range over
   the lanes in order, then each key): equal bit for bit to
-  :func:`wavefront.sort_keys_reference` on a packed state with a float32
+  :func:`keys.sort_keys_reference` on a packed state with a float32
   alive row, a window of it (row stride beyond L), the gradient path's
   rows with an int32 alive row, all lanes dead, one live lane and a live
   lane with a NaN direction.  The reference takes a correctly rounded
@@ -75,9 +75,10 @@ from rtow_tpu_torch.models import builders
 from rtow_tpu_torch.models.camera import camera_rays, make_camera
 from rtow_tpu_torch.models.camera import pixel_coords
 from rtow_tpu_torch.models.scene import SceneBuilder
+from rtow_tpu_torch.ops import bounce as bn
 from rtow_tpu_torch.ops import grad
-from rtow_tpu_torch.ops import megakernel as mk
-from rtow_tpu_torch.ops import wavefront as wf
+from rtow_tpu_torch.ops import keys as ky
+from rtow_tpu_torch.ops import tables as tb
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
@@ -196,13 +197,13 @@ class _Case:
     def __init__(self, host, name):
         build, nee = SCENES[name]
         scene, cam = build()
-        self.scene, self.lit = scene, grad.grad_lit(scene, nee)
-        self.tbl, _ = mk.build_sphere_table(scene)
-        self.tris = grad.grad_tri_table(scene) if scene.n_triangles else None
+        self.scene, self.lit = scene, tb.scene_lit(scene, nee=nee)
+        self.tbl, _ = tb.build_sphere_table(scene)
+        self.tris = tb.grad_tri_table(scene) if scene.n_triangles else None
         gen = torch.Generator().manual_seed(SEED)
         pix = torch.arange(SIZE * SIZE).repeat_interleave(SPP)
         s, t = pixel_coords(SIZE, SIZE, gen, pix)
-        cont, ints = mk.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
+        cont, ints = bn.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
                                    "cpu")
         rng = np.random.default_rng(SEED)
         kw = dict(seed=SEED, max_depth=DEPTH, background=scene.background,
@@ -224,7 +225,7 @@ class _Case:
             # whose main sweep hit a sphere / a triangle, in lane order.
             _a, best_t, best_k, _l, _s = grad._replay(
                 cont, ints, self.tbl, self.tris, it, SEED, False, [0, 0, 0])
-            hit = best_t < mk.BIG
+            hit = best_t < bn.BIG
             self.bounces.append(dict(
                 live=ints[0] > 0, fwd=((hc, hi), (pc, pi)),
                 tri_rows=torch.where(hit & (best_k >= npad), best_k - npad,
@@ -241,14 +242,14 @@ class _Case:
 
     def _common(self, it):
         tris = grad._tri_args(self.tris, False)
-        use_sky, bg = mk.background_args(self.scene.background)
+        use_sky, bg = tb.background_args(self.scene.background)
         return tris, (it, SEED, DEPTH, int(use_sky), *bg)
 
     def _lit(self):
         lit = self.lit
         return (_ptr(lit.rows), int(lit.emissive), len(lit.nee_kinds),
-                mk._kind_bits(lit.nee_kinds, "st"), int(lit.checker),
-                len(lit.vol_kinds), mk._kind_bits(lit.vol_kinds, "sbr"),
+                tb.kind_bits(lit.nee_kinds, "st"), int(lit.checker),
+                len(lit.vol_kinds), tb.kind_bits(lit.vol_kinds, "sbr"),
                 lit.vol_row0)
 
     def _host_fwd(self, host, cont, ints, it):
@@ -266,7 +267,7 @@ class _Case:
         light rows (n, R, 14) or None), each lane's own."""
         tris, scalars = self._common(it)
         n, npad = cont.shape[1], self.tbl.shape[0]
-        r = mk.lit_rows(self.lit)
+        r = tb.lit_rows(self.lit)
         cot_in = torch.empty_like(cot)
         winner = torch.empty(n, dtype=torch.int32)
         gw = torch.empty((n, 16))
@@ -435,10 +436,10 @@ def test_sort_keys_lanes_match_plain(host, name, monkeypatch):
                              got.data_ptr())
     sqrt = torch.sqrt
     monkeypatch.setattr(torch, "sqrt", lambda x: sqrt(x.double()).float())
-    want = wf.sort_keys_reference(ray, alive, bmin, inv_ext)
+    want = ky.sort_keys_reference(ray, alive, bmin, inv_ext)
     assert torch.equal(got, want), int((got != want).sum())
     live = alive > 0
-    assert bool((got[~live] == wf.DEAD_KEY).all())
+    assert bool((got[~live] == ky.DEAD_KEY).all())
     assert bool((got[live] < (1 << 30)).all())
     if name == "nan_direction":  # every live direction code 0
         assert not bool((got[live] & 0o0707070707).any())

@@ -34,6 +34,7 @@ from rtow_tpu_torch.models.camera import make_camera
 from rtow_tpu_torch.models.scene import Scene, SceneBuilder
 from rtow_tpu_torch.ops import flat_bounce, grad
 from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 from rtow_tpu_torch.utils.ppm import read_ppm
 
 _PARTS = ("spheres", "triangles", "materials", "volumes")
@@ -155,12 +156,12 @@ def test_k1_lit_matches_pallas(name, roulette, depth):
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jmk.render_spheres_pallas(jscene, jcam, 0, **kw))
     shadows = torch.zeros(1, dtype=torch.int64)
-    tbl, tris = mk.scene_k1_tables(scene)
-    lit = mk.scene_lit(scene, roulette)
+    tbl, tris = tb.k1_tables(scene)
+    lit = tb.scene_lit(scene, nee=scene.has_emissive, roulette=roulette)
     r, g, b = mk.render_blocks(
-        tbl, mk.pack_camera(cam),
-        mk.pack_meta(0, width=24, height=24, spp=2, max_depth=depth),
-        mk.n_tiles_for(24, 24), background=scene.background, tris=tris,
+        tbl, tb.pack_camera(cam),
+        tb.pack_meta(0, width=24, height=24, spp=2, max_depth=depth),
+        tb.n_tiles_for(24, 24), background=scene.background, tris=tris,
         lit=lit, shadows=shadows, pool=False)
     got = mk.unblock_image(r, g, b, width=24, height=24).numpy()
     d = np.abs(got - want).max(axis=1) / 2
@@ -172,15 +173,17 @@ def test_k1_lit_matches_pallas(name, roulette, depth):
 
 def test_lit_features_of_the_scenes():
     (_, _), (cornell, _) = DEMOS["cornell"]()
-    lit = mk.scene_lit(cornell)
+    lit = tb.scene_lit(cornell, nee=cornell.has_emissive)
     assert lit.emissive and lit.nee_kinds == ("t", "t") and lit.any
     assert lit.rows.shape == (2, 14) and not lit.vol_kinds
     (_, _), (smoke, _) = DEMOS["smoke"]()
-    lit = mk.scene_lit(smoke)
+    lit = tb.scene_lit(smoke, nee=smoke.has_emissive)
     assert lit.vol_kinds == ("r", "r") and lit.vol_row0 == 2
     assert lit.rows.shape == (4, 14)
     (_, _), (cover, _) = DEMOS["cover"]()
-    assert not mk.scene_lit(cover).any and mk.scene_lit(cover, True).any
+    nee = cover.has_emissive
+    assert not tb.scene_lit(cover, nee=nee).any
+    assert tb.scene_lit(cover, nee=nee, roulette=True).any
 
 
 @pytest.mark.parametrize("name", time_k1.SCENES)
@@ -191,7 +194,7 @@ def test_time_k1_launches_each_scene(name):
     args, kw = time_k1._frame_args(name, torch.device("cpu"))
     assert kw["lit"].any == (name != "cover")
     assert kw["lit"].roulette == (name == "roulette")
-    assert args[3] == mk.n_tiles_for(*args[2][1:3])
+    assert args[3] == tb.n_tiles_for(*args[2][1:3])
     with pytest.raises(SystemExit):
         time_k1.main(["--runs", "1", name, "no-such-scene"])
 
@@ -200,18 +203,19 @@ def test_shared_memory_check_counts_lit_rows():
     """The kernel stages the light and volume rows beside the sphere
     table: the wrapper's shared-memory check counts them and raises a
     ValueError before any launch.  Tensors on the meta device reach the
-    check without a card: 28 sphere blocks (229,376 bytes) fit alone, and
-    64 staged rows of 14 floats (3,584 bytes) push them over."""
-    tbl = torch.empty((28 * mk.SPHERE_BLOCK, mk.TBL_COLS), device="meta")
+    check without a card: 28 sphere blocks (229,376 bytes) fit the
+    classic instance alone, and 64 staged rows of 14 floats (3,584 bytes)
+    push them over."""
+    tbl = torch.empty((28 * tb.SPHERE_BLOCK, tb.TBL_COLS), device="meta")
     cam = torch.empty(21, device="meta")
-    meta = mk.pack_meta(0, width=8, height=8, spp=1, max_depth=1)
-    lit = mk.Lit(vol_kinds=("s",), vol_row0=63,
+    meta = tb.pack_meta(0, width=8, height=8, spp=1, max_depth=1)
+    lit = tb.Lit(vol_kinds=("s",), vol_row0=63,
                  rows=torch.empty((64, 14), device="meta"))
-    assert mk.lit_rows(lit) == 64
+    assert tb.lit_rows(lit) == 64
     with pytest.raises(ValueError, match="3584 bytes of light and volume"):
-        mk.render_blocks(tbl, cam, meta, 1, lit=lit)
+        mk.render_blocks(tbl, cam, meta, 1, lit=lit, pool=False)
     with pytest.raises(ValueError, match="no megakernel for device meta"):
-        mk.render_blocks(tbl, cam, meta, 1)
+        mk.render_blocks(tbl, cam, meta, 1, pool=False)
 
 
 # ---------------------------------------------------------------------------
@@ -288,7 +292,7 @@ def test_large_meshes_render_lit_features(material, roulette):
     other lane renders as without it) but not its mean."""
     if material == "light":
         scene = _big_mesh(material, background=(0.0, 0.0, 0.0))
-        assert mk.scene_lit(scene).nee_kinds == ("s",)
+        assert tb.scene_lit(scene, nee=scene.has_emissive).nee_kinds == ("s",)
         img = _render_big(scene)
         assert img.mean() > 0.01
         return
@@ -307,7 +311,7 @@ def test_large_mesh_renders_every_lit_feature_at_once():
     over 16,384 triangles: K3's lit bounce takes them together (rows: the
     light, then the volume from ``vol_row0`` 1)."""
     scene = _big_mesh("light fog checker", background=(0.0, 0.0, 0.0))
-    lit = mk.scene_lit(scene, roulette=True)
+    lit = tb.scene_lit(scene, nee=scene.has_emissive, roulette=True)
     assert (lit.emissive, lit.nee_kinds, lit.checker, lit.vol_kinds,
             lit.vol_row0, lit.roulette) == (True, ("s",), True, ("s",), 1,
                                             True)

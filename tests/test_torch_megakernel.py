@@ -35,7 +35,11 @@ from rtow_tpu_torch.config import Config
 from rtow_tpu_torch.models import builders
 from rtow_tpu_torch.models.camera import make_camera
 from rtow_tpu_torch.models.scene import SceneBuilder
+from rtow_tpu_torch.ops import bounce as bn
+from rtow_tpu_torch.ops.lights import TWO_PI
 from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
+from rtow_tpu_torch.utils.rng import hash_uniform, lane_hash, mix, step_salt
 
 
 def _jax_sums(scene, cam, *, width, height, spp, depth, seed=0):
@@ -68,7 +72,7 @@ def lanes_u32():
 
 def test_mix_bit_equal(lanes_u32):
     want = np.asarray(jmk._mix(jnp.asarray(lanes_u32)))
-    got = mk.mix(torch.from_numpy(lanes_u32.astype(np.int64))).numpy()
+    got = mix(torch.from_numpy(lanes_u32.astype(np.int64))).numpy()
     np.testing.assert_array_equal(got, want.astype(np.int64))
 
 
@@ -78,7 +82,7 @@ def test_uniform_bit_equal(lanes_u32, draw):
     for salt in (0, 0x7FFFFFFF, 0xDEADBEEF):
         want = np.asarray(jmk._uniform(jnp.asarray(lanes_u32),
                                        jnp.uint32(salt), draw))
-        got = mk.uniform(lanes, salt, draw).numpy()
+        got = hash_uniform(lanes, salt, draw).numpy()
         np.testing.assert_array_equal(got, want)
 
 
@@ -86,11 +90,11 @@ def test_salt_and_lane_hash_bit_equal():
     for seed, it in ((0, 0), (7, 3), (123, 50_000), (-5, 2**20)):
         want = jmk._mix((jnp.int32(seed) + it * jnp.int32(40503))
                         .astype(jnp.uint32))
-        assert mk.step_salt(seed, it) == int(want)
+        assert step_salt(seed, it) == int(want)
     pix = np.arange(0, 3_000_000, 997, dtype=np.int32)
     want = np.asarray(jmk._mix(jnp.asarray(pix).astype(jnp.uint32)
                                * jnp.uint32(0x9E3779B9)))
-    got = mk.lane_hash(torch.from_numpy(pix.astype(np.int64))).numpy()
+    got = lane_hash(torch.from_numpy(pix.astype(np.int64))).numpy()
     np.testing.assert_array_equal(got, want.astype(np.int64))
 
 
@@ -106,8 +110,8 @@ def test_draw_scatter_matches(lanes_u32):
 
     salt = 0x12345678
     lanes = torch.from_numpy(lanes_u32.astype(np.int64))
-    uz = (1.0 - 2.0 * mk.uniform(lanes, salt, 5)).numpy()
-    uph = (np.float32(mk._TWO_PI) * mk.uniform(lanes, salt, 6).numpy())
+    uz = (1.0 - 2.0 * hash_uniform(lanes, salt, 5)).numpy()
+    uph = (np.float32(TWO_PI) * hash_uniform(lanes, salt, 6).numpy())
     assert uz.dtype == uph.dtype == np.float32
     uxy = np.sqrt(np.maximum(1.0 - uz.astype(np.float64) ** 2, 0.0))
     oracle = (uxy * np.cos(uph.astype(np.float64)),
@@ -118,7 +122,7 @@ def test_draw_scatter_matches(lanes_u32):
                                             jnp.asarray(lanes_u32),
                                             jnp.uint32(salt))],
         "port (torch's float32 cos/sin)": [g.numpy() for g in
-                                           mk.draw_scatter(lanes, salt)],
+                                           bn.draw_scatter(lanes, salt)],
     }
     where = (f"jax platform {jax.devices()[0].platform}, "
              f"torch.get_num_threads() {torch.get_num_threads()}")
@@ -131,7 +135,7 @@ def test_draw_scatter_matches(lanes_u32):
             v = np.asarray(jmk._draw_scatter(jnp.asarray(lanes_u32),
                                              jnp.uint32(salt))[k])
         else:
-            v = mk.draw_scatter(lanes, salt)[k].numpy()
+            v = bn.draw_scatter(lanes, salt)[k].numpy()
         return np.abs(v.astype(np.float64) - o).max()
     for side, got in sides.items():
         for name, g, o in zip(("uvx", "uvy"), got, oracle):
@@ -165,7 +169,7 @@ def _covers(seed, moving, width=64):
 def test_sphere_table_bit_equal(seed, moving):
     (jscene, _), (scene, _) = _covers(seed, moving)
     jtbl, jboxes = jmk.build_sphere_table(jscene)
-    tbl, boxes = mk.build_sphere_table(scene)
+    tbl, boxes = tb.build_sphere_table(scene)
     np.testing.assert_array_equal(tbl.numpy(), np.asarray(jtbl))
     np.testing.assert_array_equal(boxes.numpy(), np.asarray(jboxes))
     if not moving:
@@ -174,7 +178,7 @@ def test_sphere_table_bit_equal(seed, moving):
         sp = scene.spheres
         r = sp.radius.abs()[:, None]
         smin, smax = sp.center0 - r, sp.center0 + r
-        codes = mk._morton_codes(smin.amin(0), smax.amax(0),
+        codes = tb._morton_codes(smin.amin(0), smax.amax(0),
                                  0.5 * (smin + smax))
         assert codes.unique().numel() < codes.numel()
 
@@ -190,17 +194,17 @@ def test_pack_camera_and_meta_match_jax():
         jcam.vertical[0], jcam.vertical[1], jcam.vertical[2],
         jcam.lens_radius, jcam.t0, jcam.t1 - jcam.t0,
     ]).astype(jnp.float32))
-    np.testing.assert_array_equal(mk.pack_camera(cam).numpy(), want)
-    assert mk.pack_meta(3, width=1200, height=675, spp=128, max_depth=50,
+    np.testing.assert_array_equal(tb.pack_camera(cam).numpy(), want)
+    assert tb.pack_meta(3, width=1200, height=675, spp=128, max_depth=50,
                         tile0=85) == (3, 1200, 675, 810000, 85, 128, 50)
     with pytest.raises(ValueError):
-        mk.pack_meta(2**31, width=8, height=8, spp=1, max_depth=1)
+        tb.pack_meta(2**31, width=8, height=8, spp=1, max_depth=1)
 
 
 def test_unblock_image_matches_jax():
     width, height = 200, 20
-    rows = mk.n_tiles_for(width, height) * mk.TILE_ROWS
-    planes = np.random.default_rng(3).random((3, rows, mk.LANES),
+    rows = tb.n_tiles_for(width, height) * tb.TILE_ROWS
+    planes = np.random.default_rng(3).random((3, rows, tb.LANES),
                                              dtype=np.float32)
     want = np.asarray(jmk.unblock_image(*map(jnp.asarray, planes),
                                         width=width, height=height))
@@ -262,13 +266,13 @@ def test_exact_sample_accounting(const_bg, spp):
 
 def test_out_of_image_lanes_stay_zero(const_bg):
     scene, cam = const_bg
-    tbl, _ = mk.build_sphere_table(scene)
-    meta = mk.pack_meta(0, width=24, height=20, spp=3, max_depth=2)
-    r, g, b = mk.render_blocks(tbl, mk.pack_camera(cam), meta,
-                               mk.n_tiles_for(24, 20),
+    tbl, _ = tb.build_sphere_table(scene)
+    meta = tb.pack_meta(0, width=24, height=20, spp=3, max_depth=2)
+    r, g, b = mk.render_blocks(tbl, tb.pack_camera(cam), meta,
+                               tb.n_tiles_for(24, 20),
                                background=scene.background, pool=False)
     # One tile column: block rows are image rows.
-    assert r.shape == (3 * mk.TILE_ROWS, mk.LANES)
+    assert r.shape == (3 * tb.TILE_ROWS, tb.LANES)
     for plane in (r, g, b):
         assert bool((plane[:20, :24] == 3).all())
         assert float(plane[20:].abs().sum() + plane[:, 24:].abs().sum()) == 0
@@ -283,9 +287,9 @@ def test_wrapper_on_cpu_counts_no_launch(const_bg):
 
 def test_wrapper_rejects_other_devices_and_bad_inputs(const_bg):
     scene, cam = const_bg
-    tbl, _ = mk.build_sphere_table(scene)
-    camv = mk.pack_camera(cam)
-    meta = mk.pack_meta(0, width=8, height=8, spp=1, max_depth=1)
+    tbl, _ = tb.build_sphere_table(scene)
+    camv = tb.pack_camera(cam)
+    meta = tb.pack_meta(0, width=8, height=8, spp=1, max_depth=1)
     with pytest.raises(ValueError, match="no megakernel"):
         mk.render_blocks(tbl.to("meta"), camv.to("meta"), meta, 1)
     with pytest.raises(ValueError, match="sphere table"):

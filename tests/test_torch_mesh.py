@@ -35,6 +35,7 @@ from rtow_tpu_torch.models import builders
 from rtow_tpu_torch.models.camera import make_camera
 from rtow_tpu_torch.models.scene import Scene, SceneBuilder
 from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 from rtow_tpu_torch.utils import obj
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -194,17 +195,17 @@ def test_tri_table_bit_equal(segments, rings, width):
     jscene, scene = _knot_scenes(segments, rings)
     n = scene.n_triangles
     if width == "pick":
-        with jmk.tri_block_for(n) as tb:
+        with jmk.tri_block_for(n) as block:
             want = jmk.build_tri_table(jscene)
-        assert mk.pick_tri_block(n) == tb
+        assert tb.pick_tri_block(n) == block
     else:
-        tb = width
-        assert jmk.TRI_BLOCK == tb == mk.K1_TRI_BLOCK  # what K1 reads
+        block = width
+        assert jmk.TRI_BLOCK == block == tb.K1_TRI_BLOCK  # what K1 reads
         want = jmk.build_tri_table(jscene)
-    got = mk.build_tri_table(scene, tb)
+    got = tb.build_tri_table(scene, block)
     for name, g, w in zip(("tbl", "boxes", "supers", "hypers"), got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=name)
-    assert got.count == n and got.block == tb
+    assert got.count == n and got.block == block
     levels = {(16, 12): (0, 0), (64, 64): (2, 0), (256, 256): (32, 2)}
     if width == "pick":
         assert (got.n_super, got.n_hyper) == levels[(segments, rings)]
@@ -232,11 +233,11 @@ def test_k1_knot_and_sphere_matches_pallas():
             jb.build(), jax_make_camera(**cam_kw), 0, **kw))
     scene = b.build(device="cpu")
     tests = torch.zeros(2, dtype=torch.int64)
-    tbl, tris = mk.scene_k1_tables(scene)
+    tbl, tris = tb.k1_tables(scene)
     r, g, bl = mk.render_blocks(
-        tbl, mk.pack_camera(make_camera(device="cpu", **cam_kw)),
-        mk.pack_meta(0, width=32, height=32, spp=2, max_depth=4),
-        mk.n_tiles_for(32, 32), tris=tris, tests=tests, pool=False)
+        tbl, tb.pack_camera(make_camera(device="cpu", **cam_kw)),
+        tb.pack_meta(0, width=32, height=32, spp=2, max_depth=4),
+        tb.n_tiles_for(32, 32), tris=tris, tests=tests, pool=False)
     got = mk.unblock_image(r, g, bl, width=32, height=32).numpy()
     d = np.abs(got - want).max(axis=1) / 2
     assert np.mean(d <= 1e-4) >= 0.95

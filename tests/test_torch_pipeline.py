@@ -3,9 +3,12 @@ render_auto -> PPM, against rtow_tpu's ``render_pallas`` in interpret
 mode, plus the CLI surface.
 
 The JAX side runs the CLASSIC scheduler (``tests/conftest.py`` sets
-``RTOW_POOL=0``).  Tolerance for the cover frame: at least 95% of pixels
-within 1e-4 of mean radiance and mean |difference| at most 5e-3 (see
-tests/test_torch_megakernel.py for why a few pixels flip).
+``RTOW_POOL=0``), the port K1's work pool, which at these samples per
+pixel (at most one 16-sample item a pixel) renders the classic image bit
+for bit (``test_pool_of_one_chunk_is_classic``).  Tolerance for the
+cover frame: at least 95% of pixels within 1e-4 of mean radiance and
+mean |difference| at most 5e-3 (see tests/test_torch_megakernel.py for
+why a few pixels flip).
 """
 import json
 import os
@@ -25,6 +28,7 @@ from rtow_tpu_torch import cli, pipeline
 from rtow_tpu_torch.config import Config
 from rtow_tpu_torch.models.builders import scene_for_config
 from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 from rtow_tpu_torch.pipeline import render_auto, render_megakernel
 from rtow_tpu_torch.utils.ppm import read_ppm, tonemap
 
@@ -35,7 +39,7 @@ def test_slice_matches_render_pallas():
     kw = dict(image_width=32, aspect_ratio=16.0 / 9.0, samples_per_pixel=2,
               max_child_rays=4)
     jcfg = JaxConfig(backend="pallas", **kw)
-    assert os.environ["RTOW_POOL"] == "0"  # classic scheduler (conftest)
+    assert os.environ["RTOW_POOL"] == "0"  # JAX's classic (conftest)
     with pltpu.force_tpu_interpret_mode():
         want = render_pallas(*jax_scene_for_config(jcfg), jcfg)
     cfg = Config(device="cpu", **kw)
@@ -53,7 +57,7 @@ def test_banded_progress_path_bit_identical(capsys, monkeypatch):
     ticker once cut into 10 bands), and ends the ticker at 0."""
     cfg = Config(device="cpu", image_width=130, aspect_ratio=130 / 80,
                  samples_per_pixel=1, max_child_rays=3, seed=5)
-    assert mk.n_tiles_for(cfg.image_width, cfg.image_height) == 20
+    assert tb.n_tiles_for(cfg.image_width, cfg.image_height) == 20
     scene, cam = scene_for_config(cfg)
     whole = render_megakernel(scene, cam, cfg)
     calls = []

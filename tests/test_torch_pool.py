@@ -52,6 +52,7 @@ from rtow_tpu_torch.models import builders
 from rtow_tpu_torch.models.camera import make_camera
 from rtow_tpu_torch.models.scene import SceneBuilder
 from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 
 W = H = 24
 
@@ -84,13 +85,14 @@ def _jax_pool(monkeypatch, scene, cam, *, spp, depth, width=W, height=H,
 
 def _port(scene, cam, *, spp, depth, width=W, height=H, roulette=False,
           pool=True, seed=0, steps=None, slots=None, **kw):
-    tbl, tris = mk.scene_k1_tables(scene)
+    tbl, tris = tb.k1_tables(scene)
     r, g, b = mk.render_blocks(
-        tbl, mk.pack_camera(cam),
-        mk.pack_meta(seed, width=width, height=height, spp=spp,
+        tbl, tb.pack_camera(cam),
+        tb.pack_meta(seed, width=width, height=height, spp=spp,
                      max_depth=depth),
-        mk.n_tiles_for(width, height), background=scene.background,
-        tris=tris, lit=mk.scene_lit(scene, roulette), pool=pool,
+        tb.n_tiles_for(width, height), background=scene.background,
+        tris=tris, lit=tb.scene_lit(scene, nee=scene.has_emissive,
+                                    roulette=roulette), pool=pool,
         steps=steps, slots=slots, **kw)
     return mk.unblock_image(r, g, b, width=width, height=height).numpy()
 
@@ -123,7 +125,7 @@ def test_pool_exact_sample_accounting(spp):
     # One step a sample (every ray leaves for the background at once);
     # the 3 tiles' 24 rows of 128 lanes each hold a slot per iteration.
     assert int(steps) == W * H * spp
-    assert int(slots) % mk.LANES == 0 and int(slots) >= int(steps)
+    assert int(slots) % tb.LANES == 0 and int(slots) >= int(steps)
 
 
 @pytest.mark.parametrize("spp", [17, 40])
@@ -135,12 +137,12 @@ def test_pool_exact_accounting_partial_width(spp):
     the image end with nothing."""
     scene, cam = _white("cpu")
     width = 130
-    tbl, _ = mk.build_sphere_table(scene)
-    meta = mk.pack_meta(0, width=width, height=8, spp=spp, max_depth=2)
-    r, g, b = mk.render_blocks(tbl, mk.pack_camera(cam), meta,
-                               mk.n_tiles_for(width, 8),
+    tbl, _ = tb.build_sphere_table(scene)
+    meta = tb.pack_meta(0, width=width, height=8, spp=spp, max_depth=2)
+    r, g, b = mk.render_blocks(tbl, tb.pack_camera(cam), meta,
+                               tb.n_tiles_for(width, 8),
                                background=scene.background, pool=True)
-    assert r.shape == (2 * mk.TILE_ROWS, mk.LANES)
+    assert r.shape == (2 * tb.TILE_ROWS, tb.LANES)
     img = mk.unblock_image(r, g, b, width=width, height=8).numpy()
     np.testing.assert_array_equal(img, float(spp))
     for plane in (r, g, b):
@@ -180,7 +182,7 @@ def test_pool_three_sphere_matches_jax(monkeypatch):
     # JAX's counters per tile: [3] the tile's iterations, [4] its
     # live-lane-iterations.  A row runs at most as long as its tile.
     assert abs(int(steps) - int(st[:, 4].sum())) <= 1e-3 * st[:, 4].sum()
-    assert int(slots) <= mk.TILE * int(st[:, 3].sum())
+    assert int(slots) <= tb.TILE * int(st[:, 3].sum())
 
 
 def test_pool_cover_depth0_matches_jax(monkeypatch):
@@ -274,7 +276,8 @@ def test_pool_features_match_jax(monkeypatch, name):
     assert np.mean(d <= 1e-4) >= 0.95
     assert np.abs(got - want).mean() / spp <= 5e-3
     assert np.isfinite(got).all() and got.std() > 0.01
-    assert (int(shadows) > 0) == bool(mk.scene_lit(scene).nee_kinds)
+    lit = tb.scene_lit(scene, nee=scene.has_emissive)
+    assert (int(shadows) > 0) == bool(lit.nee_kinds)
 
 
 # ---------------------------------------------------------------------------
@@ -306,45 +309,41 @@ def test_pool_of_one_chunk_is_classic():
 
 
 def test_pool_none_follows_env_and_arguments_override(monkeypatch):
+    """render_blocks' arguments pick the scheduler and the hand-out, with
+    the JAX package's defaults (the pool, 16-sample items every 4
+    iterations); ``RTOW_POOL*`` in the environment changes nothing; a
+    chunk or period of 0 raises."""
     scene, cam = builders.three_sphere_scene(1.0, device="cpu")
     kw = dict(spp=24, depth=3, width=16, height=16)
     pool = _port(scene, cam, pool=True, **kw)
     classic = _port(scene, cam, pool=False, **kw)
     assert not np.array_equal(pool, classic)
-    monkeypatch.setenv("RTOW_POOL", "1")
-    assert mk.pool_knobs() == mk.Pool(True, 16, 4)
-    np.testing.assert_array_equal(_port(scene, cam, pool=None, **kw), pool)
+    np.testing.assert_array_equal(
+        _port(scene, cam, pool=True, pool_chunk=16, pool_k=4, **kw), pool)
+    for name, value in (("RTOW_POOL", "0"), ("RTOW_POOL_CHUNK", "5"),
+                        ("RTOW_POOL_K", "2")):
+        monkeypatch.setenv(name, value)
+    np.testing.assert_array_equal(_port(scene, cam, pool=True, **kw), pool)
     np.testing.assert_array_equal(_port(scene, cam, pool=False, **kw),
                                   classic)
-    monkeypatch.setenv("RTOW_POOL", "0")
-    np.testing.assert_array_equal(_port(scene, cam, pool=None, **kw),
-                                  classic)
-    np.testing.assert_array_equal(_port(scene, cam, pool=True, **kw), pool)
-    monkeypatch.delenv("RTOW_POOL")
-    assert mk.pool_knobs().on  # the JAX package's default
-    monkeypatch.setenv("RTOW_POOL_CHUNK", "5")
-    monkeypatch.setenv("RTOW_POOL_K", "2")
-    assert mk.pool_knobs() == mk.Pool(True, 5, 2)
-    assert mk.pool_knobs(pool=False, pool_chunk=3, pool_k=7) == mk.Pool(
-        False, 3, 7)
-    other = _port(scene, cam, pool=None, **kw)
+    other = _port(scene, cam, pool=True, pool_chunk=5, pool_k=2, **kw)
     assert not np.array_equal(other, pool)  # another hand-out
-    np.testing.assert_array_equal(
-        other, _port(scene, cam, pool=True, pool_chunk=5, pool_k=2, **kw))
-    with pytest.raises(ValueError, match="pool chunk"):
-        mk.pool_knobs(pool_chunk=0)
+    for bad in (dict(pool_chunk=0), dict(pool_k=0)):
+        with pytest.raises(ValueError, match="pool chunk"):
+            _port(scene, cam, **bad, **kw)
 
 
 @pytest.mark.parametrize("chunk,k", [(5, 2), (16, 1)])
 def test_pool_knobs_match_jax(monkeypatch, chunk, k):
-    """Other items and hand-out periods, as JAX reads them from
-    ``RTOW_POOL_CHUNK`` / ``RTOW_POOL_K``."""
+    """Other items and hand-out periods: JAX reads them from
+    ``RTOW_POOL_CHUNK`` / ``RTOW_POOL_K``, the port takes them as
+    ``render_blocks``' arguments."""
     monkeypatch.setenv("RTOW_POOL_CHUNK", str(chunk))
     monkeypatch.setenv("RTOW_POOL_K", str(k))
     want = _jax_pool(monkeypatch, *jax_builders.three_sphere_scene(1.0),
                      spp=11, depth=3, width=16, height=16)
     got = _port(*builders.three_sphere_scene(1.0, device="cpu"), spp=11,
-                depth=3, width=16, height=16, pool=None)
+                depth=3, width=16, height=16, pool_chunk=chunk, pool_k=k)
     assert np.mean(_pixel_diff(got, want, 11) > 1e-4) <= 0.01
 
 
@@ -362,14 +361,14 @@ def test_pool_occupancy_counters():
         out[pool] = int(steps), int(slots)
     for steps, slots in out.values():
         assert 0 < steps <= slots
-    assert out[False][1] % 32 == 0 and out[True][1] % mk.LANES == 0
+    assert out[False][1] % 32 == 0 and out[True][1] % tb.LANES == 0
 
 
 def test_pipeline_follows_env_and_bands_keep_pixels(monkeypatch):
-    """render_megakernel runs the scheduler RTOW_POOL names (unset: the
-    pool, the JAX package's default); the 10-band ticker path renders the
-    same image as the whole-frame launch under the pool too (the pool
-    works per tile)."""
+    """render_megakernel runs the pool (the JAX package's default)
+    whatever ``RTOW_POOL`` says; the 10-band ticker path renders the same
+    image as the whole-frame launch under the pool too (the pool works
+    per tile)."""
     from rtow_tpu_torch.models.builders import scene_for_config
     from rtow_tpu_torch.pipeline import render_megakernel
 
@@ -381,12 +380,12 @@ def test_pipeline_follows_env_and_bands_keep_pixels(monkeypatch):
     whole = render_megakernel(scene, cam, cfg)
     np.testing.assert_array_equal(
         render_megakernel(scene, cam, cfg, progress=True), whole)
-    monkeypatch.setenv("RTOW_POOL", "1")
-    np.testing.assert_array_equal(render_megakernel(scene, cam, cfg), whole)
     monkeypatch.setenv("RTOW_POOL", "0")
-    classic = render_megakernel(scene, cam, cfg)
-    assert not np.array_equal(classic, whole)
+    np.testing.assert_array_equal(render_megakernel(scene, cam, cfg), whole)
+    classic = mk.render_spheres(scene, cam, cfg.seed, width=130, height=80,
+                                spp=17, max_depth=3, pool=False).numpy()
+    assert not np.array_equal(classic / 17.0, whole.reshape(-1, 3))
     sums = mk.render_spheres(scene, cam, cfg.seed, width=130, height=80,
-                             spp=17, max_depth=3, pool=True).numpy()
+                             spp=17, max_depth=3).numpy()
     np.testing.assert_allclose(whole.reshape(-1, 3), sums / 17.0,
                                rtol=1e-6)

@@ -24,7 +24,10 @@ import torch
 
 from rtow_tpu_torch.config import Config
 from rtow_tpu_torch.models.builders import cover_scene
+from rtow_tpu_torch.ops import bounce as bn
 from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
+from rtow_tpu_torch.utils.rng import lane_hash, mix, step_salt
 
 N_RAYS, SEED = 1024, 3
 #: The cover's layout seeds: each lays out another ball field.
@@ -35,17 +38,17 @@ SCENE_SEEDS = (0, 1, 2, 3)
 def _cover(moving, scene_seed=0):
     scene, cam = cover_scene(Config(device="cpu", moving_spheres=moving,
                                     image_width=64, seed=scene_seed))
-    tbl, _ = mk.build_sphere_table(scene)
+    tbl, _ = tb.build_sphere_table(scene)
     return scene, cam, tbl
 
 
 def _camera_rays(cam, n):
     """Camera rays as K1 regenerates them (lens and shutter jitter)."""
-    vec = [float(x) for x in mk.pack_camera(cam)]
+    vec = [float(x) for x in tb.pack_camera(cam)]
     g = torch.arange(n, dtype=torch.int64)
     side = int(np.sqrt(n))
-    lane = mk.lane_hash(g)
-    salt = mk.step_salt(SEED, 0)
+    lane = lane_hash(g)
+    salt = step_salt(SEED, 0)
     fcol = (g % side).to(torch.float32)
     frow = (g // side).to(torch.float32)
     inv = float(np.float32(1.0) / np.float32(side - 1))
@@ -55,10 +58,10 @@ def _camera_rays(cam, n):
 def _sweep_both(tbl, groups, ray, t_init=None):
     ox, oy, oz, dx, dy, dz, tm = ray
     a = dx * dx + dy * dy + dz * dz
-    brute = mk.nearest_sphere(tbl, ox, oy, oz, dx, dy, dz, tm, a, 1.0 / a,
+    brute = bn.nearest_sphere(tbl, ox, oy, oz, dx, dy, dz, tm, a, 1.0 / a,
                               t_init=t_init)
     tally = [0] * 5
-    culled = mk.nearest_sphere_culled(tbl, groups, ox, oy, oz, dx, dy, dz,
+    culled = bn.nearest_sphere_culled(tbl, groups, ox, oy, oz, dx, dy, dz,
                                       tm, a, 1.0 / a, t_init=t_init,
                                       tally=tally)
     return brute, culled, tally
@@ -82,7 +85,7 @@ def _rays(scene, cam, tbl, kind):
         # Half aimed at group-box corners and edges, half tangent to a
         # sphere at time tm (|d| x distance off by ~1e-6 of the radius).
         org = rng.uniform([-12.0, 0.05, -12.0], [12.0, 3.0, 12.0], (n, 3))
-        boxes = mk.sphere_groups(tbl).numpy()
+        boxes = tb.sphere_groups(tbl).numpy()
         boxes = boxes[boxes[:, 0] < boxes[:, 3]]
         b = boxes[rng.integers(0, len(boxes), n // 2)]
         pick = rng.integers(0, 2, (n // 2, 3))
@@ -106,8 +109,8 @@ def _rays(scene, cam, tbl, kind):
         ray = _camera_rays(cam, n)
         ox, oy, oz, dx, dy, dz, tmc = ray
         a = dx * dx + dy * dy + dz * dz
-        t, _ = mk.nearest_sphere(tbl, *ray, a, 1.0 / a)
-        t = torch.where(t < mk.BIG, t, 1.0)
+        t, _ = bn.nearest_sphere(tbl, *ray, a, 1.0 / a)
+        t = torch.where(t < bn.BIG, t, 1.0)
         org = np.stack([(o + t * dd).numpy() for o, dd in
                         ((ox, dx), (oy, dy), (oz, dz))], axis=1)
         d = rng.standard_normal((n, 3))
@@ -124,15 +127,15 @@ def _rays(scene, cam, tbl, kind):
 def test_culled_sweep_bit_identical_to_brute_force(moving, kind, scene_seed):
     scene, cam, tbl = _cover(moving, scene_seed)
     ray, t_init = _rays(scene, cam, tbl, kind)
-    groups = mk.sphere_groups(tbl, mk.camera_shutter(mk.pack_camera(cam)))
+    groups = tb.sphere_groups(tbl, tb.camera_shutter(tb.pack_camera(cam)))
     (bt, bk), (ct, ck), tally = _sweep_both(tbl, groups, ray, t_init)
     assert torch.equal(ck, bk)
     assert torch.equal(ct.view(torch.int32), bt.view(torch.int32))
     # The rays reach the table, and the cull skips rows.
-    hit = float(((bt < (mk.BIG if t_init is None else t_init))
+    hit = float(((bt < (bn.BIG if t_init is None else t_init))
                  ).float().mean())
     assert 0.02 < hit <= 1.0, hit
-    n_groups = tbl.shape[0] // mk.SPHERE_GROUP
+    n_groups = tbl.shape[0] // tb.SPHERE_GROUP
     assert tally[3] == n_groups * N_RAYS
     assert 0 < tally[4] < tbl.shape[0] * N_RAYS
 
@@ -143,8 +146,8 @@ def test_culled_sweep_bit_identical_to_brute_force(moving, kind, scene_seed):
 @pytest.mark.parametrize("moving", [True, False], ids=["moving", "static"])
 def test_rows_inside_their_group_box(moving, shutter, scene_seed):
     scene, _, tbl = _cover(moving, scene_seed)
-    width = mk.SPHERE_GROUP
-    boxes = mk.sphere_groups(tbl, shutter).numpy()
+    width = tb.SPHERE_GROUP
+    boxes = tb.sphere_groups(tbl, shutter).numpy()
     assert boxes.shape == (tbl.shape[0] // width, 8)
     t = tbl.numpy().astype(np.float64)
     n = scene.n_spheres
@@ -166,8 +169,8 @@ def test_rows_inside_their_group_box(moving, shutter, scene_seed):
     lanes = torch.arange(N_RAYS)
     for g in range(-(-n // width), len(boxes)):
         assert np.all(boxes[g, 0:6] == np.inf)
-        assert mk.box_entered(boxes[g].tolist(), org, inv,
-                              torch.full((N_RAYS,), mk.BIG),
+        assert bn.box_entered(boxes[g].tolist(), org, inv,
+                              torch.full((N_RAYS,), bn.BIG),
                               lanes).numel() == 0
 
 
@@ -177,7 +180,7 @@ def _numpy_count(tbl, groups, ray, t_init):
     f = np.float32
     T = tbl.numpy()
     B = groups.numpy()
-    w = mk.SPHERE_GROUP
+    w = tb.SPHERE_GROUP
     ox, oy, oz, dx, dy, dz, tm = (v.numpy() for v in ray)
     boxes = rows = 0
     for i in range(ox.shape[0]):
@@ -187,7 +190,7 @@ def _numpy_count(tbl, groups, ray, t_init):
         inv_a = f(f(1.0) / a)
         with np.errstate(divide="ignore", invalid="ignore"):
             inv = f(1.0) / d
-        bt = f(mk.BIG) if t_init is None else f(t_init[i])
+        bt = f(bn.BIG) if t_init is None else f(t_init[i])
         for g in range(B.shape[0]):
             boxes += 1
             with np.errstate(invalid="ignore", over="ignore"):
@@ -195,7 +198,7 @@ def _numpy_count(tbl, groups, ray, t_init):
                 t1 = (B[g, 3:6] - o) * inv
             lo, hi = np.fmin(t0, t1), np.fmax(t0, t1)
             enter = np.fmax(np.fmax(lo[0], lo[1]), np.fmax(lo[2],
-                                                          f(mk.T_MIN)))
+                                                          f(bn.T_MIN)))
             exit_ = np.fmin(np.fmin(hi[0], hi[1]), np.fmin(hi[2], bt))
             if not exit_ > enter:
                 continue
@@ -211,8 +214,8 @@ def _numpy_count(tbl, groups, ray, t_init):
                     continue
                 sq = np.sqrt(disc)
                 near = f(f(-h - sq) * inv_a)
-                v = near if near >= mk.T_MIN else f(f(-h + sq) * inv_a)
-                if v >= mk.T_MIN and v < bt:
+                v = near if near >= bn.T_MIN else f(f(-h + sq) * inv_a)
+                if v >= bn.T_MIN and v < bt:
                     bt = v
     return boxes, rows
 
@@ -224,7 +227,7 @@ def test_counters_equal_a_numpy_count(kind, scene_seed):
     ray, t_init = _rays(scene, cam, tbl, kind)
     ray = tuple(v[:96] for v in ray)
     t_init = None if t_init is None else t_init[:96]
-    groups = mk.sphere_groups(tbl)
+    groups = tb.sphere_groups(tbl)
     _, _, tally = _sweep_both(tbl, groups, ray, t_init)
     assert tuple(tally[3:]) == _numpy_count(tbl, groups, ray, t_init)
 
@@ -235,16 +238,16 @@ def test_ground_group_entered_by_rays_at_the_ground():
     ground in any direction, sweeps that group (``chip_smoke.py`` bounds
     its share of the rows swept by its width times the sweeps)."""
     scene, cam, tbl = _cover(True)
-    ground = int(torch.nonzero(tbl[:, mk._R] == 1000.0))
+    ground = int(torch.nonzero(tbl[:, tb._R] == 1000.0))
     cam_ray, _ = _rays(scene, cam, tbl, "camera")
     a = cam_ray[3] * cam_ray[3] + cam_ray[4] * cam_ray[4] + cam_ray[5] ** 2
-    _, k = mk.nearest_sphere(tbl, *cam_ray, a, 1.0 / a)
+    _, k = bn.nearest_sphere(tbl, *cam_ray, a, 1.0 / a)
     lanes = torch.nonzero(k == ground).flatten()
     assert lanes.numel() > N_RAYS // 8
     for kind in ("camera", "shadow"):  # shadow: from the camera rays' hits
         ray, _ = _rays(scene, cam, tbl, kind)
         inv = tuple(1.0 / d for d in ray[3:6])
-        box = mk.sphere_groups(tbl)[ground // mk.SPHERE_GROUP].tolist()
-        entered = mk.box_entered(box, ray[:3], inv,
-                                 torch.full((N_RAYS,), mk.BIG), lanes)
+        box = tb.sphere_groups(tbl)[ground // tb.SPHERE_GROUP].tolist()
+        entered = bn.box_entered(box, ray[:3], inv,
+                                 torch.full((N_RAYS,), bn.BIG), lanes)
         assert torch.equal(entered, lanes), kind

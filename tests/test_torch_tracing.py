@@ -20,7 +20,7 @@ from rtow_tpu_torch.models.builders import scene_for_config
 from rtow_tpu_torch.models.camera import camera_rays, make_camera
 from rtow_tpu_torch.models.scene import SceneBuilder
 from rtow_tpu_torch.ops import grad
-from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 from rtow_tpu_torch.ops import wavefront as wf
 from rtow_tpu_torch.pipeline import render_auto
 from rtow_tpu_torch.utils import profiling
@@ -187,14 +187,14 @@ def test_trace_lanes_counts_a_live_count_sync_a_bounce():
     b = SceneBuilder()
     b.add_mesh(verts[faces], b.add_lambertian((0.6, 0.5, 0.4)))
     scene = b.build(device="cpu")
-    tables, bmin, inv_ext = wf.scene_tables(scene)
-    n = 16 * mk.TILE
+    tables, bmin, inv_ext = tb.k3_tables(scene)
+    n = 16 * tb.TILE
     cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
                       fov_degrees=45.0, aspect_ratio=1.0, aperture=0.0,
                       focus_dist=3.0, device="cpu")
     gen = torch.Generator().manual_seed(4)
     s, t = torch.rand(n, generator=gen), torch.rand(n, generator=gen)
-    state = wf.lane_state(camera_rays(cam, gen, s, t), n)
+    state = wf.packed_state(camera_rays(cam, gen, s, t), n)
     levels = []
     _, ev = recorded(lambda: wf.trace_lanes(
         state, 3, max_depth=4, tables=tables, bmin=bmin, inv_ext=inv_ext,

@@ -44,8 +44,10 @@ from rtow_tpu.render import render as jax_render
 from rtow_tpu_torch.config import Config
 from rtow_tpu_torch.models.camera import make_camera
 from rtow_tpu_torch.models.scene import SceneBuilder
+from rtow_tpu_torch.ops import bounce as bn
 from rtow_tpu_torch.ops import flat_bounce as fb
-from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import keys as ky
+from rtow_tpu_torch.ops import tables as tb
 from rtow_tpu_torch.ops import wavefront as wf
 from rtow_tpu_torch.pipeline import render_auto
 
@@ -127,10 +129,11 @@ def test_sort_keys_match_jax():
     want = np.asarray(jwf.sort_keys(*map(jnp.asarray, st[:6]),
                                     jnp.asarray(st[13].astype(np.int32)),
                                     jnp.asarray(bmin), jnp.asarray(inv_ext)))
-    got = wf.sort_keys(torch.from_numpy(st), torch.from_numpy(st[13]),
+    got = ky.sort_keys(torch.from_numpy(st), torch.from_numpy(st[13]),
                        torch.from_numpy(bmin), torch.from_numpy(inv_ext)).numpy()
     dead = st[13] == 0
-    assert (got[dead] == wf.DEAD_KEY).all() and (want[dead] == wf.DEAD_KEY).all()
+    assert (got[dead] == ky.DEAD_KEY).all()
+    assert (want[dead] == ky.DEAD_KEY).all()
     assert np.mean(got == want) >= 0.999
     assert len(np.unique(got[~dead])) > 1000
 
@@ -148,11 +151,11 @@ def test_sort_keys_give_k3_keys_bit_for_bit():
     state = torch.from_numpy(st)
     bmin = torch.tensor([-1.0, -0.9, -0.5])
     inv_ext = 1.0 / torch.tensor([2.0, 1.8, 1.0])
-    k3 = wf.sort_keys(state, state[13], bmin, inv_ext)
-    grad_path = wf.sort_keys(state[:13].clone(), state[13].to(torch.int32),
+    k3 = ky.sort_keys(state, state[13], bmin, inv_ext)
+    grad_path = ky.sort_keys(state[:13].clone(), state[13].to(torch.int32),
                              bmin, inv_ext)
     assert torch.equal(k3, grad_path)
-    assert (k3 == wf.DEAD_KEY).sum() == (st[13] == 0).sum()
+    assert (k3 == ky.DEAD_KEY).sum() == (st[13] == 0).sum()
     assert len(torch.unique(k3)) > 1000
 
 
@@ -172,7 +175,7 @@ def test_sort_keys_device_scalar_keeps_the_keys(seed, codes, monkeypatch):
     state = torch.from_numpy(st)
     bmin = torch.tensor([-1.0, -0.9, -0.5])
     inv_ext = 1.0 / torch.tensor([2.0, 1.8, 1.0])
-    now = wf.sort_keys_reference(state, state[13], bmin, inv_ext)
+    now = ky.sort_keys_reference(state, state[13], bmin, inv_ext)
     full = torch.full
 
     def host_scalar(size, fill, **kw):
@@ -180,7 +183,7 @@ def test_sort_keys_device_scalar_keeps_the_keys(seed, codes, monkeypatch):
         return torch.tensor(fill, **kw)
 
     monkeypatch.setattr(torch, "full", host_scalar)
-    before = wf.sort_keys_reference(state, state[13], bmin, inv_ext)
+    before = ky.sort_keys_reference(state, state[13], bmin, inv_ext)
     assert torch.equal(now, before)
     assert torch.equal(full((), 31.999, dtype=torch.float32),
                        torch.tensor(31.999, dtype=torch.float32))
@@ -208,8 +211,8 @@ def test_morton_pixel_perm_matches_jax(wh):
 ])
 def test_bounce_step_matches_pallas(segments, rings, spheres):
     jscene, scene = _knot_scenes(segments, rings, spheres)
-    tables, _bmin, _inv = wf.scene_tables(scene)
-    st = _camera_state(mk.TILE, 24, seed=segments)
+    tables, _bmin, _inv = tb.k3_tables(scene)
+    st = _camera_state(tb.TILE, 24, seed=segments)
     depth, seed = 5, 11
     with jmk.tri_block_for(jscene.n_triangles):
         jtables, counts, _, _ = jwf._scene_tables(jscene)
@@ -230,7 +233,7 @@ def test_bounce_step_matches_pallas(segments, rings, spheres):
             np.testing.assert_array_equal(got[15], want[15])
             err = np.abs(got[:13, same] - want[:13, same])
             assert (err <= 2e-5 * (1.0 + np.abs(want[:13, same]))).all(), it
-            assert 0 < (want[13] > 0).sum() < mk.TILE - 24
+            assert 0 < (want[13] > 0).sum() < tb.TILE - 24
             st = want  # the next bounce starts both sides from one state
 
 
@@ -238,7 +241,7 @@ def test_hierarchy_finds_the_flat_winners():
     """The 131,072-triangle knot (hypers, supers, blocks) against the flat
     sweep, for 4,096 random rays."""
     _, scene = _knot_scenes(256, 256)
-    tris = mk.build_tri_table(scene, mk.pick_tri_block(scene.n_triangles))
+    tris = tb.build_tri_table(scene, tb.pick_tri_block(scene.n_triangles))
     assert tris.n_hyper == 2 and tris.n_super == 32
     rng = np.random.default_rng(3)
     n = 4096
@@ -246,12 +249,12 @@ def test_hierarchy_finds_the_flat_winners():
     o = (2.0 * o / np.linalg.norm(o, axis=0)).astype(np.float32)
     d = (rng.uniform(-0.8, 0.8, (3, n)) - o).astype(np.float32)
     ray = [torch.from_numpy(x) for x in (*o, *d)]
-    start = (torch.full((n,), mk.BIG), torch.zeros(n, dtype=torch.int64))
+    start = (torch.full((n,), bn.BIG), torch.zeros(n, dtype=torch.int64))
     tally = [0, 0]
-    hier = mk.nearest_triangle(tris, *ray, *start, 0, tally=tally)
-    flat = mk.nearest_triangle(tris, *ray, *start, 0, flat=True)
+    hier = bn.nearest_triangle(tris, *ray, *start, 0, tally=tally)
+    flat = bn.nearest_triangle(tris, *ray, *start, 0, flat=True)
     assert torch.equal(hier[0], flat[0]) and torch.equal(hier[1], flat[1])
-    hits = int((hier[0] < mk.BIG).sum())
+    hits = int((hier[0] < bn.BIG).sum())
     assert 500 < hits < n
     assert tally[1] < n * tris.count // 20  # the hierarchy culls
 
@@ -268,7 +271,7 @@ def test_exact_sample_accounting():
     b.add_mesh(verts[faces], b.add_lambertian((0.5,) * 3),
                translate=(0.0, 0.0, 50.0))
     scene = b.build(background=(1.0, 1.0, 1.0), device="cpu")
-    assert scene.n_triangles > wf.WAVEFRONT_MIN_TRIS
+    assert scene.n_triangles > tb.WAVEFRONT_MIN_TRIS
     cfg = Config(device="cpu", image_width=24, aspect_ratio=1.2,
                  samples_per_pixel=3, max_child_rays=4, rays_per_batch=1024)
     assert wf.chunk_plan(cfg)[1] == 2
@@ -302,16 +305,16 @@ def test_small_frame_matches_jax_render():
 
 def test_wrapper_rejects_other_devices_and_bad_inputs():
     _, scene = _knot_scenes(16, 12)
-    tables, _, _ = wf.scene_tables(scene)
-    st = torch.from_numpy(_camera_state(mk.TILE, 0, seed=1))
+    tables, _, _ = tb.k3_tables(scene)
+    st = torch.from_numpy(_camera_state(tb.TILE, 0, seed=1))
     with pytest.raises(ValueError, match="no flat bounce"):
         fb.bounce_step(st.to("meta"), 0, 0, 2,
-                       fb.Tables(tables.sph.to("meta"), tables.tris))
+                       tb.Tables(tables.sph.to("meta"), tables.tris))
     with pytest.raises(ValueError, match="state"):
         fb.bounce_step(st[:15].contiguous(), 0, 0, 2, tables)
     with pytest.raises(ValueError, match="stats"):
         fb.bounce_step(st, 0, 0, 2, tables, stats=torch.zeros(2))
-    for live in (-1, mk.TILE + 1):
+    for live in (-1, tb.TILE + 1):
         with pytest.raises(ValueError, match="live"):
             fb.bounce_step(st, 0, 0, 2, tables, live=live)
 
@@ -321,8 +324,8 @@ def test_trace_lanes_picks_k3_form_by_live_count(monkeypatch):
     ``bounce_step`` (K3's form is picked from it on the card); on the
     CPU a count changes nothing and launches no kernel."""
     _, scene = _knot_scenes(16, 12)
-    tables, bmin, inv_ext = wf.scene_tables(scene)
-    st = torch.from_numpy(_camera_state(2 * mk.TILE, 300, seed=2))
+    tables, bmin, inv_ext = tb.k3_tables(scene)
+    st = torch.from_numpy(_camera_state(2 * tb.TILE, 300, seed=2))
     seen, step = [], fb.bounce_step
 
     def spy(state, *a, live=None, **k):
@@ -332,7 +335,7 @@ def test_trace_lanes_picks_k3_form_by_live_count(monkeypatch):
     monkeypatch.setattr(wf, "bounce_step", spy)
     wf.trace_lanes(st, 3, max_depth=6, tables=tables, bmin=bmin,
                    inv_ext=inv_ext)
-    assert len(seen) > 2 and seen[0] == (2 * mk.TILE - 300,) * 2
+    assert len(seen) > 2 and seen[0] == (2 * tb.TILE - 300,) * 2
     assert all(n == live for n, live in seen)
     before = (fb.bounce_step.launches, fb.bounce_step.warp_launches)
     want = fb.bounce_step_reference(st, 0, 3, 6, tables)

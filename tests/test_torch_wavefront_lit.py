@@ -56,6 +56,7 @@ from rtow_tpu_torch.models.camera import make_camera
 from rtow_tpu_torch.models.scene import Scene
 from rtow_tpu_torch.ops import flat_bounce as fb
 from rtow_tpu_torch.ops import megakernel as mk
+from rtow_tpu_torch.ops import tables as tb
 from rtow_tpu_torch.ops import wavefront as wf
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -159,9 +160,10 @@ def _jax_state(st):
 
 
 def _port_tables(scene, roulette):
-    tbl, _ = mk.build_sphere_table(scene)
-    return fb.Tables(tbl, mk.build_tri_table(scene, TRI_BLOCK),
-                     mk.scene_lit(scene, roulette))
+    tbl, _ = tb.build_sphere_table(scene)
+    return tb.Tables(tbl, tb.build_tri_table(scene, TRI_BLOCK),
+                     tb.scene_lit(scene, nee=scene.has_emissive,
+                                  roulette=roulette))
 
 
 def _jax_bounce(jscene, st, it, seed, depth, cull, roulette):
@@ -195,7 +197,7 @@ def test_lit_bounce_step_matches_pallas(name, cull):
     tables = _port_tables(scene, roulette)
     lit = tables.lit
     assert lit.any
-    st = _state(mk.TILE, seed=len(name), nee=bool(lit.nee_kinds))
+    st = _state(tb.TILE, seed=len(name), nee=bool(lit.nee_kinds))
     depth, seed = 6, 13
     shadows = torch.zeros(1, dtype=torch.int64)
     for it in range(2):
@@ -210,7 +212,7 @@ def test_lit_bounce_step_matches_pallas(name, cull):
         np.testing.assert_array_equal(got[15], want[15])
         err = np.abs(got[:13, same] - want[:13, same])
         assert (err <= 2e-5 * (1.0 + np.abs(want[:13, same]))).all(), it
-        assert 0 < (want[13] > 0).sum() < mk.TILE - 24
+        assert 0 < (want[13] > 0).sum() < tb.TILE - 24
         if lit.nee_kinds:  # the diffuse code survives the bounce
             assert (want[13] == 2).any() and (got[13] == 2).any()
         st = want  # the next bounce starts both sides from one state
@@ -283,7 +285,7 @@ def test_reversed_winding(kernel):
                                  max_depth=3, cull=cull).numpy() / 2
 
     front, back = _sheet(n_side, False), _sheet(n_side, True)
-    assert (back.n_triangles > wf.WAVEFRONT_MIN_TRIS) == (kernel == "K3")
+    assert (back.n_triangles > tb.WAVEFRONT_MIN_TRIS) == (kernel == "K3")
     want = render(front, True)
     np.testing.assert_array_equal(render(back, False), want)
     assert want.min() < 0.9  # the sheet is in view
@@ -304,21 +306,21 @@ def test_lamp_seen_from_behind_adds_nothing():
         b.add_quad(*(c if facing else c[::-1]), lamp)
         return _carried(b.build(background=BLACK))
 
-    st = np.zeros((16, mk.TILE), np.float32)
+    st = np.zeros((16, tb.TILE), np.float32)
     rng = np.random.default_rng(4)
-    st[0:3] = rng.uniform(-0.4, 0.4, (3, mk.TILE)) + np.array(
+    st[0:3] = rng.uniform(-0.4, 0.4, (3, tb.TILE)) + np.array(
         [[0.0], [0.3], [0.0]], np.float32)
     st[3:6] = np.array([[0.0], [-1.0], [0.0]], np.float32)
     st[7:10] = 1.0
     st[13] = 1.0
-    st[15] = np.arange(mk.TILE)
+    st[15] = np.arange(tb.TILE)
     for facing in (True, False):
         sc = scene(facing)
         shadows = torch.zeros(1, dtype=torch.int64)
         out = fb.bounce_step(torch.from_numpy(st), 0, 5, 4,
                              _port_tables(sc, False), background=BLACK,
                              shadows=shadows, cull=False)
-        assert int(shadows) == mk.TILE  # every lane hit the floor
+        assert int(shadows) == tb.TILE  # every lane hit the floor
         rad = out[10:13]
         if facing:
             assert (rad > 0).float().mean() > 0.9
@@ -328,20 +330,21 @@ def test_lamp_seen_from_behind_adds_nothing():
 
 def test_gradient_kernels_refuse_two_sided():
     """K4 and K5 cull, as JAX's gradient does (``pallas_grad.py:910``):
-    their wrappers refuse ``cull=False`` before anything runs."""
+    their wrappers take no ``cull``, so asking for two-sided triangles
+    raises before anything runs."""
     from rtow_tpu_torch.ops import grad
 
     b = JaxSceneBuilder()
     _knot(b, 16, 12)
     scene = _carried(b.build())
-    tbl, _ = mk.build_sphere_table(scene)
-    tris = mk.build_tri_table(scene, TRI_BLOCK)
-    st = torch.from_numpy(_state(mk.TILE, seed=1, nee=False))
+    tbl, _ = tb.build_sphere_table(scene)
+    tris = tb.build_tri_table(scene, TRI_BLOCK)
+    st = torch.from_numpy(_state(tb.TILE, seed=1, nee=False))
     cont, ints = st[:13].contiguous(), st[13:].to(torch.int32).contiguous()
     kw = dict(it=0, seed=1, max_depth=4, cull=False)
-    with pytest.raises(ValueError, match="two-sided"):
+    with pytest.raises(TypeError, match="cull"):
         grad.bounce_fwd(cont, ints, tbl, tris, **kw)
-    with pytest.raises(ValueError, match="two-sided"):
+    with pytest.raises(TypeError, match="cull"):
         grad.bounce_bwd(cont, ints, torch.zeros_like(cont), tbl, tris, **kw)
     out, _ = grad.bounce_fwd(cont, ints, tbl, tris, it=0, seed=1,
                              max_depth=4)
@@ -369,7 +372,7 @@ def test_rows_equal_jax_operand(name):
     JAX's ``_scene_tables`` packs its light-table operand."""
     jscene, _ = _scene(name)
     jtables, _, _, _ = jwf._scene_tables(jscene)
-    tables, _, _ = wf.scene_tables(_carried(jscene))
+    tables, _, _ = tb.k3_tables(_carried(jscene))
     np.testing.assert_array_equal(tables.lit.rows.numpy(),
                                   np.asarray(jtables[6]))
     lights, vols = {"quad_lamps": (4, 0), "fog_lamp": (1, 1),
@@ -405,8 +408,8 @@ def test_window_counters_equal_jax():
     lane_pix = jnp.repeat(jnp.asarray(pixel_ids), spp)
     s, t = jax_coords(width, width, k_pix, lane_pix)
     rays = jax_rays(jax_make_camera(**CAM), k_cam, s, t)
-    tables, bmin, inv_ext = wf.scene_tables(scene)
-    state = wf.lane_state(
+    tables, bmin, inv_ext = tb.k3_tables(scene)
+    state = wf.packed_state(
         type("Rays", (), {k: np.asarray(getattr(rays, k), np.float32)
                           for k in ("origin", "direction", "time")}),
         P * spp)
