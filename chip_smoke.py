@@ -680,6 +680,7 @@ def grad_phases(torch, dev, card, say):
                                  keep=lambda p: p.endswith("albedo"), **kw)
     losses, cur, per_step = [], start, []
     G.bounce_fwd.launches = G.bounce_bwd.launches = 0
+    builds = tb.grad_layout.builds
     t0 = time.perf_counter()
     for _ in range(3):
         cur, loss = step(cur, torch.Generator(dev).manual_seed(7), target)
@@ -687,6 +688,8 @@ def grad_phases(torch, dev, card, say):
         per_step.append((G.bounce_fwd.launches, G.bounce_bwd.launches))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    kept = layout_kept(torch, step, cur, target, {},
+                       tb.grad_layout.builds - builds, "cover trainer")
     fwd_launches, bwd_launches = per_step[-1]
     moved = float((cur.materials.albedo - start.materials.albedo).abs().max())
     want = [(k * (DEPTH_GRAD + 1),) * 2 for k in (1, 2, 3)]
@@ -705,7 +708,7 @@ def grad_phases(torch, dev, card, say):
              f"seed): loss {', '.join(f'{x:.6g}' for x in losses)}; albedo "
              f"mean |error| {err0:.6g} -> {err3:.6g}, max move {moved:.3g}; "
              f"K4 {fwd_launches} and K5 {bwd_launches} launches; "
-             f"{train_s:.2f} s")
+             f"{train_s:.2f} s; {kept}")
 
     # bench.py's grad_mrays and grad_ratio, median of 3 calls each.
     def fwd_call():
@@ -975,6 +978,61 @@ def profile_ms(torch, fn):
                 and not ev.key.startswith("rtow.")):
             dev_ms[ev.key] = us / 1e3
     return wall, dev_ms
+
+
+def same_tables(torch, a, b) -> bool:
+    """Two ``tables.GradTables`` alike, every tensor bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, tuple):
+        return (isinstance(b, tuple) and len(a) == len(b)
+                and all(same_tables(torch, x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def layout_kept(torch, step, scene, target, layout_kw, builds, what) -> str:
+    """Check a train step's kept layout: ``builds`` layouts over its
+    first steps (``tables.grad_layout.builds``) must be 1; one more step
+    from ``scene`` under torch.profiler must build none, hold no
+    ``rtow.sync.*`` span and no read back (``aten::item``) in its tables
+    phase, and render from tables equal to a fresh
+    ``tables.grad_tables(scene, **layout_kw)`` bit for bit.  Returns a
+    line for the log."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtow_tpu_torch import diff
+    from rtow_tpu_torch.ops import tables as tb
+
+    seen, rows = [], diff.grad_rows
+    diff.grad_rows = lambda *a: seen.append(rows(*a)) or seen[-1]
+    before = tb.grad_layout.builds
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            step(scene, torch.Generator(scene.device).manual_seed(11), target)
+            torch.cuda.synchronize()
+    finally:
+        diff.grad_rows = rows
+    built = tb.grad_layout.builds - before
+    ev = [(e.name, e.time_range.start, e.time_range.end)
+          for e in prof.events()]
+    syncs = [e[0] for e in ev if e[0].startswith("rtow.sync.")]
+    tables = [e for e in ev if e[0] == "rtow.train.tables"]
+    reads = [e for e in ev if e[0] == "aten::item" and any(
+        t[1] <= e[1] and e[2] <= t[2] for t in tables)]
+    step_reads = sum(e[0] == "aten::item" for e in ev)
+    check(builds == 1 and built == 0,
+          f"{what}: {builds} layouts over the first steps and {built} in "
+          f"the next, not 1 and 0")
+    check(not syncs and not reads and len(tables) == 1,
+          f"{what}: a step on a kept layout held the syncs {syncs} and "
+          f"{len(reads)} reads back in its tables phase")
+    check(len(seen) == 1 and same_tables(
+        torch, seen[0], tb.grad_tables(scene, **layout_kw)),
+        f"{what}: the kept layout's tables differ from a fresh build")
+    return (f"layout kept: 1 built over the steps, 0 in the next, whose "
+            f"tables equal a fresh build's bit for bit, 0 syncs, 0 reads "
+            f"back in its tables phase ({step_reads} in the whole step)")
 
 
 def split_device_time(dev_ms, kernels=(("K3", "flat_bounce"),)):
@@ -2002,6 +2060,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
         G.bounce_fwd.warp_launches = G.bounce_bwd.warp_launches = 0
         G.permute_lanes.launches = G.permute_lanes.bwd_launches = 0
         ky.sort_keys.launches = 0
+        builds = tb.grad_layout.builds
         t0 = time.perf_counter()
         for _ in range(3):
             cur, loss = step(cur, torch.Generator(dev).manual_seed(7), target)
@@ -2014,6 +2073,8 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
         train_s = time.perf_counter() - t0
         main_launches = per_step[-1][:2] + (G.bounce_bwd.warp_launches,
                                             G.bounce_fwd.warp_launches)
+        kept = layout_kept(torch, step, cur, target, {},
+                           tb.grad_layout.builds - builds, "mesh trainer")
         _, grads = G.loss_and_grad_kernel(
             start, cam, torch.Generator(dev).manual_seed(7), target, pix,
             **kw)
@@ -2053,7 +2114,7 @@ def mesh_grad_phases(torch, dev, card, say, event_ms):
               f"calls), {per_step[-1][4]} permutes and "
               f"{per_step[-1][5]} un-permutes, no "
               f"plain version; {train_s:.2f} s; vertex gradient max |g| "
-              f"{float(gv.abs().max()):.3g}")
+              f"{float(gv.abs().max()):.3g}; {kept}")
 
     for name in ("65k", "360k"):
         sc = knots[name]
@@ -2656,6 +2717,7 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
         for f in (G.bounce_fwd, G.bounce_bwd):
             f.launches = 0
             setattr(f, counter, 0)
+        builds = tb.grad_layout.builds
         t0 = time.perf_counter()
         for _ in range(3):
             cur, loss = step(cur, torch.Generator(dev).manual_seed(7), target)
@@ -2665,6 +2727,8 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
                              getattr(G.bounce_bwd, counter)))
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
+        kept = layout_kept(torch, step, cur, target, dict(nee=nee),
+                           tb.grad_layout.builds - builds, f"{what} trainer")
         main_launches = per_step[-1][2:]
 
         def fwd_call():
@@ -2704,7 +2768,7 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
                  f"{', '.join(f'{x:.6g}' for x in losses)}; "
                  f"{tr['moved'](start, cur)}; K4 {main_launches[0]} and K5 "
                  f"{main_launches[1]} launches, all counted in {counter}, no "
-                 f"plain version; {train_s:.2f} s")
+                 f"plain version; {train_s:.2f} s; {kept}")
     say(p_train, f"on {card}: forward {fwd_ms:.2f} ms (median of "
                  f"{', '.join(f'{x:.2f}' for x in fwd_runs)}), "
                  f"{n_pix * SPP_GRAD / fwd_ms / 1e3:.3f} Mrays/s; "

@@ -37,16 +37,19 @@ TWO_PI = float(np.float32(2.0 * np.pi))
 _PI = float(np.float32(np.pi))
 
 
-def build_light_table(scene) -> torch.Tensor:
+def build_light_table(scene, mats=None) -> torch.Tensor:
     """(K, 14) float32 light rows of ``scene`` on its device; one zero row
-    when it has no lights."""
+    when it has no lights.  ``mats``, the material of each light as an
+    int (``tables.grad_layout`` reads them once), spares the host a read
+    of each light's material from the card."""
     f32 = _F32
     dev = scene.device
     rows = []
-    for kind, i in scene.light_ids:
+    for j, (kind, i) in enumerate(scene.light_ids):
         if kind == "s":
             sp = scene.spheres
-            emit = scene.materials.albedo[sp.material[i].long()]
+            emit = scene.materials.albedo[
+                sp.material[i].long() if mats is None else mats[j]]
             rows.append(torch.cat([
                 torch.zeros(1, dtype=f32, device=dev), sp.center0[i],
                 sp.dcenter[i], sp.radius[i][None],
@@ -58,7 +61,9 @@ def build_light_table(scene) -> torch.Tensor:
             cy = e1[2] * e2[0] - e1[0] * e2[2]
             cz = e1[0] * e2[1] - e1[1] * e2[0]
             area = 0.5 * torch.sqrt(cx * cx + cy * cy + cz * cz)
-            emit = scene.materials.albedo[scene.triangles.material[i].long()]
+            emit = scene.materials.albedo[
+                scene.triangles.material[i].long() if mats is None
+                else mats[j]]
             rows.append(torch.cat([
                 torch.ones(1, dtype=f32, device=dev), v0, e1, e2,
                 area[None], emit]).to(f32))

@@ -15,6 +15,14 @@ triangles (winner ids: spheres ``0 .. Npad - 1``, triangles from
 ``Npad``).  Sphere table rows (16 float32): center0, dcenter, radius,
 albedo, fuzz, ir, the material kind, the second colour of a texture;
 triangle rows: v0, e1, e2, albedo, fuzz, ir, kind, 0.
+
+Each table is built in two parts: its layout (``sphere_layout``,
+``tri_layout``, :func:`grad_layout`: the orders, the boxes and
+hierarchy, the sort grid, the checks), a detached function of the
+geometry and the integer leaves, then its rows (``sphere_rows``,
+``tri_rows``, :func:`grad_rows`), gathered through the layout from the
+leaves, differentiable.  The renders build both every frame; a train
+step keeps the layout while its geometry stands (``diff``).
 """
 from __future__ import annotations
 
@@ -80,6 +88,76 @@ _F32 = torch.float32
 # Host tables and packing.
 
 
+class SphereLayout(NamedTuple):
+    """The detached part of the sphere table (:func:`sphere_layout`): the
+    Morton order of the rows and each row's material (None without
+    spheres), the padding rows that close the table, and the (NB, 8)
+    block AABBs."""
+    order: Optional[torch.Tensor]
+    mid: Optional[torch.Tensor]
+    pad: torch.Tensor
+    boxes: torch.Tensor
+
+
+def sphere_layout(scene) -> SphereLayout:
+    """The :class:`SphereLayout` of ``scene``: a function of its sphere
+    geometry and material ids alone, which no gradient reaches."""
+    sp = scene.spheres
+    n = sp.radius.shape[0]
+    npad = -(-n // SPHERE_BLOCK) * SPHERE_BLOCK
+    dev = sp.radius.device
+    if n == 0:
+        return SphereLayout(None, None,
+                            torch.zeros((0, TBL_COLS), dtype=_F32, device=dev),
+                            torch.zeros((0, 8), dtype=_F32, device=dev))
+
+    with torch.no_grad():
+        r_abs = sp.radius.abs()[:, None]
+        c1 = sp.center0 + sp.dcenter
+        smin = torch.minimum(sp.center0, c1) - r_abs
+        smax = torch.maximum(sp.center0, c1) + r_abs
+        cent = 0.5 * (smin + smax)
+        order = morton_order(smin.amin(dim=0), smax.amax(dim=0), cent)
+        mid = sp.material[order].long()
+        smin, smax = smin[order], smax[order]
+        pad = torch.zeros((npad - n, TBL_COLS), dtype=_F32, device=dev)
+        pad[:, _C0X] = _PAD_CENTER
+
+        big = 1.0e30
+        bmin = torch.cat([smin, torch.full((npad - n, 3), big, device=dev)])
+        bmax = torch.cat([smax, torch.full((npad - n, 3), -big, device=dev)])
+        nb = npad // SPHERE_BLOCK
+        blk_min = bmin.reshape(nb, SPHERE_BLOCK, 3).amin(dim=1)
+        blk_max = bmax.reshape(nb, SPHERE_BLOCK, 3).amax(dim=1)
+        pad_eps = 1e-4 + 1e-4 * (blk_max - blk_min).abs()
+        boxes = torch.cat([blk_min - pad_eps, blk_max + pad_eps,
+                           torch.zeros((nb, 2), dtype=_F32, device=dev)],
+                          dim=1)
+    return SphereLayout(order, mid, pad, boxes.to(_F32))
+
+
+def sphere_rows(scene, lay: SphereLayout) -> torch.Tensor:
+    """The (Npad, 16) sphere table of ``scene`` laid out by ``lay``: its
+    rows gathered from the scene's leaves, through which autograd
+    carries the table's cotangent back."""
+    if lay.order is None:
+        return torch.zeros((0, TBL_COLS), dtype=_F32, device=lay.pad.device)
+    sp = scene.spheres
+    mats = scene.materials
+    order, mid = lay.order, lay.mid
+    c0 = sp.center0[order]
+    dc = sp.dcenter[order]
+    tbl = torch.stack([
+        c0[:, 0], c0[:, 1], c0[:, 2],
+        dc[:, 0], dc[:, 1], dc[:, 2],
+        sp.radius[order],
+        mats.albedo[mid, 0], mats.albedo[mid, 1], mats.albedo[mid, 2],
+        mats.fuzz[mid], mats.ir[mid], mats.kind[mid].to(_F32),
+        mats.albedo2[mid, 0], mats.albedo2[mid, 1], mats.albedo2[mid, 2],
+    ], dim=1).to(_F32)
+    return torch.cat([tbl, lay.pad])
+
+
 def build_sphere_table(scene) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sphere tables ((Npad, 16) params, (NB, 8) block AABBs) on the
     scene's device (``build_sphere_table``, :134).
@@ -90,48 +168,8 @@ def build_sphere_table(scene) -> Tuple[torch.Tensor, torch.Tensor]:
     by the finer groups of :func:`sphere_groups` instead, and K3, K4 and
     K5 sweep every row.  A scene without
     spheres gets empty tables (the JAX kernels' ``n_blocks = 0``)."""
-    sp = scene.spheres
-    mats = scene.materials
-    n = sp.radius.shape[0]
-    npad = -(-n // SPHERE_BLOCK) * SPHERE_BLOCK
-    dev = sp.radius.device
-    if n == 0:
-        return (torch.zeros((0, TBL_COLS), dtype=_F32, device=dev),
-                torch.zeros((0, 8), dtype=_F32, device=dev))
-
-    r_abs = sp.radius.abs()[:, None]
-    c1 = sp.center0 + sp.dcenter
-    smin = torch.minimum(sp.center0, c1) - r_abs
-    smax = torch.maximum(sp.center0, c1) + r_abs
-    cent = 0.5 * (smin + smax)
-    order = morton_order(smin.amin(dim=0), smax.amax(dim=0), cent)
-    c0 = sp.center0[order]
-    dc = sp.dcenter[order]
-    mid = sp.material[order].long()
-    smin, smax = smin[order], smax[order]
-
-    tbl = torch.stack([
-        c0[:, 0], c0[:, 1], c0[:, 2],
-        dc[:, 0], dc[:, 1], dc[:, 2],
-        sp.radius[order],
-        mats.albedo[mid, 0], mats.albedo[mid, 1], mats.albedo[mid, 2],
-        mats.fuzz[mid], mats.ir[mid], mats.kind[mid].to(_F32),
-        mats.albedo2[mid, 0], mats.albedo2[mid, 1], mats.albedo2[mid, 2],
-    ], dim=1).to(_F32)
-    pad = torch.zeros((npad - n, TBL_COLS), dtype=_F32, device=dev)
-    pad[:, _C0X] = _PAD_CENTER
-    tbl = torch.cat([tbl, pad])
-
-    big = 1.0e30
-    bmin = torch.cat([smin, torch.full((npad - n, 3), big, device=dev)])
-    bmax = torch.cat([smax, torch.full((npad - n, 3), -big, device=dev)])
-    nb = npad // SPHERE_BLOCK
-    blk_min = bmin.reshape(nb, SPHERE_BLOCK, 3).amin(dim=1)
-    blk_max = bmax.reshape(nb, SPHERE_BLOCK, 3).amax(dim=1)
-    pad_eps = 1e-4 + 1e-4 * (blk_max - blk_min).abs()
-    boxes = torch.cat([blk_min - pad_eps, blk_max + pad_eps,
-                       torch.zeros((nb, 2), dtype=_F32, device=dev)], dim=1)
-    return tbl, boxes.to(_F32)
+    lay = sphere_layout(scene)
+    return sphere_rows(scene, lay), lay.boxes
 
 
 #: A padding row's centre x (its radius is 0).
@@ -240,6 +278,128 @@ def _median_split_order(cent: np.ndarray, tri_block: int) -> np.ndarray:
     return np.concatenate(rec(np.arange(cent.shape[0])))
 
 
+class TriLayout(NamedTuple):
+    """The detached part of a triangle table (:func:`tri_layout`): the
+    row order ``perm`` and each row's material ``mid`` (M,), the zero
+    column and the padding rows that close the table, and the cull
+    hierarchy, as :class:`TriTable` holds it."""
+    perm: torch.Tensor
+    mid: torch.Tensor
+    zeros: torch.Tensor
+    pad: torch.Tensor
+    boxes: torch.Tensor
+    supers: torch.Tensor
+    hypers: torch.Tensor
+    block: int
+    count: int
+
+
+def tri_layout(scene, tri_block: int, order: str = "median") -> TriLayout:
+    """The :class:`TriLayout` of ``scene`` in ``tri_block``-row blocks: a
+    function of its vertices and material ids alone, taken detached, so
+    the boxes carry no gradient (pallas_grad.py:716-718)."""
+    tr = scene.triangles
+    m = tr.material.shape[0]
+    if m == 0:
+        raise ValueError("scene has no triangles")
+    dev = tr.verts.device
+    mpad = -(-m // tri_block) * tri_block
+    if mpad // tri_block >= 2 * SUPER:
+        mpad = -(-mpad // (tri_block * SUPER)) * tri_block * SUPER
+    if mpad // (tri_block * SUPER) >= 2 * SUPER:
+        mpad = (-(-mpad // (tri_block * SUPER * SUPER))
+                * tri_block * SUPER * SUPER)
+
+    with torch.no_grad():
+        verts = tr.verts.to(_F32)
+        tmin = verts.amin(dim=1)
+        tmax = verts.amax(dim=1)
+        cent = 0.5 * (tmin + tmax)
+        if order == "morton":
+            perm = morton_order(tmin.amin(dim=0), tmax.amax(dim=0), cent)
+        elif order == "median":
+            # The split is made on the host: the centroids read back, the
+            # order copied up (both wait for the card).
+            with span("rtow.sync.tri_order"):
+                perm = torch.from_numpy(_median_split_order(
+                    cent.cpu().numpy(), tri_block)).to(dev)
+        else:
+            raise ValueError(
+                f"order must be 'median' or 'morton', not {order!r}")
+        mid = tr.material[perm].long()
+        tmin, tmax = tmin[perm], tmax[perm]
+        zeros = torch.zeros((m, 1), dtype=_F32, device=dev)
+        pad = torch.zeros((mpad - m, TBL_COLS), dtype=_F32, device=dev)
+
+        big = 1.0e30
+
+        def padded(x, fill, rows):
+            return torch.cat([x, torch.full((rows - x.shape[0], 3), fill,
+                                            dtype=_F32, device=dev)])
+
+        def group(lo, hi, k):
+            n = lo.shape[0] // k
+            return (lo.reshape(n, k, 3).amin(dim=1),
+                    hi.reshape(n, k, 3).amax(dim=1))
+
+        def rows8(lo, hi):
+            return torch.cat([lo, hi, torch.zeros(
+                (lo.shape[0], 2), dtype=_F32, device=dev)], dim=1)
+
+        blk_min, blk_max = group(padded(tmin, big, mpad),
+                                 padded(tmax, -big, mpad), tri_block)
+        pad_eps = 1e-4 + 1e-4 * (blk_max - blk_min).abs()
+        blk_min = blk_min - pad_eps
+        blk_max = blk_max + pad_eps
+        boxes = rows8(blk_min, blk_max)
+        supers = hypers = torch.zeros((1, 8), dtype=_F32, device=dev)
+        nb = boxes.shape[0]
+        if nb % SUPER == 0 and nb >= 2 * SUPER:
+            sup_min, sup_max = group(blk_min, blk_max, SUPER)
+            supers = rows8(sup_min, sup_max)
+            nsb = supers.shape[0]
+            if nsb >= 2 * SUPER:
+                # Supers pad to a whole hyper-block with inverted boxes.
+                nsb_pad = -(-nsb // SUPER) * SUPER
+                # A host tensor's copy to the card waits for the card.
+                with span("rtow.sync.tri_pad"):
+                    pad_row = torch.tensor(
+                        [[big, big, big, -big, -big, -big, 0.0, 0.0]],
+                        dtype=_F32, device=dev)
+                supers = torch.cat([supers, pad_row.repeat(nsb_pad - nsb, 1)])
+                hypers = rows8(*group(padded(sup_min, big, nsb_pad),
+                                      padded(sup_max, -big, nsb_pad), SUPER))
+    return TriLayout(perm, mid, zeros, pad, boxes, supers, hypers, tri_block,
+                     m)
+
+
+def tri_rows(scene, lay: TriLayout) -> TriTable:
+    """The :class:`TriTable` of ``scene`` laid out by ``lay``: its rows
+    gathered from the scene's vertices and materials, through which
+    autograd carries the table's cotangent back to ``triangles.verts``
+    and the material leaves."""
+    tr = scene.triangles
+    mats = scene.materials
+    # The rows gather by index_select, whose backward adds each row's
+    # cotangent into its source row (index_add_).  Indexing's backward
+    # sorts the rows' indices first and, on the card, sums each source
+    # row's run in one thread: a mesh's triangles mostly share one
+    # material, which made that run every triangle of the mesh.
+    verts = tr.verts.to(_F32).index_select(0, lay.perm)
+    v0 = verts[:, 0]
+    e1 = verts[:, 1] - v0
+    e2 = verts[:, 2] - v0
+    mat_cols = torch.cat([
+        mats.albedo,
+        torch.stack([mats.fuzz, mats.ir, mats.kind.to(_F32)], dim=1),
+    ], dim=1)
+    tbl = torch.cat([
+        v0, e1, e2, mat_cols.index_select(0, lay.mid), lay.zeros,
+    ], dim=1).to(_F32)
+    return TriTable(torch.cat([tbl, lay.pad]), lay.boxes, lay.supers,
+                    lay.hypers, lay.block, lay.count)
+
+
 def build_tri_table(scene, tri_block: int, order: str = "median") -> TriTable:
     """The triangle table of ``scene`` in ``tri_block``-row blocks, on the
     scene's device (``build_tri_table``, :281-387): rows in median-split
@@ -252,98 +412,8 @@ def build_tri_table(scene, tri_block: int, order: str = "median") -> TriTable:
     ``order="morton"`` orders the rows by the Morton code of their
     centroids instead, as the JAX table does when the vertices are traced
     (:314-318, the gradient path under ``jit`` and ``grad``).  The order
-    and the boxes are taken from detached vertices, so the boxes carry no
-    gradient (pallas_grad.py:716-718); the rows are gathers of the
-    vertices and materials, through which autograd carries the table's
-    cotangent back to ``triangles.verts`` and the material leaves."""
-    tr = scene.triangles
-    mats = scene.materials
-    m = tr.material.shape[0]
-    if m == 0:
-        raise ValueError("scene has no triangles")
-    dev = tr.verts.device
-    mpad = -(-m // tri_block) * tri_block
-    if mpad // tri_block >= 2 * SUPER:
-        mpad = -(-mpad // (tri_block * SUPER)) * tri_block * SUPER
-    if mpad // (tri_block * SUPER) >= 2 * SUPER:
-        mpad = (-(-mpad // (tri_block * SUPER * SUPER))
-                * tri_block * SUPER * SUPER)
-
-    verts = tr.verts.to(_F32)
-    tmin = verts.detach().amin(dim=1)
-    tmax = verts.detach().amax(dim=1)
-    cent = 0.5 * (tmin + tmax)
-    if order == "morton":
-        perm = morton_order(tmin.amin(dim=0), tmax.amax(dim=0), cent)
-    elif order == "median":
-        # The split is made on the host: the centroids read back, the
-        # order copied up (both wait for the card).
-        with span("rtow.sync.tri_order"):
-            perm = torch.from_numpy(_median_split_order(
-                cent.cpu().numpy(), tri_block)).to(dev)
-    else:
-        raise ValueError(f"order must be 'median' or 'morton', not {order!r}")
-    # The rows gather by index_select, whose backward adds each row's
-    # cotangent into its source row (index_add_).  Indexing's backward
-    # sorts the rows' indices first and, on the card, sums each source
-    # row's run in one thread: a mesh's triangles mostly share one
-    # material, which made that run every triangle of the mesh.
-    verts = verts.index_select(0, perm)
-    mid = tr.material[perm].long()
-    tmin, tmax = tmin[perm], tmax[perm]
-    v0 = verts[:, 0]
-    e1 = verts[:, 1] - v0
-    e2 = verts[:, 2] - v0
-    mat_cols = torch.cat([
-        mats.albedo,
-        torch.stack([mats.fuzz, mats.ir, mats.kind.to(_F32)], dim=1),
-    ], dim=1)
-    tbl = torch.cat([
-        v0, e1, e2, mat_cols.index_select(0, mid),
-        torch.zeros((m, 1), dtype=_F32, device=dev),
-    ], dim=1).to(_F32)
-    tbl = torch.cat([tbl, torch.zeros((mpad - m, TBL_COLS), dtype=_F32,
-                                      device=dev)])
-
-    big = 1.0e30
-
-    def padded(x, fill, rows):
-        return torch.cat([x, torch.full((rows - x.shape[0], 3), fill,
-                                        dtype=_F32, device=dev)])
-
-    def group(lo, hi, k):
-        n = lo.shape[0] // k
-        return lo.reshape(n, k, 3).amin(dim=1), hi.reshape(n, k, 3).amax(dim=1)
-
-    def rows8(lo, hi):
-        return torch.cat([lo, hi, torch.zeros((lo.shape[0], 2), dtype=_F32,
-                                              device=dev)], dim=1)
-
-    blk_min, blk_max = group(padded(tmin, big, mpad), padded(tmax, -big, mpad),
-                             tri_block)
-    pad_eps = 1e-4 + 1e-4 * (blk_max - blk_min).abs()
-    blk_min = blk_min - pad_eps
-    blk_max = blk_max + pad_eps
-    boxes = rows8(blk_min, blk_max)
-    none = torch.zeros((1, 8), dtype=_F32, device=dev)
-    nb = boxes.shape[0]
-    if nb % SUPER or nb < 2 * SUPER:
-        return TriTable(tbl, boxes, none, none, tri_block, m)
-    sup_min, sup_max = group(blk_min, blk_max, SUPER)
-    supers = rows8(sup_min, sup_max)
-    nsb = supers.shape[0]
-    if nsb < 2 * SUPER:
-        return TriTable(tbl, boxes, supers, none, tri_block, m)
-    # Supers pad to a whole hyper-block with inverted boxes.
-    nsb_pad = -(-nsb // SUPER) * SUPER
-    # A host tensor's copy to the card waits for the card.
-    with span("rtow.sync.tri_pad"):
-        pad_row = torch.tensor([[big, big, big, -big, -big, -big, 0.0, 0.0]],
-                               dtype=_F32, device=dev)
-    supers = torch.cat([supers, pad_row.repeat(nsb_pad - nsb, 1)])
-    hyp_min, hyp_max = group(padded(sup_min, big, nsb_pad),
-                             padded(sup_max, -big, nsb_pad), SUPER)
-    return TriTable(tbl, boxes, supers, rows8(hyp_min, hyp_max), tri_block, m)
+    and the boxes are :func:`tri_layout`'s, the rows :func:`tri_rows`'."""
+    return tri_rows(scene, tri_layout(scene, tri_block, order))
 
 
 def morton_order(cmin: torch.Tensor, cmax: torch.Tensor,
@@ -574,21 +644,23 @@ def check_lit(lit: Lit, tbl: torch.Tensor) -> None:
                          f"device")
 
 
-def scene_lit(scene, *, nee: bool, roulette: bool = False) -> Lit:
+def scene_lit(scene, *, nee: bool, roulette: bool = False,
+              light_mats: Optional[tuple] = None) -> Lit:
     """The lit features of ``scene`` and their rows, as
     ``render_blocks_pallas`` (:2077-2102) and ``render_pixels_kernel``
     (pallas_grad.py:887-913) derive them: emission wherever the scene has
     an emissive material, next-event estimation toward its lights with
     ``nee`` (a ValueError on a scene that emits nothing), its checker and
     noise textures, its media, and ``roulette``.  The rows are
-    ``build_light_table``'s under NEE, then ``build_volume_table``'s from
+    ``build_light_table``'s under NEE (from the lights' materials
+    ``light_mats`` where given), then ``build_volume_table``'s from
     ``vol_row0``, differentiable in the scene's leaves.  The renders pass
     ``nee=scene.has_emissive``; the gradient path passes its own."""
     if nee and not scene.has_emissive:
         raise ValueError("nee=True needs an emissive scene "
                          "(SceneBuilder.add_light)")
     nee_kinds = tuple(k for k, _ in scene.light_ids) if nee else ()
-    rows = [build_light_table(scene)] if nee_kinds else []
+    rows = [build_light_table(scene, light_mats)] if nee_kinds else []
     vol_row0 = rows[0].shape[0] if rows else 0
     if scene.volume_kinds:
         rows.append(build_volume_table(scene))
@@ -614,11 +686,12 @@ def check_kernel_scene(scene) -> None:
             "(ROADMAP Queue 1 item 5)")
 
 
-def sort_grid(sph_boxes: torch.Tensor, tris: Optional[TriTable]
+def sort_grid(sph_boxes: torch.Tensor, tris
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(min, 1 / extent) of the sort keys' origin grid: the union of the
-    sphere blocks' and the triangle blocks' boxes, detached (cull-only,
-    ``_scene_tables``, :152; pallas_grad.py:955-967)."""
+    sphere blocks' and the triangle blocks' boxes (``tris.boxes``, of a
+    :class:`TriTable` or a :class:`TriLayout`, or None), detached
+    (cull-only, ``_scene_tables``, :152; pallas_grad.py:955-967)."""
     boxes = sph_boxes.detach()
     if tris is not None:
         boxes = torch.cat([boxes, tris.boxes.detach()])
@@ -660,20 +733,25 @@ def k3_tables(scene, roulette: bool = False
     return Tables(sph, tris, lit), bmin, inv_ext
 
 
-def grad_tri_table(scene, flat: bool = False) -> TriTable:
-    """The gradient path's triangle table: Morton order, 128-row blocks
+def grad_tri_layout(scene, flat: bool = False) -> TriLayout:
+    """The gradient path's triangle layout: Morton order, 128-row blocks
     (``build_tri_table`` under ``jit``), held to JAX's caps (a ValueError
     past 4,096 blocks, or past 1,536 on the flat sweep)."""
-    tris = build_tri_table(scene, GRAD_TRI_BLOCK, order="morton")
-    nb = tris.n_blocks
+    lay = tri_layout(scene, GRAD_TRI_BLOCK, order="morton")
+    nb = lay.boxes.shape[0]
     if nb > MAX_TRI_BLOCKS:
         raise ValueError(f"{nb} triangle blocks: the gradient path caps at "
                          f"{MAX_TRI_BLOCKS} ({MAX_TRI_BLOCKS * GRAD_TRI_BLOCK}"
                          f" triangles)")
-    if (flat or not tris.n_super) and nb > MAX_FLAT_TRI_BLOCKS:
+    if (flat or lay.supers.shape[0] == 1) and nb > MAX_FLAT_TRI_BLOCKS:
         raise ValueError(f"{nb} triangle blocks: the flat gradient sweep "
                          f"caps at {MAX_FLAT_TRI_BLOCKS}")
-    return tris
+    return lay
+
+
+def grad_tri_table(scene, flat: bool = False) -> TriTable:
+    """The gradient path's triangle table (:func:`grad_tri_layout`)."""
+    return tri_rows(scene, grad_tri_layout(scene, flat))
 
 
 class GradTables(NamedTuple):
@@ -689,20 +767,72 @@ class GradTables(NamedTuple):
     flat: bool
 
 
+#: The leaves a scene's :class:`GradLayout` is a function of, with the
+#: scene's metadata: the geometry and the integer leaves.
+LAYOUT_LEAVES = ("spheres.center0", "spheres.dcenter", "spheres.radius",
+                 "spheres.material", "triangles.verts", "triangles.material",
+                 "materials.kind")
+
+
+class GradLayout(NamedTuple):
+    """The detached part of :class:`GradTables` (:func:`grad_layout`):
+    the sphere and triangle layouts, the material of each light under
+    NEE, the sort grid, and the statics.  No gradient reaches it, and it
+    changes only with ``LAYOUT_LEAVES`` and the metadata, so a train step
+    that leaves those alone keeps it (``diff.build_train_step``)."""
+    spheres: SphereLayout
+    tris: Optional[TriLayout]
+    light_mats: tuple
+    grid: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    flat: bool
+    nee: bool
+
+
+def grad_layout(scene, *, sort_lanes=None, force_flat: bool = False,
+                nee: bool = False) -> GradLayout:
+    """The :class:`GradLayout` of ``scene``; arguments as
+    :func:`grad_tables`.  Image textures raise, after the span
+    ``rtow.sync.check_scene``; under NEE the lights' materials are read
+    to the host once, in the span ``rtow.sync.light_mats``.  Counted in
+    ``grad_layout.builds``."""
+    grad_layout.builds += 1
+    with span("rtow.sync.check_scene"):
+        check_kernel_scene(scene)
+    if sort_lanes is None:
+        sort_lanes = scene.n_triangles > WAVEFRONT_MIN_TRIS
+    sph = sphere_layout(scene)
+    tris = grad_tri_layout(scene, force_flat) if scene.n_triangles else None
+    grid = sort_grid(sph.boxes, tris) if sort_lanes else None
+    light_mats = ()
+    if nee and scene.light_ids:
+        with span("rtow.sync.light_mats"):
+            mats = torch.cat([scene.spheres.material,
+                              scene.triangles.material]).tolist()
+        light_mats = tuple(mats[i if k == "s" else scene.n_spheres + i]
+                           for k, i in scene.light_ids)
+    return GradLayout(sph, tris, light_mats, grid, force_flat, nee)
+
+
+#: Layouts built by :func:`grad_layout` in this process.
+grad_layout.builds = 0
+
+
+def grad_rows(scene, layout: GradLayout) -> GradTables:
+    """The :class:`GradTables` of ``scene`` laid out by ``layout``: the
+    sphere, triangle, light and volume rows, differentiable in the
+    scene's leaves, gathered anew on every call."""
+    lit = scene_lit(scene, nee=layout.nee, light_mats=layout.light_mats)
+    tbl = sphere_rows(scene, layout.spheres)
+    tris = tri_rows(scene, layout.tris) if layout.tris is not None else None
+    return GradTables(tbl, tris, lit, layout.grid, layout.flat)
+
+
 def grad_tables(scene, *, sort_lanes=None, force_flat: bool = False,
                 nee: bool = False) -> GradTables:
     """The :class:`GradTables` of ``scene``, differentiable in its leaves:
     ``sort_lanes`` None sorts for meshes of more than 16,384 triangles;
     ``force_flat`` sweeps the triangle blocks flat, ``nee`` samples the
     lights at every diffuse hit (``render_pixels_kernel``'s statics, no
-    roulette).  Image textures raise, after the span
-    ``rtow.sync.check_scene``."""
-    with span("rtow.sync.check_scene"):
-        check_kernel_scene(scene)
-    lit = scene_lit(scene, nee=nee)
-    if sort_lanes is None:
-        sort_lanes = scene.n_triangles > WAVEFRONT_MIN_TRIS
-    tbl, sph_boxes = build_sphere_table(scene)
-    tris = grad_tri_table(scene, force_flat) if scene.n_triangles else None
-    grid = sort_grid(sph_boxes, tris) if sort_lanes else None
-    return GradTables(tbl, tris, lit, grid, force_flat)
+    roulette).  :func:`grad_layout`, then :func:`grad_rows`."""
+    return grad_rows(scene, grad_layout(scene, sort_lanes=sort_lanes,
+                                        force_flat=force_flat, nee=nee))

@@ -863,6 +863,68 @@ def test_sort_keys_launches_per_step(dev):
     assert counts == [9, 0]
 
 
+def _same_tables(a, b) -> bool:
+    """Two ``tables.GradTables`` (tensors, tuples of them, statics) alike,
+    every tensor bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, tuple):
+        return (isinstance(b, tuple) and len(a) == len(b)
+                and all(_same_tables(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+@pytest.mark.parametrize("name", ["knot65k", "cornell"])
+def test_train_step_keeps_its_layout_on_card(dev, name, monkeypatch):
+    """Three albedo-fit steps of one step function: one layout built
+    (``grad_layout.builds``); the third step's tables (the sphere and
+    triangle rows, the block, super and hyper boxes, the sort grid, the
+    light rows) equal a fresh ``grad_tables`` of its input scene bit for
+    bit, and that step holds no ``rtow.sync.*`` span and reads nothing
+    back in its tables phase.  The 65k knot has the hyper level and its
+    ``tri_pad`` row, sorted lanes; the Cornell box its lamp under NEE."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtow_tpu_torch import diff
+
+    if name == "knot65k":
+        scene = _knot(dev, 256, 128)
+        cam = make_camera(lookfrom=(0.0, 0.0, 3.0), lookat=(0.0, 0.0, 0.0),
+                          fov_degrees=45.0, aspect_ratio=1.0, device=dev)
+        layout_kw = dict(sort_lanes=True)
+    else:
+        scene, cam = cornell_scene(device=dev)
+        layout_kw = dict(nee=True)
+    kw = dict(width=32, height=32, spp=4, max_depth=8, **layout_kw)
+    target = torch.rand((32 * 32, 3), device=dev,
+                        generator=torch.Generator(dev).manual_seed(1))
+    step = diff.build_train_step(cam, lr=1.0,
+                                 keep=lambda p: p.endswith("albedo"), **kw)
+    seen = []
+    rows = diff.grad_rows
+    monkeypatch.setattr(diff, "grad_rows",
+                        lambda *a: seen.append(rows(*a)) or seen[-1])
+    before = tb.grad_layout.builds
+    cur = scene
+    for i in range(2):
+        cur, loss = step(cur, torch.Generator(dev).manual_seed(i), target)
+        assert bool(torch.isfinite(loss))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, loss = step(cur, torch.Generator(dev).manual_seed(2), target)
+        torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert tb.grad_layout.builds - before == 1
+    assert seen[2].tris.n_hyper == (2 if name == "knot65k" else 0)
+    assert _same_tables(seen[2], tb.grad_tables(cur, **layout_kw))
+    events = [(e.name, e.time_range.start, e.time_range.end)
+              for e in prof.events()]
+    assert not [e for e in events if e[0].startswith("rtow.sync.")]
+    [tables] = [e for e in events if e[0] == "rtow.train.tables"]
+    assert not [e for e in events if e[0] == "aten::item"
+                and tables[1] <= e[1] and e[2] <= tables[2]]
+
+
 def test_knot_step_same_with_plain_keys(dev, monkeypatch):
     """The knot's loss and albedo gradient at 1,048,576 sorted lanes, once
     with the key kernel and once with the plain keys forced: the same keys

@@ -137,6 +137,23 @@ def test_train_step_phases(train, sort_lanes):
     assert inside(syncs[0], tables)
 
 
+@pytest.mark.parametrize("sort_lanes", [False, True])
+def test_second_train_step_has_no_sync(train, sort_lanes):
+    """The second step of one albedo-fit step function keeps the first's
+    layout: its tables phase holds no ``rtow.sync.*`` span and reads no
+    value back (no ``aten::item``), and the step holds no sync at all."""
+    kw, cam, scene, target = train
+    step = diff.build_train_step(cam, lr=1.0, sort_lanes=sort_lanes,
+                                 keep=lambda p: p.endswith("albedo"), **kw)
+    after, _ = step(scene, torch.Generator().manual_seed(2), target)
+    _, ev = recorded(lambda: step(after, torch.Generator().manual_seed(3),
+                                  target))
+    [tables] = named(ev, "rtow.train.tables")
+    assert not [e for e in ev if e[0].startswith("rtow.sync.")]
+    assert not [a for a in named(ev, "aten::item") if inside(a, tables)]
+    assert len(named(ev, "rtow.train.bounce")) == DEPTH + 1
+
+
 def test_trace_profile_holds_a_train_step(train, tmp_path, capsys):
     """``trace_profile`` around a train step, as an operator traces one:
     the written Chrome trace holds ``rtow.train.step``, its four phases
