@@ -111,23 +111,29 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from .models.builders import scene_for_config
     from .pipeline import render_auto
     from .utils.ppm import tonemap, write_ppm
+    from .utils.profiling import span
 
-    scene, camera = scene_for_config(cfg)
-    if cfg.model:
-        print(f"Scene has {scene.n_triangles} triangles", file=sys.stderr)
-    image = render_auto(scene, camera, cfg, progress=True)
-
-    if args.output == "-":
-        write_ppm(sys.stdout, image)
-    elif args.output.lower().endswith(".png"):
-        try:
-            from PIL import Image
-        except ImportError as e:  # pragma: no cover
-            raise SystemExit("PNG output needs Pillow; use .ppm") from e
-        Image.fromarray(tonemap(image).astype("uint8")).save(args.output)
-    else:
-        with open(args.output, "w") as f:
-            write_ppm(f, image)
+    # A run is the span rtow.cli.run, tiled by the scene's build, the
+    # frame (render_auto's rtow.render.frame) and the tonemap and write.
+    with span("rtow.cli.run"):
+        with span("rtow.cli.scene"):
+            scene, camera = scene_for_config(cfg)
+        if cfg.model:
+            print(f"Scene has {scene.n_triangles} triangles", file=sys.stderr)
+        image = render_auto(scene, camera, cfg, progress=True)
+        with span("rtow.cli.write"):
+            if args.output == "-":
+                write_ppm(sys.stdout, image)
+            elif args.output.lower().endswith(".png"):
+                try:
+                    from PIL import Image
+                except ImportError as e:  # pragma: no cover
+                    raise SystemExit("PNG output needs Pillow; use .ppm") from e
+                Image.fromarray(tonemap(image).astype("uint8")).save(
+                    args.output)
+            else:
+                with open(args.output, "w") as f:
+                    write_ppm(f, image)
     return 0
 
 
