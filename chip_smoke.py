@@ -2599,6 +2599,7 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
         tape = tape_of(scene, cam, width, height, lit, tbl, tris)
         npad = tbl.shape[0]
         worst, f64, counts, p_ms, coherent = {}, {}, [], [0.0, 0.0], 0
+        nee_counts = [0, 0]
         for it, (cont, ints) in enumerate(tape):
             a = dict(it=it, seed=0, max_depth=DEPTH_GRAD, lit=lit,
                      background=scene.background)
@@ -2619,11 +2620,14 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
             cot = torch.from_numpy(np.abs(rng.standard_normal(
                 tuple(cont.shape))).astype(np.float32)).to(dev)
             kb, pb = counters(), counters()
-            kern = G.bounce_bwd(cont, ints, cot, tbl, tris, stats=kb, **a)
+            kn, pn = (torch.zeros(2, dtype=torch.int64, device=dev)
+                      for _ in range(2))
+            kern = G.bounce_bwd(cont, ints, cot, tbl, tris, stats=kb,
+                                nee_stats=kn, **a)
 
             def plain_bwd():  # bounce_bwd_reference, keeping its terms
                 ci, s_t, t_t, l_t = G.bounce_bwd_terms(
-                    cont, ints, cot, tbl, tris, stats=pb, **a)
+                    cont, ints, cot, tbl, tris, stats=pb, nee_stats=pn, **a)
                 return ((ci, G.table_sums(s_t, npad),
                          None if t_t is None
                          else G.table_sums(t_t, tris.tbl.shape[0]),
@@ -2649,6 +2653,12 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
             check(torch.equal(kb, ks) and torch.equal(pb, ps),
                   f"K5 {what} {name}, bounce {it}: its replay counted "
                   f"{kb.tolist()} / {pb.tolist()}, K4 {ks.tolist()}")
+            # One NEE pass a warp: the volume events' NEE adjoints and the
+            # warps whose pass served both kinds, as the plain masks count.
+            check(torch.equal(kn, pn),
+                  f"K5 {what} {name}, bounce {it}: nee_stats {kn.tolist()}, "
+                  f"plain {pn.tolist()}")
+            nee_counts = [x + y for x, y in zip(nee_counts, kn.tolist())]
             if "g_rows" in res:
                 coherent += res["g_rows"][3]
                 res["g_rows"] = res["g_rows"][:3] + res["g_rows"][4:]
@@ -2672,7 +2682,9 @@ def grad_feature_phases(torch, dev, card, say, event_ms, spec):
             f"{name} ({tape[0][0].shape[1]} lanes, {len(lit.nee_kinds)} "
             f"lights, {len(lit.vol_kinds)} volumes "
             f"{''.join(lit.vol_kinds)}, checker {lit.checker}): {live} live "
-            f"lane-bounces, {shadows} shadow rays, "
+            f"lane-bounces, {shadows} shadow rays ({nee_counts[0]} from "
+            f"volume events; {nee_counts[1]} warps' NEE adjoint served "
+            f"both kinds at once, as plain), "
             f"{sum(c[1] for c in counts)} triangle tests; {coherent} "
             f"coherent row entries; K4 {k4_ms:.3f} ms, K5 {k5_ms:.3f} ms "
             f"(its {len(tape)} launches, median of 3); plain K4 "

@@ -1156,37 +1156,62 @@ RTOW_HD void emission_adjoint(const Lit& L, const Ray& r, float a,
   light_pdf_adjoint<kSweep>(L, r, t_hit, g_pl, gin, gin + 3, g_tm, g_lrows);
 }
 
-// The adjoint of a volume scatter (the volume branch of bounce_lane_t)
-// at t_v in volume kv with the medium's albedo v_alb: the new state is
-// o' = p = o + t_v d, the isotropic direction (a constant), tp' = tp alb,
-// and under NEE rad' = rad + the light sample's contribution from p.  Writes
-// gin[0..5] and gin[7..9], adds to gin[6] (a moving light's time) and the
-// rows' g_lrows: the volume's density, albedo and boundary, the picked
-// light's, and every volume's the shadow ray crosses.
-template <bool kTris, Sweep kSweep = Sweep::kThread>
-RTOW_HD void volume_adjoint(const float4* tbl, int npad, const Tris& tris,
-                            const Lit& L, const float* s, const Ray& r,
-                            int kv, float v_t, const float* v_alb, bool nee,
-                            uint32_t lane, uint32_t salt, const float* G,
-                            float* gin, const RowSums& g_lrows, Tally* tally) {
-  const float d[3] = {r.dx, r.dy, r.dz};
-  const float p[3] = {r.ox + v_t * r.dx, r.oy + v_t * r.dy,
-                      r.oz + v_t * r.dz};
-  float gq[kLitCols] = {};
-  ShadeGrad g{};
-  g.px = G[0];
-  g.py = G[1];
-  g.pz = G[2];
-  for (int c = 0; c < 3; ++c) {
-    gin[7 + c] = G[7 + c] * v_alb[c];
-    gq[8 + c] = G[7 + c] * s[7 + c];
+// The lit adjoint's NEE site on the card.  warp: in K5's thread form on a
+// launch with media, the threads of the calling warp that replay a live
+// lane, which meet before the site so that a warp runs NEE's adjoint once
+// for its volume events and its diffuse surface hits together; 0 where
+// nothing can merge (no media: every NEE lane is a surface hit; the warp
+// form's 32 threads hold one lane).  counts: null, or grad.bounce_bwd's
+// nee_stats, which gets the NEE adjoints from volume events and the warps
+// whose one pass served both kinds added, at the site.
+struct NeeSite {
+  unsigned warp = 0u;
+  unsigned long long* counts = nullptr;
+};
+
+// The threads of ns.warp meet here.
+RTOW_HD void meet_before_nee(const NeeSite& ns) {
+#ifdef __CUDA_ARCH__
+  if (ns.warp != 0u) __syncwarp(ns.warp);
+#endif
+}
+
+// Adds one lane's NEE adjoint to ns.counts, where it is set: in the thread
+// form with media by a vote of the threads at the pass, counted once by
+// the lowest of them; in the warp form by lane 0.
+template <Sweep kSweep>
+RTOW_HD void count_nee(bool volume, const NeeSite& ns) {
+#ifdef __CUDA_ARCH__
+  if (ns.counts == nullptr) return;
+  if (ns.warp != 0u) {
+    const unsigned at = __activemask();
+    const unsigned vols = __ballot_sync(at, volume);
+    if (vols != 0u && static_cast<int>(threadIdx.x & 31u) == lowest_bit(at)) {
+      atomicAdd(ns.counts, static_cast<unsigned long long>(__popc(vols)));
+      if (vols != at) atomicAdd(ns.counts + 1, 1ull);
+    }
+  } else if (volume && writes_lane<kSweep>()) {
+    atomicAdd(ns.counts, 1ull);
   }
-  float g_tm = 0.0f;
-  if (nee)
-    next_event_adjoint<kTris, kSweep>(tbl, npad, tris, L, s, p[0], p[1], p[2],
-                                      0.0f, 0.0f, 0.0f, v_alb[0], v_alb[1],
-                                      v_alb[2], true, lane, salt, G, gin, &g,
-                                      &g_tm, g_lrows, tally);
+#endif
+}
+
+// The adjoint of a volume scatter (the volume branch of bounce_lane_t)
+// at t_v in volume kv, after its NEE adjoint: the new state is
+// o' = p = o + t_v d, the isotropic direction (a constant), tp' = tp alb
+// (gin[7..9], written before NEE), and under NEE rad' = rad + the light
+// sample's contribution from p, whose adjoint left the point's and the
+// albedo's cotangents in g and the time's in g_tm.  Writes gin[0..5], adds
+// g_tm to gin[6] and the volume's density, albedo and boundary cotangents
+// to its row in g_lrows.
+template <Sweep kSweep = Sweep::kThread>
+RTOW_HD void volume_adjoint(const Lit& L, const float* s, const Ray& r,
+                            int kv, float v_t, uint32_t lane, uint32_t salt,
+                            const float* G, const ShadeGrad& g, float g_tm,
+                            float* gin, const RowSums& g_lrows) {
+  const float d[3] = {r.dx, r.dy, r.dz};
+  float gq[kLitCols] = {};
+  for (int c = 0; c < 3; ++c) gq[8 + c] = G[7 + c] * s[7 + c];
   gq[8] += g.alr;
   gq[9] += g.alg;
   gq[10] += g.alb;
@@ -1203,6 +1228,168 @@ RTOW_HD void volume_adjoint(const float4* tbl, int npad, const Tris& tris,
   add_rows<kSweep>(g_lrows, L.vol_row0 + kv, gq);
 }
 
+// The adjoint of a miss, rad' = rad + tp * background: gin[7..9] and,
+// under the sky, the direction's gin[3..5].
+RTOW_HD void miss_adjoint(const Background& bg, const Ray& r, float a,
+                          const float* s, const float* G, float* gin) {
+  float skyr = bg.r, skyg = bg.g, skyb = bg.b;
+  if (bg.use_sky) {
+    sky_color(r.dy, a, &skyr, &skyg);
+    skyb = 1.0f;
+  }
+  gin[7] += G[10] * skyr;
+  gin[8] += G[11] * skyg;
+  gin[9] += G[12] * skyb;
+  if (bg.use_sky) {
+    // skyr = 1 - st + st * 0.5, skyg = 1 - st + st * 0.7,
+    // st = 0.5 * (dy * inv_len + 1), inv_len = 1 / sqrt(a)
+    const float g_skyr = G[10] * s[7];
+    const float g_skyg = G[11] * s[8];
+    const float g_st = -g_skyr + g_skyr * 0.5f - g_skyg + g_skyg * 0.7f;
+    const float g_u = 0.5f * g_st;
+    const float inv_len = 1.0f / sqrtf(a);
+    gin[4] += g_u * inv_len;
+    const float ga = -0.5f * (g_u * r.dy) * inv_len * inv_len * inv_len;
+    gin[3] += 2.0f * r.dx * ga;
+    gin[4] += 2.0f * r.dy * ga;
+    gin[5] += 2.0f * r.dz * ga;
+  }
+}
+
+// The winner's hit record and material: triangle row best_k - npad where
+// is_tri, else sphere best_k.
+RTOW_HD void winner_hit(const float4* tbl, int npad, const Tris& tris,
+                        bool is_tri, int best_k, float best_t, const Ray& r,
+                        float a, float inv_a, Hit* e, Material* m0) {
+  if (is_tri) {
+    *e = triangle_hit_record(tris.tbl, best_k - npad, r);
+    *m0 = triangle_material(tris.tbl, best_k - npad);
+  } else {
+    *e = hit_record(tbl, best_k, best_t, r, a, inv_a);
+    *m0 = sphere_material(tbl, best_k);
+  }
+}
+
+// The winner's hit record's adjoint, of the triangle's or the sphere's.
+RTOW_HD void winner_hit_adjoint(const float4* tbl, int npad, const Tris& tris,
+                                bool is_tri, int best_k, const Hit& e,
+                                const Ray& r, float a, float inv_a,
+                                const ShadeGrad& g, const float* G,
+                                float* gin, float* gw) {
+  if (is_tri)
+    triangle_hit_adjoint(tris.tbl, best_k - npad, e, r, g, gin, gw);
+  else
+    sphere_hit_adjoint(tbl, best_k, e, r, a, inv_a, g, G, gin, gw);
+}
+
+// The lit bounce's adjoint (bounce_lane_adjoint_t<kTris, true>) from the
+// main sweep's (best_t, best_k), in three phases so that a warp runs NEE's
+// adjoint once, whichever kinds of scatter its lanes hold.  1: per branch,
+// a volume event (before the miss: a ray under the sky still scatters; at
+// depth absorbed, the identity) writes the throughput's cotangent and
+// takes as its hit record the event's point with no normal, as its
+// material the medium's albedo; a miss and an emitter's hit finish here; a
+// surface hit at depth is retired; a scattering surface hit runs the
+// shade's adjoint.  2: one site, where the branches have met
+// (meet_before_nee): NEE's adjoint from the volume event's or the diffuse
+// surface hit's point, normal and albedo.  3: per branch, the volume
+// scatter's adjoint, or the texture's and the hit record's.  Each lane
+// runs the float operations of the single-branch order: the shade's
+// adjoint before NEE's, NEE's before the free flight's, the rows' adds in
+// that order.
+template <bool kTris, Sweep kSweep>
+RTOW_HD int lit_bounce_adjoint(const float4* tbl, int npad, const Tris& tris,
+                               const float* s, int bounce, uint32_t lane,
+                               uint32_t salt, int max_depth,
+                               const Background& bg, const float* G,
+                               float* gin, float* gw, Tally* tally,
+                               const Lit& L, bool from_diffuse,
+                               const RowSums& g_lrows, const Ray& r, float a,
+                               float inv_a, float best_t, int best_k,
+                               const NeeSite& ns) {
+  float v_t, v_alb[3];
+  const int kv = L.n_vol > 0
+                     ? volume_event(L, r, lane, salt, best_t, &v_t, v_alb)
+                     : -1;
+  const bool vol = kv >= 0;
+  const bool is_tri = kTris && best_k >= npad;
+  const bool tex = L.checker && !is_tri;
+  Hit e;
+  Material m0, m;
+  ShadeGrad g{};
+  float g_tm = 0.0f;
+  bool scatters = false;  // on to phase 3
+  // And to NEE's adjoint first: one flag each branch sets, tested once
+  // after the meet (a test that short-circuits over the two kinds let
+  // them reach the site apart, and the warp ran it twice).
+  bool nee = false;
+  int winner = -1;
+  if (vol) {
+    scatters = bounce < max_depth;
+    nee = scatters && L.n_lights > 0;
+    if (scatters) {
+      e.px = r.ox + v_t * r.dx;
+      e.py = r.oy + v_t * r.dy;
+      e.pz = r.oz + v_t * r.dz;
+      e.nx = e.ny = e.nz = 0.0f;
+      m.alr = v_alb[0];
+      m.alg = v_alb[1];
+      m.alb = v_alb[2];
+      g.px = G[0];
+      g.py = G[1];
+      g.pz = G[2];
+      for (int c = 0; c < 3; ++c) gin[7 + c] = G[7 + c] * v_alb[c];
+    }
+  } else if (!(best_t < kBig)) {
+    miss_adjoint(bg, r, a, s, G, gin);
+  } else {
+    winner_hit(tbl, npad, tris, is_tri, best_k, best_t, r, a, inv_a, &e,
+               &m0);
+    m = tex ? textured(tbl, best_k, m0, e.px, e.py, e.pz) : m0;
+    if (L.emissive && m.kind == kEmissive) {  // at any depth; no scatter
+      float g_al[3];
+      const bool mis = L.n_lights > 0 && from_diffuse;
+      emission_adjoint<kSweep>(L, r, a, e.t, m, mis, s, G, gin, g_al, &g_tm,
+                               g_lrows);
+      gin[6] += g_tm;
+      const int c0 = is_tri ? 9 : 7;  // the albedo columns
+      for (int c = 0; c < 3; ++c) gw[c0 + c] = g_al[c];
+      winner = best_k;
+    } else if (bounce < max_depth) {
+      const Draws w = draw_scatter(lane, salt);
+      g = shade_adjoint(e, m, scatter(m, e, r, a, w), w, r, s, G, gin);
+      scatters = true;
+      nee = L.n_lights > 0 && is_diffuse(m.kind);
+      winner = best_k;
+    }
+  }
+
+  meet_before_nee(ns);
+  if (nee) {
+    count_nee<kSweep>(vol, ns);
+    next_event_adjoint<kTris, kSweep>(tbl, npad, tris, L, s, e.px, e.py, e.pz,
+                                      e.nx, e.ny, e.nz, m.alr, m.alg, m.alb,
+                                      vol, lane, salt, G, gin, &g, &g_tm,
+                                      g_lrows, tally);
+  }
+
+  if (scatters) {
+    if (vol) {
+      volume_adjoint<kSweep>(L, s, r, kv, v_t, lane, salt, G, g, g_tm, gin,
+                             g_lrows);
+    } else {
+      // The hit record again: cheaper than holding it across the site.
+      winner_hit(tbl, npad, tris, is_tri, best_k, best_t, r, a, inv_a, &e,
+                 &m0);
+      if (tex) texture_adjoint(tbl, best_k, m0, e, &g, gw);
+      winner_hit_adjoint(tbl, npad, tris, is_tri, best_k, e, r, a, inv_a, g,
+                         G, gin, gw);
+      gin[6] += g_tm;
+    }
+  }
+  return winner;
+}
+
 // Replays bounce_lane_t<kTris, kLit> for a live lane from its saved input
 // state s (13 floats, bounce) and maps the output cotangents G (13, in the
 // order of s) to the input cotangents gin (13) and the winner row's
@@ -1212,14 +1399,15 @@ RTOW_HD void volume_adjoint(const float4* tbl, int npad, const Tris& tris,
 // triangles npad + row), or -1 where the bounce read no row (a miss, a
 // non-emissive hit at depth, a volume event).  kTris sweeps `tris` after
 // the spheres, counting its work in `tally`, as the forward does.  kLit
-// replays the lit bounce with the features L has (the free-flight event
-// before the surface, emission, NEE toward L.n_lights lights with the
-// shadow ray's transmittance, the textures; from_diffuse is the input alive
-// code 2) and adds the rows' cotangent to g_lrows (the light rows, then the
-// volume rows from L.vol_row0: all of L's rows x 14).  kSweep: the
-// triangle sweeps one thread alone, or the 32 threads of a warp on the same
-// lane (K5's warp form: every thread runs the adjoint on the same inputs
-// and ends with the same cotangents; only lane 0 adds to g_lrows).
+// replays the lit bounce with the features L has (lit_bounce_adjoint: the
+// free-flight event before the surface, emission, NEE toward L.n_lights
+// lights with the shadow ray's transmittance, the textures; from_diffuse
+// is the input alive code 2), adds the rows' cotangent to g_lrows (the
+// light rows, then the volume rows from L.vol_row0: all of L's rows x 14)
+// and meets and counts at its NEE site as ns says.  kSweep:
+// the triangle sweeps one thread alone, or the 32 threads of a warp on the
+// same lane (K5's warp form: every thread runs the adjoint on the same
+// inputs and ends with the same cotangents; only lane 0 adds to g_lrows).
 template <bool kTris, bool kLit = false, Sweep kSweep = Sweep::kThread>
 RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
                                   const Tris& tris, const float* s,
@@ -1228,7 +1416,8 @@ RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
                                   const float* G, float* gin, float* gw,
                                   Tally* tally, const Lit& L = Lit{},
                                   bool from_diffuse = false,
-                                  RowSums g_lrows = {}) {
+                                  RowSums g_lrows = {},
+                                  NeeSite ns = {}) {
   for (int j = 0; j < kCont; ++j) gin[j] = G[j];
   const Ray r{s[0], s[1], s[2], s[3], s[4], s[5], s[6]};
   const float a = r.dx * r.dx + r.dy * r.dy + r.dz * r.dz;
@@ -1238,90 +1427,29 @@ RTOW_HD int bounce_lane_adjoint_t(const float4* tbl, int npad,
   nearest_sphere(tbl, npad, r, a, inv_a, &best_t, &best_k);
   if constexpr (kTris)
     nearest_triangle_by<kSweep>(tris, r, npad, &best_t, &best_k, tally);
-  const bool nee = kLit && L.n_lights > 0;
-
   if constexpr (kLit) {
-    float v_t, v_alb[3];
-    const int kv = L.n_vol > 0
-                       ? volume_event(L, r, lane, salt, best_t, &v_t, v_alb)
-                       : -1;
-    if (kv >= 0) {  // before the miss: a ray under the sky still scatters
-      if (bounce >= max_depth) return -1;  // absorbed: the identity
-      volume_adjoint<kTris, kSweep>(tbl, npad, tris, L, s, r, kv, v_t, v_alb,
-                                    nee, lane, salt, G, gin, g_lrows, tally);
+    return lit_bounce_adjoint<kTris, kSweep>(
+        tbl, npad, tris, s, bounce, lane, salt, max_depth, bg, G, gin, gw,
+        tally, L, from_diffuse, g_lrows, r, a, inv_a, best_t, best_k, ns);
+  } else {
+    if (!(best_t < kBig)) {  // miss: rad' = rad + tp * background
+      miss_adjoint(bg, r, a, s, G, gin);
       return -1;
     }
-  }
-
-  if (!(best_t < kBig)) {  // miss: rad' = rad + tp * background
-    float skyr = bg.r, skyg = bg.g, skyb = bg.b;
-    if (bg.use_sky) {
-      sky_color(r.dy, a, &skyr, &skyg);
-      skyb = 1.0f;
-    }
-    gin[7] += G[10] * skyr;
-    gin[8] += G[11] * skyg;
-    gin[9] += G[12] * skyb;
-    if (bg.use_sky) {
-      // skyr = 1 - st + st * 0.5, skyg = 1 - st + st * 0.7,
-      // st = 0.5 * (dy * inv_len + 1), inv_len = 1 / sqrt(a)
-      const float g_skyr = G[10] * s[7];
-      const float g_skyg = G[11] * s[8];
-      const float g_st = -g_skyr + g_skyr * 0.5f - g_skyg + g_skyg * 0.7f;
-      const float g_u = 0.5f * g_st;
-      const float inv_len = 1.0f / sqrtf(a);
-      gin[4] += g_u * inv_len;
-      const float ga = -0.5f * (g_u * r.dy) * inv_len * inv_len * inv_len;
-      gin[3] += 2.0f * r.dx * ga;
-      gin[4] += 2.0f * r.dy * ga;
-      gin[5] += 2.0f * r.dz * ga;
-    }
-    return -1;
-  }
-  if constexpr (!kLit) {
     if (bounce >= max_depth) return -1;  // retired: the identity
+    const bool is_tri = kTris && best_k >= npad;
+    Hit e;
+    Material m;
+    winner_hit(tbl, npad, tris, is_tri, best_k, best_t, r, a, inv_a, &e,
+               &m);
+    const Draws w = draw_scatter(lane, salt);
+    const Scatter sc = scatter(m, e, r, a, w);
+    const ShadeGrad g = shade_adjoint(e, m, sc, w, r, s, G, gin);
+    winner_hit_adjoint(tbl, npad, tris, is_tri, best_k, e, r, a, inv_a, g, G,
+                       gin, gw);
+    gin[6] += 0.0f;  // the time's cotangent, 0 unlit (a -0 in G[6] reads +0)
+    return best_k;
   }
-
-  const bool is_tri = kTris && best_k >= npad;
-  Hit e;
-  Material m0;
-  if (is_tri) {
-    e = triangle_hit_record(tris.tbl, best_k - npad, r);
-    m0 = triangle_material(tris.tbl, best_k - npad);
-  } else {
-    e = hit_record(tbl, best_k, best_t, r, a, inv_a);
-    m0 = sphere_material(tbl, best_k);
-  }
-  const bool tex = kLit && L.checker && !is_tri;
-  const Material m = tex ? textured(tbl, best_k, m0, e.px, e.py, e.pz) : m0;
-  float g_tm = 0.0f;
-  if constexpr (kLit) {
-    if (L.emissive && m.kind == kEmissive) {  // at any depth; no scatter
-      float g_al[3];
-      emission_adjoint<kSweep>(L, r, a, e.t, m, nee && from_diffuse, s, G,
-                               gin, g_al, &g_tm, g_lrows);
-      gin[6] += g_tm;
-      const int c0 = is_tri ? 9 : 7;  // the albedo columns
-      for (int c = 0; c < 3; ++c) gw[c0 + c] = g_al[c];
-      return best_k;
-    }
-    if (bounce >= max_depth) return -1;
-  }
-  const Draws w = draw_scatter(lane, salt);
-  const Scatter sc = scatter(m, e, r, a, w);
-  ShadeGrad g = shade_adjoint(e, m, sc, w, r, s, G, gin);
-  if (nee && is_diffuse(m.kind))
-    next_event_adjoint<kTris, kSweep>(tbl, npad, tris, L, s, e.px, e.py,
-                                      e.pz, e.nx, e.ny, e.nz, m.alr, m.alg,
-                                      m.alb, false, lane, salt, G, gin, &g,
-                                      &g_tm, g_lrows, tally);
-  if (tex) texture_adjoint(tbl, best_k, m0, e, &g, gw);
-  if (is_tri)
-    triangle_hit_adjoint(tris.tbl, best_k - npad, e, r, g, gin, gw);
-  else
-    sphere_hit_adjoint(tbl, best_k, e, r, a, inv_a, g, G, gin, gw);
-  gin[6] += g_tm;
-  return best_k;
 }
 
 }  // namespace rtow

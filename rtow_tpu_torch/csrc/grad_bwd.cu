@@ -26,6 +26,12 @@
 // reads no row).  Four instances,
 // as K4's: spheres only or spheres then triangles (flat or down the
 // hierarchy), each unlit or lit, with the same optional `stats` as K4.
+// The lit instances run NEE's adjoint at one site, where the threads of a
+// warp that replay a live lane meet (lit_bounce_adjoint, NeeSite), so a
+// warp whose lanes hold volume events and diffuse surface hits replays the
+// light sample, the shadow sweep and the transmittance once, not once for
+// each kind; the optional `nee_stats` counts the volume events' NEE
+// adjoints and the warps whose one pass served both.
 //
 // What bounds it on Hopper: float32 ALU work, as in K4 (the replayed sweeps),
 // plus the table-gradient sums.  A float atomicAdd to shared memory is a
@@ -203,7 +209,8 @@ __global__ void __launch_bounds__(kThreads)
              int max_depth, rtow::Background bg, float* __restrict__ cot_in,
              float* __restrict__ g_tbl, float* __restrict__ g_tri,
              float* __restrict__ g_rows,
-             unsigned long long* __restrict__ stats, rtow::Lit lit,
+             unsigned long long* __restrict__ stats,
+             unsigned long long* __restrict__ nee_stats, rtow::Lit lit,
              int lit_rows, Layout lay, const long long* live_count,
              int cut) {
   if constexpr (kTris) {
@@ -222,6 +229,13 @@ __global__ void __launch_bounds__(kThreads)
                                                : kSphCols;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   rtow::Tally tally;
+  // With media, the warp's threads that replay a live lane meet before the
+  // lit adjoint's NEE site.
+  rtow::NeeSite nee{0u, nee_stats};
+  if constexpr (kLit) {
+    if (lit.n_vol > 0)
+      nee.warp = __ballot_sync(0xFFFFFFFFu, g < n && ints[g < n ? g : 0] > 0);
+  }
   int live = 0;
   int k = -1;
   float gw[rtow::kCols] = {};
@@ -243,7 +257,8 @@ __global__ void __launch_bounds__(kThreads)
           S.tbl, npad, tris, s, bounce, rtow::lane_hash(lid), salt, max_depth,
           bg, G, gin, gw, &tally, lit, alive > 1,
           rtow::RowSums{lay.own > 0 ? S.lacc + threadIdx.x * lay.own : S.lacc,
-                        lay.own > 0});
+                        lay.own > 0},
+          nee);
     }
 #pragma unroll
     for (int j = 0; j < rtow::kCont; ++j) cot_in[j * stride + g] = gin[j];
@@ -290,7 +305,8 @@ __global__ void __launch_bounds__(kThreads)
                   int max_depth, rtow::Background bg,
                   float* __restrict__ cot_in, float* __restrict__ g_tbl,
                   float* __restrict__ g_tri, float* __restrict__ g_rows,
-                  unsigned long long* __restrict__ stats, rtow::Lit lit,
+                  unsigned long long* __restrict__ stats,
+                  unsigned long long* __restrict__ nee_stats, rtow::Lit lit,
                   int lit_rows, Layout lay, const long long* live_count,
                   int cut) {
   if (!warp_form_runs(live_count, cut)) return;
@@ -315,6 +331,7 @@ __global__ void __launch_bounds__(kThreads)
   // live ones among them one after another.
   const int wl = threadIdx.x & 31;
   rtow::Tally tally;
+  const rtow::NeeSite nee{0u, nee_stats};  // one lane a warp: nothing to meet
   unsigned long long live = 0;
   for (int base = (blockIdx.x * kThreads + threadIdx.x) / 32; base < n;
        base += 32 * n_warps) {
@@ -337,7 +354,7 @@ __global__ void __launch_bounds__(kThreads)
       const int k = rtow::bounce_lane_adjoint_t<true, kLit, kWarp>(
           S.tbl, npad, tris, s, bounce, rtow::lane_hash(lid), salt,
           max_depth, bg, G, gin, gw, &tally, lit, alive > 1,
-          rtow::RowSums{S.lacc, false});
+          rtow::RowSums{S.lacc, false}, nee);
       if (lead) {
         ++live;
 #pragma unroll
@@ -378,7 +395,8 @@ int launch(const float* table, int npad, const rtow::Tris& tris,
            const float* cont, const int* ints, const float* cot_out, int n,
            int it, int seed, int max_depth, const rtow::Background& bg,
            float* cot_in, float* g_tbl, float* g_tri, float* g_rows,
-           unsigned long long* stats, const rtow::Lit& lit, int lit_rows,
+           unsigned long long* stats, unsigned long long* nee_stats,
+           const rtow::Lit& lit, int lit_rows,
            const Layout& lay, const long long* live, int cut,
            cudaStream_t stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
@@ -393,7 +411,7 @@ int launch(const float* table, int npad, const rtow::Tris& tris,
     kernel<<<blocks, kThreads, smem, stream>>>(
         reinterpret_cast<const float4*>(table), npad, tris, cont, ints,
         cot_out, n, salt, max_depth, bg, cot_in, g_tbl, g_tri, g_rows, stats,
-        lit, lit_rows, lay, warp ? live : nullptr, cut);
+        nee_stats, lit, lit_rows, lay, warp ? live : nullptr, cut);
     err = cudaGetLastError();
     if (err != cudaSuccess || !warp) return static_cast<int>(err);
   }
@@ -405,8 +423,8 @@ int launch(const float* table, int npad, const rtow::Tris& tris,
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<held < blocks ? held : blocks, kThreads, smem, stream>>>(
       reinterpret_cast<const float4*>(table), npad, tris, cont, ints, cot_out,
-      n, salt, max_depth, bg, cot_in, g_tbl, g_tri, g_rows, stats, lit,
-      lit_rows, wl, live, cut);
+      n, salt, max_depth, bg, cot_in, g_tbl, g_tri, g_rows, stats, nee_stats,
+      lit, lit_rows, wl, live, cut);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -416,12 +434,13 @@ int dispatch(bool any_lit, const float* table, int npad,
              const float* cot_out, int n, int it, int seed, int max_depth,
              const rtow::Background& bg, float* cot_in, float* g_tbl,
              float* g_tri, float* g_rows, unsigned long long* stats,
-             const rtow::Lit& lit, int lit_rows, const Layout& lay,
+             unsigned long long* nee_stats, const rtow::Lit& lit,
+             int lit_rows, const Layout& lay,
              const long long* live, int cut, cudaStream_t stream) {
   auto run = any_lit ? launch<kTris, true> : launch<kTris, false>;
   return run(table, npad, tris, cont, ints, cot_out, n, it, seed, max_depth,
-             bg, cot_in, g_tbl, g_tri, g_rows, stats, lit, lit_rows, lay,
-             live, cut, stream);
+             bg, cot_in, g_tbl, g_tri, g_rows, stats, nee_stats, lit, lit_rows,
+             lay, live, cut, stream);
 }
 
 }  // namespace
@@ -434,7 +453,10 @@ extern "C" {
 // (13, n) float32; ints: (3, n) int32; g_tbl: (npad, 16), g_tri
 // (n_blocks * tri_block, 16) and g_rows (n_rows, 14) float32, zeroed by the
 // caller (g_tri unused without triangles, g_rows without rows);
-// stats and the lit features: as for rtow_grad_fwd.  tri_rows, own and
+// stats and the lit features: as for rtow_grad_fwd; nee_stats: null, or
+// (2,) uint64 that gets the lit instances' NEE adjoints from volume events
+// and the thread form's warps whose one NEE pass served a volume event and
+// a surface hit (warp w: lanes 32 w .. 32 w + 31) added.  tri_rows, own and
 // frames: the thread form's shared-memory layout (Layout), which the
 // caller fits beside the sphere table (tri_rows 0 without triangles).
 // live: null (the
@@ -450,7 +472,8 @@ int rtow_grad_bwd(const float* table, int npad, const float* tri,
                   int n, int it, int seed, int max_depth, int use_sky,
                   float bgr, float bgg, float bgb, float* cot_in,
                   float* g_tbl, float* g_tri, float* g_rows,
-                  unsigned long long* stats, const float* lit_rows,
+                  unsigned long long* stats, unsigned long long* nee_stats,
+                  const float* lit_rows,
                   int n_rows, int emissive, int n_lights, int light_kinds,
                   int checker, int n_vol, int vol_kinds, int vol_row0,
                   int tri_rows, int own, int frames, const long long* live,
@@ -472,10 +495,11 @@ int rtow_grad_bwd(const float* table, int npad, const float* tri,
   if (tri == nullptr)
     return dispatch<false>(any_lit, table, npad, tris, cont, ints, cot_out, n,
                            it, seed, max_depth, bg, cot_in, g_tbl, nullptr,
-                           g_rows, stats, lit, n_rows, lay, nullptr, cut, st);
+                           g_rows, stats, nee_stats, lit, n_rows, lay,
+                           nullptr, cut, st);
   return dispatch<true>(any_lit, table, npad, tris, cont, ints, cot_out, n,
                         it, seed, max_depth, bg, cot_in, g_tbl, g_tri, g_rows,
-                        stats, lit, n_rows, lay, live, cut, st);
+                        stats, nee_stats, lit, n_rows, lay, live, cut, st);
 }
 
 const char* rtow_cuda_error_string(int err) {

@@ -161,7 +161,7 @@ def _shadow_open(tbl, tris, p, l, tm, thresh, nee_act, flat, tally):
 
 
 def _lit_shade(state, ints, w, tri, best_t, alive, lane, salt, *, tbl, tris,
-               lit, max_depth, background, flat, tally):
+               lit, max_depth, background, flat, tally, nee_stats=None):
     """The differentiable half of a bounce with the lit features
     (``_grad_fwd_kernel``'s live tile, :165-215): the free-flight event
     where ``lit`` has media (its distance and albedo differentiable in the
@@ -170,7 +170,9 @@ def _lit_shade(state, ints, w, tri, best_t, alive, lane, salt, *, tbl, tris,
     contribution added where the shadow ray gets through, then
     ``bounce.shade`` with the volume scatter, emission, the MIS
     weight (the previous bounce's diffuse flag is the alive code 2) and
-    the textures.  Returns shade's (13-tuple, can, bounce)."""
+    the textures.  Returns shade's (13-tuple, can, bounce).
+    ``nee_stats`` (or None): :func:`_count_nee`'s counts of the NEE
+    lanes."""
     bounce = ints[1]
     basics = hit_basics(state, w, best_t, tri=tri, checker=lit.checker)
     draws = draw_scatter(lane, salt)
@@ -184,11 +186,30 @@ def _lit_shade(state, ints, w, tri, best_t, alive, lane, salt, *, tbl, tris,
             state, basics, alive, bounce, max_depth, nee_us, lit, v_event)
         add = _shadow_open(tbl, tris, p, l, state[6], thresh, nee_act, flat,
                            tally)
+        if nee_stats is not None:
+            _count_nee(nee_act,
+                       None if v_event is None else nee_act & v_event[0],
+                       nee_stats)
         state = state[:10] + tuple(ch + torch.where(add, c, 0.0)
                                    for ch, c in zip(state[10:], contrib))
     return shade(state, w, draws, best_t, alive, bounce, max_depth,
                  background, tri=tri, basics=basics, lit=lit,
                  from_diffuse=from_diffuse, v_event=v_event)
+
+
+def _count_nee(nee_act, vol, nee_stats) -> None:
+    """Adds K5's NEE counts to ``nee_stats``: the NEE lanes that are volume
+    events (``vol``; None: none), and the warps (lanes 32 w .. 32 w + 31)
+    whose NEE lanes hold both a volume event and a surface hit, which the
+    kernel's one NEE pass a warp serves together."""
+    if vol is None:
+        vol = torch.zeros_like(nee_act)
+    pad = -nee_act.numel() % 32
+    warps_vol = torch.nn.functional.pad(vol, (0, pad)).view(-1, 32).any(1)
+    warps_surf = torch.nn.functional.pad(nee_act & ~vol,
+                                         (0, pad)).view(-1, 32).any(1)
+    nee_stats += torch.stack([vol.sum(), (warps_vol & warps_surf).sum()]).to(
+        nee_stats.device)
 
 
 def _count(tally, alive, stats) -> None:
@@ -224,7 +245,8 @@ def bounce_bwd_reference(cont, ints, cot_out, tbl,
                          seed: int, max_depth: int, background="sky",
                          flat: bool = False,
                          stats: Optional[torch.Tensor] = None,
-                         lit: Lit = Lit()):
+                         lit: Lit = Lit(),
+                         nee_stats: Optional[torch.Tensor] = None):
     """Plain PyTorch version of K5 -> (cot_in (13, L), g_tbl (Npad, 16),
     g_tri (Mpad, 16) or None without ``tris``, g_rows (R, 14) or None
     without light or volume rows): each hit lane's row cotangent from
@@ -235,7 +257,7 @@ def bounce_bwd_reference(cont, ints, cot_out, tbl,
     cot_in, sph, tri, rows = bounce_bwd_terms(
         cont, ints, cot_out, tbl, tris, it=it, seed=seed,
         max_depth=max_depth, background=background, flat=flat, stats=stats,
-        lit=lit)
+        lit=lit, nee_stats=nee_stats)
     return (cot_in, table_sums(sph, tbl.shape[0]),
             None if tri is None else table_sums(tri, tris.tbl.shape[0]),
             None if rows is None else rows.sum(dim=0))
@@ -254,7 +276,8 @@ def table_sums(terms, rows: int, dtype=_F32) -> torch.Tensor:
 def bounce_bwd_terms(cont, ints, cot_out, tbl,
                      tris: Optional[TriTable] = None, *, it: int, seed: int,
                      max_depth: int, background="sky", flat: bool = False,
-                     stats: Optional[torch.Tensor] = None, lit: Lit = Lit()):
+                     stats: Optional[torch.Tensor] = None, lit: Lit = Lit(),
+                     nee_stats: Optional[torch.Tensor] = None):
     """K5's plain version before its table sums -> (cot_in (13, L), the
     sphere-hit lanes' (winner rows, row cotangents (H, 13), or (H, 16)
     with textures), the triangle-hit lanes' (winner rows, row cotangents
@@ -299,7 +322,7 @@ def bounce_bwd_terms(cont, ints, cot_out, tbl,
                                                       0.0),
             tri, best_t, alive, lane, salt, tbl=tbl, tris=tris, lit=lane_lit,
             max_depth=max_depth, background=background, flat=flat,
-            tally=tally)
+            tally=tally, nee_stats=nee_stats)
         grads = torch.autograd.grad(torch.stack(out), inputs, cot_out,
                                     allow_unused=True)
     _count(tally, alive, stats)
@@ -511,12 +534,19 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
                it: int, seed: int, max_depth: int,
                background: Union[str, tuple] = "sky", flat: bool = False,
                stats: Optional[torch.Tensor] = None, lit: Lit = Lit(),
-               live: Optional[torch.Tensor] = None):
+               live: Optional[torch.Tensor] = None,
+               nee_stats: Optional[torch.Tensor] = None):
     """One backward bounce (``_bounce_grad_bwd``, :639) from the bounce's
     saved input state -> (cot_in (13, L), g_tbl (Npad, 16), g_tri (Mpad,
     16) or None without ``tris``, g_rows (R, 14) or None without light or
     volume rows).  ``tris``, ``flat``, ``lit``, ``stats`` and ``live`` as
-    for :func:`bounce_fwd`.
+    for :func:`bounce_fwd`.  ``nee_stats``, a (2,) int64 tensor on the
+    table's device, gets added the NEE adjoints run from volume events and
+    the warps of 32 lanes (lanes 32 w .. 32 w + 31) whose one NEE pass
+    served both a volume event and a diffuse surface hit: on a launch with
+    media the lit instance's thread form has a warp's threads meet before
+    NEE's adjoint, runs it once for both kinds and counts there; the warp
+    form (one lane a warp) counts no merged warp.
 
     A CUDA ``tbl`` launches ``csrc/grad_bwd.cu`` (counted in
     ``bounce_bwd.launches``, ``lit_launches`` and ``vol_launches``, as for
@@ -532,11 +562,13 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
     it, seed, max_depth = _check("grad_bwd kernel", tbl, tris, cont, ints,
                                  cot_out, stats, lit, it=it,
                                  seed=seed, max_depth=max_depth)
+    check_counter(nee_stats, 2, tbl, "nee_stats")
     if tbl.device.type == "cpu":
         return bounce_bwd_reference(cont, ints, cot_out, tbl, tris, it=it,
                                     seed=seed, max_depth=max_depth,
                                     background=background, flat=flat,
-                                    stats=stats, lit=lit)
+                                    stats=stats, lit=lit,
+                                    nee_stats=nee_stats)
     lib = _lib("grad_bwd")
     use_sky, (bgr, bgg, bgb) = background_args(background)
     cot_in = torch.empty_like(cot_out)
@@ -550,8 +582,9 @@ def bounce_bwd(cont: torch.Tensor, ints: torch.Tensor, cot_out: torch.Tensor,
         it, seed, max_depth, int(use_sky), bgr, bgg, bgb, cot_in.data_ptr(),
         g_tbl.data_ptr(), None if g_tri is None else g_tri.data_ptr(),
         None if g_rows is None else g_rows.data_ptr(),
-        None if stats is None else stats.data_ptr(), *grad_lit_args(lit),
-        *_bwd_layout(tbl, lit, tris)[1],
+        None if stats is None else stats.data_ptr(),
+        None if nee_stats is None else nee_stats.data_ptr(),
+        *grad_lit_args(lit), *_bwd_layout(tbl, lit, tris)[1],
         None if live is None else live.data_ptr(),
         WARP_MAX_LIVE, *_cuda.device_args(tbl))
     _cuda.check_launch(lib, err, "grad_bwd")
@@ -585,8 +618,8 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.rtow_grad_fwd.restype = i
     else:
         lib.rtow_grad_bwd.argtypes = [p, i, *tri, p, p, p, i, i, i, i, i, f,
-                                      f, f, p, p, p, p, p, *lit, i, i, i, p,
-                                      i, i, p]
+                                      f, f, p, p, p, p, p, p, *lit, i, i, i,
+                                      p, i, i, p]
         lib.rtow_grad_bwd.restype = i
     return lib
 

@@ -22,14 +22,19 @@ checkout's K5 has forms (``grad.WARP_MAX_LIVE``), in each form
 ("thread", "warp", "auto": the one the card picks), in turns, each forced
 through that cut-over; on a scene as the card picks it.  Prints one JSON
 line per tape: the card and, per form, the per-launch and total
-milliseconds.  It calls only what every checkout since K5's triangle
-instances has, so a copy of this file in another checkout's package
-times that K5: run both in one chip call, in turns, to compare two
-versions.
+milliseconds; where the checkout's K5 counts its NEE adjoints
+(``nee_stats``), beside them each launch's NEE adjoints from volume
+events, the warps whose one NEE pass served a volume event and a surface
+hit, the warps that ran NEE's adjoint at all (from K4's alive codes 2 of
+the launch's lanes) and the merged share of those.  It calls only what
+every checkout since K5's triangle instances has, so a copy of this file
+in another checkout's package times that K5: run both in one chip call,
+in turns, to compare two versions.
 """
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import statistics
@@ -199,6 +204,22 @@ def time_forms(torch, G, kernel, tape, forms, runs):
                  for f, v in total.items()}
 
 
+def nee_counts(torch, G, kernel, tape, fwd):
+    """Per launch of ``tape``: [NEE adjoints from volume events, warps
+    whose one NEE pass served both kinds] (``kernel(it, nee_stats)``) and
+    the warps of 32 lanes whose lanes ran NEE (``fwd(it)``'s alive codes
+    2: a diffuse or volume scatter under NEE)."""
+    stats, warps = [], []
+    for it in range(len(tape)):
+        ns = torch.zeros(2, dtype=torch.int64, device=tape[0][0].device)
+        kernel(it, ns)
+        nee = fwd(it)[1][0] == 2
+        nee = torch.nn.functional.pad(nee, (0, -nee.numel() % 32))
+        stats.append(ns.tolist())
+        warps.append(int(nee.view(-1, 32).any(dim=1).sum()))
+    return stats, warps
+
+
 def main(argv=None) -> None:
     import numpy as np
     import torch
@@ -216,6 +237,7 @@ def main(argv=None) -> None:
     dev = torch.device("cuda", 0)
     name_card = card()
     has_forms = getattr(G, "WARP_MAX_LIVE", None) is not None
+    counted = "nee_stats" in inspect.signature(G.bounce_bwd).parameters
     for name, (tbl, tris, tape, lit, bg) in tapes(opts, dev).items():
         rng = np.random.default_rng(1)
         cots = [torch.from_numpy(rng.standard_normal(tuple(c.shape))
@@ -224,17 +246,26 @@ def main(argv=None) -> None:
         forms = (("thread", "warp", "auto") if has_forms and not opts.scene
                  else (None,))
 
-        def kernel(it):
+        def kernel(it, **kw):
             c, i = tape[it]
             return G.bounce_bwd(c, i, cots[it], tbl, tris, it=it, seed=0,
-                                max_depth=DEPTH, lit=lit, background=bg)
+                                max_depth=DEPTH, lit=lit, background=bg,
+                                **kw)
 
         per, total = time_forms(torch, G, kernel, tape, forms, opts.runs)
-        print(json.dumps({"card": name_card, "kernel": "K5", "tape": name,
-                          "lanes": tape[0][0].shape[1],
-                          "live": [int((i[0] > 0).sum()) for _, i in tape],
-                          "per_launch_ms": per, "total_ms": total}),
-              flush=True)
+        line = {"card": name_card, "kernel": "K5", "tape": name,
+                "lanes": tape[0][0].shape[1],
+                "live": [int((i[0] > 0).sum()) for _, i in tape],
+                "per_launch_ms": per, "total_ms": total}
+        if counted:
+            stats, warps = nee_counts(
+                torch, G, lambda it, ns: kernel(it, nee_stats=ns), tape,
+                lambda it: G.bounce_fwd(*tape[it], tbl, tris, it=it, seed=0,
+                                        max_depth=DEPTH, lit=lit,
+                                        background=bg))
+            line.update(nee_stats=stats, nee_warps=warps, merged_share=[
+                s[1] / w if w else 0.0 for s, w in zip(stats, warps)])
+        print(json.dumps(line), flush=True)
 
 
 if __name__ == "__main__":

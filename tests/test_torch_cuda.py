@@ -1170,6 +1170,49 @@ def test_grad_vol_kernels_match_plain(dev, name):
     assert bool((vols[:, :6].amax(dim=1) > 0).all())  # every boundary
 
 
+@pytest.mark.parametrize("name", ["smoke_nee", "cornell"])
+def test_grad_bwd_nee_once_a_warp_counts_as_plain(dev, name):
+    """K5's lit instance runs NEE's adjoint at one site a warp, where its
+    volume events and diffuse surface hits have reconverged: on the smoke
+    box and the Cornell box with NEE at 64x64 spp16 depth 8 (a warp holds
+    two pixels' samples, as on the trainers' 400x400 tapes), bounce by
+    bounce, cot_in within 1e-3 of its row's largest |plain|, and
+    ``nee_stats`` equal to the plain version's counts from its masks: the
+    volume events' NEE adjoints and the warps whose one pass served both
+    kinds (many on the smoke box, none on the Cornell box)."""
+    scene, cam = (smoke_scene if name == "smoke_nee"
+                  else cornell_scene)(1.0, device=dev)
+    lit = tb.scene_lit(scene, nee=True)
+    tbl, _ = tb.build_sphere_table(scene)
+    tris = tb.grad_tri_table(scene)
+    gen = torch.Generator(dev).manual_seed(5)
+    pix = torch.arange(64 * 64, device=dev).repeat_interleave(16)
+    s, t = pixel_coords(64, 64, gen, pix)
+    cont, ints = bn.lane_state(camera_rays(cam, gen, s, t), pix.numel(), dev)
+    rng = np.random.default_rng(6)
+    total = torch.zeros(2, dtype=torch.int64, device=dev)
+    for it in range(9):
+        kw = dict(it=it, seed=3, max_depth=8, lit=lit,
+                  background=scene.background)
+        cot = torch.from_numpy(rng.standard_normal(cont.shape)
+                               .astype(np.float32)).to(dev)
+        kn, pn = (torch.zeros(2, dtype=torch.int64, device=dev)
+                  for _ in range(2))
+        kci = grad.bounce_bwd(cont, ints, cot, tbl, tris, nee_stats=kn,
+                              **kw)[0]
+        pci = grad.bounce_bwd_reference(cont, ints, cot, tbl, tris,
+                                        nee_stats=pn, **kw)[0]
+        scale = pci.abs().amax(dim=1, keepdim=True)
+        assert bool(((kci - pci).abs() <= 1e-3 * scale).all()), it
+        assert torch.equal(kn, pn), (it, kn.tolist(), pn.tolist())
+        total += kn
+        cont, ints = grad.bounce_fwd(cont, ints, tbl, tris, **kw)
+    if name == "cornell":
+        assert total.tolist() == [0, 0]
+    else:
+        assert bool((total > 0).all()), total.tolist()
+
+
 def test_vol_gradient_launches_kernels_only(dev, monkeypatch):
     """render_pixels_kernel(nee=True) on the smoke box launches K4 and K5
     once per bounce, never their plain versions; the media's gradients

@@ -42,6 +42,13 @@ transmittance).
   of the part's largest |plain| added (a column whose true cotangent is
   0 holds rounding of a sum that cancels, 1e-11 beside the row's 1e-5).
   Measured: at most 3.7e-6 of the scale.
+* K5's one NEE site: a lane set picked from the smoke box's second
+  bounce that alternates a volume event, a diffuse surface hit, an
+  emitter hit under MIS and an absorbed volume event, so that every warp
+  of 32 lanes holds both NEE kinds between lanes that finish before the
+  site, held to the plain version as the tapes are; and the plain
+  version's ``nee_stats`` on 32x32 spp16 smoke and Cornell tapes against
+  the forward's masks (the alive code 2 and the free-flight event).
 * P4 (ROADMAP Queue 3): on the knot, each triangle-table entry's terms
   summed in float64, the host's against the plain version's, within
   ``SUM_TOL`` of the column's largest sum of |terms|.  The edge columns
@@ -99,6 +106,17 @@ CLOSE_TOL, CLOSE_SHARE = 1e-5, 0.995
 #: P4: float64 sums of the triangle terms, against the column's largest
 #: sum of |terms|.
 SUM_TOL = 5e-7
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The plain versions are many small PyTorch ops: one intra-op thread
+    runs them as fast here and keeps them from contending with the
+    threads of the other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _knot():
@@ -206,39 +224,44 @@ class _Case:
         cont, ints = bn.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
                                    "cpu")
         rng = np.random.default_rng(SEED)
-        kw = dict(seed=SEED, max_depth=DEPTH, background=scene.background,
-                  lit=self.lit)
-        npad = self.tbl.shape[0]
         self.bounces = []
         for it in range(DEPTH + 1):
-            n = cont.shape[1]
-            stats = torch.zeros(4, dtype=torch.int64)
-            pc, pi = grad.bounce_fwd_reference(cont, ints, self.tbl,
-                                               self.tris, it=it, stats=stats,
-                                               **kw)
-            hc, hi, hstats = self._host_fwd(host, cont, ints, it)
-            cot = torch.from_numpy(rng.standard_normal((13, n))
+            cot = torch.from_numpy(rng.standard_normal((13, cont.shape[1]))
                                    .astype(np.float32))
-            ci, sph, tri, rows = grad.bounce_bwd_terms(
-                cont, ints, cot, self.tbl, self.tris, it=it, **kw)
-            # The lanes bounce_bwd_terms lists its row terms for: those
-            # whose main sweep hit a sphere / a triangle, in lane order.
-            _a, best_t, best_k, _l, _s = grad._replay(
-                cont, ints, self.tbl, self.tris, it, SEED, False, [0, 0, 0])
-            hit = best_t < bn.BIG
-            self.bounces.append(dict(
-                live=ints[0] > 0, fwd=((hc, hi), (pc, pi)),
-                tri_rows=torch.where(hit & (best_k >= npad), best_k - npad,
-                                     -1),
-                stats=(hstats, stats.tolist()),
-                host=self._host_bwd(host, cont, ints, cot, it),
-                plain=(ci, _dense(sph, torch.nonzero(hit & (best_k < npad))
-                                  .flatten(), n, 16),
-                       None if tri is None else _dense(
-                           tri, torch.nonzero(hit & (best_k >= npad))
-                           .flatten(), n, 14),
-                       rows)))
-            cont, ints = pc, pi
+            self.bounces.append(self.bounce(host, cont, ints, cot, it))
+            cont, ints = self.bounces[-1]["fwd"][1]
+
+    def bounce(self, host, cont, ints, cot, it):
+        """Bounce ``it`` of the lanes (cont, ints) with the output
+        cotangents ``cot``: the host's and the plain outputs of K4 and K5
+        and their counters."""
+        kw = dict(seed=SEED, max_depth=DEPTH,
+                  background=self.scene.background, lit=self.lit)
+        n, npad = cont.shape[1], self.tbl.shape[0]
+        stats = torch.zeros(4, dtype=torch.int64)
+        pc, pi = grad.bounce_fwd_reference(cont, ints, self.tbl, self.tris,
+                                           it=it, stats=stats, **kw)
+        hc, hi, hstats = self._host_fwd(host, cont, ints, it)
+        nee_stats = torch.zeros(2, dtype=torch.int64)
+        ci, sph, tri, rows = grad.bounce_bwd_terms(
+            cont, ints, cot, self.tbl, self.tris, it=it, nee_stats=nee_stats,
+            **kw)
+        # The lanes bounce_bwd_terms lists its row terms for: those whose
+        # main sweep hit a sphere / a triangle, in lane order.
+        _a, best_t, best_k, _l, _s = grad._replay(
+            cont, ints, self.tbl, self.tris, it, SEED, False, [0, 0, 0])
+        hit = best_t < bn.BIG
+        return dict(
+            inputs=(cont, ints), live=ints[0] > 0, fwd=((hc, hi), (pc, pi)),
+            tri_rows=torch.where(hit & (best_k >= npad), best_k - npad, -1),
+            stats=(hstats, stats.tolist()), nee_stats=nee_stats.tolist(),
+            host=self._host_bwd(host, cont, ints, cot, it),
+            plain=(ci, _dense(sph, torch.nonzero(hit & (best_k < npad))
+                              .flatten(), n, 16),
+                   None if tri is None else _dense(
+                       tri, torch.nonzero(hit & (best_k >= npad)).flatten(),
+                       n, 14),
+                   rows))
 
     def _common(self, it):
         tris = grad._tri_args(self.tris, False)
@@ -346,27 +369,34 @@ def _close(got, want, dim, what):
     assert close >= CLOSE_SHARE, (what, close)
 
 
+def _k5_close(case, b, what, touched):
+    """A bounce's K5 parts, the host's against the plain version's on the
+    lanes whose K4 outputs agreed (:func:`_close`); adds to ``touched``
+    the lanes with sphere, triangle, light and volume row cotangents."""
+    same = _agree(b)
+    for j, (got, want) in enumerate(zip(b["host"], b["plain"])):
+        part = what + (("cot_in", "sphere rows", "triangle rows",
+                        "light rows")[j],)
+        assert (got is None) == (want is None), part
+        if got is None:
+            continue
+        if j == 0:
+            _close(got[:, same], want[:, same], 1, part)
+            continue
+        if j == 3:
+            vols = want[same, case.lit.vol_row0:]
+            touched[3] += int((vols != 0).flatten(1).any(dim=1).sum())
+        got, want = got[same].flatten(1), want[same].flatten(1)
+        _close(got, want, 0, part)
+        touched[j - 1] += int((want != 0).any(dim=1).sum())
+
+
 @pytest.mark.parametrize("name", list(SCENES))
 def test_k5_lanes_match_bounce_bwd_terms(host, name):
     case = _case(host, name)
     touched = [0, 0, 0, 0]  # sphere, triangle, light and volume rows
     for it, b in enumerate(case.bounces):
-        same = _agree(b)
-        for j, (got, want) in enumerate(zip(b["host"], b["plain"])):
-            what = (name, it, ("cot_in", "sphere rows", "triangle rows",
-                               "light rows")[j])
-            assert (got is None) == (want is None), what
-            if got is None:
-                continue
-            if j == 0:
-                _close(got[:, same], want[:, same], 1, what)
-                continue
-            if j == 3:
-                vols = want[same, case.lit.vol_row0:]
-                touched[3] += int((vols != 0).flatten(1).any(dim=1).sum())
-            got, want = got[same].flatten(1), want[same].flatten(1)
-            _close(got, want, 0, what)
-            touched[j - 1] += int((want != 0).any(dim=1).sum())
+        _k5_close(case, b, (name, it), touched)
     assert (touched[0] > 0) == bool(case.scene.n_spheres)
     assert (touched[1] > 0) == (case.tris is not None)
     assert (touched[2] > 0) == (case.lit.rows is not None)
@@ -392,6 +422,108 @@ def test_k5_triangle_terms_sum_as_plain(host):
     assert cols[:9].all()  # v0, e1, e2
     d = ((sums[0] - sums[1]).abs().amax(dim=0)[cols] / scale[cols])
     assert float(d.max()) <= SUM_TOL, d.tolist()
+
+
+#: The NEE counts' tapes: 32x32 at 16 samples per pixel, so a warp of 32
+#: lanes holds two pixels' samples, as on the media trainer's 400x400 tape.
+COUNT_SIZE, COUNT_SPP = 32, 16
+
+
+def _nee_lanes(tbl, tris, lit, cont, ints, it, alive_out):
+    """(volume, surface) masks of the lanes that run NEE's adjoint in
+    bounce ``it``, from the forward alone: its alive code 2 (``alive_out``)
+    marks a diffuse or volume scatter under NEE, and the free-flight event
+    tells the two apart."""
+    _a, best_t, _k, lane, salt = grad._replay(cont, ints, tbl, tris, it,
+                                              SEED, False, [0, 0, 0])
+    nee = alive_out == 2
+    event = bn.volume_event(tuple(cont.unbind(0)), bn.draw_scatter(lane, salt),
+                            lane, salt, best_t, lit)
+    vol = nee & event[0] if event is not None else torch.zeros_like(nee)
+    return vol, nee & ~vol
+
+
+def _merged_warps(vol, surf) -> int:
+    """The warps (lanes 32 w .. 32 w + 31) that hold both kinds."""
+    return int((vol.view(-1, 32).any(1) & surf.view(-1, 32).any(1)).sum())
+
+
+@pytest.mark.parametrize("name", ["smoke", "cornell"])
+def test_k5_nee_stats_count_merged_warps(name):
+    """The plain K5's ``nee_stats`` on a tape with NEE (the trainers'
+    depth, chained through the plain K4): the NEE lanes at volume events
+    and the warps whose NEE lanes hold a volume event and a surface hit,
+    as the forward's outputs give them.  On the smoke box most warps that
+    run NEE merge past the camera bounce; the Cornell box has no media,
+    so none does."""
+    scene, cam = getattr(builders, f"{name}_scene")(1.0, device="cpu")
+    lit = tb.scene_lit(scene, nee=True)
+    tbl, _ = tb.build_sphere_table(scene)
+    tris = tb.grad_tri_table(scene)
+    gen = torch.Generator().manual_seed(SEED)
+    pix = torch.arange(COUNT_SIZE * COUNT_SIZE).repeat_interleave(COUNT_SPP)
+    s, t = pixel_coords(COUNT_SIZE, COUNT_SIZE, gen, pix)
+    cont, ints = bn.lane_state(camera_rays(cam, gen, s, t), pix.numel(),
+                               "cpu")
+    kw = dict(seed=SEED, max_depth=DEPTH, background=scene.background,
+              lit=lit)
+    cot = torch.ones((13, pix.numel()))
+    nee_lanes = 0
+    for it in range(DEPTH + 1):
+        nee_stats = torch.zeros(2, dtype=torch.int64)
+        grad.bounce_bwd_reference(cont, ints, cot, tbl, tris, it=it,
+                                  nee_stats=nee_stats, **kw)
+        out_c, out_i = grad.bounce_fwd_reference(cont, ints, tbl, tris,
+                                                 it=it, **kw)
+        vol, surf = _nee_lanes(tbl, tris, lit, cont, ints, it, out_i[0])
+        merged = _merged_warps(vol, surf)
+        assert nee_stats.tolist() == [int(vol.sum()), merged], it
+        nee_warps = int((vol | surf).view(-1, 32).any(1).sum())
+        nee_lanes += int((vol | surf).sum())
+        if name == "cornell":
+            assert merged == 0, it
+        elif 1 <= it < DEPTH:
+            assert merged > 0.8 * nee_warps, (it, merged, nee_warps)
+        cont, ints = out_c, out_i
+    assert nee_lanes > 0
+
+
+def test_k5_lanes_alternating_kinds_match_bounce_bwd_terms(host):
+    """A lane set picked from the smoke box's second bounce with NEE that
+    alternates a volume event, a diffuse surface hit, an emitter hit under
+    MIS and a volume event at depth (absorbed), so that each warp's one NEE
+    site serves both kinds beside lanes that finished before it: the host's
+    K5 holds to the plain version as on the tapes, the forward gives each
+    kind its alive code, and the plain ``nee_stats`` count every warp
+    merged."""
+    case = _case(host, "smoke")
+    it = 1
+    b = case.bounces[it]
+    cont, ints = b["inputs"]
+    alive_out = b["fwd"][1][1][0]
+    vol, surf = _nee_lanes(case.tbl, case.tris, case.lit, cont, ints, it,
+                           alive_out)
+    _a, best_t, _k, _l, _s = grad._replay(cont, ints, case.tbl, case.tris,
+                                          it, SEED, False, [0, 0, 0])
+    emit = (ints[0] == 2) & (best_t < bn.BIG) & (alive_out == 0)
+    k = min(int(vol.sum()) // 2, int(surf.sum()), int(emit.sum())) // 8 * 8
+    assert k >= 8, k
+    v = torch.nonzero(vol).flatten()
+    idx = torch.stack([v[:k], torch.nonzero(surf).flatten()[:k],
+                       torch.nonzero(emit).flatten()[:k], v[k:2 * k]],
+                      dim=1).flatten()
+    lanes, lane_ints = cont[:, idx].contiguous(), ints[:, idx].contiguous()
+    lane_ints[1, 3::4] = DEPTH  # the fourth lane's event: at depth
+    cot = torch.from_numpy(np.random.default_rng(SEED)
+                           .standard_normal((13, 4 * k)).astype(np.float32))
+    mixed = case.bounce(host, lanes, lane_ints, cot, it)
+    kinds = mixed["fwd"][1][1][0].view(-1, 4)
+    assert (kinds == torch.tensor([2, 2, 0, 0], dtype=kinds.dtype)).all()
+    assert mixed["nee_stats"] == [k, k // 8]
+    assert _agree(mixed).view(-1, 4).any(dim=0).all()
+    touched = [0, 0, 0, 0]
+    _k5_close(case, mixed, ("alternating", it), touched)
+    assert all(touched[1:]), touched  # triangle, light, volume rows
 
 
 def _key_case(name):
